@@ -1,0 +1,242 @@
+"""The volumetric renderer (port of ``render/renderer.py``, serving path).
+
+``render_image`` -> ``render_rays_tiled`` -> ``render_rays`` ->
+``_composite_from_z``, as in the JAX package. Where JAX compiles the tile loop
+into one ``lax.map``, the port runs a Python loop over ray tiles: PyTorch is
+eager, and each tile's work is a few large kernel launches. The modules own
+their weights, so the JAX functions' ``params`` argument is gone.
+
+Ray parametrization parity (``run_nerf.py:112-194``): rays carry origin,
+direction, near, far and the unit *pre-NDC* view direction.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Optional
+
+import torch
+
+from depth_lidar_nerf_tpu_torch.device import resolve_device
+from depth_lidar_nerf_tpu_torch.ops.compositing import (RayOutputs,
+                                                        raw2outputs,
+                                                        raw2outputs_t)
+from depth_lidar_nerf_tpu_torch.ops.embedding import positional_encoding
+from depth_lidar_nerf_tpu_torch.ops.rays import camera_rays, ndc_rays
+from depth_lidar_nerf_tpu_torch.ops.sampling import (sample_pdf,
+                                                     stratified_z_vals)
+from depth_lidar_nerf_tpu_torch.ops.sampling_cuda import sample_pdf_cuda
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static rendering hyperparameters (config_parser flags, run_nerf.py:693-747).
+
+    The serving modes of the JAX ``RenderConfig`` that the port does not run
+    yet (int8, density grid, fine-only, coarse downsampling) are absent, and
+    ``train.config.render_config_from`` refuses configs that ask for them.
+    """
+
+    N_samples: int = 64
+    N_importance: int = 64
+    perturb: bool = True
+    lindisp: bool = False
+    raw_noise_std: float = 0.0
+    white_bkgd: bool = False
+    use_viewdirs: bool = True
+    multires: int = 10
+    multires_views: int = 4
+    num_semantic_classes: int = 0
+    ndc: bool = True
+    near: float = 0.0
+    far: float = 1.0
+    # On the card, inverse-CDF sampling always runs the CUDA kernel
+    # (csrc/sample_pdf.cu). On the CPU the flag (the JAX package's name)
+    # picks the kernel's plain twin over the dense ``ops.sampling.sample_pdf``.
+    use_pallas_sampling: bool = False
+    # run_nerf.py:77-89 ``--chunk``/``--netchunk``: ``chunk`` bounds rays per
+    # render tile; ``netchunk`` bounds points per plain-MLP apply.
+    chunk: int = 1024 * 32
+    netchunk: int = 1024 * 64
+    # Samples whose incoming transmittance is below cull_eps get exactly zero
+    # weight (no reference counterpart); 0.0 = strict reference math.
+    cull_eps: float = 0.0
+
+    def render_tile(self, fused: bool = False) -> int:
+        """Rays per tile. The fused kernel keeps every activation in shared
+        memory, so only ``chunk`` binds it; the plain path materialises
+        ``[points, W]`` activations and also honours a lowered ``netchunk``."""
+        s_total = max(1, self.N_samples + self.N_importance)
+        by_points = max(128, self.netchunk // s_total)
+        if not fused and self.netchunk < 1024 * 64:
+            return max(128, min(self.chunk, by_points))
+        return max(128, self.chunk)
+
+    def eval_mode(self) -> "RenderConfig":
+        """Test-time variant: no jitter, no sigma noise (run_nerf.py:502-504)."""
+        return dataclasses.replace(self, perturb=False, raw_noise_std=0.0)
+
+
+class Rays(NamedTuple):
+    origins: torch.Tensor  # [N, 3] (possibly NDC-warped)
+    directions: torch.Tensor  # [N, 3] (possibly NDC-warped)
+    viewdirs: Optional[torch.Tensor]  # [N, 3] unit, pre-NDC; None w/o viewdirs
+    near: torch.Tensor  # [N, 1]
+    far: torch.Tensor  # [N, 1]
+
+
+def make_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, cfg: RenderConfig,
+              H: int | None = None, W: int | None = None, focal=None) -> Rays:
+    """Package world-space rays: viewdirs from the pre-NDC directions, then
+    the NDC warp (``run_nerf.py:145-183``)."""
+    rays_o = rays_o.reshape(-1, 3).float()
+    rays_d = rays_d.reshape(-1, 3).float()
+    viewdirs = None
+    if cfg.use_viewdirs:
+        viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    if cfg.ndc:
+        if H is None or W is None or focal is None:
+            raise ValueError("ndc=True requires H, W and focal in make_rays()")
+        rays_o, rays_d = ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
+    near = torch.full_like(rays_d[..., :1], cfg.near)
+    far = torch.full_like(rays_d[..., :1], cfg.far)
+    return Rays(rays_o, rays_d, viewdirs, near, far)
+
+
+def query_network(model, pts, viewdirs, cfg: RenderConfig) -> torch.Tensor:
+    """Encode and evaluate the plain module at ``pts [N, S, 3]``."""
+    dtype = getattr(model, "dtype", torch.float32)
+    pts_embed = positional_encoding(pts, cfg.multires).to(dtype)
+    views_embed = None
+    if cfg.use_viewdirs:
+        ve = positional_encoding(viewdirs, cfg.multires_views)
+        views_embed = ve[..., None, :].expand(
+            pts.shape[:-1] + ve.shape[-1:]).to(dtype)
+    return model(pts_embed, views_embed)
+
+
+def _fused_ok(model, cfg: RenderConfig, S: int) -> bool:
+    """The predicate that picks the fused kernel for one pass."""
+    return (S > 0 and cfg.use_viewdirs and cfg.num_semantic_classes == 0
+            and hasattr(model, "apply_rays")
+            and model.supports_rays_path(cfg))
+
+
+def _composite_from_z(model, rays: Rays, z_vals, cfg: RenderConfig,
+                      generator) -> RayOutputs:
+    """Evaluate the field at per-ray depths and composite: the fused kernel
+    and the channel-major compositor where the topology is covered, else the
+    plain module and the standard compositor."""
+    if rays.viewdirs is not None and _fused_ok(model, cfg, z_vals.shape[-1]):
+        noise = None
+        if cfg.raw_noise_std > 0.0 and generator is not None:
+            noise = torch.randn(z_vals.shape, dtype=torch.float32,
+                                device=z_vals.device,
+                                generator=generator) * cfg.raw_noise_std
+        raw_t = model.apply_rays(rays, z_vals, cfg)
+        return raw2outputs_t(
+            raw_t, z_vals, rays.directions, raw_noise_std=cfg.raw_noise_std,
+            white_bkgd=cfg.white_bkgd, generator=generator,
+            cull_eps=cfg.cull_eps, noise=noise)
+    pts = (rays.origins[..., None, :]
+           + rays.directions[..., None, :] * z_vals[..., :, None])
+    raw = query_network(model, pts, rays.viewdirs, cfg)
+    return raw2outputs(
+        raw, z_vals, rays.directions, raw_noise_std=cfg.raw_noise_std,
+        white_bkgd=cfg.white_bkgd, generator=generator,
+        num_semantic_classes=cfg.num_semantic_classes, cull_eps=cfg.cull_eps)
+
+
+def fused_eval_ready(model, fine_model, cfg: RenderConfig) -> bool:
+    """True when every pass of a render takes the fused kernel, so
+    ``netchunk`` need not shrink the ray tile."""
+    if not _fused_ok(model, cfg, cfg.N_samples):
+        return False
+    if cfg.N_importance > 0:
+        fm = fine_model if fine_model is not None else model
+        return _fused_ok(fm, cfg, cfg.N_samples + cfg.N_importance)
+    return True
+
+
+def render_rays(model, fine_model, rays: Rays, cfg: RenderConfig,
+                generator: torch.Generator | None = None
+                ) -> Dict[str, torch.Tensor]:
+    """Coarse + hierarchical-fine volumetric rendering of a ray batch.
+
+    Returns the reference's result dictionary (``run_nerf.py:648-663``): the
+    fine pass's ``rgb_map/disp_map/acc_map/depth_map/weights``, the coarse
+    ``rgb0/disp0/acc0/depth_map0``, and ``z_std``. ``generator`` drives the
+    stratified jitter, sigma noise and random importance draws, in that order.
+    """
+    z_vals = stratified_z_vals(rays.near, rays.far, cfg.N_samples,
+                               lindisp=cfg.lindisp, perturb=cfg.perturb,
+                               generator=generator)
+    coarse = _composite_from_z(model, rays, z_vals, cfg, generator)
+    ret = {"rgb_map": coarse.rgb, "disp_map": coarse.disp,
+           "acc_map": coarse.acc, "depth_map": coarse.depth,
+           "weights": coarse.weights}
+    if coarse.semantic is not None:
+        ret["sem_preds"] = coarse.semantic
+
+    if cfg.N_importance > 0:
+        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        sampler = (sample_pdf_cuda if cfg.use_pallas_sampling
+                   or z_mid.device.type == "cuda" else sample_pdf)
+        z_samples = sampler(z_mid, coarse.weights[..., 1:-1],
+                            cfg.N_importance, det=not cfg.perturb,
+                            generator=generator).detach()
+        z_all = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1).values
+        fine = _composite_from_z(
+            fine_model if fine_model is not None else model, rays, z_all,
+            cfg, generator)
+        ret.update({
+            "rgb0": coarse.rgb, "disp0": coarse.disp, "acc0": coarse.acc,
+            "depth_map0": coarse.depth,
+            "rgb_map": fine.rgb, "disp_map": fine.disp, "acc_map": fine.acc,
+            "depth_map": fine.depth, "weights": fine.weights,
+            "z_std": torch.std(z_samples, dim=-1, correction=0),
+        })
+        if fine.semantic is not None:
+            ret["sem_preds0"] = coarse.semantic
+            ret["sem_preds"] = fine.semantic
+    return ret
+
+
+def pick_render_tile(model, fine_model, cfg: RenderConfig, n: int) -> int:
+    """Ray-tile policy of :func:`render_rays_tiled`: ``chunk`` rays when
+    every pass is fused, else the ``netchunk``-honouring tile."""
+    if fused_eval_ready(model, fine_model, cfg):
+        return min(cfg.render_tile(fused=True), max(n, 1))
+    return cfg.render_tile()
+
+
+def render_rays_tiled(model, fine_model, rays: Rays, cfg: RenderConfig,
+                      generator: torch.Generator | None = None,
+                      tile: int | None = None) -> Dict[str, torch.Tensor]:
+    """Render a large ray batch in tiles of ``tile`` rays (``chunk`` by
+    default); the last tile is ragged. Per-ray results do not depend on the
+    tiling when ``generator`` is None."""
+    n = rays.origins.shape[0]
+    if tile is None:
+        tile = pick_render_tile(model, fine_model, cfg, n)
+    tile = max(1, min(tile, n))
+    outs = []
+    for s in range(0, n, tile):
+        sub = Rays(*(None if x is None else x[s:s + tile] for x in rays))
+        outs.append(render_rays(model, fine_model, sub, cfg, generator))
+    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+
+@torch.no_grad()
+def render_image(model, fine_model, H: int, W: int, focal, c2w,
+                 cfg: RenderConfig, tile: int | None = None,
+                 device=None) -> Dict[str, torch.Tensor]:
+    """Render a full image pose on ``device`` (``cuda`` unless given):
+    ``render(..., c2w=...)`` plus chunking (``run_nerf.py:138-189``)."""
+    device = resolve_device(device)
+    c2w = torch.as_tensor(c2w, dtype=torch.float32, device=device)[:3, :4]
+    rays_o, rays_d = camera_rays(H, W, focal, c2w)
+    rays = make_rays(rays_o, rays_d, cfg, H, W, focal)
+    out = render_rays_tiled(model, fine_model, rays, cfg.eval_mode(),
+                            generator=None, tile=tile)
+    return {k: v.reshape((H, W) + v.shape[1:]) for k, v in out.items()}

@@ -1,0 +1,88 @@
+"""The port stands alone: importing every module of
+``depth_lidar_nerf_tpu_torch`` loads neither ``jax`` nor the JAX package, and
+its entry points refuse to run without a card unless asked for the CPU."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_GUARD = """
+import importlib, pkgutil, sys
+import depth_lidar_nerf_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
+             or m == "depth_lidar_nerf_tpu" or m.startswith("depth_lidar_nerf_tpu."))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax():
+    out = subprocess.run([sys.executable, "-c", _GUARD], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr + out.stdout
+    n_modules = int(out.stdout.split()[0])
+    assert n_modules >= 15, out.stdout
+
+
+def test_entry_points_need_a_device(monkeypatch):
+    from depth_lidar_nerf_tpu_torch.device import resolve_device
+    from depth_lidar_nerf_tpu_torch.render.renderer import render_image
+    from depth_lidar_nerf_tpu_torch.train.config import (TrainConfig,
+                                                         render_config_from)
+    from depth_lidar_nerf_tpu_torch.train.loop import render_path
+    from depth_lidar_nerf_tpu_torch.train.state import build_models
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TrainConfig(netwidth=128, netwidth_fine=128, N_importance=8,
+                      N_samples=8, use_viewdirs=True)
+    rcfg = render_config_from(cfg, 0, 0.0, 1.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_models(cfg, rcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    models = build_models(cfg, rcfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        render_image(models.coarse, models.fine, 2, 2, 1.0, torch.eye(4),
+                     rcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        render_path(models, [torch.eye(4).numpy()], (2, 2, 1.0), rcfg)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_wrappers_refuse_other_devices_and_gradients():
+    from depth_lidar_nerf_tpu_torch.models.nerf_mlp import NeRFMLP
+    from depth_lidar_nerf_tpu_torch.ops.fused_mlp_t import fused_nerf_fwd
+    from depth_lidar_nerf_tpu_torch.ops.sampling_cuda import inverse_cdf
+
+    m = NeRFMLP(depth=2, width=128)
+    params = dict(m.named_parameters())
+    kw = dict(depth=2, width=128, multires=10, multires_views=4)
+    pts, vd = torch.zeros(3, 8), torch.zeros(3, 2)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_nerf_fwd(params, pts, vd, 4, **kw)
+    with torch.no_grad():
+        assert fused_nerf_fwd(params, pts, vd, 4, **kw).shape == (4, 8)
+        with pytest.raises(ValueError, match="unsupported"):
+            fused_nerf_fwd(params, pts.to("meta"), vd.to("meta"), 4, **kw)
+        with pytest.raises(ValueError, match="bad shapes"):
+            fused_nerf_fwd(params, pts, vd, 3, **kw)
+    b, w, u = torch.zeros(2, 5), torch.ones(2, 4), torch.zeros(2, 3)
+    with pytest.raises(ValueError, match="unsupported"):
+        inverse_cdf(b.to("meta"), w.to("meta"), u.to("meta"))
+
+
+def test_render_config_refuses_unported_modes():
+    from depth_lidar_nerf_tpu_torch.train.config import (TrainConfig,
+                                                         render_config_from)
+
+    with pytest.raises(NotImplementedError, match="render_int8"):
+        render_config_from(TrainConfig(render_int8=True), 0, 0.0, 1.0)
