@@ -7,13 +7,18 @@ Run from the root of a checkout. It imports nothing of JAX. Phases, each of
 which raises on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build both CUDA kernels from ``depth_lidar_nerf_tpu_torch/csrc`` with
-   nvcc for ``sm_90a``, in parallel;
+2. build the CUDA sources of ``depth_lidar_nerf_tpu_torch/csrc`` with nvcc
+   for ``sm_90a``, one nvcc each, in parallel;
 3. each kernel against its plain PyTorch version on the card: the fused
    NeRF MLP forward at W=256 (coarse D=4, fine D=8 skip@4; float32 and
    bfloat16; S=64 and 128; 4,096 rays and the serving tiles of 32,768 and
    320 rays) and inverse-CDF sampling at N=33,088, B=63, V=64
-   (deterministic and random draws);
+   (deterministic and random draws); then the training kernels (the
+   activation-saving forward, the dense, culled and saved-activation
+   backwards) at W=256, D=4 and D=8 skip@4, float32 and bfloat16, 4,096 and
+   16,384 rays x S=64 and 128, on cotangents with per-ray zero suffixes
+   (the backwards against the plain backward on the forward kernel's
+   activations); the culled backward also against the dense one;
 4. serving: ``configs/rgb_only.txt`` as shipped, at full width in bfloat16,
    seeded weights with scaled heads, ``render_path`` over 3 spiral poses of
    94 x 352 (focal 88). Asserts finite outputs of the right shapes and the
@@ -22,9 +27,21 @@ which raises on failure:
    whose opacity spreads across the frame, renders frame 0 through the
    kernels and through the plain versions (bfloat16, and float32 for scale)
    and compares;
-5. each kernel's time at the serving shapes beside its plain version's and
-   its bound, as one ``{"kernels": [...]}`` JSON line (and kernel 1's time
-   with float32 operands, printed).
+5. training: the ``two_mlp`` stack of ``bench.py`` (coarse and fine D=4 /
+   W=256, 64 + 64 samples, 16,384 rays half RGB half LiDAR depth,
+   ``raw_noise_std`` 1, depth loss 0.01, bfloat16, ``cull_eps`` 1e-4, Adam)
+   on the in-memory synthetic scene (4 images of 94 x 352, 8,000 depth
+   points each), seeded weights: 5 warm-up steps, 20 timed steps, 3 steps at
+   ``cull_eps`` 0. Asserts finite losses, the exact launch counts of every
+   kernel, and a falling loss (mean of the last 10 of the first 25 steps
+   below the mean of the first 10); prints ms/step and rays/s and profiles
+   one step;
+6. trajectory: 5 steps of the kernel path and of the plain path (plain
+   modules and the sampling twin) from the same weights and generator seed,
+   4,096 rays, float32 and bfloat16, perturbation and noise on; compares
+   the losses and the final parameters;
+7. each kernel's time at the serving and training shapes beside its plain
+   version's and its bound, as one ``{"kernels": [...]}`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout, it exits non-zero and prints no result.
@@ -32,6 +49,8 @@ outside a checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -52,6 +71,25 @@ COMPARE_OFFSET = -5.0
 # Each is about 3x the gap measured on an H100 (PERF.md); in bfloat16 it also
 # stays below the gap between the plain path in bfloat16 and in float32.
 F32_TOL_MAX, F32_TOL_MEAN, BF16_TOL_MEAN = 3e-3, 1e-6, 2.5e-3
+# Training kernels against their plain versions: per gradient tensor (the
+# JAX kernels' blocks), max abs error over mean abs of the reference; the
+# raw output and activations, max abs error over max abs of the reference.
+# Each is about 3x the largest gap measured on an H100 (PERF.md): 7.1e-5 in
+# float32, 6.6e-3 in bfloat16 (a bfloat16 activation rounded the other way).
+TRAIN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# Kernel 3 against kernel 2 (measured 1.8e-5 and 2.1e-2): in bfloat16
+# kernel 3 rounds a ray's view-layer gradient per 16-sample block, kernel 2
+# per ray in a 64-point tile.
+CULL_TOL = {"float32": 5e-5, "bfloat16": 6e-2}
+# Trajectory, kernel path against plain path over 5 steps: max relative
+# loss gap over the steps, and max over parameters of the relative L2 gap of
+# their 5-step updates (Adam gives an element whose gradient is rounding
+# noise an update of arbitrary sign, so an element-wise gap says little).
+# About 3x the measured gaps (float32 2.1e-6 and 3.5e-3; bfloat16 1.1e-3
+# and 5.6e-2, where plain bfloat16 against plain float32 differ by 9.7e-4
+# and 8.2e-2).
+TRAJ_TOL = {"float32": (6e-6, 1e-2), "bfloat16": (3e-3, 0.15)}
+TRAIN_N_RAYS, TRAJ_N_RAYS = 16384, 4096
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bytes/s and FLOP/s.
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -86,12 +124,180 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def device_times(prof):
+    """(ms, name) of each kernel in a profile, largest first. Kernel events
+    only: an aten op's self device time repeats its kernels', and the
+    optimizer's ``Optimizer.step`` annotation spans its own kernels."""
+    import torch
+
+    return sorted(((e.self_device_time_total / 1e3, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0
+                   and not e.key.startswith("Optimizer.")), reverse=True)
+
+
 def mlp_macs(depth, width, e_p, e_v, live_skips, S):
     """Multiply-adds per point of the fused forward (per-ray view term
     spread over the ray's S points)."""
     m = e_p * width + (depth - 1) * width * width + len(live_skips) * e_p * width
     m += width + width * width + width * (width // 2) + (width // 2) * 3
     return m + e_v * (width // 2) / S
+
+
+def bwd_macs(depth, width, e_p, e_v, live_skips, S):
+    """Multiply-adds per point of the backward: one per weight for its
+    gradient, one per weight that feeds a trunk activation for the input
+    gradients (none into the encodings)."""
+    fwd = mlp_macs(depth, width, e_p, e_v, live_skips, S)
+    return 2 * fwd - e_p * width * (1 + len(live_skips)) - e_v * (width // 2) / S
+
+
+def mlp_inputs(NeRFMLP, dev, depth, n_rays, S, seed):
+    """Seeded W=256 weights, points, view directions and a cotangent whose
+    rays are live for a random prefix of their samples (zero after)."""
+    import numpy as np
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    m = NeRFMLP(depth=depth, width=256, generator=g).to(dev)
+    with torch.no_grad():
+        m.sigma.bias += 0.5
+    params = {k: v.detach() for k, v in m.named_parameters()}
+    rng = np.random.default_rng(seed)
+    P = n_rays * S
+    pts = torch.from_numpy(rng.uniform(-1, 1, (3, P)).astype(np.float32)).to(dev)
+    vd = torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(size=(n_rays, 3)).astype(np.float32)), dim=-1).T.contiguous().to(dev)
+    gt = torch.randn((4, P), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+    lengths = torch.from_numpy(rng.integers(0, S + 1, n_rays)).to(dev)
+    live = torch.arange(S, device=dev)[None] < lengths[:, None]
+    return params, pts, vd, gt * live.reshape(1, -1)
+
+
+def grad_err(fmt, got, ref, depth):
+    """(max over the kernel's gradient blocks of max abs error / mean abs of
+    the reference, max abs error)."""
+    got, ref = (fmt.grad_blocks(x, depth, 256, 10, (4,)) for x in (got, ref))
+    rel = max(((got[k] - ref[k]).abs().max() / (ref[k].abs().mean() + 1e-12)).item()
+              for k in ref)
+    return rel, max((got[k] - ref[k]).abs().max().item() for k in ref)
+
+
+def train_kernel_checks(fmt, NeRFMLP, dev, launch_fns):
+    """Phase 3, training kernels: kernel 4 against the plain forward; kernels
+    2, 3 and 5 against the plain backward run on kernel 4's activations;
+    kernel 3 against kernel 2. Returns each kernel's largest max abs error.
+
+    The backward references take kernel 4's activations, which are bitwise
+    the ones kernels 2 and 3 recompute (the same device code), because at
+    10^5-10^6 points a few ReLU gates whose pre-activation lies within
+    float32 rounding of zero open in one summation order and not in the
+    other, and each such point moves a whole row of a weight gradient (a
+    full plain recompute differs by up to 6e-2 of a gradient's mean at
+    D=8, 4,096 rays, in float32)."""
+    import torch
+
+    err = {"fused_nerf_fwd_acts": 0.0, "fused_nerf_bwd": 0.0,
+           "fused_nerf_bwd_culled": 0.0, "fused_nerf_bwd_acts": 0.0}
+    for depth in (4, 8):
+        for n_rays, S in ((4096, 64), (4096, 128), (TRAIN_N_RAYS, 64),
+                          (TRAIN_N_RAYS, 128)):
+            params, pts, vd, g = mlp_inputs(NeRFMLP, dev, depth, n_rays, S,
+                                            depth * 1000 + S)
+            P = n_rays * S
+            for dtype in (torch.float32, torch.bfloat16):
+                name = str(dtype)[6:]
+                kw = dict(depth=depth, width=256, multires=10,
+                          multires_views=4, dtype=dtype, skips=(4,))
+                raw, acts = fmt.fused_nerf_fwd_acts(params, pts, vd, S, **kw)
+                from_acts = fmt.fused_nerf_bwd_acts(params, pts, vd, g, acts,
+                                                    S, **kw)
+                torch.cuda.synchronize()
+                n_before = [f.launches for f in launch_fns]
+                raw_ref, acts_ref, _, _ = fmt._forward_plain(
+                    params, pts, vd, S, depth, 256, 10, 4, dtype, (4,))
+                e4 = [(raw - raw_ref).abs().max().item(),
+                      (raw - raw_ref).abs().max().item()
+                      / raw_ref.abs().max().item()]
+                for a, b in zip(fmt.split_acts(acts, P, depth, 256), acts_ref):
+                    d = (a.float() - b).abs().max().item()
+                    e4 = [max(e4[0], d), max(e4[1], d / b.abs().max().item())]
+                del raw, raw_ref, acts_ref
+                ref = fmt.fused_nerf_bwd_acts_plain(params, pts, vd, g, acts,
+                                                    S, **kw)
+                e5 = grad_err(fmt, from_acts, ref, depth)
+                del acts
+                torch.cuda.empty_cache()
+                check([f.launches for f in launch_fns] == n_before,
+                      "a plain version launched a kernel")
+                dense = fmt.fused_nerf_bwd(params, pts, vd, g, S, **kw)
+                torch.cuda.synchronize()
+                e2 = grad_err(fmt, dense, ref, depth)
+                del ref
+                xb, vb, gb, flags = fmt.culled_layout(pts, vd, g, S)
+                culled = fmt.fused_nerf_bwd_culled(
+                    params, xb, vb, gb, fmt.SAMPLE_BLOCK, flags, **kw)
+                _, acts_c = fmt.fused_nerf_fwd_acts(params, xb, vb,
+                                                    fmt.SAMPLE_BLOCK, **kw)
+                torch.cuda.synchronize()
+                n_before = [f.launches for f in launch_fns]
+                ref_c = fmt.fused_nerf_bwd_acts_plain(
+                    params, xb, vb, gb, acts_c, fmt.SAMPLE_BLOCK, **kw)
+                check([f.launches for f in launch_fns] == n_before,
+                      "a plain version launched a kernel")
+                e3, e32 = grad_err(fmt, culled, ref_c, depth), \
+                    grad_err(fmt, culled, dense, depth)
+                del ref_c, acts_c, xb, vb, gb
+                torch.cuda.empty_cache()
+                print(f"kernels 2-5 D={depth} N={n_rays} S={S} {name}: "
+                      f"fwd_acts {e4[1]:.3g} (abs {e4[0]:.3g}), bwd dense "
+                      f"{e2[0]:.3g} (abs {e2[1]:.3g}), bwd culled {e3[0]:.3g} "
+                      f"(abs {e3[1]:.3g}; live tiles {flags.float().mean().item():.3f}), "
+                      f"bwd acts {e5[0]:.3g} (abs {e5[1]:.3g}), culled vs dense "
+                      f"{e32[0]:.3g}; tolerance {TRAIN_TOL[name]:g} "
+                      f"(culled vs dense {CULL_TOL[name]:g})", flush=True)
+                for e in (e4[1], e2[0], e3[0], e5[0]):
+                    check(e <= TRAIN_TOL[name],
+                          f"training kernel vs plain D={depth} N={n_rays} S={S} {name}")
+                check(e32[0] <= CULL_TOL[name],
+                      f"culled vs dense D={depth} N={n_rays} S={S} {name}")
+                for k, e in (("fused_nerf_fwd_acts", e4[0]), ("fused_nerf_bwd", e2[1]),
+                             ("fused_nerf_bwd_culled", e3[1]),
+                             ("fused_nerf_bwd_acts", e5[1])):
+                    err[k] = max(err[k], e)
+            del params, pts, vd, g
+            torch.cuda.empty_cache()
+    return err
+
+
+def two_mlp_stack(dev, n_rand, dtype, fused=True):
+    """The ``two_mlp`` configuration of ``bench.py`` on the in-memory
+    synthetic scene: (cfg, rcfg, models, tables, hwf)."""
+    from depth_lidar_nerf_tpu_torch.data.synthetic import draw_scene
+    from depth_lidar_nerf_tpu_torch.train.config import (TrainConfig,
+                                                         render_config_from)
+    from depth_lidar_nerf_tpu_torch.train.state import build_models
+    from depth_lidar_nerf_tpu_torch.train.tables import (build_depth_table,
+                                                         build_rgb_table)
+
+    sc = draw_scene(n_images=4, H=H, W=W, focal=FOCAL, n_depth_points=8000,
+                    backdrop=True)
+    cfg = TrainConfig(dataset_type="llff", N_rand=n_rand, N_samples=64,
+                      N_importance=64, netdepth=4, netwidth=256,
+                      netdepth_fine=4, netwidth_fine=256, use_viewdirs=True,
+                      no_ndc=True, raw_noise_std=1.0, colmap_depth=True,
+                      depth_loss=True, depth_lambda=0.01, compute_dtype=dtype,
+                      cull_eps=1e-4, seed=0, use_fused_mlp=fused)
+    rcfg = render_config_from(cfg, 0, sc.near, sc.far)
+    models = build_models(cfg, rcfg, device=dev if fused else "cpu")
+    models = type(models)(*(m.to(dev) for m in models))
+    it = range(4)
+    tables = (build_rgb_table(sc.images, sc.poses, it, *sc.hwf, rcfg, device=dev),
+              build_depth_table(sc.depth_gts, sc.poses, it, *sc.hwf, rcfg,
+                                device=dev))
+    return cfg, rcfg, models, tables, sc.hwf
 
 
 def main() -> int:
@@ -123,7 +329,9 @@ def main() -> int:
     from depth_lidar_nerf_tpu_torch.train.config import (parse_args,
                                                          render_config_from)
     from depth_lidar_nerf_tpu_torch.train.loop import render_path
-    from depth_lidar_nerf_tpu_torch.train.state import build_models
+    from depth_lidar_nerf_tpu_torch.train.state import (FusedMLP, build_models,
+                                                        init_train_state)
+    from depth_lidar_nerf_tpu_torch.train.step import make_train_step
 
     dev = torch.device("cuda")
     card = card_line()
@@ -133,9 +341,11 @@ def main() -> int:
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.time()
-    logs = _build.build_all([fmt.KERNEL, sc.KERNEL])
-    for mod in (fmt, sc):
-        _build.load(mod.KERNEL, mod.ARGTYPES)
+    logs = _build.build_all([fmt.KERNEL, fmt.BWD_KERNEL, sc.KERNEL])
+    for name, types in ((fmt.KERNEL, fmt.ARGTYPES),
+                        (fmt.BWD_KERNEL, fmt.BWD_ARGTYPES),
+                        (sc.KERNEL, sc.ARGTYPES)):
+        _build.load(name, types)
     print(f"build: {time.time() - t0:.1f} s (nvcc {' '.join(_build.ARCH_FLAGS)})")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -194,6 +404,16 @@ def main() -> int:
               f"max abs err {e:.3g}, tolerance 1e-6")
         check(np.isfinite(e) and e <= 1e-6, f"sample_pdf det={det}")
         err[sc.KERNEL] = max(err[sc.KERNEL], e)
+
+    train_fns = {"fused_nerf_fwd_acts": fmt.fused_nerf_fwd_acts,
+                 "fused_nerf_bwd": fmt.fused_nerf_bwd,
+                 "fused_nerf_bwd_culled": fmt.fused_nerf_bwd_culled,
+                 "fused_nerf_bwd_acts": fmt.fused_nerf_bwd_acts}
+    all_fns = [fmt.fused_nerf_fwd, sc.inverse_cdf, fmt.grad_reduce,
+               *train_fns.values()]
+    t0 = time.time()
+    err.update(train_kernel_checks(fmt, NeRFMLP, dev, all_fns))
+    print(f"training kernels checked in {time.time() - t0:.1f} s", flush=True)
 
     # ---- 4. serving -----------------------------------------------------
     # The config as shipped: on the card both kernels run whatever its
@@ -255,11 +475,7 @@ def main() -> int:
                      device=dev)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    # Kernel events only: an aten op's self device time repeats its kernels'.
-    by_name = sorted(((e.self_device_time_total / 1e3, e.key)
-                      for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and e.self_device_time_total > 0), reverse=True)
+    by_name = device_times(prof)
     dev_ms = sum(t for t, _ in by_name)
     print(f"profiled frame: wall {wall_ms:.1f} ms, device busy {dev_ms:.1f} ms "
           f"({100 * dev_ms / wall_ms:.1f}%), idle {wall_ms - dev_ms:.1f} ms")
@@ -388,21 +604,243 @@ def main() -> int:
     sp_bound = sp_bytes / PEAK_BYTES * 1e3
     print(f"sample_pdf per frame: {sp_ms:.4f} ms, plain {sp_plain_ms:.4f} ms, "
           f"bound {sp_bound:.4f} ms (bytes) on {card}")
+    del work, models
+    torch.cuda.empty_cache()
 
+    # ---- 5. training ------------------------------------------------------
+    t0 = time.time()
+    cfg_t, rcfg_t, tm, tables, hwf = two_mlp_stack(dev, TRAIN_N_RAYS, "bfloat16")
+    state = init_train_state(cfg_t, tm)
+    step = make_train_step(cfg_t, rcfg_t, tm, hwf)
+    step_strict = make_train_step(cfg_t.replace(cull_eps=0.0),
+                                  dataclasses.replace(rcfg_t, cull_eps=0.0),
+                                  tm, hwf)
+    print(f"training: two_mlp stack built in {time.time() - t0:.1f} s "
+          f"({tables[0].origins.shape[0]} rgb rays, "
+          f"{tables[1].origins.shape[0]} depth rays, near {rcfg_t.near:.3f}, "
+          f"far {rcfg_t.far:.3f})", flush=True)
+    counted = {fmt.KERNEL: fmt.fused_nerf_fwd, **train_fns,
+               sc.KERNEL: sc.inverse_cdf, "fused_nerf_grad_reduce": fmt.grad_reduce}
+    for fn in counted.values():
+        fn.launches = 0
+    gen = torch.Generator(device=dev).manual_seed(0)
+    metrics = [step(state, *tables, gen) for _ in range(5)]
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+    ev0.record()
+    metrics += [step(state, *tables, gen) for _ in range(20)]
+    ev1.record()
+    torch.cuda.synchronize()
+    ms_step = ev0.elapsed_time(ev1) / 20
+    metrics += [step_strict(state, *tables, gen) for _ in range(3)]
+    torch.cuda.synchronize()
+    train_launches = {k: fn.launches for k, fn in counted.items()}
+    want = {fmt.KERNEL: 28, "fused_nerf_fwd_acts": 28, "fused_nerf_bwd": 3,
+            "fused_nerf_bwd_culled": 25, "fused_nerf_bwd_acts": 28,
+            sc.KERNEL: 28, "fused_nerf_grad_reduce": 56}
+    print(f"training launches over 25 steps at cull_eps 1e-4 and 3 at 0: "
+          f"{train_launches}", flush=True)
+    check(train_launches == want, f"training launch counts, want {want}")
+    vals = [{k: v.item() for k, v in m.items()} for m in metrics]
+    check(all(np.isfinite(v) for m in vals for v in m.values()), "finite metrics")
+    losses = [m["loss"] for m in vals]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[15:25]))
+    print("training loss per step: " + " ".join(f"{x:.4f}" for x in losses))
+    print(f"training psnr step 1 {vals[0]['psnr']:.2f} dB, step 25 "
+          f"{vals[24]['psnr']:.2f} dB; mean loss steps 1-10 {first:.5f}, "
+          f"steps 16-25 {last:.5f}")
+    check(last < first, "training loss falls (mean of steps 16-25 below 1-10)")
+    print(f"training steady: {ms_step:.1f} ms/step, "
+          f"{TRAIN_N_RAYS * 1e3 / ms_step:,.0f} rays/s on {card}", flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        step(state, *tables, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    by_name = device_times(prof)
+    dev_ms = sum(t for t, _ in by_name)
+    print(f"profiled step: wall {wall_ms:.1f} ms, device busy {dev_ms:.1f} ms "
+          f"({100 * dev_ms / wall_ms:.1f}%), idle {wall_ms - dev_ms:.1f} ms")
+    for t, name in by_name[:10]:
+        print(f"  {t:9.3f} ms  {name[:90]}")
+
+    # The backwards' inputs of one step, for the kernel times below.
+    captured = {}
+
+    def capture(name):
+        orig = getattr(fmt, name)
+
+        def wrapper(*a, **k):
+            captured[name] = a
+            return orig(*a, **k)
+        return wrapper
+
+    with mock.patch.object(fmt, "_bwd_culled_dparams",
+                           capture("_bwd_culled_dparams")), \
+            mock.patch.object(fmt, "_bwd_acts_dparams",
+                              capture("_bwd_acts_dparams")):
+        step(state, *tables, gen)
+    torch.cuda.synchronize()
+    del state, step, step_strict, tm, metrics
+    torch.cuda.empty_cache()
+
+    # ---- 6. trajectory: kernel path against plain path ---------------------
+    traj = {}
+    for dtype in ("float32", "bfloat16"):
+        for plain in (False, True):
+            cfg_j, rcfg_j, mj, tabs, hwf_j = two_mlp_stack(
+                dev, TRAJ_N_RAYS, dtype, fused=not plain)
+            check(isinstance(mj.coarse, FusedMLP) != plain, "trajectory models")
+            st = init_train_state(cfg_j, mj)
+            stp = make_train_step(cfg_j, rcfg_j, mj, hwf_j)
+            gen = torch.Generator(device=dev).manual_seed(7)
+            nets = (("coarse", mj.coarse), ("fine", mj.fine))
+            init = {f"{net}.{n}": p.detach().clone()
+                    for net, m in nets for n, p in m.named_parameters()}
+            n_before = [fn.launches for fn in all_fns]
+            ctx = (mock.patch.object(renderer, "sample_pdf_cuda", plain_sampler)
+                   if plain else contextlib.nullcontext())
+            with ctx:
+                ls = [stp(st, *tabs, gen)["loss"].item() for _ in range(5)]
+            torch.cuda.synchronize()
+            if plain:
+                check([fn.launches for fn in all_fns] == n_before,
+                      "the plain training path launched a kernel")
+            traj[dtype, plain] = (np.array(ls), {  # each parameter's update
+                f"{net}.{n}": p.detach() - init[f"{net}.{n}"]
+                for net, m in nets for n, p in m.named_parameters()})
+            del st, stp, mj, tabs
+            torch.cuda.empty_cache()
+
+    def traj_gap(a, b):
+        (la, pa), (lb, pb) = traj[a], traj[b]
+        return (float(np.max(np.abs(la - lb) / np.abs(lb))),
+                max((torch.linalg.norm(pa[k] - pb[k])
+                     / torch.linalg.norm(pb[k])).item() for k in pb))
+
+    traj_err = {}
+    for dtype in ("float32", "bfloat16"):
+        gap = traj_gap((dtype, False), (dtype, True))
+        traj_err[dtype] = gap
+        print(f"trajectory {dtype}, 5 steps of {TRAJ_N_RAYS} rays, kernel vs "
+              f"plain: max loss gap {gap[0]:.3g}, max update gap {gap[1]:.3g} "
+              f"(tolerance {TRAJ_TOL[dtype][0]:g}, {TRAJ_TOL[dtype][1]:g}); "
+              f"losses kernel "
+              + " ".join(f"{x:.5f}" for x in traj[dtype, False][0])
+              + " plain " + " ".join(f"{x:.5f}" for x in traj[dtype, True][0]))
+        check(gap[0] <= TRAJ_TOL[dtype][0] and gap[1] <= TRAJ_TOL[dtype][1],
+              f"trajectory {dtype}")
+    scale = traj_gap(("bfloat16", True), ("float32", True))
+    traj_err["plain_bf16_vs_f32"] = scale
+    print(f"trajectory for scale, plain bfloat16 vs plain float32: max loss "
+          f"gap {scale[0]:.3g}, max update gap {scale[1]:.3g}")
+    del traj
+    torch.cuda.empty_cache()
+
+    # ---- 7. training kernel times at the step's shapes (bf16) --------------
+    pc, ptc, vdc, gc, spec_c, _ = captured["_bwd_culled_dparams"]
+    pf, ptf, vdf, actsf, gf, spec_f, _ = captured["_bwd_acts_dparams"]
+    pc = {k: v.detach() for k, v in pc.items()}
+    pf = {k: v.detach() for k, v in pf.items()}
+    kw_c, kw_f = spec_c.kw(), spec_f.kw()
+    pk_c = fmt.pack_params(pc, spec_c.depth, spec_c.dtype, dev)
+    pk_f = fmt.pack_params(pf, spec_f.depth, spec_f.dtype, dev)
+    xb, vb, gb, flags = fmt.culled_layout(ptc, vdc, gc, spec_c.S)
+    live = flags.float().mean().item()
+    print(f"coarse backward of a training step: {flags.numel()} tiles, "
+          f"{100 * (1 - live):.2f}% skipped by culling")
+    t = {}
+    with torch.no_grad():
+        t["fused_nerf_fwd_acts"] = (
+            cuda_ms(lambda: fmt.fused_nerf_fwd_acts(pf, ptf, vdf, spec_f.S,
+                                                    packed=pk_f, **kw_f), reps=3),
+            cuda_ms(lambda: fmt.fused_nerf_fwd_acts_plain(pf, ptf, vdf, spec_f.S,
+                                                          **kw_f), 2, 1))
+        t["fused_nerf_bwd_acts"] = (
+            cuda_ms(lambda: fmt.fused_nerf_bwd_acts(pf, ptf, vdf, gf, actsf,
+                                                    spec_f.S, packed=pk_f,
+                                                    **kw_f), 3, 1),
+            cuda_ms(lambda: fmt.fused_nerf_bwd_acts_plain(pf, ptf, vdf, gf, actsf,
+                                                          spec_f.S, **kw_f), 2, 1))
+        t["fused_nerf_bwd_culled"] = (
+            cuda_ms(lambda: fmt.fused_nerf_bwd_culled(pc, xb, vb, gb,
+                                                      fmt.SAMPLE_BLOCK, flags,
+                                                      packed=pk_c, **kw_c), 3, 1),
+            cuda_ms(lambda: fmt.fused_nerf_bwd_plain(pc, xb, vb, gb,
+                                                     fmt.SAMPLE_BLOCK,
+                                                     flags=flags, **kw_c), 2, 1))
+        t["fused_nerf_bwd"] = (
+            cuda_ms(lambda: fmt.fused_nerf_bwd(pc, ptc, vdc, gc, spec_c.S,
+                                               packed=pk_c, **kw_c), 3, 1),
+            cuda_ms(lambda: fmt.fused_nerf_bwd_plain(pc, ptc, vdc, gc, spec_c.S,
+                                                     **kw_c), 2, 1))
+        glue_ms = cuda_ms(lambda: fmt.culled_layout(ptc, vdc, gc, spec_c.S), 5)
+    print(f"culling glue (live lengths, sort, regroup, flags): {glue_ms:.3f} ms")
+    n_w, n_b = pk_c.weights.numel(), pk_c.biases.numel()
+    P_c, P_f = ptc.shape[1], ptf.shape[1]
+    N_c, N_f = P_c // spec_c.S, P_f // spec_f.S
+    fwd_c = mlp_macs(spec_c.depth, 256, 63, 27, (), spec_c.S)
+    fwd_f = mlp_macs(spec_f.depth, 256, 63, 27, (), spec_f.S)
+    bwd_c = bwd_macs(spec_c.depth, 256, 63, 27, (), spec_c.S)
+    bwd_f = bwd_macs(spec_f.depth, 256, 63, 27, (), spec_f.S)
+    live_pts = int(flags.sum().item()) * fmt.TILE
+    io = lambda P, N: (3 * P + 3 * N + 4 * P) * 4  # noqa: E731
+    acts_bytes = actsf.numel() * actsf.element_size()
+    work_t = {  # (FLOP, bytes) of this run's inputs
+        "fused_nerf_fwd_acts": (2 * fwd_f * P_f,
+                                io(P_f, N_f) + n_w * 2 + acts_bytes),
+        "fused_nerf_bwd_acts": (2 * bwd_f * P_f,
+                                io(P_f, N_f) + 2 * n_w * 2 + acts_bytes
+                                + (n_w + n_b) * 4),
+        "fused_nerf_bwd_culled": (2 * (fwd_c + bwd_c) * live_pts,
+                                  io(live_pts, live_pts // fmt.SAMPLE_BLOCK)
+                                  + 2 * n_w * 2 + (n_w + n_b) * 4),
+        "fused_nerf_bwd": (2 * (fwd_c + bwd_c) * P_c,
+                           io(P_c, N_c) + 2 * n_w * 2 + (n_w + n_b) * 4),
+    }
+    bounds = {}
+    for k, (fl, by) in work_t.items():
+        t_ops, t_bytes = fl / PEAK_FLOPS["bfloat16"], by / PEAK_BYTES
+        bounds[k] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops > t_bytes else "bytes")
+        print(f"{k} at the step's shapes (bf16): {t[k][0]:.3f} ms, plain "
+              f"{t[k][1]:.3f} ms, {fl / t[k][0] / 1e9:.1f} TFLOP/s, bound "
+              f"{bounds[k][0]:.3f} ms ({bounds[k][1]}) on {card}")
+    del captured, pc, pf, actsf, gf, gc, xb, vb, gb
+    torch.cuda.empty_cache()
+
+    src = "depth_lidar_nerf_tpu_torch/csrc/"
+    main_launches = {k: launches.get(k, 0) + train_launches[k]
+                     for k in train_launches}
     kernels = [
-        {"name": fmt.KERNEL, "route": "cuda",
-         "source": "depth_lidar_nerf_tpu_torch/csrc/fused_nerf_fwd.cu",
+        {"name": fmt.KERNEL, "route": "cuda", "source": src + "fused_nerf_fwd.cu",
          "replaces": "depth_lidar_nerf_tpu/ops/fused_mlp_t.py:249",
-         "launches": launches[fmt.KERNEL], "max_abs_err": err[fmt.KERNEL],
+         "launches": main_launches[fmt.KERNEL], "max_abs_err": err[fmt.KERNEL],
          "ms": mlp_ms, "plain_ms": mlp_plain_ms, "bound_ms": mlp_bound,
          "bound_by": mlp_by, "library_ms": None},
-        {"name": sc.KERNEL, "route": "cuda",
-         "source": "depth_lidar_nerf_tpu_torch/csrc/sample_pdf.cu",
+        {"name": sc.KERNEL, "route": "cuda", "source": src + "sample_pdf.cu",
          "replaces": "depth_lidar_nerf_tpu/ops/sampling_pallas.py:41",
-         "launches": launches[sc.KERNEL], "max_abs_err": err[sc.KERNEL],
+         "launches": main_launches[sc.KERNEL], "max_abs_err": err[sc.KERNEL],
          "ms": sp_ms, "plain_ms": sp_plain_ms, "bound_ms": sp_bound,
          "bound_by": "bytes", "library_ms": None},
     ]
+    for k, source, line in (("fused_nerf_bwd", "fused_nerf_bwd.cu", 316),
+                            ("fused_nerf_bwd_culled", "fused_nerf_bwd.cu", 334),
+                            ("fused_nerf_fwd_acts", "fused_nerf_fwd.cu", 662),
+                            ("fused_nerf_bwd_acts", "fused_nerf_bwd.cu", 677)):
+        kernels.append({
+            "name": k, "route": "cuda", "source": src + source,
+            "replaces": f"depth_lidar_nerf_tpu/ops/fused_mlp_t.py:{line}",
+            "launches": main_launches[k], "max_abs_err": err[k], "ms": t[k][0],
+            "plain_ms": t[k][1], "bound_ms": bounds[k][0],
+            "bound_by": bounds[k][1], "library_ms": None})
+    print(json.dumps({"training": {
+        "ms_per_step": ms_step, "rays_per_s": TRAIN_N_RAYS * 1e3 / ms_step,
+        "losses": losses, "launches": train_launches,
+        "coarse_tiles_skipped": 1 - live, "culling_glue_ms": glue_ms,
+        "trajectory_kernel_vs_plain": traj_err, "card": card}}))
     print(json.dumps({"serving": {"ms_per_frame": ms_frame,
                                   "rays_per_s": H * W * 1e3 / ms_frame,
                                   "frame0_kernel_vs_plain": render_err,

@@ -1,0 +1,296 @@
+// Shared device code of the fused NeRF MLP kernels (fused_nerf_fwd.cu, fused_nerf_bwd.cu).
+//
+// The MLP and its packed layout (see fused_nerf_fwd.cu for the forward's source note):
+// for points [3, P] (float32) with point p on ray p / S and per-ray unit view directions
+// [3, N], layer l's weight is packed twice in one element type T (float or bfloat16):
+// `w`  as [in, out] row-major (the Flax kernel layout: a skip layer's encoding rows come
+// first) and `wt` as [out, in] row-major (torch's Linear.weight), both at offset woff[l];
+// biases are float32 at boff[l]. Layers in order: trunk_0..trunk_{D-1}, sigma, feature,
+// views_0, rgb. The forward reads `w`; the backward's input products read `wt`, so every
+// weight load of a warp is contiguous.
+//
+// One block of 256 threads owns a tile of kTP = 64 consecutive points. Activations live
+// transposed in shared memory, [channel][kLD] with kLD = kTP + 4. A thread's register tile
+// is 8 points (warp ty owns points 8 ty .. 8 ty + 7) x (W / 32) columns (lane tx owns
+// columns tx + 32 j). Every product accumulates in float32 and every stored activation or
+// activation gradient is rounded to T, where the JAX kernel rounds
+// (depth_lidar_nerf_tpu/ops/fused_mlp_t.py: _forward_tile, _bwd_tile_body).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace fnerf {
+
+constexpr int kTP = 64;           // points per tile
+constexpr int kThreads = 256;     // 8 warps
+constexpr int kLD = kTP + 4;      // shared row stride (floats)
+constexpr int kMaxLayers = 12;    // depth <= 8 trunk layers + sigma, feature, views, rgb
+
+struct Net {
+  const void* w;    // packed weights [in, out] (T)
+  const void* wt;   // packed weights [out, in] (T); backward only
+  const float* b;   // packed biases
+  int depth, n_p, n_v, skip_mask;
+  int woff[kMaxLayers];
+  int boff[kMaxLayers];
+};
+
+template <typename T> __device__ __forceinline__ float to_f(T x);
+template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+template <typename T> __device__ __forceinline__ float rnd(float x) {
+  return to_f<T>(from_f<T>(x));
+}
+
+// Row `row` of the positional encoding of x (Flax order: x, then per octave
+// sin of the 3 dims, cos of the 3 dims). sinf/cosf, never __sinf: phases reach
+// 2^(n-1) |x| and need full range reduction.
+__device__ __forceinline__ float enc_row(const float x[3], int row) {
+  if (row < 3) return x[row];
+  const int r = row - 3, f = r / 6, m = r % 6;
+  const float ph = ldexpf(x[m % 3], f);  // exact: a power-of-two scale
+  return m < 3 ? sinf(ph) : cosf(ph);
+}
+
+// Shared memory of one tile, in floats. The forward uses buf0, buf1, enc and encv; the
+// backward uses buf0 (activation operand), buf1 (gradient operand), enc, encv, gb (the
+// cotangent rounded to T) and seg (per-ray sums of the view-layer gradient).
+struct Smem {
+  float *buf0, *buf1, *enc, *encv, *gb, *seg;
+};
+
+__host__ __device__ inline size_t fwd_smem_floats(int W, int e_p, int e_v) {
+  return (size_t)2 * W * kLD + (size_t)e_p * kLD + (size_t)kTP * e_v;
+}
+__host__ __device__ inline size_t bwd_smem_floats(int W, int e_p, int e_v) {
+  return fwd_smem_floats(W, e_p, e_v) + (size_t)4 * kLD + (size_t)kTP * (W / 2);
+}
+
+// gb and seg lie past the forward's share, so a forward-only launch never touches them.
+__device__ __forceinline__ Smem carve(float* smem, int W, int e_p, int e_v) {
+  Smem s;
+  s.buf0 = smem;
+  s.buf1 = s.buf0 + W * kLD;
+  s.enc = s.buf1 + W * kLD;
+  s.encv = s.enc + e_p * kLD;
+  s.gb = s.encv + kTP * e_v;
+  s.seg = s.gb + 4 * kLD;
+  return s;
+}
+
+// Encodings of one tile: per point (masked points encode x = 0) and per ray.
+template <typename T>
+__device__ __forceinline__ void encode_tile(const Smem& s, const float* __restrict__ pts,
+                                            const float* __restrict__ vd, int P, int S, int p0,
+                                            int n_valid, int e_p, int e_v) {
+  const int N = P / S, r_lo = p0 / S;
+  const int n_rays = (p0 + n_valid - 1) / S - r_lo + 1;
+  for (int idx = threadIdx.x; idx < e_p * kTP; idx += kThreads) {
+    const int row = idx / kTP, p = idx % kTP;
+    float x[3] = {0.f, 0.f, 0.f};
+    if (p < n_valid) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) x[d] = pts[(size_t)d * P + p0 + p];
+    }
+    s.enc[row * kLD + p] = rnd<T>(enc_row(x, row));
+  }
+  for (int idx = threadIdx.x; idx < n_rays * e_v; idx += kThreads) {
+    const int r = idx / e_v, row = idx % e_v;
+    float x[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) x[d] = vd[(size_t)d * N + r_lo + r];
+    s.encv[r * e_v + row] = rnd<T>(enc_row(x, row));
+  }
+}
+
+template <int NJ>
+__device__ __forceinline__ void init_acc(float (&acc)[8][NJ], const float* __restrict__ bias,
+                                         int tx) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const float bj = bias ? bias[tx + 32 * j] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i][j] = bj;
+  }
+}
+
+// acc[i][j] += sum_k in[k][8 ty + i] * w[k * ld + tx + 32 j] for k < K.
+template <typename T, int NJ>
+__device__ __forceinline__ void mac(float (&acc)[8][NJ], const float* __restrict__ in, int K,
+                                    const T* __restrict__ w, int ld, int ty, int tx) {
+  const float* a_ptr = in + ty * 8;
+  const T* w_ptr = w + tx;
+#pragma unroll 2
+  for (int k = 0; k < K; ++k) {
+    const float4 a0 = *reinterpret_cast<const float4*>(a_ptr + k * kLD);
+    const float4 a1 = *reinterpret_cast<const float4*>(a_ptr + k * kLD + 4);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    float wv[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) wv[j] = to_f<T>(w_ptr[(size_t)k * ld + 32 * j]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], wv[j], acc[i][j]);
+  }
+}
+
+// Round (after a ReLU if asked) into shared memory, transposed; with `g`, also write the
+// tile's valid rows to device memory as [point][ld] in T.
+template <typename T, int NJ>
+__device__ __forceinline__ void store(float (&acc)[8][NJ], float* __restrict__ out, bool relu,
+                                      int ty, int tx, T* __restrict__ g = nullptr, int ld = 0,
+                                      int n_valid = 0) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    float v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = rnd<T>(relu ? fmaxf(acc[i][j], 0.f) : acc[i][j]);
+    float4* dst = reinterpret_cast<float4*>(out + (tx + 32 * j) * kLD + ty * 8);
+    dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+    dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+    if (g) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (ty * 8 + i < n_valid) g[(size_t)(ty * 8 + i) * ld + tx + 32 * j] = from_f<T>(v[i]);
+    }
+  }
+}
+
+// Where gate > 0 (or everywhere without a gate), the accumulator rounded to T; else 0.
+// Stored transposed into shared memory: the JAX kernel's _mask_cast.
+template <typename T, int NJ>
+__device__ __forceinline__ void store_masked(float (&acc)[8][NJ], const float* __restrict__ gate,
+                                             float* __restrict__ out, int ty, int tx) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = tx + 32 * j;
+    float v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const bool on = gate == nullptr || gate[c * kLD + ty * 8 + i] > 0.f;
+      v[i] = on ? rnd<T>(acc[i][j]) : 0.f;
+    }
+    float4* dst = reinterpret_cast<float4*>(out + c * kLD + ty * 8);
+    dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+    dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+}
+
+// One tile of the forward: encodings, trunk, sigma and feature heads, view layer, rgb head.
+// `out` (raw [4, P]) may be null: then the heads are skipped. With `acts`, each trunk
+// activation, the feature activation and the view activation of the tile's valid points
+// are written in T: layer l (l <= D) row r at acts + l * lstride + (row0 + r) * W, the view
+// activation at acts + (D + 1) * lstride + (row0 + r) * W / 2.
+template <typename T, int W>
+__device__ void forward_tile(const Net& net, const Smem& s, const float* __restrict__ pts,
+                             const float* __restrict__ vd, int P, int S, int p0,
+                             float* __restrict__ out, T* __restrict__ acts, size_t lstride,
+                             size_t row0) {
+  constexpr int NJ = W / 32;   // trunk / feature columns per thread
+  constexpr int NJV = W / 64;  // view-layer columns per thread
+  constexpr int WV = W / 2;
+  const int e_p = 3 + 6 * net.n_p, e_v = 3 + 6 * net.n_v;
+  const int tid = threadIdx.x, ty = tid >> 5, tx = tid & 31;
+  const int n_valid = min(kTP, P - p0);
+  const int r_lo = p0 / S;
+  const int n_rays = (p0 + n_valid - 1) / S - r_lo + 1;
+  const T* w = reinterpret_cast<const T*>(net.w);
+  const float* b = net.b;
+  const int D = net.depth;
+  T* arow = acts ? acts + row0 * W : nullptr;
+
+  encode_tile<T>(s, pts, vd, P, S, p0, n_valid, e_p, e_v);
+  __syncthreads();
+
+  // Trunk, ping-ponging between buf0 and buf1.
+  float acc[8][NJ];
+  const float* h = s.enc;
+  for (int l = 0; l < D; ++l) {
+    float* dst = (l & 1) ? s.buf1 : s.buf0;
+    const T* wl = w + net.woff[l];
+    init_acc<NJ>(acc, b + net.boff[l], tx);
+    if (l == 0) {
+      mac<T, NJ>(acc, s.enc, e_p, wl, W, ty, tx);
+    } else if ((net.skip_mask >> (l - 1)) & 1) {
+      mac<T, NJ>(acc, s.enc, e_p, wl, W, ty, tx);
+      mac<T, NJ>(acc, h, W, wl + (size_t)e_p * W, W, ty, tx);
+    } else {
+      mac<T, NJ>(acc, h, W, wl, W, ty, tx);
+    }
+    store<T, NJ>(acc, dst, true, ty, tx, arow ? arow + l * lstride : nullptr, W, n_valid);
+    __syncthreads();
+    h = dst;
+  }
+  float* feat = (h == s.buf0) ? s.buf1 : s.buf0;
+  float* hbuf = (h == s.buf0) ? s.buf0 : s.buf1;
+
+  // Sigma head (row 3 of the output) from the last trunk activation.
+  if (out && tid < n_valid) {
+    const T* ws = w + net.woff[D];
+    float sg = b[net.boff[D]];
+    for (int k = 0; k < W; ++k) sg = fmaf(h[k * kLD + tid], to_f<T>(ws[k]), sg);
+    out[(size_t)3 * P + p0 + tid] = sg;
+  }
+  // Feature layer (linear).
+  init_acc<NJ>(acc, b + net.boff[D + 1], tx);
+  mac<T, NJ>(acc, h, W, w + net.woff[D + 1], W, ty, tx);
+  store<T, NJ>(acc, feat, false, ty, tx, arow ? arow + D * lstride : nullptr, W, n_valid);
+  __syncthreads();
+
+  // Per-ray half of the view layer, once per ray, into the free trunk buffer.
+  float* hv = hbuf;                 // [WV][kLD]
+  float* hv_ray = hbuf + WV * kLD;  // [n_rays][WV]
+  const T* wv = w + net.woff[D + 2];
+  for (int idx = tid; idx < n_rays * WV; idx += kThreads) {
+    const int r = idx / WV, c = idx % WV;
+    float sm = 0.f;
+    for (int k = 0; k < e_v; ++k)
+      sm = fmaf(s.encv[r * e_v + k], to_f<T>(wv[(size_t)(W + k) * WV + c]), sm);
+    hv_ray[r * WV + c] = rnd<T>(sm);
+  }
+  __syncthreads();
+
+  // View layer: feat rows of views_0 per point plus the ray's term.
+  {
+    float accv[8][NJV];
+    init_acc<NJV>(accv, b + net.boff[D + 2], tx);
+    mac<T, NJV>(accv, feat, W, wv, WV, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int p = min(ty * 8 + i, n_valid - 1);
+      const int r = (p0 + p) / S - r_lo;
+#pragma unroll
+      for (int j = 0; j < NJV; ++j) accv[i][j] += hv_ray[r * WV + tx + 32 * j];
+    }
+    // hv and hv_ray are disjoint
+    store<T, NJV>(accv, hv, true, ty, tx,
+                  acts ? acts + (D + 1) * lstride + row0 * WV : nullptr, WV, n_valid);
+  }
+  __syncthreads();
+
+  // RGB head (rows 0-2 of the output).
+  if (out) {
+    const T* wr = w + net.woff[D + 3];
+    for (int idx = tid; idx < 3 * kTP; idx += kThreads) {
+      const int c = idx / kTP, p = idx % kTP;
+      if (p >= n_valid) continue;
+      float sm = b[net.boff[D + 3] + c];
+      for (int k = 0; k < WV; ++k) sm = fmaf(hv[k * kLD + p], to_f<T>(wr[k * 3 + c]), sm);
+      out[(size_t)c * P + p0 + p] = sm;
+    }
+  }
+}
+
+}  // namespace fnerf

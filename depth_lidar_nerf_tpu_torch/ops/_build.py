@@ -6,8 +6,8 @@ into ``build/torch_kernels/lib<name>-<hash>.so`` at the root of the checkout::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
          -shared -Xcompiler -fPIC -o build/torch_kernels/lib<name>-<hash>.so csrc/<name>.cu
 
-The hash is of the source text, so an edited source never loads a stale
-library. Nothing is built when a module is imported: a kernel's wrapper calls
+The hash is of the source text and of every shared header ``csrc/*.cuh``, so
+an edited source or header never loads a stale library. Nothing is built when a module is imported: a kernel's wrapper calls
 :func:`load` at its first launch, and :func:`build_all` starts one ``nvcc``
 per source, all at once. ``--use_fast_math`` is deliberately absent: the
 encoding's phases reach ``2^9 |x|`` and need the accurate ``sinf``/``cosf``.
@@ -42,9 +42,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _command(name: str, out: Path) -> list[str]:
@@ -77,14 +78,18 @@ def build_all(names) -> dict[str, str]:
 
 def load(name: str, argtypes) -> ctypes.CDLL:
     """The bound library for ``csrc/<name>.cu``, built on first use. Its
-    ``<name>_launch(*argtypes) -> int`` and ``<name>_error_string(int)`` get
+    launch functions (``<name>_launch(*argtypes) -> int``, or each
+    ``{function: argtypes}`` of a dict) and ``<name>_error_string(int)`` get
     their signatures once, here."""
     lib = _loaded.get(name)
     if lib is None:
         build_all([name])
         lib = ctypes.CDLL(str(library_path(name)))
-        launch = getattr(lib, f"{name}_launch")
-        launch.restype, launch.argtypes = ctypes.c_int, list(argtypes)
+        fns = argtypes if isinstance(argtypes, dict) else \
+            {f"{name}_launch": argtypes}
+        for fn, types in fns.items():
+            launch = getattr(lib, fn)
+            launch.restype, launch.argtypes = ctypes.c_int, list(types)
         err = getattr(lib, f"{name}_error_string")
         err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
         _loaded[name] = lib

@@ -1,26 +1,46 @@
-"""Fused NeRF MLP forward through the hand-written CUDA kernel
-``csrc/fused_nerf_fwd.cu`` (port of the serving forward of ``ops/fused_mlp_t.py``).
+"""Fused NeRF MLP forward and backward through hand-written CUDA kernels
+(port of ``ops/fused_mlp_t.py``).
 
-The Pallas kernel it replaces, ``fused_mlp_t._fwd_kernel``, evaluates the
-whole radiance MLP for a tile of points with the positional encoding computed
-in-kernel, the skip concat as a second product on the encoding rows, and the
-view layer's per-ray half computed once per ray; it writes channel-major raw
-``[4, P]``. The CUDA kernel computes the same function (see its source note
-for its bound and design).
+The Pallas kernels it replaces evaluate the whole radiance MLP for a tile of
+points with the positional encoding computed in-kernel, the skip concat as a
+second product on the encoding rows, and the view layer's per-ray half
+computed once per ray; they write channel-major raw ``[4, P]``. Their
+backwards return float32 weight gradients and zero input cotangents. Here:
 
-:func:`fused_nerf_fwd` launches the kernel for CUDA tensors and runs the plain
-PyTorch version :func:`fused_nerf_fwd_plain` for CPU tensors; it never falls
-back from one to the other. ``fused_nerf_fwd.launches`` counts kernel launches.
+====  ===========================  ==========================  ======================
+ #    Pallas kernel                CUDA kernel (csrc/)          wrapper
+====  ===========================  ==========================  ======================
+ 1    ``_fwd_kernel``              ``fused_nerf_fwd.cu``        :func:`fused_nerf_fwd`
+ 2    ``_bwd_kernel``              ``fused_nerf_bwd.cu`` dense  :func:`fused_nerf_bwd`
+ 3    ``_bwd_kernel_culled``       ``fused_nerf_bwd.cu`` culled :func:`fused_nerf_bwd_culled`
+ 4    ``_fwd_kernel_acts``         ``fused_nerf_fwd.cu`` acts   :func:`fused_nerf_fwd_acts`
+ 5    ``_bwd_kernel_acts``         ``fused_nerf_bwd.cu`` acts   :func:`fused_nerf_bwd_acts`
+====  ===========================  ==========================  ======================
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
+twin (``*_plain``, the kernel's arithmetic step by step) for CPU tensors; it
+never falls back from one to the other. ``<wrapper>.launches`` counts kernel
+launches; the backward wrappers also launch ``fused_nerf_grad_reduce``, which
+sums the blocks' partial gradients (counted in ``grad_reduce.launches``).
+
+:func:`fused_nerf_apply_rays` takes the route the JAX dispatcher
+(``_apply_rays_core``) would take: without a gradient the plain forward;
+under autograd :class:`FusedActs` (kernels 4 and 5) for a pass that saves its
+activations within the byte cap, else :class:`FusedRecompute` with the
+culled (kernel 3) or dense (kernel 2) backward. The route is kept in
+``fused_nerf_apply_rays.last_route``.
 
 ``params`` everywhere is a mapping of the :class:`~models.nerf_mlp.NeRFMLP`
 parameter names (``trunk_0.weight`` ``[out, in]``, ``trunk_0.bias``, ...) to
-float32 tensors, e.g. ``dict(module.named_parameters())``.
+float32 tensors, e.g. ``dict(module.named_parameters())``. Gradients come
+back in the same mapping.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Mapping, NamedTuple
+import math
+from typing import Dict, Mapping, NamedTuple
 
 import torch
 
@@ -28,10 +48,37 @@ from depth_lidar_nerf_tpu_torch.ops import _build
 from depth_lidar_nerf_tpu_torch.ops.embedding import positional_encoding
 
 KERNEL = "fused_nerf_fwd"
-# fused_nerf_fwd_launch(pts, vd, w, b, out, P, S, depth, width, multires,
-#                       multires_views, skip_mask, bf16, w_off, b_off, stream)
-ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
+BWD_KERNEL = "fused_nerf_bwd"
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+ARGTYPES = {
+    # (pts, vd, w, b, out, P, S, depth, width, multires, multires_views,
+    #  skip_mask, bf16, w_off, b_off, stream)
+    "fused_nerf_fwd_launch": [_PTR] * 5 + [_INT] * 8 + [_PTR] * 3,
+    # (pts, vd, w, b, out, acts, P, S, depth, ..., stream)
+    "fused_nerf_fwd_acts_launch": [_PTR] * 6 + [_INT] * 8 + [_PTR] * 3,
+}
+BWD_ARGTYPES = {
+    # (mode, pts, vd, g, flags, acts, w, wt, b, scratch, part, part_stride, G,
+    #  n_w, P, S, depth, width, multires, multires_views, skip_mask, bf16,
+    #  w_off, b_off, stream)
+    "fused_nerf_bwd_launch": [_INT] + [_PTR] * 10 + [ctypes.c_longlong]
+    + [_INT] * 10 + [_PTR] * 3,
+    # (part, part_stride, G, n, out, stream)
+    "fused_nerf_grad_reduce_launch": [_PTR, ctypes.c_longlong, _INT, _INT,
+                                      _PTR, _PTR],
+}
 _DTYPES = (torch.float32, torch.bfloat16)
+TILE = 64  # points per CUDA block tile (kTP in csrc/fused_nerf.cuh)
+
+# The JAX package's dispatch constants (ops/fused_mlp.py, ops/fused_mlp_t.py
+# defaults), kept so that both packages choose the same route for a pass.
+_JAX_TILE = 2048
+SAMPLE_BLOCK = 16
+_JAX_TILE_FWD = 8192
+_ACTS_TILE = 4096
+_ACTS_TILE_FWD = 8192
+_ACTS_VMEM_MB = 96
+_ACTS_MAX_POINTS = 4 * 1024 * 1024
 
 
 def live_skips(depth: int, skips) -> tuple:
@@ -44,10 +91,10 @@ def live_skips(depth: int, skips) -> tuple:
 def supports_rays(params: Mapping[str, torch.Tensor], use_viewdirs: bool,
                   num_semantic: int, depth: int, width: int, multires: int,
                   multires_views: int, skips=()) -> bool:
-    """Whether the kernel covers this model: the predicate of the JAX
+    """Whether the kernels cover this model: the predicate of the JAX
     ``fused_mlp_t.supports_rays``. Depth 1-8, width 128 or 256, view
     directions on, no semantic head, no skip at the last trunk layer, and
-    encodings of at most 128 rows together (which also bounds the kernel's
+    encodings of at most 128 rows together (which also bounds the kernels'
     shared memory)."""
     if not use_viewdirs or num_semantic > 0 or depth > 8 or depth < 1:
         return False
@@ -69,28 +116,87 @@ def supports_rays(params: Mapping[str, torch.Tensor], use_viewdirs: bool,
     return params["trunk_0.weight"].shape[0] == width and width in (128, 256)
 
 
+# ------------------------------------------------------------ route choice
+
+def _acts_point_bytes(depth: int, width: int, dtype) -> int:
+    """JAX ``_acts_point_bytes``: (D + 1) [W] + one [W/2] activation rows in
+    the compute dtype, plus the [4] float32 raw row."""
+    b = 2 if dtype == torch.bfloat16 else 4
+    return ((depth + 1) * width + width // 2) * b + 16
+
+
+def acts_points_cap(depth: int, width: int, dtype=torch.bfloat16) -> int:
+    """JAX ``acts_points_cap``: the point cap of the saved-activation route,
+    the byte budget of 4 Mi points at D=4/W=256 in bfloat16 (2,816 B a
+    point). Kept at JAX's value so that both packages choose the same
+    route; the card's 80 GB would admit more."""
+    return (_ACTS_MAX_POINTS * 2816) // (_acts_point_bytes(depth, width, dtype)
+                                         - 16)
+
+
+def _jax_tiles(S: int, depth: int, width: int, dtype):
+    """JAX's forward, saved-activation forward and saved-activation
+    backward tiles (``_fwd_tile_size``, ``_acts_tile_fwd``, ``_acts_tile``)."""
+    vmem = (_ACTS_VMEM_MB * 1024 * 1024) // (
+        2 * _acts_point_bytes(depth, width, dtype))
+
+    def tile(cap):
+        return max(_JAX_TILE, (cap // _JAX_TILE) * _JAX_TILE)
+
+    return (tile(min(_JAX_TILE_FWD, 128 * S)),
+            tile(min(_ACTS_TILE_FWD, 128 * S, vmem)),
+            tile(min(_ACTS_TILE, 128 * S, vmem)))
+
+
+def acts_route_ok(n_rays: int, S: int, depth: int, width: int, dtype) -> bool:
+    """The JAX predicate of the saved-activation route (``_apply_rays_core``):
+    the point count after JAX's ray padding (to the LCM of its three tiles'
+    rays per tile) within :func:`acts_points_cap`."""
+    rpt = math.lcm(*(t // S for t in _jax_tiles(S, depth, width, dtype)))
+    n_full = n_rays + (-n_rays) % rpt
+    return n_full * S <= acts_points_cap(depth, width, dtype)
+
+
+def cull_blocks_ok(S: int) -> bool:
+    """JAX's ``blocks_ok``: the culled backward needs S a multiple of the
+    16-sample block (and at least one block)."""
+    sb = min(SAMPLE_BLOCK, S)
+    return S % sb == 0 and _JAX_TILE // sb <= 128
+
+
+# ----------------------------------------------------------------- packing
+
 def _layer_names(depth: int):
     return [f"trunk_{i}" for i in range(depth)] + ["sigma", "feature",
                                                    "views_0", "rgb"]
 
 
+def param_names(depth: int):
+    """Parameter names in packing order, each layer's weight then bias."""
+    return [f"{n}.{k}" for n in _layer_names(depth) for k in ("weight", "bias")]
+
+
 class PackedParams(NamedTuple):
-    """The weights in the kernel's layout, made by :func:`pack_params`."""
+    """The weights in the kernels' layout, made by :func:`pack_params`."""
     weights: torch.Tensor  # every layer's [in, out], row-major, in dtype
     biases: torch.Tensor  # every bias, float32
     w_offsets: ctypes.Array  # element offset of each layer in ``weights``
     b_offsets: ctypes.Array  # and in ``biases``
     dtype: torch.dtype
+    weights_t: torch.Tensor  # every layer's [out, in] (Linear.weight), dtype
 
 
 def pack_params(params: Mapping[str, torch.Tensor], depth: int, dtype,
                 device=None) -> PackedParams:
     """One buffer of every weight as ``[in, out]`` row-major in ``dtype``
-    (the Flax kernel layout: a skip layer's encoding rows come first), one
+    (the Flax kernel layout: a skip layer's encoding rows come first), the
+    same weights as ``[out, in]`` (for the backward's input products), one
     float32 buffer of every bias, and the element offset of each layer in
     both, in the order trunk_0..trunk_{D-1}, sigma, feature, views_0, rgb."""
     names = _layer_names(depth)
-    ws = [params[f"{n}.weight"].detach().t().to(dtype).reshape(-1) for n in names]
+    lin = [params[f"{n}.weight"].detach() for n in names]
+    ws = [w.t().to(dtype).reshape(-1) for w in lin]
+    wts = [w.to(dtype).reshape(-1) for w in lin]
     bs = [params[f"{n}.bias"].detach().float().reshape(-1) for n in names]
 
     def offsets(parts):
@@ -101,16 +207,53 @@ def pack_params(params: Mapping[str, torch.Tensor], depth: int, dtype,
         return (ctypes.c_int * len(out))(*out)
 
     return PackedParams(torch.cat(ws).to(device), torch.cat(bs).to(device),
-                        offsets(ws), offsets(bs), dtype)
+                        offsets(ws), offsets(bs), dtype,
+                        torch.cat(wts).to(device))
 
 
-def fused_nerf_fwd_plain(params: Mapping[str, torch.Tensor], pts_t: torch.Tensor,
-                         viewdirs_t: torch.Tensor, S: int, *, depth: int,
-                         width: int, multires: int, multires_views: int,
-                         dtype=torch.float32, skips=()) -> torch.Tensor:
-    """The kernel's arithmetic in PyTorch: operands rounded to ``dtype``,
-    products in float32, each activation rounded to ``dtype``.
-    ``pts_t [3, P]``, ``viewdirs_t [3, P // S]`` -> raw ``[4, P]``."""
+def unpack_grads(flat: torch.Tensor, params: Mapping[str, torch.Tensor],
+                 packed: PackedParams, depth: int) -> Dict[str, torch.Tensor]:
+    """The kernels' float32 gradients (packed ``[in, out]`` weights, then
+    biases) -> the parameter mapping, weights back as ``[out, in]``."""
+    n_w = packed.weights.numel()
+    out = {}
+    for i, n in enumerate(_layer_names(depth)):
+        w = params[f"{n}.weight"]
+        o, b = packed.w_offsets[i], packed.b_offsets[i]
+        out[f"{n}.weight"] = flat[o:o + w.numel()].view(
+            w.shape[1], w.shape[0]).t().contiguous()
+        nb = params[f"{n}.bias"].numel()
+        out[f"{n}.bias"] = flat[n_w + b:n_w + b + nb].clone()
+    return out
+
+
+def grad_blocks(grads: Mapping[str, torch.Tensor], depth: int, width: int,
+                multires: int, skips=()) -> Dict[str, torch.Tensor]:
+    """Gradients split into the JAX kernels' tensors (``_pack_params``):
+    the view layer's feature rows and encoding rows apart, and a skip
+    layer's encoding rows apart from its trunk rows; each block has its
+    own scale, so an error is measured per block."""
+    out = dict(grads)
+    w = out.pop("views_0.weight")
+    out["views_0.weight[feat]"], out["views_0.weight[enc]"] = \
+        w[:, :width], w[:, width:]
+    e_p = 3 + 6 * multires
+    for s in live_skips(depth, skips):
+        w = out.pop(f"trunk_{s + 1}.weight")
+        out[f"trunk_{s + 1}.weight[enc]"] = w[:, :e_p]
+        out[f"trunk_{s + 1}.weight[trunk]"] = w[:, e_p:]
+    return out
+
+
+# ------------------------------------------------------------ plain twins
+
+def _forward_plain(params, pts_t, viewdirs_t, S, depth, width, multires,
+                   multires_views, dtype, skips):
+    """The forward kernel's arithmetic: operands rounded to ``dtype``,
+    products in float32, each activation rounded to ``dtype``. Returns raw
+    ``[4, P]``, the activations ``[h_0 .. h_{D-1}, feat, hv]`` (each
+    ``[P, C]`` float32 holding ``dtype`` values), and the point and ray
+    encodings."""
     ls = live_skips(depth, skips)
     e_p = 3 + 6 * multires
 
@@ -124,7 +267,7 @@ def fused_nerf_fwd_plain(params: Mapping[str, torch.Tensor], pts_t: torch.Tensor
         return params[f"{name}.bias"].detach().float()
 
     enc = rnd(positional_encoding(pts_t.float().T, multires))  # [P, e_p]
-    h = enc
+    hs, h = [], enc
     for i in range(depth):
         wi = w(f"trunk_{i}")
         if i == 0:
@@ -134,6 +277,7 @@ def fused_nerf_fwd_plain(params: Mapping[str, torch.Tensor], pts_t: torch.Tensor
         else:
             acc = h @ wi.T
         h = rnd(torch.relu(acc + b(f"trunk_{i}")))
+        hs.append(h)
     sigma = h @ w("sigma").T + b("sigma")  # [P, 1]
     feat = rnd(h @ w("feature").T + b("feature"))
     wv = w("views_0")
@@ -142,37 +286,135 @@ def fused_nerf_fwd_plain(params: Mapping[str, torch.Tensor], pts_t: torch.Tensor
     hv = rnd(torch.relu(feat @ wv[:, :width].T
                         + hv_ray.repeat_interleave(S, dim=0) + b("views_0")))
     rgb = hv @ w("rgb").T + b("rgb")
-    return torch.cat([rgb, sigma], dim=-1).T.contiguous()
+    raw = torch.cat([rgb, sigma], dim=-1).T.contiguous()
+    return raw, hs + [feat, hv], enc, encv
 
 
-def _launch(packed: PackedParams, pts_t, viewdirs_t, S, depth, width,
-            multires, multires_views, skips):
-    P = pts_t.shape[1]
-    out = torch.empty((4, P), dtype=torch.float32, device=pts_t.device)
-    skip_mask = sum(1 << s for s in live_skips(depth, skips))
-    lib = _build.load(KERNEL, ARGTYPES)
-    err = lib.fused_nerf_fwd_launch(
-        pts_t.data_ptr(), viewdirs_t.data_ptr(), packed.weights.data_ptr(),
-        packed.biases.data_ptr(), out.data_ptr(), P, S, depth, width,
-        multires, multires_views, skip_mask,
-        int(packed.dtype == torch.bfloat16),
-        ctypes.addressof(packed.w_offsets), ctypes.addressof(packed.b_offsets),
-        torch.cuda.current_stream(pts_t.device).cuda_stream)
-    _build.check(lib, KERNEL, err)
-    fused_nerf_fwd.launches += 1
+def fused_nerf_fwd_plain(params: Mapping[str, torch.Tensor], pts_t: torch.Tensor,
+                         viewdirs_t: torch.Tensor, S: int, *, depth: int,
+                         width: int, multires: int, multires_views: int,
+                         dtype=torch.float32, skips=()) -> torch.Tensor:
+    """Kernel 1's twin: ``pts_t [3, P]``, ``viewdirs_t [3, P // S]`` ->
+    raw ``[4, P]``."""
+    return _forward_plain(params, pts_t, viewdirs_t, S, depth, width,
+                          multires, multires_views, dtype, skips)[0]
+
+
+def split_acts(acts: torch.Tensor, P: int, depth: int, width: int):
+    """Views of a saved-activation buffer (kernel 4's layout): D trunk and
+    one feature ``[P, W]`` array, then the view activation ``[P, W/2]``."""
+    n = P * width
+    return ([acts[l * n:(l + 1) * n].view(P, width) for l in range(depth + 1)]
+            + [acts[(depth + 1) * n:].view(P, width // 2)])
+
+
+def fused_nerf_fwd_acts_plain(params, pts_t, viewdirs_t, S: int, *,
+                              depth: int, width: int, multires: int,
+                              multires_views: int, dtype=torch.float32,
+                              skips=()):
+    """Kernel 4's twin: raw ``[4, P]`` and the saved activations as one
+    ``dtype`` buffer (:func:`split_acts` gives the arrays)."""
+    raw, acts, _, _ = _forward_plain(params, pts_t, viewdirs_t, S, depth,
+                                     width, multires, multires_views, dtype,
+                                     skips)
+    return raw, torch.cat([a.to(dtype).reshape(-1) for a in acts])
+
+
+def _segments(P: int, S: int, device):
+    """Segment of each point (a maximal run of one ray inside one kernel
+    tile) and the ray of each segment: the kernel sums the view-layer
+    gradient of a ray over its points in one tile, then rounds."""
+    p = torch.arange(P, device=device)
+    start = (p % TILE == 0) | (p % S == 0)
+    seg = torch.cumsum(start.long(), 0) - 1
+    return seg, p[start] // S
+
+
+def _bwd_from_acts(params, enc, encv, acts, g, S, depth, width, dtype, skips):
+    """The backward tile body (``_bwd_tile_body``) over all points at once:
+    gradients of every parameter, as the kernels compute them."""
+    ls = live_skips(depth, skips)
+    e_p = enc.shape[1]
+
+    def rnd(x):
+        return x.to(dtype).float()
+
+    def w(name):
+        return rnd(params[f"{name}.weight"].detach().float())
+
+    g = g.float()
+    gb = rnd(g)  # [4, P]
+    hs, feat, hv = acts[:depth], acts[depth], acts[depth + 1]
+    out = {"rgb.weight": gb[:3] @ hv, "rgb.bias": g[:3].sum(1),
+           "sigma.bias": g[3:].sum(1)}
+    dhv = rnd(torch.where(hv > 0, gb[:3].T @ w("rgb"), 0.0))  # [P, W/2]
+    seg, ray = _segments(g.shape[1], S, g.device)
+    seg_sum = rnd(torch.zeros((ray.numel(), width // 2), device=g.device)
+                  .index_add_(0, seg, dhv))
+    out["views_0.weight"] = torch.cat([dhv.T @ feat, seg_sum.T @ encv[ray]],
+                                      dim=1)
+    out["views_0.bias"] = dhv.sum(0)
+    dfeat = rnd(dhv @ w("views_0")[:, :width])
+    h = hs[-1]
+    out["feature.weight"] = dfeat.T @ h
+    out["feature.bias"] = dfeat.sum(0)
+    out["sigma.weight"] = gb[3:] @ h
+    dh = dfeat @ w("feature") + gb[3][:, None] * w("sigma")
+    for l in range(depth - 1, -1, -1):
+        dh = rnd(torch.where(hs[l] > 0, dh, 0.0))
+        out[f"trunk_{l}.bias"] = dh.sum(0)
+        if l == 0:
+            out["trunk_0.weight"] = dh.T @ enc
+            break
+        dw = dh.T @ hs[l - 1]
+        wl = w(f"trunk_{l}")
+        if (l - 1) in ls:
+            dw = torch.cat([dh.T @ enc, dw], dim=1)
+            wl = wl[:, e_p:]
+        out[f"trunk_{l}.weight"] = dw
+        dh = dh @ wl
     return out
 
 
-def fused_nerf_fwd(params: Mapping[str, torch.Tensor], pts_t: torch.Tensor,
-                   viewdirs_t: torch.Tensor, S: int, *, depth: int, width: int,
-                   multires: int, multires_views: int, dtype=torch.float32,
-                   skips=(), packed: PackedParams | None = None) -> torch.Tensor:
-    """Raw ``[4, P]`` for points ``pts_t [3, P]`` (point p on ray p // S)
-    and unit view directions ``viewdirs_t [3, P // S]``, float32.
+def fused_nerf_bwd_acts_plain(params, pts_t, viewdirs_t, g, acts, S: int, *,
+                              depth: int, width: int, multires: int,
+                              multires_views: int, dtype=torch.float32,
+                              skips=()) -> Dict[str, torch.Tensor]:
+    """Kernel 5's twin: parameter gradients for the cotangent ``g [4, P]``
+    of raw, from the saved activations ``acts`` of kernel 4."""
+    P = pts_t.shape[1]
 
-    ``packed`` is ``pack_params(params, depth, dtype)`` made once by a caller
-    that launches many times with unchanged weights; without it every launch
-    packs the weights anew."""
+    def rnd(x):
+        return x.to(dtype).float()
+
+    enc = rnd(positional_encoding(pts_t.float().T, multires))
+    encv = rnd(positional_encoding(viewdirs_t.float().T, multires_views))
+    arrays = [a.float() for a in split_acts(acts, P, depth, width)]
+    return _bwd_from_acts(params, enc, encv, arrays, g, S, depth, width,
+                          dtype, skips)
+
+
+def fused_nerf_bwd_plain(params, pts_t, viewdirs_t, g, S: int, *, depth: int,
+                         width: int, multires: int, multires_views: int,
+                         dtype=torch.float32, skips=(),
+                         flags: torch.Tensor | None = None
+                         ) -> Dict[str, torch.Tensor]:
+    """Kernels 2 and 3's twin: recompute the forward, then backpropagate.
+    With ``flags`` (one per 64-point tile) a tile whose flag is 0 adds
+    nothing, as kernel 3 skips it."""
+    if flags is not None:
+        keep = flags.to(torch.bool).repeat_interleave(TILE)[:g.shape[1]]
+        g = torch.where(keep, g.float(), 0.0)
+    _, acts, enc, encv = _forward_plain(params, pts_t, viewdirs_t, S, depth,
+                                        width, multires, multires_views,
+                                        dtype, skips)
+    return _bwd_from_acts(params, enc, encv, acts, g, S, depth, width, dtype,
+                          skips)
+
+
+# --------------------------------------------------------------- launches
+
+def _check(pts_t, viewdirs_t, S, dtype):
     if dtype not in _DTYPES:
         raise ValueError(f"dtype must be one of {_DTYPES}, got {dtype}")
     P = pts_t.shape[1]
@@ -180,51 +422,432 @@ def fused_nerf_fwd(params: Mapping[str, torch.Tensor], pts_t: torch.Tensor,
             or viewdirs_t.shape[1] != P // S:
         raise ValueError(f"bad shapes pts {tuple(pts_t.shape)} viewdirs "
                          f"{tuple(viewdirs_t.shape)} S={S}")
-    if torch.is_grad_enabled() and any(p.requires_grad
-                                       for p in params.values()):
-        # The kernel returns no graph; without this check a caller would
-        # train on silently zero gradients.
-        raise RuntimeError("fused_nerf_fwd has no backward yet: call it "
-                           "under torch.no_grad()")
-    kw = dict(depth=depth, width=width, multires=multires,
-              multires_views=multires_views, dtype=dtype, skips=skips)
-    if pts_t.device.type == "cpu":
-        return fused_nerf_fwd_plain(params, pts_t, viewdirs_t, S, **kw)
-    if pts_t.device.type != "cuda" or viewdirs_t.device != pts_t.device:
+    if pts_t.device.type not in ("cpu", "cuda") \
+            or viewdirs_t.device != pts_t.device:
         raise ValueError(f"unsupported devices {pts_t.device}, "
                          f"{viewdirs_t.device}")
+
+
+def _packed_for(params, depth, dtype, device, packed):
     if packed is None:
-        packed = pack_params(params, depth, dtype, pts_t.device)
-    if packed.dtype != dtype or packed.weights.device != pts_t.device:
+        packed = pack_params(params, depth, dtype, device)
+    if packed.dtype != dtype or packed.weights.device != device:
         raise ValueError(f"packed weights are {packed.dtype} on "
-                         f"{packed.weights.device}, want {dtype} on "
-                         f"{pts_t.device}")
-    return _launch(packed, pts_t.float().contiguous(),
-                   viewdirs_t.float().contiguous(), S, depth, width, multires,
-                   multires_views, skips)
+                         f"{packed.weights.device}, want {dtype} on {device}")
+    return packed
+
+
+def _fwd_launch(fn, packed, pts_t, viewdirs_t, S, depth, width, multires,
+                multires_views, skips, acts=None):
+    P = pts_t.shape[1]
+    out = torch.empty((4, P), dtype=torch.float32, device=pts_t.device)
+    skip_mask = sum(1 << s for s in live_skips(depth, skips))
+    lib = _build.load(KERNEL, ARGTYPES)
+    tail = (P, S, depth, width, multires, multires_views, skip_mask,
+            int(packed.dtype == torch.bfloat16),
+            ctypes.addressof(packed.w_offsets),
+            ctypes.addressof(packed.b_offsets),
+            torch.cuda.current_stream(pts_t.device).cuda_stream)
+    head = (pts_t.data_ptr(), viewdirs_t.data_ptr(), packed.weights.data_ptr(),
+            packed.biases.data_ptr(), out.data_ptr())
+    if acts is None:
+        err = lib.fused_nerf_fwd_launch(*head, *tail)
+    else:
+        err = lib.fused_nerf_fwd_acts_launch(*head, acts.data_ptr(), *tail)
+    _build.check(lib, KERNEL, err)
+    fn.launches += 1
+    return out
+
+
+def fused_nerf_fwd(params: Mapping[str, torch.Tensor], pts_t: torch.Tensor,
+                   viewdirs_t: torch.Tensor, S: int, *, depth: int, width: int,
+                   multires: int, multires_views: int, dtype=torch.float32,
+                   skips=(), packed: PackedParams | None = None) -> torch.Tensor:
+    """Kernel 1: raw ``[4, P]`` for points ``pts_t [3, P]`` (point p on ray
+    p // S) and unit view directions ``viewdirs_t [3, P // S]``, float32.
+
+    Under autograd, with any parameter requiring a gradient, the call goes
+    through :class:`FusedRecompute` (dense backward, kernel 2). ``packed``
+    is ``pack_params(params, depth, dtype)`` made once by a caller that
+    launches many times with unchanged weights; without it every launch
+    packs the weights anew."""
+    _check(pts_t, viewdirs_t, S, dtype)
+    kw = dict(depth=depth, width=width, multires=multires,
+              multires_views=multires_views, dtype=dtype, skips=skips)
+    if torch.is_grad_enabled() and any(p.requires_grad
+                                       for p in params.values()):
+        return FusedRecompute.run(params, pts_t, viewdirs_t, S, culled=False,
+                                  **kw)
+    if pts_t.device.type == "cpu":
+        return fused_nerf_fwd_plain(params, pts_t, viewdirs_t, S, **kw)
+    packed = _packed_for(params, depth, dtype, pts_t.device, packed)
+    return _fwd_launch(fused_nerf_fwd, packed, pts_t.float().contiguous(),
+                       viewdirs_t.float().contiguous(), S, depth, width,
+                       multires, multires_views, skips)
 
 
 fused_nerf_fwd.launches = 0
+
+
+def fused_nerf_fwd_acts(params: Mapping[str, torch.Tensor], pts_t, viewdirs_t,
+                        S: int, *, depth: int, width: int, multires: int,
+                        multires_views: int, dtype=torch.float32, skips=(),
+                        packed: PackedParams | None = None):
+    """Kernel 4: raw ``[4, P]`` and the saved activations (one ``dtype``
+    buffer, :func:`split_acts`), for :func:`fused_nerf_bwd_acts`."""
+    _check(pts_t, viewdirs_t, S, dtype)
+    kw = dict(depth=depth, width=width, multires=multires,
+              multires_views=multires_views, dtype=dtype, skips=skips)
+    if pts_t.device.type == "cpu":
+        return fused_nerf_fwd_acts_plain(params, pts_t, viewdirs_t, S, **kw)
+    packed = _packed_for(params, depth, dtype, pts_t.device, packed)
+    P = pts_t.shape[1]
+    acts = torch.empty(((depth + 1) * P * width + P * (width // 2),),
+                       dtype=dtype, device=pts_t.device)
+    raw = _fwd_launch(fused_nerf_fwd_acts, packed, pts_t.float().contiguous(),
+                      viewdirs_t.float().contiguous(), S, depth, width,
+                      multires, multires_views, skips, acts=acts)
+    return raw, acts
+
+
+fused_nerf_fwd_acts.launches = 0
+
+_SM_COUNT: Dict[int, int] = {}
+
+
+def _grid(device, n_tiles: int) -> int:
+    """One block per SM (or per tile, if fewer)."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return max(1, min(n_tiles, _SM_COUNT[idx]))
+
+
+def grad_reduce(part: torch.Tensor, n: int) -> torch.Tensor:
+    """``part [G, stride]`` -> the float32 sum over G of its first ``n``
+    columns, by ``fused_nerf_grad_reduce`` in a fixed order."""
+    out = torch.empty((n,), dtype=torch.float32, device=part.device)
+    lib = _build.load(BWD_KERNEL, BWD_ARGTYPES)
+    err = lib.fused_nerf_grad_reduce_launch(
+        part.data_ptr(), part.shape[1], part.shape[0], n, out.data_ptr(),
+        torch.cuda.current_stream(part.device).cuda_stream)
+    _build.check(lib, BWD_KERNEL, err)
+    grad_reduce.launches += 1
+    return out
+
+
+grad_reduce.launches = 0
+
+
+def _bwd_launch(fn, mode, params, packed, pts_t, viewdirs_t, g, S, depth,
+                width, multires, multires_views, skips, flags=None,
+                acts=None):
+    dev = pts_t.device
+    P = pts_t.shape[1]
+    n_tiles = -(-P // TILE)
+    G = _grid(dev, n_tiles)
+    n_w, n_b = packed.weights.numel(), packed.biases.numel()
+    stride = -(-(n_w + n_b) // 4) * 4
+    part = torch.zeros((G, stride), dtype=torch.float32, device=dev)
+    scratch = None
+    if mode != 2:
+        scratch = torch.empty(
+            (G * ((depth + 1) * TILE * width + TILE * (width // 2)),),
+            dtype=packed.dtype, device=dev)
+    lib = _build.load(BWD_KERNEL, BWD_ARGTYPES)
+    err = lib.fused_nerf_bwd_launch(
+        mode, pts_t.data_ptr(), viewdirs_t.data_ptr(), g.data_ptr(),
+        None if flags is None else flags.data_ptr(),
+        None if acts is None else acts.data_ptr(),
+        packed.weights.data_ptr(), packed.weights_t.data_ptr(),
+        packed.biases.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), part.data_ptr(),
+        stride, G, n_w, P, S, depth, width, multires, multires_views,
+        sum(1 << s for s in live_skips(depth, skips)),
+        int(packed.dtype == torch.bfloat16),
+        ctypes.addressof(packed.w_offsets), ctypes.addressof(packed.b_offsets),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, BWD_KERNEL, err)
+    fn.launches += 1
+    return unpack_grads(grad_reduce(part, n_w + n_b), params, packed, depth)
+
+
+def _bwd_inputs(pts_t, viewdirs_t, g, S, dtype):
+    _check(pts_t, viewdirs_t, S, dtype)
+    if g.shape != (4, pts_t.shape[1]) or g.device != pts_t.device:
+        raise ValueError(f"bad cotangent {tuple(g.shape)} on {g.device}")
+    return (pts_t.float().contiguous(), viewdirs_t.float().contiguous(),
+            g.float().contiguous())
+
+
+def fused_nerf_bwd(params, pts_t, viewdirs_t, g, S: int, *, depth: int,
+                   width: int, multires: int, multires_views: int,
+                   dtype=torch.float32, skips=(),
+                   packed: PackedParams | None = None
+                   ) -> Dict[str, torch.Tensor]:
+    """Kernel 2, the dense recompute backward: parameter gradients
+    (float32, in the ``params`` mapping) for the cotangent ``g [4, P]`` of
+    :func:`fused_nerf_fwd`'s raw output."""
+    pts_t, viewdirs_t, g = _bwd_inputs(pts_t, viewdirs_t, g, S, dtype)
+    kw = dict(depth=depth, width=width, multires=multires,
+              multires_views=multires_views, skips=skips)
+    if pts_t.device.type == "cpu":
+        return fused_nerf_bwd_plain(params, pts_t, viewdirs_t, g, S,
+                                    dtype=dtype, **kw)
+    packed = _packed_for(params, depth, dtype, pts_t.device, packed)
+    return _bwd_launch(fused_nerf_bwd, 0, params, packed, pts_t, viewdirs_t,
+                       g, S, **kw)
+
+
+fused_nerf_bwd.launches = 0
+
+
+def fused_nerf_bwd_culled(params, pts_t, viewdirs_t, g, S: int,
+                          flags: torch.Tensor, *, depth: int, width: int,
+                          multires: int, multires_views: int,
+                          dtype=torch.float32, skips=(),
+                          packed: PackedParams | None = None
+                          ) -> Dict[str, torch.Tensor]:
+    """Kernel 3: :func:`fused_nerf_bwd` that skips every 64-point tile whose
+    ``flags`` entry (int32, one per tile) is 0; exact when those tiles'
+    cotangents are all zero. :func:`culled_layout` makes such inputs."""
+    pts_t, viewdirs_t, g = _bwd_inputs(pts_t, viewdirs_t, g, S, dtype)
+    if flags.shape != (-(-pts_t.shape[1] // TILE),) \
+            or flags.device != pts_t.device:
+        raise ValueError(f"bad flags {tuple(flags.shape)} on {flags.device}")
+    kw = dict(depth=depth, width=width, multires=multires,
+              multires_views=multires_views, skips=skips)
+    if pts_t.device.type == "cpu":
+        return fused_nerf_bwd_plain(params, pts_t, viewdirs_t, g, S,
+                                    dtype=dtype, flags=flags, **kw)
+    packed = _packed_for(params, depth, dtype, pts_t.device, packed)
+    return _bwd_launch(fused_nerf_bwd_culled, 1, params, packed, pts_t,
+                       viewdirs_t, g, S, flags=flags.int().contiguous(), **kw)
+
+
+fused_nerf_bwd_culled.launches = 0
+
+
+def fused_nerf_bwd_acts(params, pts_t, viewdirs_t, g, acts, S: int, *,
+                        depth: int, width: int, multires: int,
+                        multires_views: int, dtype=torch.float32, skips=(),
+                        packed: PackedParams | None = None
+                        ) -> Dict[str, torch.Tensor]:
+    """Kernel 5: the backward from the activations kernel 4 saved."""
+    pts_t, viewdirs_t, g = _bwd_inputs(pts_t, viewdirs_t, g, S, dtype)
+    P = pts_t.shape[1]
+    if acts.dtype != dtype or acts.numel() != (depth + 1) * P * width \
+            + P * (width // 2) or acts.device != pts_t.device:
+        raise ValueError(f"bad activations {acts.dtype} "
+                         f"{tuple(acts.shape)} on {acts.device}")
+    kw = dict(depth=depth, width=width, multires=multires,
+              multires_views=multires_views, skips=skips)
+    if pts_t.device.type == "cpu":
+        return fused_nerf_bwd_acts_plain(params, pts_t, viewdirs_t, g, acts,
+                                         S, dtype=dtype, **kw)
+    packed = _packed_for(params, depth, dtype, pts_t.device, packed)
+    return _bwd_launch(fused_nerf_bwd_acts, 2, params, packed, pts_t,
+                       viewdirs_t, g, S, acts=acts.contiguous(), **kw)
+
+
+fused_nerf_bwd_acts.launches = 0
+
+
+# ----------------------------------------------- culling glue (kernel 3)
+
+def culled_layout(pts_t, viewdirs_t, g, S: int):
+    """``_bwd_culled_dparams``' regrouping for kernel 3.
+
+    A ray's live length is 1 + its last sample with a nonzero cotangent.
+    Rays are sorted by it (weight gradients are sums over points, so rays
+    may move as long as points, view directions and cotangents move
+    together) and regrouped into 64-point tiles of 4 rays x 16 samples; a
+    tile is live iff the longest of its 4 rays reaches its sample block.
+    Returns the regrouped points ``[3, P']``, one view direction per
+    (ray, sample block) ``[3, P' / 16]``, cotangents ``[4, P']``, and the
+    int32 tile flags; pass ``S = 16`` to the kernel."""
+    SB = SAMPLE_BLOCK
+    RB = TILE // SB
+    N = pts_t.shape[1] // S
+    nSB = S // SB
+    n_pad = (-N) % RB
+    Nf = N + n_pad
+    gch = g.reshape(4, N, S)
+    xch = pts_t.reshape(3, N, S)
+    vr = viewdirs_t
+    if n_pad:
+        gch = torch.nn.functional.pad(gch, (0, 0, 0, n_pad))
+        xch = torch.nn.functional.pad(xch, (0, 0, 0, n_pad))
+        vr = torch.nn.functional.pad(vr, (0, n_pad))
+    live = (gch != 0).any(0)  # [Nf, S]
+    idx1 = torch.arange(1, S + 1, device=g.device, dtype=torch.int32)
+    lengths = torch.where(live, idx1, 0).amax(1)
+    order = torch.argsort(lengths, stable=True)
+    lens = lengths[order]
+    nRB = Nf // RB
+
+    def regroup(a):
+        c = a.shape[0]
+        return (a[:, order].reshape(c, nRB, RB, nSB, SB)
+                .permute(0, 1, 3, 2, 4).reshape(c, -1).contiguous())
+
+    vb = (vr[:, order].reshape(3, nRB, 1, RB).expand(3, nRB, nSB, RB)
+          .reshape(3, -1).contiguous())
+    lmax = lens.reshape(nRB, RB)[:, -1]
+    start = torch.arange(nSB, device=g.device, dtype=torch.int32) * SB
+    flags = (lmax[:, None] > start[None, :]).int().reshape(-1)
+    return regroup(xch), vb, regroup(gch), flags
+
+
+# ------------------------------------------------------- backward routes
+
+class _Spec(NamedTuple):
+    S: int
+    depth: int
+    width: int
+    multires: int
+    multires_views: int
+    dtype: torch.dtype
+    skips: tuple
+
+    def kw(self):
+        return dict(depth=self.depth, width=self.width,
+                    multires=self.multires,
+                    multires_views=self.multires_views, dtype=self.dtype,
+                    skips=self.skips)
+
+
+def _bwd_dense_dparams(params, pts_t, vd_t, g, spec: _Spec, packed=None):
+    """Dense recompute backward (kernel 2)."""
+    return fused_nerf_bwd(params, pts_t, vd_t, g, spec.S, packed=packed,
+                          **spec.kw())
+
+
+def _bwd_culled_dparams(params, pts_t, vd_t, g, spec: _Spec, packed=None):
+    """Cotangent-culled recompute backward (:func:`culled_layout`, then
+    kernel 3)."""
+    xb, vb, gb, flags = culled_layout(pts_t, vd_t, g, spec.S)
+    return fused_nerf_bwd_culled(params, xb, vb, gb, SAMPLE_BLOCK, flags,
+                                 packed=packed, **spec.kw())
+
+
+def _bwd_acts_dparams(params, pts_t, vd_t, acts, g, spec: _Spec, packed=None):
+    """Saved-activation backward (kernel 5)."""
+    return fused_nerf_bwd_acts(params, pts_t, vd_t, g, acts, spec.S,
+                               packed=packed, **spec.kw())
+
+
+def _live_pack(params, spec, device):
+    # Packed from the live parameters at every differentiated call, so an
+    # optimizer step can never leave the kernels a stale copy.
+    return (pack_params(params, spec.depth, spec.dtype, device)
+            if device.type == "cuda" else None)
+
+
+class FusedRecompute(torch.autograd.Function):
+    """Kernel 1 forward; recompute backward, culled (kernel 3) or dense
+    (kernel 2). Points and view directions get no gradient."""
+
+    @staticmethod
+    def forward(ctx, spec, culled, names, pts_t, vd_t, *weights):
+        params = dict(zip(names, weights))
+        packed = _live_pack(params, spec, pts_t.device)
+        ctx.spec, ctx.culled, ctx.names, ctx.packed = spec, culled, names, packed
+        ctx.save_for_backward(pts_t, vd_t, *weights)
+        return fused_nerf_fwd(params, pts_t, vd_t, spec.S, packed=packed,
+                              **spec.kw())
+
+    @staticmethod
+    def backward(ctx, g):
+        pts_t, vd_t, *weights = ctx.saved_tensors
+        params = dict(zip(ctx.names, weights))
+        fn = _bwd_culled_dparams if ctx.culled else _bwd_dense_dparams
+        grads = fn(params, pts_t, vd_t, g.float().contiguous(), ctx.spec,
+                   ctx.packed)
+        return (None, None, None, None, None,
+                *[grads[n] for n in ctx.names])
+
+    @staticmethod
+    def run(params, pts_t, vd_t, S, *, culled, depth, width, multires,
+            multires_views, dtype, skips):
+        spec = _Spec(S, depth, width, multires, multires_views, dtype,
+                     live_skips(depth, skips))
+        names = param_names(depth)
+        return FusedRecompute.apply(spec, culled, names, pts_t.float(),
+                                    vd_t.float(), *[params[n] for n in names])
+
+
+class FusedActs(torch.autograd.Function):
+    """Kernel 4 forward (saves activations); kernel 5 backward."""
+
+    @staticmethod
+    def forward(ctx, spec, names, pts_t, vd_t, *weights):
+        params = dict(zip(names, weights))
+        packed = _live_pack(params, spec, pts_t.device)
+        ctx.spec, ctx.names, ctx.packed = spec, names, packed
+        raw, acts = fused_nerf_fwd_acts(params, pts_t, vd_t, spec.S,
+                                        packed=packed, **spec.kw())
+        ctx.save_for_backward(pts_t, vd_t, acts, *weights)
+        return raw
+
+    @staticmethod
+    def backward(ctx, g):
+        pts_t, vd_t, acts, *weights = ctx.saved_tensors
+        params = dict(zip(ctx.names, weights))
+        grads = _bwd_acts_dparams(params, pts_t, vd_t, acts,
+                                  g.float().contiguous(), ctx.spec,
+                                  ctx.packed)
+        return (None, None, None, None, *[grads[n] for n in ctx.names])
+
+    @staticmethod
+    def run(params, pts_t, vd_t, S, *, depth, width, multires,
+            multires_views, dtype, skips):
+        spec = _Spec(S, depth, width, multires, multires_views, dtype,
+                     live_skips(depth, skips))
+        names = param_names(depth)
+        return FusedActs.apply(spec, names, pts_t.float(), vd_t.float(),
+                               *[params[n] for n in names])
 
 
 def fused_nerf_apply_rays(params: Mapping[str, torch.Tensor], rays_o, rays_d,
                           viewdirs, z_vals, *, depth: int, width: int,
                           multires: int, multires_views: int,
                           dtype=torch.bfloat16, skips=(),
+                          cull_bwd: bool = False, save_acts: bool = False,
                           packed: PackedParams | None = None) -> torch.Tensor:
     """Rays ``[N, 3]`` + depths ``z_vals [N, S]`` -> channel-major raw
     ``[4, N, S]`` (rgb 0-2, sigma 3), as the JAX ``fused_nerf_apply_rays``.
 
     Points are formed transposed, ``o + d z`` as ``[3, N, S]``; ``viewdirs``
-    are the unit pre-NDC directions, one per ray. ``packed`` is as for
-    :func:`fused_nerf_fwd`.
+    are the unit pre-NDC directions, one per ray. Without a gradient the
+    plain forward runs (``packed`` as for :func:`fused_nerf_fwd`). Under
+    autograd the route is JAX's: ``save_acts`` within
+    :func:`acts_route_ok` saves activations ("acts"); otherwise the
+    recompute backward, culled when ``cull_bwd`` and the samples divide
+    into 16-sample blocks ("culled"), else dense ("dense").
     """
     N, S = z_vals.shape
     ot = rays_o.float().T[:, :, None]
     dt = rays_d.float().T[:, :, None]
     pts_t = (ot + dt * z_vals.float()[None]).reshape(3, N * S)
-    raw = fused_nerf_fwd(params, pts_t, viewdirs.float().T, S, depth=depth,
-                         width=width, multires=multires,
-                         multires_views=multires_views, dtype=dtype,
-                         skips=skips, packed=packed)
+    vd_t = viewdirs.float().T
+    kw = dict(depth=depth, width=width, multires=multires,
+              multires_views=multires_views, dtype=dtype, skips=skips)
+    if not (torch.is_grad_enabled()
+            and any(p.requires_grad for p in params.values())):
+        route = "forward"
+        raw = fused_nerf_fwd(params, pts_t, vd_t, S, packed=packed, **kw)
+    elif save_acts and acts_route_ok(N, S, depth, width, dtype):
+        route = "acts"
+        raw = FusedActs.run(params, pts_t, vd_t, S, **kw)
+    else:
+        culled = bool(cull_bwd) and cull_blocks_ok(S)
+        route = "culled" if culled else "dense"
+        raw = FusedRecompute.run(params, pts_t, vd_t, S, culled=culled, **kw)
+    fused_nerf_apply_rays.last_route = route
     return raw.reshape(4, N, S)
+
+
+fused_nerf_apply_rays.last_route = None

@@ -1,4 +1,5 @@
-"""The volumetric renderer (port of ``render/renderer.py``, serving path).
+"""The volumetric renderer (port of ``render/renderer.py``: serving, and the
+training step's differentiated render).
 
 ``render_image`` -> ``render_rays_tiled`` -> ``render_rays`` ->
 ``_composite_from_z``, as in the JAX package. Where JAX compiles the tile loop
@@ -123,17 +124,18 @@ def _fused_ok(model, cfg: RenderConfig, S: int) -> bool:
 
 
 def _composite_from_z(model, rays: Rays, z_vals, cfg: RenderConfig,
-                      generator) -> RayOutputs:
-    """Evaluate the field at per-ray depths and composite: the fused kernel
+                      generator, save_acts: bool = False) -> RayOutputs:
+    """Evaluate the field at per-ray depths and composite: the fused kernels
     and the channel-major compositor where the topology is covered, else the
-    plain module and the standard compositor."""
+    plain module and the standard compositor. ``save_acts`` asks a
+    differentiated fused pass to save its activations for the backward."""
     if rays.viewdirs is not None and _fused_ok(model, cfg, z_vals.shape[-1]):
         noise = None
         if cfg.raw_noise_std > 0.0 and generator is not None:
             noise = torch.randn(z_vals.shape, dtype=torch.float32,
                                 device=z_vals.device,
                                 generator=generator) * cfg.raw_noise_std
-        raw_t = model.apply_rays(rays, z_vals, cfg)
+        raw_t = model.apply_rays(rays, z_vals, cfg, save_acts=save_acts)
         return raw2outputs_t(
             raw_t, z_vals, rays.directions, raw_noise_std=cfg.raw_noise_std,
             white_bkgd=cfg.white_bkgd, generator=generator,
@@ -167,6 +169,8 @@ def render_rays(model, fine_model, rays: Rays, cfg: RenderConfig,
     fine pass's ``rgb_map/disp_map/acc_map/depth_map/weights``, the coarse
     ``rgb0/disp0/acc0/depth_map0``, and ``z_std``. ``generator`` drives the
     stratified jitter, sigma noise and random importance draws, in that order.
+    Under autograd the coarse pass takes the recompute backward and the fine
+    pass saves its activations (the JAX ``render_rays``).
     """
     z_vals = stratified_z_vals(rays.near, rays.far, cfg.N_samples,
                                lindisp=cfg.lindisp, perturb=cfg.perturb,
@@ -182,13 +186,15 @@ def render_rays(model, fine_model, rays: Rays, cfg: RenderConfig,
         z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
         sampler = (sample_pdf_cuda if cfg.use_pallas_sampling
                    or z_mid.device.type == "cuda" else sample_pdf)
-        z_samples = sampler(z_mid, coarse.weights[..., 1:-1],
+        # No gradient flows through the samples (JAX stop_gradient), and the
+        # kernel reads its inputs' memory, so they leave the graph first.
+        z_samples = sampler(z_mid.detach(), coarse.weights[..., 1:-1].detach(),
                             cfg.N_importance, det=not cfg.perturb,
-                            generator=generator).detach()
+                            generator=generator)
         z_all = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1).values
         fine = _composite_from_z(
             fine_model if fine_model is not None else model, rays, z_all,
-            cfg, generator)
+            cfg, generator, save_acts=True)
         ret.update({
             "rgb0": coarse.rgb, "disp0": coarse.disp, "acc0": coarse.acc,
             "depth_map0": coarse.depth,

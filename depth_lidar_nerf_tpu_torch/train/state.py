@@ -1,14 +1,17 @@
-"""Model factory (port of the model half of ``train/state.py``).
+"""Model + optimizer factory and the train state (port of ``train/state.py``).
 
 Builds the coarse and fine NeRF MLPs of ``create_nerf`` (``run_nerf.py:389-517``)
 as ``nn.Module``s on one device, with weights drawn from a seeded
 ``torch.Generator``. :class:`FusedMLP` dispatches covered topologies to the
-fused forward kernel. The optimizer and training state come with the
-training slice.
+fused kernels. The optimizer is Adam with the reference's continuous
+exponential LR decay ``lrate * 0.1^(step / (lrate_decay * 1000))``
+(``run_nerf.py:1843-1847``), as the JAX package's optax schedule: the rate
+of a step is read at the step count before the update.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
@@ -24,7 +27,7 @@ from depth_lidar_nerf_tpu_torch.train.config import TrainConfig
 
 class FusedMLP(NeRFMLP):
     """A :class:`NeRFMLP` (same parameters, same plain ``forward``) whose
-    per-ray evaluation goes through the fused forward kernel
+    per-ray evaluation goes through the fused kernels
     (:func:`ops.fused_mlp_t.fused_nerf_apply_rays`) when the topology is
     covered."""
 
@@ -35,9 +38,11 @@ class FusedMLP(NeRFMLP):
             cfg.multires_views, skips=self.skips)
 
     def packed(self, device: torch.device) -> fused_mlp_t.PackedParams:
-        """The weights in the kernel's layout on ``device``, packed again
-        only after a parameter changed: in-place updates and
-        ``load_state_dict`` bump each tensor's version counter."""
+        """The weights in the kernels' layout on ``device`` for passes
+        without a gradient, packed again after a parameter changed
+        (in-place updates and ``load_state_dict`` bump each tensor's version
+        counter) or after :meth:`invalidate_pack`. Differentiated passes
+        pack from the live parameters on every call."""
         params = dict(self.named_parameters())
         key = (self.dtype, device,
                tuple((p.data_ptr(), p._version) for p in params.values()))
@@ -47,15 +52,29 @@ class FusedMLP(NeRFMLP):
             self._packed_key = key
         return self._packed
 
-    def apply_rays(self, rays, z_vals, cfg: RenderConfig) -> torch.Tensor:
-        """Rays + per-ray depths -> channel-major raw ``[4, N, S]``."""
-        packed = (self.packed(z_vals.device) if z_vals.device.type == "cuda"
-                  else None)
+    def invalidate_pack(self) -> None:
+        """Forget the packed weights; the training step calls this after
+        every optimizer step rather than trust that the optimizer bumped
+        every parameter's version counter."""
+        self._packed_key = None
+
+    def apply_rays(self, rays, z_vals, cfg: RenderConfig,
+                   save_acts: bool = False) -> torch.Tensor:
+        """Rays + per-ray depths -> channel-major raw ``[4, N, S]``. Under
+        autograd the backward is culled when ``cfg.cull_eps > 0`` (as the
+        JAX ``FusedMLP.apply_rays``), and ``save_acts`` asks for the
+        saved-activation route."""
+        params = dict(self.named_parameters())
+        grad = torch.is_grad_enabled() and any(p.requires_grad
+                                               for p in params.values())
+        packed = (self.packed(z_vals.device)
+                  if z_vals.device.type == "cuda" and not grad else None)
         return fused_mlp_t.fused_nerf_apply_rays(
-            dict(self.named_parameters()), rays.origins, rays.directions,
-            rays.viewdirs, z_vals, depth=self.depth, width=self.width,
-            multires=cfg.multires, multires_views=cfg.multires_views,
-            dtype=self.dtype, skips=self.skips, packed=packed)
+            params, rays.origins, rays.directions, rays.viewdirs, z_vals,
+            depth=self.depth, width=self.width, multires=cfg.multires,
+            multires_views=cfg.multires_views, dtype=self.dtype,
+            skips=self.skips, cull_bwd=cfg.cull_eps > 0,
+            save_acts=save_acts, packed=packed)
 
 
 class Models(NamedTuple):
@@ -92,3 +111,88 @@ def build_models(cfg: TrainConfig, rcfg: RenderConfig, device=None,
     fine = mlp(cfg.netdepth_fine, cfg.netwidth_fine) if cfg.N_importance > 0 \
         else None
     return Models(coarse, fine)
+
+
+def _pow(base: float, n: int) -> torch.Tensor:
+    """``base ** n`` as the jitted JAX step evaluates a bias correction:
+    float32 ``pow`` with the count as a float (``torch.pow`` with a Python
+    int exponent multiplies out instead, a few ulps apart)."""
+    f32 = torch.float32
+    return torch.tensor(base, dtype=f32) ** torch.tensor(float(n), dtype=f32)
+
+
+class OptaxAdam(torch.optim.Optimizer):
+    """optax ``adam(schedule, b1, b2, eps)`` in float32, operation for
+    operation, so that a run follows the JAX package's trajectory: moments
+    ``(1 - b) g + b m``, bias correction by ``1 - b^t`` at the incremented
+    count ``t``, ``eps`` outside the square root, and the update scaled by
+    ``-schedule(count)`` read at the count before the step. (torch's
+    ``Adam`` rounds differently: ``lerp`` moments and
+    ``sqrt(v) / sqrt(1 - b2^t)``; a few ulps apart after a few steps.)"""
+
+    def __init__(self, params, schedule, b1=0.9, b2=0.999, eps=1e-8):
+        super().__init__(params, dict(b1=b1, b2=b2, eps=eps))
+        self.schedule = schedule
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("OptaxAdam takes no closure")
+        step_size = -self.schedule(self.count)
+        self.count += 1
+        for group in self.param_groups:
+            b1, b2 = group["b1"], group["b2"]
+            # Float32 scalars as 0-d tensors on the parameters' device: a CPU
+            # scalar divisor would make CUDA multiply by its reciprocal.
+            scal = torch.stack([1.0 - _pow(b1, self.count),
+                                1.0 - _pow(b2, self.count), step_size])
+            on = {}
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                if p.device not in on:
+                    on[p.device] = scal.to(p.device).unbind()
+                bc1, bc2, lr = on[p.device]
+                g = p.grad
+                st = self.state[p]
+                if not st:
+                    st["exp_avg"] = torch.zeros_like(p)
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+                mu = (1 - b1) * g + b1 * st["exp_avg"]
+                nu = (1 - b2) * (g * g) + b2 * st["exp_avg_sq"]
+                st["exp_avg"], st["exp_avg_sq"] = mu, nu
+                p.add_((mu / bc1) / (torch.sqrt(nu / bc2) + group["eps"]) * lr)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The models, their optimizer and the step count (the JAX
+    ``TrainState`` holds the same as a pytree)."""
+
+    models: Models
+    optimizer: OptaxAdam
+    step: int = 0
+
+
+def lr_schedule(cfg: TrainConfig):
+    """Learning rate at a step count (JAX ``lr_schedule``), in float32 as
+    JAX evaluates it on the int32 count."""
+    f32 = torch.float32
+    lrate = torch.tensor(cfg.lrate, dtype=f32)
+    decay_steps = torch.tensor(cfg.lrate_decay * 1000, dtype=f32)
+    base = torch.tensor(0.1, dtype=f32)
+    return lambda step: lrate * base ** (torch.tensor(step, dtype=f32)
+                                         / decay_steps)
+
+
+def make_optimizer(cfg: TrainConfig, params) -> OptaxAdam:
+    """JAX ``make_optimizer``: ``adam(lr_schedule(cfg), b1=0.9, b2=0.999,
+    eps=1e-8)``."""
+    return OptaxAdam(params, lr_schedule(cfg), b1=0.9, b2=0.999, eps=1e-8)
+
+
+def init_train_state(cfg: TrainConfig, models: Models) -> TrainState:
+    """Optimizer state over every parameter of the coarse and fine MLPs."""
+    params = [p for m in models if m is not None for p in m.parameters()]
+    return TrainState(models, make_optimizer(cfg, params), 0)

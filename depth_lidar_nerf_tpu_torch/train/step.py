@@ -1,0 +1,115 @@
+"""The training step (port of the base variant of ``train/step.py``).
+
+One step of the reference's hot loop (``run_nerf.py:1320-1847``) with RGB and
+LiDAR-depth supervision: gather a ray batch from the device-resident tables,
+render it (coarse + fine) under autograd, the RGB losses of both passes and
+the depth loss, backward, and one Adam step. On the card the MLP passes run
+the fused kernels (forward, culled or dense recompute backward, and the
+saved-activation pair for the fine pass) and sampling runs its kernel.
+
+The JAX step compiles into one XLA program; here each step is eager PyTorch
+around the kernels. Step variants that the port does not run yet (patch
+losses, GAN, semantic, sigma loss, grid training, single-image batching,
+K-step dispatch) raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from depth_lidar_nerf_tpu_torch.render.renderer import (RenderConfig, Rays,
+                                                        render_rays)
+from depth_lidar_nerf_tpu_torch.train import losses
+from depth_lidar_nerf_tpu_torch.train.config import TrainConfig
+from depth_lidar_nerf_tpu_torch.train.state import Models, TrainState
+from depth_lidar_nerf_tpu_torch.train.tables import (DepthRayTable,
+                                                     RgbRayTable, gather_rays)
+
+_UNPORTED = ("no_batching", "sigma_loss", "semantic_loss", "feature_loss",
+             "gan_loss", "depth_inverse_loss", "grid_train")
+
+
+def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
+                    hwf):
+    """The step function of the base variant (JAX ``make_train_step`` with
+    no patch, GAN, grid, sigma or semantic term and ``k_steps=1``)::
+
+        metrics = step(state, rgb_table, depth_table, generator)
+
+    ``generator`` (a ``torch.Generator`` on the tables' device) draws the
+    RGB ray indices, then the depth ray indices, then the render's jitter,
+    sigma noise and importance draws. ``idx``/``idx_d`` give the ray
+    indices instead (a parity test hands JAX's). The metrics (``loss``,
+    ``img_loss``, ``psnr``, ``depth_importance``, and ``img_loss0``/
+    ``psnr0``/``depth_loss`` where the step has them) are detached 0-d
+    tensors; reading them is left to the caller, so the step does not wait
+    for the device.
+    """
+    unported = [n for n in _UNPORTED if getattr(cfg, n)]
+    if rcfg.num_semantic_classes:
+        unported.append("num_semantic_classes")
+    if unported:
+        raise NotImplementedError(
+            f"training step variants not ported to PyTorch yet: {unported}")
+    del hwf  # only the patch and single-image variants need the frame size
+    n_depth = int(cfg.N_rand * cfg.depth_rays_prop) if cfg.colmap_depth else 0
+    n_rgb = cfg.N_rand - n_depth
+    coarse_on = cfg.N_importance > 0
+
+    def draw(n, table, generator, given):
+        dev = table.origins.device
+        if given is not None:
+            return torch.tensor(np.asarray(given), dtype=torch.long, device=dev)
+        return torch.randint(0, table.origins.shape[0], (n,), device=dev,
+                             generator=generator)
+
+    def step(state: TrainState, rgb_table: RgbRayTable,
+             depth_table: Optional[DepthRayTable],
+             generator: torch.Generator | None = None, idx=None,
+             idx_d=None) -> Dict[str, torch.Tensor]:
+        metrics = {}
+        idx = draw(n_rgb, rgb_table, generator, idx)
+        rays = gather_rays(rgb_table, idx, rcfg)
+        target_s = rgb_table.rgb[idx]
+        if n_depth > 0:
+            idx_d = draw(n_depth, depth_table, generator, idx_d)
+            rays_depth = gather_rays(depth_table, idx_d, rcfg)
+            target_depth = depth_table.depth[idx_d]
+            ray_weights = depth_table.weight[idx_d]
+            rays = Rays(*(None if a is None else torch.cat([a, b])
+                          for a, b in zip(rays, rays_depth)))
+
+        out = render_rays(models.coarse, models.fine, rays, rcfg, generator)
+        img_loss = losses.img2mse(out["rgb_map"][:n_rgb], target_s)
+        metrics["img_loss"] = img_loss
+        metrics["psnr"] = losses.mse2psnr(img_loss)
+        loss = img_loss
+        imp = losses.depth_importance(state.step, cfg.lrate_decay)
+        metrics["depth_importance"] = torch.tensor(imp)
+        if cfg.depth_loss and n_depth > 0:
+            d_loss = losses.depth_loss(
+                out["depth_map"][n_rgb:], target_depth, ray_weights,
+                weighted=cfg.weighted_loss, normalize=cfg.normalize_depth,
+                relative=cfg.relative_loss)
+            metrics["depth_loss"] = d_loss
+            loss = loss + cfg.depth_lambda * imp * d_loss
+        if coarse_on:
+            img_loss0 = losses.img2mse(out["rgb0"][:n_rgb], target_s)
+            metrics["img_loss0"] = img_loss0
+            metrics["psnr0"] = losses.mse2psnr(img_loss0)
+            loss = loss + img_loss0
+        metrics["loss"] = loss
+
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        for m in models:
+            if hasattr(m, "invalidate_pack"):
+                m.invalidate_pack()
+        state.step += 1
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step

@@ -49,6 +49,104 @@ def test_fused_fwd_kernel_matches_plain(cuda, depth, width, S, N, dtype):
     assert (got - ref).abs().max().item() <= tol
 
 
+def _mlp_inputs(cuda, depth, width, S, N, seed):
+    from depth_lidar_nerf_tpu_torch.models.nerf_mlp import NeRFMLP
+
+    g = torch.Generator().manual_seed(seed)
+    m = NeRFMLP(depth=depth, width=width, generator=g).to(cuda)
+    with torch.no_grad():
+        m.sigma.bias += 0.5  # some negative pre-activations, some positive
+    params = {k: v.detach() for k, v in m.named_parameters()}
+    rng = np.random.default_rng(seed)
+    pts = torch.from_numpy(rng.uniform(-1, 1, (3, N * S)).astype(np.float32)).to(cuda)
+    vd = torch.nn.functional.normalize(
+        torch.from_numpy(rng.normal(size=(N, 3)).astype(np.float32)), dim=-1).T.to(cuda)
+    gt = torch.from_numpy(rng.normal(size=(4, N * S)).astype(np.float32)).to(cuda)
+    # Per-ray zero suffixes, as cull_eps-masked compositing makes them.
+    lengths = torch.from_numpy(rng.integers(0, S + 1, N)).to(cuda)
+    live = torch.arange(S, device=cuda)[None] < lengths[:, None]
+    return params, pts, vd, gt * live.reshape(1, -1)
+
+
+def _grad_err(got, ref, depth, width):
+    """Worst over the JAX kernel's gradient tensors of max abs error / mean
+    abs of the reference."""
+    from depth_lidar_nerf_tpu_torch.ops.fused_mlp_t import grad_blocks
+
+    got, ref = (grad_blocks(x, depth, width, 10, (4,)) for x in (got, ref))
+    return max(((got[k] - ref[k]).abs().max() / (ref[k].abs().mean() + 1e-12)).item()
+               for k in ref)
+
+
+_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# Kernel 3 against kernel 2: in bfloat16 kernel 3 rounds a ray's view-layer
+# gradient sum per 16-sample block (as the JAX culled kernel does), kernel 2
+# per ray within a 64-point tile; the CPU twins differ by up to 1.9e-2 there.
+_TOL_CULL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+_MLP_SHAPES = [(4, 256, 64, 37), (8, 256, 128, 20), (8, 128, 128, 9), (4, 128, 16, 50),
+               (2, 128, 3, 70)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("depth,width,S,N", _MLP_SHAPES)
+def test_fused_fwd_acts_kernel_matches_plain(cuda, depth, width, S, N, dtype):
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f
+
+    params, pts, vd, _ = _mlp_inputs(cuda, depth, width, S, N, depth + S)
+    kw = dict(depth=depth, width=width, multires=10, multires_views=4, dtype=dtype,
+              skips=(4,))
+    n0 = f.fused_nerf_fwd_acts.launches
+    raw, acts = f.fused_nerf_fwd_acts(params, pts, vd, S, **kw)
+    torch.cuda.synchronize()
+    assert f.fused_nerf_fwd_acts.launches == n0 + 1
+    raw_ref, acts_ref = f.fused_nerf_fwd_acts_plain(params, pts, vd, S, **kw)
+    tol = _TOL[dtype]
+    assert (raw - raw_ref).abs().max().item() <= tol * raw_ref.abs().max().item()
+    P = N * S
+    for a, b in zip(f.split_acts(acts, P, depth, width),
+                    f.split_acts(acts_ref, P, depth, width)):
+        assert (a.float() - b.float()).abs().max().item() <= \
+            tol * b.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("depth,width,S,N", _MLP_SHAPES)
+def test_fused_bwd_kernels_match_plain(cuda, depth, width, S, N, dtype):
+    """Kernels 2 (dense), 3 (culled) and 5 (saved activations) against their
+    twins; kernel 3 equals kernel 2; kernel 2 is bit-identical run to run."""
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f
+
+    params, pts, vd, g = _mlp_inputs(cuda, depth, width, S, N, depth * S)
+    kw = dict(depth=depth, width=width, multires=10, multires_views=4, dtype=dtype,
+              skips=(4,))
+    tol = _TOL[dtype]
+    n0 = (f.fused_nerf_bwd.launches, f.fused_nerf_bwd_acts.launches,
+          f.fused_nerf_bwd_culled.launches, f.grad_reduce.launches)
+    dense = f.fused_nerf_bwd(params, pts, vd, g, S, **kw)
+    again = f.fused_nerf_bwd(params, pts, vd, g, S, **kw)
+    _, acts = f.fused_nerf_fwd_acts(params, pts, vd, S, **kw)
+    from_acts = f.fused_nerf_bwd_acts(params, pts, vd, g, acts, S, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(dense[k], again[k]) for k in dense)
+    ref = f.fused_nerf_bwd_plain(params, pts, vd, g, S, **kw)
+    assert _grad_err(dense, ref, depth, width) <= tol
+    assert _grad_err(from_acts, ref, depth, width) <= tol
+    n_culled = 0
+    if f.cull_blocks_ok(S):
+        xb, vb, gb, flags = f.culled_layout(pts, vd, g, S)
+        culled = f.fused_nerf_bwd_culled(params, xb, vb, gb, f.SAMPLE_BLOCK, flags, **kw)
+        torch.cuda.synchronize()
+        assert 0 < int(flags.sum()) < flags.numel()
+        ref_c = f.fused_nerf_bwd_plain(params, xb, vb, gb, f.SAMPLE_BLOCK, flags=flags,
+                                       **kw)
+        assert _grad_err(culled, ref_c, depth, width) <= tol
+        assert _grad_err(culled, dense, depth, width) <= _TOL_CULL[dtype]
+        n_culled = 1
+    assert (f.fused_nerf_bwd.launches, f.fused_nerf_bwd_acts.launches,
+            f.fused_nerf_bwd_culled.launches, f.grad_reduce.launches) == \
+        (n0[0] + 2, n0[1] + 1, n0[2] + n_culled, n0[3] + 3 + n_culled)
+
+
 @pytest.mark.parametrize("N,B,V", [(33088, 63, 64), (5, 17, 100), (1000, 2, 7)])
 def test_inverse_cdf_kernel_matches_plain(cuda, N, B, V):
     from depth_lidar_nerf_tpu_torch.ops import sampling_cuda as s
@@ -95,3 +193,45 @@ def test_render_on_card_always_runs_both_kernels(cuda, flag):
     assert (f.fused_nerf_fwd.launches - n0[0],
             s.inverse_cdf.launches - n0[1]) == (2, 1)
     assert torch.isfinite(out["rgb_map"]).all()
+
+
+@pytest.mark.parametrize("cull_eps", [1e-4, 0.0])
+def test_train_step_launches_each_kernel_once(cuda, cull_eps):
+    """One training step on the card runs kernel 1 (coarse forward), kernel 3
+    (coarse culled backward; kernel 2 at cull_eps=0), kernels 4 and 5 (fine
+    pass), sampling once, and two gradient reductions."""
+    from depth_lidar_nerf_tpu_torch.data.synthetic import draw_scene
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f
+    from depth_lidar_nerf_tpu_torch.ops import sampling_cuda as s
+    from depth_lidar_nerf_tpu_torch.train.config import (TrainConfig,
+                                                         render_config_from)
+    from depth_lidar_nerf_tpu_torch.train.state import (build_models,
+                                                        init_train_state)
+    from depth_lidar_nerf_tpu_torch.train.step import make_train_step
+    from depth_lidar_nerf_tpu_torch.train.tables import (build_depth_table,
+                                                         build_rgb_table)
+
+    sc = draw_scene(n_images=2, H=16, W=24, focal=20.0, n_depth_points=50,
+                    backdrop=True)
+    cfg = TrainConfig(dataset_type="llff", N_rand=256, N_samples=32,
+                      N_importance=32, netdepth=4, netwidth=128, netdepth_fine=4,
+                      netwidth_fine=128, use_viewdirs=True, no_ndc=True,
+                      raw_noise_std=1.0, colmap_depth=True, depth_loss=True,
+                      compute_dtype="bfloat16", cull_eps=cull_eps)
+    rcfg = render_config_from(cfg, 0, sc.near, sc.far)
+    models = build_models(cfg, rcfg)
+    state = init_train_state(cfg, models)
+    tables = (build_rgb_table(sc.images, sc.poses, [0, 1], *sc.hwf, rcfg),
+              build_depth_table(sc.depth_gts, sc.poses, [0, 1], *sc.hwf, rcfg))
+    step = make_train_step(cfg, rcfg, models, sc.hwf)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    fns = (f.fused_nerf_fwd, f.fused_nerf_bwd, f.fused_nerf_bwd_culled,
+           f.fused_nerf_fwd_acts, f.fused_nerf_bwd_acts, s.inverse_cdf,
+           f.grad_reduce)
+    n0 = [fn.launches for fn in fns]
+    m = step(state, *tables, gen)
+    torch.cuda.synchronize()
+    culled = cull_eps > 0
+    assert [fn.launches - n for fn, n in zip(fns, n0)] == \
+        [1, int(not culled), int(culled), 1, 1, 1, 2]
+    assert all(torch.isfinite(v) for v in m.values())

@@ -66,9 +66,14 @@ def test_wrappers_refuse_other_devices_and_gradients():
     m = NeRFMLP(depth=2, width=128)
     params = dict(m.named_parameters())
     kw = dict(depth=2, width=128, multires=10, multires_views=4)
-    pts, vd = torch.zeros(3, 8), torch.zeros(3, 2)
-    with pytest.raises(RuntimeError, match="no backward"):
-        fused_nerf_fwd(params, pts, vd, 4, **kw)
+    pts = torch.linspace(-1, 1, 24).reshape(3, 8)
+    vd = torch.nn.functional.normalize(torch.ones(3, 2), dim=0)
+    # Under autograd the wrapper trains: a gradient reaches every parameter.
+    with torch.no_grad():
+        m.sigma.bias += 1.0  # a live density, so every layer gets a signal
+    fused_nerf_fwd(params, pts, vd, 4, **kw).square().sum().backward()
+    for name, p in params.items():
+        assert p.grad is not None and p.grad.abs().sum() > 0, name
     with torch.no_grad():
         assert fused_nerf_fwd(params, pts, vd, 4, **kw).shape == (4, 8)
         with pytest.raises(ValueError, match="unsupported"):
