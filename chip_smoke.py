@@ -18,7 +18,8 @@ which raises on failure:
    backwards) at W=256, D=4 and D=8 skip@4, float32 and bfloat16, 4,096 and
    16,384 rays x S=64 and 128, on cotangents with per-ray zero suffixes
    (the backwards against the plain backward on the forward kernel's
-   activations); the culled backward also against the dense one;
+   activations); the culled backward also against the dense one; then the
+   semantic kernels (phase 8), so that a faulty kernel stops the run early;
 4. serving: ``configs/rgb_only.txt`` as shipped, at full width in bfloat16,
    seeded weights with scaled heads, ``render_path`` over 3 spiral poses of
    94 x 352 (focal 88). Asserts finite outputs of the right shapes and the
@@ -41,10 +42,38 @@ which raises on failure:
    4,096 rays, float32 and bfloat16, perturbation and noise on; compares
    the losses and the final parameters;
 7. each kernel's time at the serving and training shapes beside its plain
-   version's and its bound, as one ``{"kernels": [...]}`` JSON line.
+   version's and its bound;
+8. (run within phase 3) the semantic kernels against their plain
+   versions: kernels 6 (no-grad
+   forward), 7 (forward saving activations) and 8 (backward), the semantic
+   head kernel and the head's backward kernel, at W=256, 19 classes, D=4
+   and D=8 skip@4, float32 and bfloat16, 4,096 and 16,384 rays x S=64 and
+   128, on logit cotangents that are zero on the second half of the rays
+   (the backward against the plain backward on kernel 7's activations;
+   kernels 6 and 7 bitwise equal; kernel 8 bit for bit run to run);
+9. semantic training: ``bench.py``'s ``ref_default_semantic_two_mlp``
+   stack (coarse D=4 and fine D=8 skip@4 at W=256, both with a 19-class
+   semantic head, 64 + 64 samples, 16,384 rays half RGB half LiDAR depth,
+   semantic loss 0.04, depth loss 0.01, ``raw_noise_std`` 1, bfloat16,
+   ``cull_eps`` 1e-4) on ``draw_scene(..., num_classes=19)``: 5 warm-up
+   steps and 20 timed ones. Asserts finite losses, the exact launch counts
+   (kernels 7 and 8 and both head kernels twice a step, sampling once, four
+   gradient reductions, no other MLP kernel), and that the total and the
+   semantic loss fall; prints ms/step and rays/s and profiles one step;
+10. semantic serving: one 94 x 352 frame of the seeded semantic stack at
+   ``chunk`` 16,384 (both passes within the saved-activation cap, so both
+   launch kernel 6), launch counts and a frame with few empty rays
+   asserted, ms/frame, and the frame against the plain path (rgb, depth,
+   acc and the semantic map, float32 and bfloat16);
+11. the semantic kernels' times at the step's shapes, then a 5-step
+   trajectory of the semantic stack, kernel path against plain path (4,096
+   rays, float32 and bfloat16);
+12. one ``{"kernels": [...]}`` JSON line with every kernel.
 
-The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
-outside a checkout, it exits non-zero and prints no result.
+It prints ``phase N done at T s`` as it goes; a whole run took under 200 s
+on an H100 (PERF.md). The last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or outside a checkout, it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -59,6 +88,7 @@ import time
 from unittest import mock
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T_START = time.time()
 H, W, FOCAL = 94, 352, 88.0  # the flagship frame (scripts/flagship_quality.py)
 N_FRAMES = 3
 # Served field: seeded weights with the density head scaled and offset and
@@ -90,6 +120,45 @@ CULL_TOL = {"float32": 5e-5, "bfloat16": 6e-2}
 # and 8.2e-2).
 TRAJ_TOL = {"float32": (6e-6, 1e-2), "bfloat16": (3e-3, 0.15)}
 TRAIN_N_RAYS, TRAJ_N_RAYS = 16384, 4096
+SEM_CLASSES = 19  # bench.py's ref_default_semantic_two_mlp scene
+# Semantic kernels against their plain versions, as TRAIN_TOL: per gradient
+# tensor max abs error over mean abs of the reference; outputs (raw,
+# logits, activations), max abs error over max abs of the reference. Per
+# kernel, about 3x its largest gap measured on an H100 (PERF.md): float32
+# 1.1e-6 (kernels 6, 7), 1.8e-4 (kernel 8: the gap grows with the points a
+# gradient sums), 1.1e-5 (head backward); bfloat16 3.9e-3, 7.4e-3, 1.6e-4,
+# 6.8e-6. The head kernel equals its twin (0); its limit is float32
+# rounding of a 256-term sum.
+SEM_TOL = {
+    "float32": {"fused_nerf_fwd_sem": 3e-6, "fused_nerf_fwd_acts_sem": 3e-6,
+                "fused_nerf_bwd_acts_sem": 5e-4, "fused_nerf_sem_head": 1e-5,
+                "fused_nerf_sem_head_bwd": 3e-5},
+    "bfloat16": {"fused_nerf_fwd_sem": 1.2e-2, "fused_nerf_fwd_acts_sem": 2e-2,
+                 "fused_nerf_bwd_acts_sem": 5e-4, "fused_nerf_sem_head": 1e-5,
+                 "fused_nerf_sem_head_bwd": 2e-5}}
+# Semantic trajectory, kernel path against plain path over 5 steps: as
+# TRAJ_TOL (loss, update). About 3x the gaps measured on an H100 (float32
+# 3.1e-5 and 8.2e-3; bfloat16 2.1e-4 and 4.9e-2, where plain bfloat16
+# against plain float32 differ by 1.8e-3 and 0.10). The float32 loss gap is
+# 15x the two_mlp stack's: the cross-entropy of logits of ~30-300 passes
+# their float32 differences on.
+SEM_TRAJ_TOL = {"float32": (1e-4, 2.5e-2), "bfloat16": (6e-4, 0.15)}
+# Semantic frame (the seeded stack), kernel path against plain path, per
+# map: (float32 max abs error over the reference's max abs, float32 mean abs
+# error over its mean abs, bfloat16 mean over mean). About 3x the gaps
+# measured on an H100 (PERF.md). The float32 maxima come from a few rays
+# whose importance samples move with a 1e-7 change of a coarse weight; the
+# means carry the check's power. In bfloat16 the semantic map's limit about
+# equals the gap between the plain path in bfloat16 and in float32 (1.35e-2),
+# the other maps' stay below theirs.
+SEM_FRAME_TOL = {"rgb_map": (1.5e-2, 1e-5, 6e-3),
+                 "depth_map": (7e-3, 1.2e-5, 8e-3),
+                 "acc_map": (1.5e-2, 1e-5, 6e-3),
+                 "sem_preds": (5e-3, 3.3e-5, 1.4e-2)}
+# Share of the frame's rays with no opacity (measured 0.5%): an empty ray
+# has acc = depth = 0 in both paths and would thin out the comparison.
+SEM_EMPTY_MAX = 0.01
+SEM_CHUNK = 16384  # rays per serving tile: 2.10 M fine points, under the D=8 cap
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bytes/s and FLOP/s.
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -135,6 +204,26 @@ def device_times(prof):
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.self_device_time_total > 0
                    and not e.key.startswith("Optimizer.")), reverse=True)
+
+
+def profile_step(fn, label):
+    """One call of ``fn`` under torch.profiler: wall time, device busy share
+    and the ten kernels that took longest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    by_name = device_times(prof)
+    dev_ms = sum(t for t, _ in by_name)
+    print(f"profiled {label}: wall {wall_ms:.1f} ms, device busy {dev_ms:.1f} ms "
+          f"({100 * dev_ms / wall_ms:.1f}%), idle {wall_ms - dev_ms:.1f} ms")
+    for t, name in by_name[:10]:
+        print(f"  {t:9.3f} ms  {name[:90]}")
 
 
 def mlp_macs(depth, width, e_p, e_v, live_skips, S):
@@ -272,9 +361,496 @@ def train_kernel_checks(fmt, NeRFMLP, dev, launch_fns):
     return err
 
 
-def two_mlp_stack(dev, n_rand, dtype, fused=True):
-    """The ``two_mlp`` configuration of ``bench.py`` on the in-memory
-    synthetic scene: (cfg, rcfg, models, tables, hwf)."""
+def sem_inputs(NeRFMLP, dev, depth, n_rays, S, seed):
+    """Seeded W=256 weights with a 19-class semantic head (random biases, so
+    the head's S-scaled biases count), points, view directions, a raw
+    cotangent, and a logit cotangent that is zero on the second half of the
+    rays (the step's depth rays carry no semantic loss)."""
+    import numpy as np
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    m = NeRFMLP(depth=depth, width=256, num_semantic_classes=SEM_CLASSES,
+                generator=g).to(dev)
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=g))
+        m.sigma.bias += 0.5
+    params = {k: v.detach() for k, v in m.named_parameters()}
+    rng = np.random.default_rng(seed)
+    P = n_rays * S
+    pts = torch.from_numpy(rng.uniform(-1, 1, (3, P)).astype(np.float32)).to(dev)
+    vd = torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(size=(n_rays, 3)).astype(np.float32)), dim=-1).T.contiguous().to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    gt = torch.randn((4, P), device=dev, generator=gen)
+    gsem = torch.randn((n_rays, SEM_CLASSES), device=dev, generator=gen)
+    gsem[n_rays // 2:] = 0.0
+    return params, pts, vd, gt, gsem
+
+
+def rel_err(got, ref):
+    """(max abs error, max abs error over max abs of the reference)."""
+    d = (got.float() - ref.float()).abs().max().item()
+    return d, d / (ref.float().abs().max().item() + 1e-30)
+
+
+SEM_KERNELS = ("fused_nerf_fwd_sem", "fused_nerf_fwd_acts_sem",
+               "fused_nerf_bwd_acts_sem", "fused_nerf_sem_head",
+               "fused_nerf_sem_head_bwd")
+
+
+def sem_kernel_checks(fmt, NeRFMLP, dev, launch_fns, depths=(4, 8),
+                      shapes=((4096, 64), (4096, 128), (TRAIN_N_RAYS, 64),
+                              (TRAIN_N_RAYS, 128))):
+    """Phase 8: kernels 6 and 7 against the plain forward and head; the head
+    kernel alone against its twin on partial sums of kernel 7's feature
+    activation; kernel 8 and the head's backward kernel against their twins
+    on kernel 7's activations (the plain backward takes the kernel's
+    activations, as in phase 3); kernel 8 twice, bit for bit. Returns each
+    kernel's largest max abs error."""
+    import torch
+
+    err = dict.fromkeys(SEM_KERNELS, 0.0)
+    width, C = 256, SEM_CLASSES
+    for depth in depths:
+        for n_rays, S in shapes:
+            params, pts, vd, g, gsem = sem_inputs(NeRFMLP, dev, depth, n_rays,
+                                                  S, depth * 100 + S)
+            P = n_rays * S
+            for dtype in (torch.float32, torch.bfloat16):
+                name = str(dtype)[6:]
+                kw = dict(depth=depth, width=width, multires=10,
+                          multires_views=4, dtype=dtype, skips=(4,))
+                raw6, sem6 = fmt.fused_nerf_fwd_sem(params, pts, vd, S, **kw)
+                raw7, acts, sem7, sem_acts = fmt.fused_nerf_fwd_acts_sem(
+                    params, pts, vd, S, **kw)
+                grads = fmt.fused_nerf_bwd_acts_sem(params, pts, vd, g, gsem,
+                                                    acts, sem_acts, S, **kw)
+                sem = fmt.pack_sem(params, dtype, dev)
+                fpart = fmt.sem_tile_partials_plain(
+                    fmt.split_acts(acts, P, depth, width)[depth], S)
+                head, head_acts = fmt.sem_head(fpart, sem, n_rays, S, save=True)
+                hflat, hdfeat = fmt.sem_head_bwd(gsem, sem_acts, sem, S)
+                again = None
+                if (n_rays, S) == shapes[0]:
+                    again = fmt.fused_nerf_bwd_acts_sem(
+                        params, pts, vd, g, gsem, acts, sem_acts, S, **kw)
+                torch.cuda.synchronize()
+                n_before = [f.launches for f in launch_fns]
+                check(torch.equal(raw6, raw7) and torch.equal(sem6, sem7),
+                      "kernels 6 and 7 give the same raw and logits")
+                if again is not None:
+                    check(all(torch.equal(grads[k], again[k]) for k in grads),
+                          "kernel 8 bit-identical run to run")
+                raw_ref, acts_ref, _, _ = fmt._forward_plain(
+                    params, pts, vd, S, depth, width, 10, 4, dtype, (4,))
+                sem_ref, sem_acts_ref = fmt.sem_head_plain(
+                    fmt.sem_tile_partials_plain(acts_ref[depth], S), sem,
+                    n_rays, S)
+                e6 = [rel_err(raw6, raw_ref), rel_err(sem6, sem_ref)]
+                e7 = [rel_err(raw7, raw_ref), rel_err(sem7, sem_ref),
+                      rel_err(sem_acts, sem_acts_ref)]
+                e7 += [rel_err(a, b) for a, b in
+                       zip(fmt.split_acts(acts, P, depth, width), acts_ref)]
+                del raw_ref, acts_ref, sem_acts_ref
+                head_ref, head_acts_ref = fmt.sem_head_plain(fpart, sem,
+                                                             n_rays, S)
+                eh = [rel_err(head, head_ref),
+                      rel_err(head_acts, head_acts_ref)]
+                ref = fmt.fused_nerf_bwd_acts_sem_plain(
+                    params, pts, vd, g, gsem, acts, sem_acts, S, **kw)
+                e8 = grad_err(fmt, grads, ref, depth)
+                hflat_ref, hdfeat_ref = fmt.sem_head_bwd_plain(gsem, sem_acts,
+                                                               sem, S)
+                hg, hg_ref = (fmt.unpack_sem_grads(x, width, C)
+                              for x in (hflat, hflat_ref))
+                ehb = [max(((hg[k] - hg_ref[k]).abs().max()
+                            / (hg_ref[k].abs().mean() + 1e-12)).item()
+                           for k in hg_ref),
+                       rel_err(hdfeat, hdfeat_ref)[1]]
+                ehb_abs = max(max((hg[k] - hg_ref[k]).abs().max().item()
+                                  for k in hg_ref),
+                              rel_err(hdfeat, hdfeat_ref)[0])
+                check([f.launches for f in launch_fns] == n_before,
+                      "a plain version launched a kernel")
+                check(not hdfeat[n_rays // 2:].any(),
+                      "zero logit cotangents give zero feature cotangents")
+                del acts, ref, grads, again, fpart
+                torch.cuda.empty_cache()
+                rels = {"fused_nerf_fwd_sem": max(e[1] for e in e6),
+                        "fused_nerf_fwd_acts_sem": max(e[1] for e in e7),
+                        "fused_nerf_bwd_acts_sem": e8[0],
+                        "fused_nerf_sem_head": max(e[1] for e in eh),
+                        "fused_nerf_sem_head_bwd": max(ehb)}
+                abss = {"fused_nerf_fwd_sem": max(e[0] for e in e6),
+                        "fused_nerf_fwd_acts_sem": max(e[0] for e in e7),
+                        "fused_nerf_bwd_acts_sem": e8[1],
+                        "fused_nerf_sem_head": max(e[0] for e in eh),
+                        "fused_nerf_sem_head_bwd": ehb_abs}
+                print(f"kernels 6-8 D={depth} N={n_rays} S={S} {name}: "
+                      + ", ".join(f"{k[11:]} {v:.3g} (abs {abss[k]:.3g})"
+                                  for k, v in rels.items())
+                      + f"; logit scale {sem_ref.abs().max().item():.3g}; "
+                      "tolerance " + ", ".join(
+                          f"{v:g}" for v in SEM_TOL[name].values()),
+                      flush=True)
+                for k, v in rels.items():
+                    check(v <= SEM_TOL[name][k],
+                          f"{k} vs plain D={depth} N={n_rays} S={S} {name}")
+                    err[k] = max(err[k], abss[k])
+            del params, pts, vd, g, gsem
+            torch.cuda.empty_cache()
+    return err
+
+
+def kernel_fns(fmt, sc):
+    """Every kernel wrapper with a launch counter, by kernel name."""
+    return {"fused_nerf_fwd": fmt.fused_nerf_fwd,
+            "fused_nerf_fwd_acts": fmt.fused_nerf_fwd_acts,
+            "fused_nerf_bwd": fmt.fused_nerf_bwd,
+            "fused_nerf_bwd_culled": fmt.fused_nerf_bwd_culled,
+            "fused_nerf_bwd_acts": fmt.fused_nerf_bwd_acts,
+            "fused_nerf_fwd_sem": fmt.fused_nerf_fwd_sem,
+            "fused_nerf_fwd_acts_sem": fmt.fused_nerf_fwd_acts_sem,
+            "fused_nerf_bwd_acts_sem": fmt.fused_nerf_bwd_acts_sem,
+            "fused_nerf_sem_head": fmt.sem_head,
+            "fused_nerf_sem_head_bwd": fmt.sem_head_bwd,
+            "fused_nerf_grad_reduce": fmt.grad_reduce,
+            sc.KERNEL: sc.inverse_cdf}
+
+
+def semantic_phases(fmt, sc, renderer, dev, card, plain_sampler):
+    """Phases 9-11 (see the module note). Returns the numbers for the JSON
+    lines: training, serving, each kernel's launches on these main paths,
+    and each semantic kernel's (ms, plain ms, bound ms, bound by)."""
+    import numpy as np
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.render.renderer import render_image
+    from depth_lidar_nerf_tpu_torch.train.state import init_train_state
+    from depth_lidar_nerf_tpu_torch.train.step import make_train_step
+
+    fns = kernel_fns(fmt, sc)
+    out = {}
+
+    # ---- 9. semantic training ----------------------------------------------
+    t0 = time.time()
+    cfg, rcfg, sm, tables, scene = bench_stack(dev, TRAIN_N_RAYS, "bfloat16",
+                                               semantic=True)
+    seeded = [{k: v.detach().clone() for k, v in m.state_dict().items()}
+              for m in sm]
+    state = init_train_state(cfg, sm)
+    step = make_train_step(cfg, rcfg, sm, scene.hwf)
+    print(f"semantic training: ref_default_semantic_two_mlp stack built in "
+          f"{time.time() - t0:.1f} s ({tables[0].origins.shape[0]} rgb rays, "
+          f"{tables[1].origins.shape[0]} depth rays, {scene.num_classes} "
+          f"classes)", flush=True)
+    for fn in fns.values():
+        fn.launches = 0
+    gen = torch.Generator(device=dev).manual_seed(0)
+    metrics = [step(state, *tables, gen) for _ in range(5)]
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+    ev0.record()
+    metrics += [step(state, *tables, gen) for _ in range(20)]
+    ev1.record()
+    torch.cuda.synchronize()
+    ms_step = ev0.elapsed_time(ev1) / 20
+    launches = {k: fn.launches for k, fn in fns.items()}
+    n = 25
+    want = dict.fromkeys(fns, 0)
+    want.update({"fused_nerf_fwd_acts_sem": 2 * n, "fused_nerf_bwd_acts_sem": 2 * n,
+                 "fused_nerf_sem_head": 2 * n, "fused_nerf_sem_head_bwd": 2 * n,
+                 "fused_nerf_grad_reduce": 4 * n, sc.KERNEL: n})
+    print(f"semantic training launches over {n} steps: {launches}", flush=True)
+    check(launches == want, f"semantic training launch counts, want {want}")
+    vals = [{k: v.item() for k, v in m.items()} for m in metrics]
+    check(all(np.isfinite(v) for m in vals for v in m.values()),
+          "finite semantic metrics")
+    falls = {}
+    for key in ("loss", "semantic_loss", "semantic_loss0"):
+        seq = [m[key] for m in vals]
+        first, last = float(np.mean(seq[:10])), float(np.mean(seq[15:]))
+        falls[key] = (first, last)
+        print(f"semantic training {key} per step: "
+              + " ".join(f"{x:.4f}" for x in seq)
+              + f"; mean steps 1-10 {first:.5f}, steps 16-25 {last:.5f}")
+    check(falls["loss"][1] < falls["loss"][0], "semantic training loss falls")
+    check(falls["semantic_loss"][1] < falls["semantic_loss"][0],
+          "semantic cross-entropy falls")
+    print(f"semantic training steady: {ms_step:.1f} ms/step, "
+          f"{TRAIN_N_RAYS * 1e3 / ms_step:,.0f} rays/s on {card}", flush=True)
+    profile_step(lambda: step(state, *tables, gen), "semantic step")
+
+    captured = []
+    orig = fmt._bwd_acts_sem_dparams
+
+    def capture(*a, **k):
+        captured.append(a)
+        return orig(*a, **k)
+
+    with mock.patch.object(fmt, "_bwd_acts_sem_dparams", capture):
+        step(state, *tables, gen)
+    torch.cuda.synchronize()
+    out["training"] = {"ms_per_step": ms_step,
+                       "rays_per_s": TRAIN_N_RAYS * 1e3 / ms_step,
+                       "losses": [m["loss"] for m in vals],
+                       "semantic_losses": [m["semantic_loss"] for m in vals],
+                       "launches": launches, "card": card}
+    del state, step, metrics
+    torch.cuda.empty_cache()
+    print(f"phase 9 done at {time.time() - T_START:.0f} s", flush=True)
+
+    # ---- 10. semantic serving ----------------------------------------------
+    # The seeded stack: its density reaches nearly every ray of the frame,
+    # where the 25 steps above leave three quarters of the rays empty.
+    for m, sd in zip(sm, seeded):
+        m.load_state_dict(sd)
+    rv = dataclasses.replace(rcfg, chunk=SEM_CHUNK)
+    S_c, S_f = rv.N_samples, rv.N_samples + rv.N_importance
+    check(sm.coarse.supports_raw_semantic(rv, n_points=SEM_CHUNK * S_c, S=S_c)
+          and sm.fine.supports_raw_semantic(rv, n_points=SEM_CHUNK * S_f, S=S_f),
+          "kernel 6 takes both passes of a chunk-16384 tile")
+    check(not sm.fine.supports_raw_semantic(rv, n_points=32768 * S_f, S=S_f),
+          "a chunk-32768 fine tile is beyond the D=8 cap (plain module, as JAX)")
+    pose = scene.poses[1]
+    n_tiles = -(-H * W // SEM_CHUNK)
+    for fn in fns.values():
+        fn.launches = 0
+    frame = render_image(sm.coarse, sm.fine, H, W, FOCAL, pose, rv, device=dev)
+    torch.cuda.synchronize()
+    s_launches = {k: fn.launches for k, fn in fns.items()}
+    want = dict.fromkeys(fns, 0)
+    want.update({"fused_nerf_fwd_sem": 2 * n_tiles,
+                 "fused_nerf_sem_head": 2 * n_tiles, sc.KERNEL: n_tiles})
+    print(f"semantic serving launches, one {H}x{W} frame in {n_tiles} tiles: "
+          f"{s_launches}")
+    check(s_launches == want, f"semantic serving launch counts, want {want}")
+    check(frame["sem_preds"].shape == (H, W, SEM_CLASSES)
+          and frame["rgb_map"].shape == (H, W, 3), "semantic frame shapes")
+    # (disp_map is 0/0 on an empty ray, as in the reference.)
+    bad = {k: int((~torch.isfinite(v)).sum()) for k, v in frame.items()}
+    acc = frame["acc_map"].flatten().float()
+    empty = (acc == 0).float().mean().item()
+    qs = torch.quantile(acc, torch.tensor([0.0, 0.1, 0.5, 0.9, 1.0],
+                                          device=dev)).tolist()
+    print(f"semantic frame non-finite values by map: {bad}; acc quantiles "
+          "0/10/50/90/100%: " + " ".join(f"{q:.3f}" for q in qs)
+          + f", empty rays {int((acc == 0).sum().item())} (share {empty:.5f}, "
+          f"limit {SEM_EMPTY_MAX:g})")
+    check(not any(bad[k] for k in ("rgb_map", "depth_map", "acc_map",
+                                   "sem_preds", "rgb0", "acc0")),
+          "finite semantic frame")
+    check(empty <= SEM_EMPTY_MAX, "semantic frame has few empty rays")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    render_image(sm.coarse, sm.fine, H, W, FOCAL, pose, rv, device=dev)
+    torch.cuda.synchronize()
+    ms_frame = (time.time() - t0) * 1e3
+    print(f"semantic serving: {ms_frame:.1f} ms/frame, "
+          f"{H * W * 1e3 / ms_frame:,.0f} rays/s on {card}")
+
+    frames = {("kernel", d): render_image(
+        *path_models(cfg, rcfg, sm, d, False, dev), H, W, FOCAL, pose, rv,
+        device=dev) for d in ("float32", "bfloat16")}
+    n_before = [fn.launches for fn in fns.values()]
+    with mock.patch.object(renderer, "sample_pdf_cuda", plain_sampler):
+        for d in ("float32", "bfloat16"):
+            frames["plain", d] = render_image(
+                *path_models(cfg, rcfg, sm, d, True, dev), H, W, FOCAL, pose,
+                rv, device=dev)
+    check([fn.launches for fn in fns.values()] == n_before,
+          "the plain semantic render launched a kernel")
+    frame_err = {}
+    for key in ("rgb_map", "depth_map", "acc_map", "sem_preds"):
+        gaps = {}
+        for name, a, b in (("float32", ("kernel", "float32"), ("plain", "float32")),
+                           ("bfloat16", ("kernel", "bfloat16"), ("plain", "bfloat16")),
+                           ("plain_bf16_vs_f32", ("plain", "bfloat16"),
+                            ("plain", "float32"))):
+            ref = frames[b][key].float()
+            d = (frames[a][key].float() - ref).abs()
+            # (max abs, mean abs, max over max, mean over mean)
+            gaps[name] = (d.max().item(), d.mean().item(),
+                          d.max().item() / (ref.abs().max().item() + 1e-30),
+                          d.mean().item() / (ref.abs().mean().item() + 1e-30))
+        frame_err[key] = gaps
+        f32, b16, low = (gaps[k] for k in ("float32", "bfloat16",
+                                           "plain_bf16_vs_f32"))
+        print(f"semantic frame {key}, kernel vs plain: float32 max abs "
+              f"{f32[0]:.3g} mean {f32[1]:.3g} (over max {f32[2]:.3g}, mean "
+              f"over mean {f32[3]:.3g}); bfloat16 max abs {b16[0]:.3g} mean "
+              f"{b16[1]:.3g} (over max {b16[2]:.3g}, mean over mean "
+              f"{b16[3]:.3g}); for scale, plain bfloat16 vs plain float32 max "
+              f"abs {low[0]:.3g} mean {low[1]:.3g} (mean over mean "
+              f"{low[3]:.3g}); tolerance {SEM_FRAME_TOL[key]}")
+        check(f32[2] <= SEM_FRAME_TOL[key][0]
+              and f32[3] <= SEM_FRAME_TOL[key][1],
+              f"semantic frame {key} kernel vs plain, float32")
+        check(b16[3] <= SEM_FRAME_TOL[key][2],
+              f"semantic frame {key} kernel vs plain, bfloat16")
+    del frames, frame
+    out["serving"] = {"ms_per_frame": ms_frame,
+                      "rays_per_s": H * W * 1e3 / ms_frame,
+                      "launches": s_launches, "empty_share": empty,
+                      "frame_kernel_vs_plain": frame_err, "card": card}
+    out["launches"] = {k: launches[k] + s_launches[k] for k in fns}
+    del sm, tables
+    torch.cuda.empty_cache()
+    print(f"phase 10 done at {time.time() - T_START:.0f} s", flush=True)
+
+    # ---- 11a. semantic kernel times at the step's shapes (bf16) -------------
+    passes = []
+    for a in sorted(captured, key=lambda a: a[-2].depth):  # coarse, fine
+        params, pts, vd, acts, sem_acts, g, gsem, spec = a[:8]
+        params = {k: v.detach() for k, v in params.items()}
+        pk = fmt.pack_params(params, spec.depth, spec.dtype, dev)
+        P = pts.shape[1]
+        feat = fmt.split_acts(acts, P, spec.depth, 256)[spec.depth]
+        passes.append(dict(params=params, pts=pts, vd=vd, acts=acts,
+                           sem_acts=sem_acts, g=g, gsem=gsem, spec=spec,
+                           pk=pk, fpart=fmt.sem_tile_partials_plain(feat, spec.S)))
+    del captured
+
+    def each(fn):
+        def run():
+            for q in passes:
+                fn(q)
+        return run
+
+    t = {}
+    with torch.no_grad():
+        t["fused_nerf_fwd_sem"] = (
+            cuda_ms(each(lambda q: fmt.fused_nerf_fwd_sem(
+                q["params"], q["pts"], q["vd"], q["spec"].S, packed=q["pk"],
+                **q["spec"].kw())), 3),
+            cuda_ms(each(lambda q: fmt.fused_nerf_fwd_sem_plain(
+                q["params"], q["pts"], q["vd"], q["spec"].S,
+                **q["spec"].kw())), 1, 1))
+        torch.cuda.empty_cache()
+        t["fused_nerf_fwd_acts_sem"] = (
+            cuda_ms(each(lambda q: fmt.fused_nerf_fwd_acts_sem(
+                q["params"], q["pts"], q["vd"], q["spec"].S, packed=q["pk"],
+                **q["spec"].kw())), 3),
+            cuda_ms(each(lambda q: fmt.fused_nerf_fwd_acts_sem_plain(
+                q["params"], q["pts"], q["vd"], q["spec"].S,
+                **q["spec"].kw())), 1, 1))
+        torch.cuda.empty_cache()
+        t["fused_nerf_bwd_acts_sem"] = (
+            cuda_ms(each(lambda q: fmt.fused_nerf_bwd_acts_sem(
+                q["params"], q["pts"], q["vd"], q["g"], q["gsem"], q["acts"],
+                q["sem_acts"], q["spec"].S, packed=q["pk"],
+                **q["spec"].kw())), 3, 1),
+            cuda_ms(each(lambda q: fmt.fused_nerf_bwd_acts_sem_plain(
+                q["params"], q["pts"], q["vd"], q["g"], q["gsem"], q["acts"],
+                q["sem_acts"], q["spec"].S, **q["spec"].kw())), 1, 1))
+        torch.cuda.empty_cache()
+        t["fused_nerf_sem_head"] = (
+            cuda_ms(each(lambda q: fmt.sem_head(
+                q["fpart"], q["pk"].sem, q["gsem"].shape[0], q["spec"].S,
+                save=True)), 20),
+            cuda_ms(each(lambda q: fmt.sem_head_plain(
+                q["fpart"], q["pk"].sem, q["gsem"].shape[0], q["spec"].S)), 5))
+        t["fused_nerf_sem_head_bwd"] = (
+            cuda_ms(each(lambda q: fmt.sem_head_bwd(
+                q["gsem"], q["sem_acts"], q["pk"].sem, q["spec"].S)), 20),
+            cuda_ms(each(lambda q: fmt.sem_head_bwd_plain(
+                q["gsem"], q["sem_acts"], q["pk"].sem, q["spec"].S)), 5))
+    work = dict.fromkeys(t, (0.0, 0.0))  # (FLOP, bytes) of this run's inputs
+
+    def add(k, fl, by):
+        work[k] = (work[k][0] + fl, work[k][1] + by)
+
+    Wd, C = 256, SEM_CLASSES
+    WH = Wd // 2
+    for q in passes:
+        spec, pk = q["spec"], q["pk"]
+        P, S = q["pts"].shape[1], spec.S
+        N = P // S
+        n_w, n_b = pk.weights.numel(), pk.biases.numel()
+        n_sem = Wd * WH + WH + WH * C + C
+        ls = fmt.live_skips(spec.depth, spec.skips)
+        head_fl = 2 * (Wd * WH + WH * C) * N + Wd * P
+        head_bwd_fl = 4 * (Wd * WH + WH * C) * N
+        io = (3 * P + 3 * N + 4 * P) * 4 + n_w * 2 + n_sem * 2
+        acts_b = q["acts"].numel() * 2
+        sem_acts_b = N * (Wd + WH) * 2
+        fpart_b = q["fpart"].numel() * 4  # every slot is one the head reads
+        fwd = 2 * mlp_macs(spec.depth, Wd, 63, 27, ls, S) * P
+        add("fused_nerf_fwd_sem", fwd + head_fl, io + N * C * 4)
+        add("fused_nerf_fwd_acts_sem", fwd + head_fl,
+            io + N * C * 4 + acts_b + sem_acts_b)
+        add("fused_nerf_bwd_acts_sem",
+            2 * bwd_macs(spec.depth, Wd, 63, 27, ls, S) * P + head_bwd_fl,
+            io + n_w * 2 + acts_b + sem_acts_b + N * C * 4
+            + (n_w + n_b + n_sem) * 4)
+        add("fused_nerf_sem_head", head_fl,
+            fpart_b + n_sem * 2 + N * C * 4 + sem_acts_b)
+        add("fused_nerf_sem_head_bwd", head_bwd_fl,
+            N * C * 4 + sem_acts_b + n_sem * 2 + N * Wd * 2 + n_sem * 4)
+    bounds = {}
+    for k, (fl, by) in work.items():
+        t_ops, t_bytes = fl / PEAK_FLOPS["bfloat16"], by / PEAK_BYTES
+        bounds[k] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops > t_bytes else "bytes")
+        print(f"{k} at the semantic step's shapes (bf16, coarse + fine): "
+              f"{t[k][0]:.3f} ms, plain {t[k][1]:.3f} ms, "
+              f"{fl / t[k][0] / 1e9:.2f} TFLOP/s, bound {bounds[k][0]:.4f} ms "
+              f"({bounds[k][1]}) on {card}", flush=True)
+    out["times"] = {k: (t[k][0], t[k][1]) + bounds[k] for k in t}
+    # Each pass alone, beside kernels 1 and 4 on the same points without the
+    # head (what the semantic variants add).
+    with torch.no_grad():
+        for q in passes:
+            kw, S = q["spec"].kw(), q["spec"].S
+            trunk = {k: v for k, v in q["params"].items()
+                     if not k.startswith("semantic_")}
+            pk = fmt.pack_params(trunk, q["spec"].depth, q["spec"].dtype, dev)
+            one = {
+                "kernel 1": lambda: fmt.fused_nerf_fwd(trunk, q["pts"], q["vd"], S,
+                                                       packed=pk, **kw),
+                "kernel 4": lambda: fmt.fused_nerf_fwd_acts(
+                    trunk, q["pts"], q["vd"], S, packed=pk, **kw),
+                "kernel 6": lambda: fmt.fused_nerf_fwd_sem(
+                    q["params"], q["pts"], q["vd"], S, packed=q["pk"], **kw),
+                "kernel 7": lambda: fmt.fused_nerf_fwd_acts_sem(
+                    q["params"], q["pts"], q["vd"], S, packed=q["pk"], **kw),
+                "kernel 8": lambda: fmt.fused_nerf_bwd_acts_sem(
+                    q["params"], q["pts"], q["vd"], q["g"], q["gsem"], q["acts"],
+                    q["sem_acts"], S, packed=q["pk"], **kw)}
+            print(f"semantic step pass D={q['spec'].depth} P={q['pts'].shape[1]} "
+                  "(bf16): " + ", ".join(f"{k} {cuda_ms(f, 3):.3f} ms"
+                                         for k, f in one.items()), flush=True)
+            # Half the points: whether saving activations costs by depth or
+            # by the size of the buffer it writes.
+            half = q["pts"].shape[1] // 2
+            pts_h = q["pts"][:, :half].contiguous()
+            vd_h = q["vd"][:, :half // S].contiguous()
+            t1, t4 = (cuda_ms(lambda f=f: f(trunk, pts_h, vd_h, S, packed=pk,
+                                            **kw), 3)
+                      for f in (fmt.fused_nerf_fwd, fmt.fused_nerf_fwd_acts))
+            print(f"  first half of the pass (P={half}): kernel 1 {t1:.3f} ms, "
+                  f"kernel 4 {t4:.3f} ms", flush=True)
+            torch.cuda.empty_cache()
+    del passes
+    torch.cuda.empty_cache()
+    print(f"phase 11a done at {time.time() - T_START:.0f} s", flush=True)
+
+    # ---- 11b. semantic trajectory: kernel path against plain path -----------
+    out["trajectory"] = trajectories("semantic trajectory", SEM_TRAJ_TOL, dev,
+                                     list(fns.values()), renderer,
+                                     plain_sampler, semantic=True)
+    print(f"phase 11b done at {time.time() - T_START:.0f} s", flush=True)
+    return out
+
+
+def bench_stack(dev, n_rand, dtype, fused=True, semantic=False):
+    """``bench.py``'s ``two_mlp`` configuration, or with ``semantic`` its
+    ``ref_default_semantic_two_mlp`` (fine D=8 skip@4, a 19-class head on
+    both MLPs, semantic loss 0.04), on the in-memory synthetic scene:
+    (cfg, rcfg, models, tables, scene)."""
     from depth_lidar_nerf_tpu_torch.data.synthetic import draw_scene
     from depth_lidar_nerf_tpu_torch.train.config import (TrainConfig,
                                                          render_config_from)
@@ -283,21 +859,104 @@ def two_mlp_stack(dev, n_rand, dtype, fused=True):
                                                          build_rgb_table)
 
     sc = draw_scene(n_images=4, H=H, W=W, focal=FOCAL, n_depth_points=8000,
-                    backdrop=True)
+                    backdrop=True, num_classes=SEM_CLASSES if semantic else None)
     cfg = TrainConfig(dataset_type="llff", N_rand=n_rand, N_samples=64,
                       N_importance=64, netdepth=4, netwidth=256,
-                      netdepth_fine=4, netwidth_fine=256, use_viewdirs=True,
-                      no_ndc=True, raw_noise_std=1.0, colmap_depth=True,
-                      depth_loss=True, depth_lambda=0.01, compute_dtype=dtype,
-                      cull_eps=1e-4, seed=0, use_fused_mlp=fused)
-    rcfg = render_config_from(cfg, 0, sc.near, sc.far)
+                      netdepth_fine=8 if semantic else 4, netwidth_fine=256,
+                      use_viewdirs=True, no_ndc=True, raw_noise_std=1.0,
+                      colmap_depth=True, depth_loss=True, depth_lambda=0.01,
+                      semantic_loss=semantic, semantic_lambda=0.04,
+                      compute_dtype=dtype, cull_eps=1e-4, seed=0,
+                      use_fused_mlp=fused)
+    rcfg = render_config_from(cfg, sc.num_classes if semantic else 0, sc.near,
+                              sc.far)
     models = build_models(cfg, rcfg, device=dev if fused else "cpu")
     models = type(models)(*(m.to(dev) for m in models))
     it = range(4)
-    tables = (build_rgb_table(sc.images, sc.poses, it, *sc.hwf, rcfg, device=dev),
+    tables = (build_rgb_table(sc.images, sc.poses, it, *sc.hwf, rcfg,
+                              segmentation=sc.segmentation if semantic else None,
+                              device=dev),
               build_depth_table(sc.depth_gts, sc.poses, it, *sc.hwf, rcfg,
                                 device=dev))
-    return cfg, rcfg, models, tables, sc.hwf
+    return cfg, rcfg, models, tables, sc
+
+
+def path_models(cfg, rcfg, models, dtype, plain, dev):
+    """Copies of ``models`` in ``dtype`` on the kernel path, or with
+    ``plain`` as plain ``NeRFMLP`` modules (built on the CPU, where the
+    config's ``use_fused_mlp=False`` is honoured, then moved)."""
+    from depth_lidar_nerf_tpu_torch.train.state import build_models
+
+    pm = build_models(cfg.replace(use_fused_mlp=not plain, compute_dtype=dtype),
+                      rcfg, device="cpu" if plain else dev)
+    pm.coarse.load_state_dict(models.coarse.state_dict())
+    pm.fine.load_state_dict(models.fine.state_dict())
+    return pm.coarse.to(dev), pm.fine.to(dev)
+
+
+def trajectories(label, tol, dev, fns, renderer, plain_sampler, semantic):
+    """5 steps of the kernel path and of the plain path (plain modules and
+    the sampling twin, which must launch no kernel) of a :func:`bench_stack`
+    from the same weights and generator seed, TRAJ_N_RAYS rays, float32 and
+    bfloat16, perturbation and noise on. Prints and checks against ``tol``
+    (max relative loss gap over the steps; max over parameters of the
+    relative L2 gap of their 5-step updates) and returns the gaps."""
+    import numpy as np
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.train.state import (FusedMLP,
+                                                        init_train_state)
+    from depth_lidar_nerf_tpu_torch.train.step import make_train_step
+
+    traj = {}
+    for dtype in ("float32", "bfloat16"):
+        for plain in (False, True):
+            cfg, rcfg, mj, tabs, scn = bench_stack(dev, TRAJ_N_RAYS, dtype,
+                                                   fused=not plain,
+                                                   semantic=semantic)
+            check(isinstance(mj.coarse, FusedMLP) != plain, "trajectory models")
+            st = init_train_state(cfg, mj)
+            stp = make_train_step(cfg, rcfg, mj, scn.hwf)
+            gen = torch.Generator(device=dev).manual_seed(7)
+            nets = (("coarse", mj.coarse), ("fine", mj.fine))
+            init = {f"{net}.{n}": p.detach().clone()
+                    for net, m in nets for n, p in m.named_parameters()}
+            n_before = [fn.launches for fn in fns]
+            ctx = (mock.patch.object(renderer, "sample_pdf_cuda", plain_sampler)
+                   if plain else contextlib.nullcontext())
+            with ctx:
+                ls = [stp(st, *tabs, gen)["loss"].item() for _ in range(5)]
+            torch.cuda.synchronize()
+            if plain:
+                check([fn.launches for fn in fns] == n_before,
+                      f"the plain {label} path launched a kernel")
+            traj[dtype, plain] = (np.array(ls), {  # each parameter's update
+                f"{net}.{n}": p.detach() - init[f"{net}.{n}"]
+                for net, m in nets for n, p in m.named_parameters()})
+            del st, stp, mj, tabs
+            torch.cuda.empty_cache()
+
+    def gap(a, b):
+        (la, pa), (lb, pb) = traj[a], traj[b]
+        return (float(np.max(np.abs(la - lb) / np.abs(lb))),
+                max((torch.linalg.norm(pa[k] - pb[k])
+                     / torch.linalg.norm(pb[k])).item() for k in pb))
+
+    gaps = {d: gap((d, False), (d, True)) for d in ("float32", "bfloat16")}
+    gaps["plain_bf16_vs_f32"] = gap(("bfloat16", True), ("float32", True))
+    for d in ("float32", "bfloat16"):
+        print(f"{label} {d}, 5 steps of {TRAJ_N_RAYS} rays, kernel vs plain: "
+              f"max loss gap {gaps[d][0]:.3g}, max update gap {gaps[d][1]:.3g} "
+              f"(tolerance {tol[d][0]:g}, {tol[d][1]:g}); losses kernel "
+              + " ".join(f"{x:.5f}" for x in traj[d, False][0])
+              + " plain " + " ".join(f"{x:.5f}" for x in traj[d, True][0]))
+    print(f"{label} for scale, plain bfloat16 vs plain float32: max loss gap "
+          f"{gaps['plain_bf16_vs_f32'][0]:.3g}, max update gap "
+          f"{gaps['plain_bf16_vs_f32'][1]:.3g}", flush=True)
+    for d in ("float32", "bfloat16"):
+        check(gaps[d][0] <= tol[d][0] and gaps[d][1] <= tol[d][1],
+              f"{label} {d}")
+    return gaps
 
 
 def main() -> int:
@@ -329,7 +988,7 @@ def main() -> int:
     from depth_lidar_nerf_tpu_torch.train.config import (parse_args,
                                                          render_config_from)
     from depth_lidar_nerf_tpu_torch.train.loop import render_path
-    from depth_lidar_nerf_tpu_torch.train.state import (FusedMLP, build_models,
+    from depth_lidar_nerf_tpu_torch.train.state import (build_models,
                                                         init_train_state)
     from depth_lidar_nerf_tpu_torch.train.step import make_train_step
 
@@ -348,9 +1007,12 @@ def main() -> int:
         _build.load(name, types)
     print(f"build: {time.time() - t0:.1f} s (nvcc {' '.join(_build.ARCH_FLAGS)})")
     for name, log in logs.items():
+        fn = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1][:60]
+            elif "registers" in line or "spill" in line or "error" in line:
+                print(f"  {name} {fn}: {line.strip()}")
 
     # ---- 3. kernels against their plain versions ----------------------------
     # Kernel 1 at 4,096 rays and at the serving path's own tiles of a
@@ -409,11 +1071,14 @@ def main() -> int:
                  "fused_nerf_bwd": fmt.fused_nerf_bwd,
                  "fused_nerf_bwd_culled": fmt.fused_nerf_bwd_culled,
                  "fused_nerf_bwd_acts": fmt.fused_nerf_bwd_acts}
-    all_fns = [fmt.fused_nerf_fwd, sc.inverse_cdf, fmt.grad_reduce,
-               *train_fns.values()]
+    all_fns = list(kernel_fns(fmt, sc).values())
     t0 = time.time()
     err.update(train_kernel_checks(fmt, NeRFMLP, dev, all_fns))
     print(f"training kernels checked in {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    err.update(sem_kernel_checks(fmt, NeRFMLP, dev, all_fns))
+    print(f"semantic kernels checked in {time.time() - t0:.1f} s; phase 3 "
+          f"done at {time.time() - T_START:.0f} s", flush=True)
 
     # ---- 4. serving -----------------------------------------------------
     # The config as shipped: on the card both kernels run whatever its
@@ -465,22 +1130,8 @@ def main() -> int:
     print(f"serving steady: {ms_frame:.1f} ms/frame, "
           f"{H * W * 1e3 / ms_frame:,.0f} rays/s on {card}")
 
-    # One frame under torch.profiler: device time by kernel and busy share.
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        render_image(models.coarse, models.fine, H, W, FOCAL, poses[1], rcfg,
-                     device=dev)
-        torch.cuda.synchronize()
-        wall_ms = (time.time() - t0) * 1e3
-    by_name = device_times(prof)
-    dev_ms = sum(t for t, _ in by_name)
-    print(f"profiled frame: wall {wall_ms:.1f} ms, device busy {dev_ms:.1f} ms "
-          f"({100 * dev_ms / wall_ms:.1f}%), idle {wall_ms - dev_ms:.1f} ms")
-    for t, name in by_name[:8]:
-        print(f"  {t:9.3f} ms  {name[:90]}")
+    profile_step(lambda: render_image(models.coarse, models.fine, H, W, FOCAL,
+                                      poses[1], rcfg, device=dev), "frame")
 
     # The kernel path against the plain path on a sparser field, whose
     # opacity spreads across the frame (it leaves a few rays empty, where the
@@ -490,31 +1141,23 @@ def main() -> int:
             m.sigma.bias += COMPARE_OFFSET - SIGMA_OFFSET
     # Frame 0 through the kernels and through the plain versions, in float32
     # and in bfloat16, with the same weights. The plain path is plain NeRFMLP
-    # modules (built on the CPU, where the config's use_fused_mlp=False is
-    # honoured, then moved) and the sampling kernel's twin in place of the
-    # renderer's wrapper; neither kernel may launch in it.
-    def path_models(dtype, plain):
-        pm = build_models(cfg.replace(use_fused_mlp=not plain,
-                                      compute_dtype=dtype), rcfg,
-                          device="cpu" if plain else dev)
-        pm.coarse.load_state_dict(models.coarse.state_dict())
-        pm.fine.load_state_dict(models.fine.state_dict())
-        return pm.coarse.to(dev), pm.fine.to(dev)
-
+    # modules and the sampling kernel's twin in place of the renderer's
+    # wrapper; neither kernel may launch in it.
     def plain_sampler(bins, weights, n, *, det=False, generator=None):
         u = pdf_uniforms(bins.shape[0], n, det=det, generator=generator,
                          device=bins.device)
         return sc.inverse_cdf_plain(bins, weights, u)
 
     dtypes = ("float32", "bfloat16")
-    frames = {("kernel", d): render_image(*path_models(d, False), H, W, FOCAL,
-                                          poses[0], rcfg, device=dev)
-              for d in dtypes}
+    frames = {("kernel", d): render_image(
+        *path_models(cfg, rcfg, models, d, False, dev), H, W, FOCAL, poses[0],
+        rcfg, device=dev) for d in dtypes}
     n_before = (fmt.fused_nerf_fwd.launches, sc.inverse_cdf.launches)
     with mock.patch.object(renderer, "sample_pdf_cuda", plain_sampler):
         for d in dtypes:
-            frames["plain", d] = render_image(*path_models(d, True), H, W,
-                                              FOCAL, poses[0], rcfg, device=dev)
+            frames["plain", d] = render_image(
+                *path_models(cfg, rcfg, models, d, True, dev), H, W, FOCAL,
+                poses[0], rcfg, device=dev)
     check((fmt.fused_nerf_fwd.launches, sc.inverse_cdf.launches) == n_before,
           "the plain render launched a kernel")
     acc = frames["plain", "float32"]["acc_map"].flatten()
@@ -609,7 +1252,8 @@ def main() -> int:
 
     # ---- 5. training ------------------------------------------------------
     t0 = time.time()
-    cfg_t, rcfg_t, tm, tables, hwf = two_mlp_stack(dev, TRAIN_N_RAYS, "bfloat16")
+    cfg_t, rcfg_t, tm, tables, scene = bench_stack(dev, TRAIN_N_RAYS, "bfloat16")
+    hwf = scene.hwf
     state = init_train_state(cfg_t, tm)
     step = make_train_step(cfg_t, rcfg_t, tm, hwf)
     step_strict = make_train_step(cfg_t.replace(cull_eps=0.0),
@@ -653,18 +1297,7 @@ def main() -> int:
     print(f"training steady: {ms_step:.1f} ms/step, "
           f"{TRAIN_N_RAYS * 1e3 / ms_step:,.0f} rays/s on {card}", flush=True)
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        step(state, *tables, gen)
-        torch.cuda.synchronize()
-        wall_ms = (time.time() - t0) * 1e3
-    by_name = device_times(prof)
-    dev_ms = sum(t for t, _ in by_name)
-    print(f"profiled step: wall {wall_ms:.1f} ms, device busy {dev_ms:.1f} ms "
-          f"({100 * dev_ms / wall_ms:.1f}%), idle {wall_ms - dev_ms:.1f} ms")
-    for t, name in by_name[:10]:
-        print(f"  {t:9.3f} ms  {name[:90]}")
+    profile_step(lambda: step(state, *tables, gen), "step")
 
     # The backwards' inputs of one step, for the kernel times below.
     captured = {}
@@ -687,57 +1320,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6. trajectory: kernel path against plain path ---------------------
-    traj = {}
-    for dtype in ("float32", "bfloat16"):
-        for plain in (False, True):
-            cfg_j, rcfg_j, mj, tabs, hwf_j = two_mlp_stack(
-                dev, TRAJ_N_RAYS, dtype, fused=not plain)
-            check(isinstance(mj.coarse, FusedMLP) != plain, "trajectory models")
-            st = init_train_state(cfg_j, mj)
-            stp = make_train_step(cfg_j, rcfg_j, mj, hwf_j)
-            gen = torch.Generator(device=dev).manual_seed(7)
-            nets = (("coarse", mj.coarse), ("fine", mj.fine))
-            init = {f"{net}.{n}": p.detach().clone()
-                    for net, m in nets for n, p in m.named_parameters()}
-            n_before = [fn.launches for fn in all_fns]
-            ctx = (mock.patch.object(renderer, "sample_pdf_cuda", plain_sampler)
-                   if plain else contextlib.nullcontext())
-            with ctx:
-                ls = [stp(st, *tabs, gen)["loss"].item() for _ in range(5)]
-            torch.cuda.synchronize()
-            if plain:
-                check([fn.launches for fn in all_fns] == n_before,
-                      "the plain training path launched a kernel")
-            traj[dtype, plain] = (np.array(ls), {  # each parameter's update
-                f"{net}.{n}": p.detach() - init[f"{net}.{n}"]
-                for net, m in nets for n, p in m.named_parameters()})
-            del st, stp, mj, tabs
-            torch.cuda.empty_cache()
-
-    def traj_gap(a, b):
-        (la, pa), (lb, pb) = traj[a], traj[b]
-        return (float(np.max(np.abs(la - lb) / np.abs(lb))),
-                max((torch.linalg.norm(pa[k] - pb[k])
-                     / torch.linalg.norm(pb[k])).item() for k in pb))
-
-    traj_err = {}
-    for dtype in ("float32", "bfloat16"):
-        gap = traj_gap((dtype, False), (dtype, True))
-        traj_err[dtype] = gap
-        print(f"trajectory {dtype}, 5 steps of {TRAJ_N_RAYS} rays, kernel vs "
-              f"plain: max loss gap {gap[0]:.3g}, max update gap {gap[1]:.3g} "
-              f"(tolerance {TRAJ_TOL[dtype][0]:g}, {TRAJ_TOL[dtype][1]:g}); "
-              f"losses kernel "
-              + " ".join(f"{x:.5f}" for x in traj[dtype, False][0])
-              + " plain " + " ".join(f"{x:.5f}" for x in traj[dtype, True][0]))
-        check(gap[0] <= TRAJ_TOL[dtype][0] and gap[1] <= TRAJ_TOL[dtype][1],
-              f"trajectory {dtype}")
-    scale = traj_gap(("bfloat16", True), ("float32", True))
-    traj_err["plain_bf16_vs_f32"] = scale
-    print(f"trajectory for scale, plain bfloat16 vs plain float32: max loss "
-          f"gap {scale[0]:.3g}, max update gap {scale[1]:.3g}")
-    del traj
-    torch.cuda.empty_cache()
+    traj_err = trajectories("trajectory", TRAJ_TOL, dev, all_fns, renderer,
+                            plain_sampler, semantic=False)
 
     # ---- 7. training kernel times at the step's shapes (bf16) --------------
     pc, ptc, vdc, gc, spec_c, _ = captured["_bwd_culled_dparams"]
@@ -810,10 +1394,14 @@ def main() -> int:
               f"{bounds[k][0]:.3f} ms ({bounds[k][1]}) on {card}")
     del captured, pc, pf, actsf, gf, gc, xb, vb, gb
     torch.cuda.empty_cache()
+    print(f"phase 7 done at {time.time() - T_START:.0f} s", flush=True)
+
+    # ---- 9-11. the semantic stack ----------------------------------------------
+    sem = semantic_phases(fmt, sc, renderer, dev, card, plain_sampler)
 
     src = "depth_lidar_nerf_tpu_torch/csrc/"
-    main_launches = {k: launches.get(k, 0) + train_launches[k]
-                     for k in train_launches}
+    main_launches = {k: launches.get(k, 0) + train_launches.get(k, 0)
+                     + sem["launches"][k] for k in sem["launches"]}
     kernels = [
         {"name": fmt.KERNEL, "route": "cuda", "source": src + "fused_nerf_fwd.cu",
          "replaces": "depth_lidar_nerf_tpu/ops/fused_mlp_t.py:249",
@@ -836,6 +1424,22 @@ def main() -> int:
             "launches": main_launches[k], "max_abs_err": err[k], "ms": t[k][0],
             "plain_ms": t[k][1], "bound_ms": bounds[k][0],
             "bound_by": bounds[k][1], "library_ms": None})
+    for k, source, line in (("fused_nerf_fwd_sem", "fused_nerf_fwd.cu", 946),
+                            ("fused_nerf_fwd_acts_sem", "fused_nerf_fwd.cu", 963),
+                            ("fused_nerf_bwd_acts_sem", "fused_nerf_bwd.cu", 981),
+                            ("fused_nerf_sem_head", "fused_nerf_fwd.cu", 927),
+                            ("fused_nerf_sem_head_bwd", "fused_nerf_bwd.cu", 981)):
+        ms_, plain_, bound_, by_ = sem["times"][k]
+        kernels.append({
+            "name": k, "route": "cuda", "source": src + source,
+            "replaces": f"depth_lidar_nerf_tpu/ops/fused_mlp_t.py:{line}",
+            "launches": main_launches[k], "max_abs_err": err[k], "ms": ms_,
+            "plain_ms": plain_, "bound_ms": bound_, "bound_by": by_,
+            "library_ms": None})
+    print(json.dumps({"semantic_training": {
+        **sem["training"], "trajectory_kernel_vs_plain": sem["trajectory"]}}))
+    print(json.dumps({"semantic_serving": sem["serving"]}))
+    print(f"total {time.time() - T_START:.0f} s")
     print(json.dumps({"training": {
         "ms_per_step": ms_step, "rays_per_s": TRAIN_N_RAYS * 1e3 / ms_step,
         "losses": losses, "launches": train_launches,

@@ -188,16 +188,35 @@ __device__ __forceinline__ void store_masked(float (&acc)[8][NJ], const float* _
   }
 }
 
+// The semantic kernels take S that divides kTP or that kTP divides (every S that the route
+// predicate admits divides 2,048), so no ray straddles a tile unaligned.
+__host__ __device__ inline bool sem_aligned(int S) {
+  return S >= 1 && (kTP % S == 0 || S % kTP == 0);
+}
+
+// Slots of a tile's semantic partial sums: the rays that touch kTP consecutive points.
+__host__ __device__ inline int sem_tile_slots(int S) {
+  return S >= kTP ? 1 : kTP / S;
+}
+
+// First ray that touches tile t.
+__host__ __device__ inline int tile_first_ray(int t, int S) {
+  return (int)(((long long)t * kTP) / S);
+}
+
 // One tile of the forward: encodings, trunk, sigma and feature heads, view layer, rgb head.
 // `out` (raw [4, P]) may be null: then the heads are skipped. With `acts`, each trunk
 // activation, the feature activation and the view activation of the tile's valid points
 // are written in T: layer l (l <= D) row r at acts + l * lstride + (row0 + r) * W, the view
-// activation at acts + (D + 1) * lstride + (row0 + r) * W / 2.
+// activation at acts + (D + 1) * lstride + (row0 + r) * W / 2. With `fpart` (this tile's
+// sem_tile_slots(S) x W floats), the feature activation summed in float32 over each ray's
+// points in the tile, in point order: slot r holds ray tile_first_ray(t, S) + r. The
+// semantic head (fused_nerf_sem_head in fused_nerf_fwd.cu) adds a ray's slots in tile order.
 template <typename T, int W>
 __device__ void forward_tile(const Net& net, const Smem& s, const float* __restrict__ pts,
                              const float* __restrict__ vd, int P, int S, int p0,
                              float* __restrict__ out, T* __restrict__ acts, size_t lstride,
-                             size_t row0) {
+                             size_t row0, float* __restrict__ fpart = nullptr) {
   constexpr int NJ = W / 32;   // trunk / feature columns per thread
   constexpr int NJV = W / 64;  // view-layer columns per thread
   constexpr int WV = W / 2;
@@ -248,6 +267,17 @@ __device__ void forward_tile(const Net& net, const Smem& s, const float* __restr
   mac<T, NJ>(acc, h, W, w + net.woff[D + 1], W, ty, tx);
   store<T, NJ>(acc, feat, false, ty, tx, arow ? arow + D * lstride : nullptr, W, n_valid);
   __syncthreads();
+
+  // Semantic partial sums: the rounded feature of each ray's points in this tile.
+  if (fpart) {
+    for (int idx = tid; idx < n_rays * W; idx += kThreads) {
+      const int r = idx / W, c = idx % W;
+      const int lo = max(0, (r_lo + r) * S - p0), hi = min(n_valid, (r_lo + r + 1) * S - p0);
+      float sm = 0.f;
+      for (int p = lo; p < hi; ++p) sm += feat[c * kLD + p];
+      fpart[r * W + c] = sm;
+    }
+  }
 
   // Per-ray half of the view layer, once per ray, into the free trunk buffer.
   float* hv = hbuf;                 // [WV][kLD]

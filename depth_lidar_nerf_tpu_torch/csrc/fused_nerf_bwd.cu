@@ -10,6 +10,16 @@
 //   kernel 5  fused_nerf_bwd_acts_kernel    <- _bwd_kernel_acts (entry _bwd_acts_dparams):
 //             the backward that reads the activations kernel 4 saved instead of
 //             recomputing them;
+//   kernel 8  fused_nerf_sem_head_bwd_kernel, then fused_nerf_bwd_acts_kernel<.., true>
+//             <- _bwd_kernel_acts_sem (entry _bwd_acts_sem_dparams): the backward of the
+//             semantic variant (kernel 7 in fused_nerf_fwd.cu). The head's backward runs on
+//             per-ray operands, as the TPU kernel's does: from the per-ray logit cotangent
+//             gsem [N, C] and kernel 7's saved fsum and s0r, gsb = gsem rounded to T;
+//             d(W_s1) = s0r^T gsb; d(b_s1) = S sum gsem; ds0r = gsb W_s1^T (no activation
+//             between the head layers); d(W_s0) = fsum^T ds0r rounded; d(b_s0) = S sum
+//             ds0r; dfeat_ray = (ds0r rounded) W_s0^T rounded to T [N, W]. Then kernel 5's
+//             body, where dfeat_ray of each point's ray is added to dhv W_v[:W]^T in float32
+//             before dfeat is rounded (the TPU kernel's `dfeat_sem`);
 //   fused_nerf_grad_reduce_kernel: the sum of the blocks' partial gradients (no TPU
 //             counterpart: the TPU grid accumulated in one VMEM buffer in order).
 // Points and view directions get no gradient (the JAX kernels return zeros).
@@ -121,11 +131,13 @@ __device__ __forceinline__ void load_rows(float* __restrict__ dst, const T* __re
 // The backward of one tile (see the source note), reading the tile's activations from
 // `acts` as forward_tile writes them, and adding the tile's gradients into the block's
 // partial: weights at gw + woff[l], biases at gbias + boff[l]. Expects s.enc and s.encv
-// to hold the tile's encodings.
+// to hold the tile's encodings. With `dfeat_ray` ([N, W] in T), each point's feature
+// cotangent also gets its ray's row (kernel 8).
 template <typename T, int W>
 __device__ void backward_tile(const Net& net, const Smem& s, const float* __restrict__ g,
                               int P, int S, int p0, const T* __restrict__ acts, size_t lstride,
-                              size_t row0, float* __restrict__ gw, float* __restrict__ gbias) {
+                              size_t row0, float* __restrict__ gw, float* __restrict__ gbias,
+                              const T* __restrict__ dfeat_ray = nullptr) {
   constexpr int NJ = W / 32;
   constexpr int NJV = W / 64;
   constexpr int WV = W / 2;
@@ -190,6 +202,17 @@ __device__ void backward_tile(const Net& net, const Smem& s, const float* __rest
   float acc[8][NJ];
   init_acc<NJ>(acc, nullptr, tx);
   mac<T, NJ>(acc, Dg, WV, wt + net.woff[D + 2], W + e_v, ty, tx);
+  if (dfeat_ray) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int p = ty * 8 + i;
+      if (p < n_valid) {
+        const T* row = dfeat_ray + (size_t)((p0 + p) / S) * W + tx;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) acc[i][j] += to_f<T>(row[32 * j]);
+      }
+    }
+  }
   __syncthreads();
   store_masked<T, NJ>(acc, nullptr, Dg, ty, tx);             // dfeat [W][kLD]
   load_rows<T>(A, arow + (D - 1) * lstride, W, n_valid);     // h_{D-1}
@@ -261,13 +284,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// Kernel 5: the backward from the activations kernel 4 saved.
-template <typename T, int W>
+// Kernel 5 (kSem false): the backward from the activations kernel 4 saved; with kSem, the
+// trunk of kernel 8, which also takes the semantic head's per-ray feature cotangent.
+template <typename T, int W, bool kSem>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_nerf_bwd_acts_kernel(const Net net, const float* __restrict__ pts,
                                const float* __restrict__ vd, const float* __restrict__ g,
-                               const T* __restrict__ acts, float* __restrict__ part,
-                               size_t part_stride, int n_w, int P, int S) {
+                               const T* __restrict__ acts, const T* __restrict__ dfeat_ray,
+                               float* __restrict__ part, size_t part_stride, int n_w, int P,
+                               int S) {
   extern __shared__ __align__(16) float smem[];
   const int e_p = 3 + 6 * net.n_p, e_v = 3 + 6 * net.n_v;
   const Smem s = carve(smem, W, e_p, e_v);
@@ -277,7 +302,101 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int p0 = t * kTP;
     encode_tile<T>(s, pts, vd, P, S, p0, min(kTP, P - p0), e_p, e_v);
     __syncthreads();
-    backward_tile<T, W>(net, s, g, P, S, p0, acts, (size_t)P * W, (size_t)p0, gw, gw + n_w);
+    backward_tile<T, W>(net, s, g, P, S, p0, acts, (size_t)P * W, (size_t)p0, gw, gw + n_w,
+                        kSem ? dfeat_ray : nullptr);
+  }
+}
+
+constexpr int kHeadRays = 16;  // rays per step of the semantic head's backward
+
+__host__ __device__ inline size_t head_bwd_smem_floats(int W, int C) {
+  return (size_t)kHeadRays * (W + 3 * (W / 2) + 2 * C);
+}
+
+// The semantic head's backward of kernel 8 (see the source note). Block b takes the groups of
+// kHeadRays rays b, b + G, ... and adds their head gradients into its own float32 partial
+// (part + b * part_stride: d(W_s0) [W][W/2], d(b_s0) [W/2], d(W_s1) [W/2][C], d(b_s1) [C],
+// the [in, out] layout), each entry always by the same thread, so a fixed-order reduction
+// gives the same sums on every run. sem_acts is kernel 7's [N, W + W/2] (fsum, s0r);
+// ws0t [W/2, W] and ws1t [C, W/2] are the head weights as [out, in] in T.
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads)
+    fused_nerf_sem_head_bwd_kernel(const float* __restrict__ gsem, const T* __restrict__ sem_acts,
+                                   const T* __restrict__ ws0t, const T* __restrict__ ws1t,
+                                   T* __restrict__ dfeat_ray, float* __restrict__ part,
+                                   size_t part_stride, int N, int S, int C) {
+  constexpr int WH = W / 2, RB = kHeadRays;
+  extern __shared__ __align__(16) float smem[];
+  float* fs = smem;          // [RB][W] fsum
+  float* s0 = fs + RB * W;   // [RB][WH] s0r
+  float* ds = s0 + RB * WH;  // [RB][WH] ds0r, float32
+  float* dsb = ds + RB * WH; // [RB][WH] ds0r rounded to T
+  float* gs = dsb + RB * WH; // [RB][C] gsem, float32
+  float* gsb = gs + RB * C;  // [RB][C] gsem rounded to T
+  const int tid = threadIdx.x;
+  const float Sf = (float)S;
+  float* g_ws0 = part + blockIdx.x * part_stride;
+  float* g_bs0 = g_ws0 + W * WH;
+  float* g_ws1 = g_bs0 + WH;
+  float* g_bs1 = g_ws1 + WH * C;
+  const int n_groups = (N + RB - 1) / RB;
+  for (int grp = blockIdx.x; grp < n_groups; grp += gridDim.x) {
+    const int r0 = grp * RB;
+    for (int idx = tid; idx < RB * C; idx += kThreads) {
+      const int R = r0 + idx / C;
+      const float v = R < N ? gsem[(size_t)R * C + idx % C] : 0.f;
+      gs[idx] = v;
+      gsb[idx] = rnd<T>(v);
+    }
+    for (int idx = tid; idx < RB * W; idx += kThreads) {
+      const int R = r0 + idx / W;
+      fs[idx] = R < N ? to_f<T>(sem_acts[(size_t)R * (W + WH) + idx % W]) : 0.f;
+    }
+    for (int idx = tid; idx < RB * WH; idx += kThreads) {
+      const int R = r0 + idx / WH;
+      s0[idx] = R < N ? to_f<T>(sem_acts[(size_t)R * (W + WH) + W + idx % WH]) : 0.f;
+    }
+    __syncthreads();
+    for (int idx = tid; idx < RB * WH; idx += kThreads) {
+      const int r = idx / WH, k = idx % WH;
+      float acc = 0.f;
+      for (int c = 0; c < C; ++c)
+        acc = fmaf(gsb[r * C + c], to_f<T>(ws1t[(size_t)c * WH + k]), acc);
+      ds[idx] = acc;
+      dsb[idx] = rnd<T>(acc);
+    }
+    __syncthreads();
+    for (int idx = tid; idx < RB * W; idx += kThreads) {
+      const int r = idx / W, i = idx % W, R = r0 + r;
+      if (R >= N) continue;
+      float acc = 0.f;
+      for (int k = 0; k < WH; ++k)
+        acc = fmaf(dsb[r * WH + k], to_f<T>(ws0t[(size_t)k * W + i]), acc);
+      dfeat_ray[(size_t)R * W + i] = from_f<T>(acc);
+    }
+    for (int e = tid; e < W * WH; e += kThreads) {
+      const int i = e / WH, k = e % WH;
+      float sm = 0.f;
+      for (int r = 0; r < RB; ++r) sm = fmaf(fs[r * W + i], dsb[r * WH + k], sm);
+      g_ws0[e] += sm;
+    }
+    for (int k = tid; k < WH; k += kThreads) {
+      float sm = 0.f;
+      for (int r = 0; r < RB; ++r) sm += ds[r * WH + k];
+      g_bs0[k] += Sf * sm;
+    }
+    for (int e = tid; e < WH * C; e += kThreads) {
+      const int k = e / C, c = e % C;
+      float sm = 0.f;
+      for (int r = 0; r < RB; ++r) sm = fmaf(s0[r * WH + k], gsb[r * C + c], sm);
+      g_ws1[e] += sm;
+    }
+    for (int c = tid; c < C; c += kThreads) {
+      float sm = 0.f;
+      for (int r = 0; r < RB; ++r) sm += gs[r * C + c];
+      g_bs1[c] += Sf * sm;
+    }
+    __syncthreads();
   }
 }
 
@@ -309,18 +428,24 @@ cudaError_t prepare(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// mode 0: dense recompute (kernel 2), 1: culled recompute (kernel 3), 2: saved acts (kernel 5).
+// mode 0: dense recompute (kernel 2), 1: culled recompute (kernel 3), 2: saved acts (kernel 5,
+// or kernel 8's trunk with dfeat_ray).
 template <typename T, int W>
 int launch(int mode, const Net& net, const float* pts, const float* vd, const float* g,
-           const int* flags, const void* acts, void* scratch, float* part, size_t part_stride,
-           int G, int n_w, int P, int S, cudaStream_t stream) {
+           const int* flags, const void* acts, const void* dfeat_ray, void* scratch,
+           float* part, size_t part_stride, int G, int n_w, int P, int S, cudaStream_t stream) {
   const size_t smem = sizeof(float) * bwd_smem_floats(W, 3 + 6 * net.n_p, 3 + 6 * net.n_v);
   cudaError_t e;
-  if (mode == 2) {
-    auto k = fused_nerf_bwd_acts_kernel<T, W>;
+  const T* a = reinterpret_cast<const T*>(acts);
+  const T* dr = reinterpret_cast<const T*>(dfeat_ray);
+  if (mode == 2 && dfeat_ray != nullptr) {
+    auto k = fused_nerf_bwd_acts_kernel<T, W, true>;
     if ((e = prepare(k, smem)) != cudaSuccess) return (int)e;
-    k<<<G, kThreads, smem, stream>>>(net, pts, vd, g, reinterpret_cast<const T*>(acts), part,
-                                     part_stride, n_w, P, S);
+    k<<<G, kThreads, smem, stream>>>(net, pts, vd, g, a, dr, part, part_stride, n_w, P, S);
+  } else if (mode == 2) {
+    auto k = fused_nerf_bwd_acts_kernel<T, W, false>;
+    if ((e = prepare(k, smem)) != cudaSuccess) return (int)e;
+    k<<<G, kThreads, smem, stream>>>(net, pts, vd, g, a, nullptr, part, part_stride, n_w, P, S);
   } else if (mode == 1) {
     auto k = fused_nerf_bwd_recompute_kernel<T, W, true>;
     if ((e = prepare(k, smem)) != cudaSuccess) return (int)e;
@@ -337,10 +462,12 @@ int launch(int mode, const Net& net, const float* pts, const float* vd, const fl
 
 }  // namespace
 
-// Kernels 2, 3 and 5. Returns a cudaError_t (0 on success).
+// Kernels 2, 3, 5 and kernel 8's trunk. Returns a cudaError_t (0 on success).
 //   mode     0 dense recompute, 1 culled recompute (flags [ceil(P / 64)] int32: 0 skips the
 //            tile of points [64 t, 64 t + 64)), 2 saved activations (acts as kernel 4 wrote
 //            them);
+//   dfeat_ray (mode 2 only, may be null) the semantic head's feature cotangent [P / S, W]
+//            in T, from fused_nerf_sem_head_bwd_launch: kernel 8's trunk;
 //   w, wt    the packed weights [in, out] and [out, in] in T; b the packed biases;
 //   scratch  G x ((D + 1) 64 W + 64 W / 2) elements of T (modes 0 and 1);
 //   part     G rows of part_stride floats, zeroed: row b is block b's partial gradient,
@@ -348,30 +475,33 @@ int launch(int mode, const Net& net, const float* pts, const float* vd, const fl
 // G is the grid (blocks); the caller sums the rows with fused_nerf_grad_reduce_launch.
 extern "C" int fused_nerf_bwd_launch(int mode, const float* pts, const float* vd,
                                      const float* g, const int* flags, const void* acts,
-                                     const void* w, const void* wt, const float* b,
-                                     void* scratch, float* part, long long part_stride, int G,
-                                     int n_w, int P, int S, int depth, int width, int n_p,
-                                     int n_v, int skip_mask, int is_bf16, const int* woff,
-                                     const int* boff, void* stream) {
+                                     const void* dfeat_ray, const void* w, const void* wt,
+                                     const float* b, void* scratch, float* part,
+                                     long long part_stride, int G, int n_w, int P, int S,
+                                     int depth, int width, int n_p, int n_v, int skip_mask,
+                                     int is_bf16, const int* woff, const int* boff,
+                                     void* stream) {
   if (depth < 1 || depth > 8 || S < 1 || P % S != 0 || (width != 128 && width != 256) ||
       mode < 0 || mode > 2 || G < 1 || (mode == 1 && flags == nullptr) ||
-      (mode == 2 && acts == nullptr) || (mode != 2 && scratch == nullptr) || part_stride % 4)
+      (mode == 2 && acts == nullptr) || (mode != 2 && scratch == nullptr) ||
+      (mode != 2 && dfeat_ray != nullptr) || part_stride % 4)
     return (int)cudaErrorInvalidValue;
   if (P == 0) return 0;
   const Net net = make_net(w, wt, b, depth, n_p, n_v, skip_mask, woff, boff);
   cudaStream_t s = (cudaStream_t)stream;
   const size_t ps = (size_t)part_stride;
   if (is_bf16) {
-    return width == 256
-               ? launch<__nv_bfloat16, 256>(mode, net, pts, vd, g, flags, acts, scratch, part,
-                                            ps, G, n_w, P, S, s)
-               : launch<__nv_bfloat16, 128>(mode, net, pts, vd, g, flags, acts, scratch, part,
-                                            ps, G, n_w, P, S, s);
+    return width == 256 ? launch<__nv_bfloat16, 256>(mode, net, pts, vd, g, flags, acts,
+                                                     dfeat_ray, scratch, part, ps, G, n_w, P,
+                                                     S, s)
+                        : launch<__nv_bfloat16, 128>(mode, net, pts, vd, g, flags, acts,
+                                                     dfeat_ray, scratch, part, ps, G, n_w, P,
+                                                     S, s);
   }
-  return width == 256 ? launch<float, 256>(mode, net, pts, vd, g, flags, acts, scratch, part,
-                                           ps, G, n_w, P, S, s)
-                      : launch<float, 128>(mode, net, pts, vd, g, flags, acts, scratch, part,
-                                           ps, G, n_w, P, S, s);
+  return width == 256 ? launch<float, 256>(mode, net, pts, vd, g, flags, acts, dfeat_ray,
+                                           scratch, part, ps, G, n_w, P, S, s)
+                      : launch<float, 128>(mode, net, pts, vd, g, flags, acts, dfeat_ray,
+                                           scratch, part, ps, G, n_w, P, S, s);
 }
 
 // out[i] = sum over b < G of part[b * part_stride + i] for i < n, in the order of b.
@@ -381,6 +511,40 @@ extern "C" int fused_nerf_grad_reduce_launch(const float* part, long long part_s
   if (n == 0) return 0;
   fused_nerf_grad_reduce_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
       part, (size_t)part_stride, G, n, out);
+  return (int)cudaGetLastError();
+}
+
+// The semantic head's backward of kernel 8: head gradients into G rows of `part` (zeroed;
+// row b at part + b * part_stride, the [in, out] layout of the fused_nerf_sem_head_bwd_kernel
+// note; sum them with fused_nerf_grad_reduce_launch) and dfeat_ray [N, W] in T, for the
+// per-ray logit cotangent gsem [N, C] float32 and kernel 7's sem_acts.
+extern "C" int fused_nerf_sem_head_bwd_launch(const float* gsem, const void* sem_acts,
+                                              const void* ws0t, const void* ws1t,
+                                              void* dfeat_ray, float* part,
+                                              long long part_stride, int G, int N, int S,
+                                              int width, int C, int is_bf16, void* stream) {
+  if (N < 0 || S < 1 || C < 1 || C > 256 || G < 1 || (width != 128 && width != 256) ||
+      part_stride < (long long)width * (width / 2) + width / 2 + (width / 2) * C + C)
+    return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  const size_t smem = sizeof(float) * head_bwd_smem_floats(width, C);
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e;
+#define FNERF_HEAD_BWD(T, W)                                                                 \
+  {                                                                                          \
+    auto k = fused_nerf_sem_head_bwd_kernel<T, W>;                                           \
+    if ((e = prepare(k, smem)) != cudaSuccess) return (int)e;                                \
+    k<<<G, kThreads, smem, s>>>(gsem, reinterpret_cast<const T*>(sem_acts),                  \
+                                reinterpret_cast<const T*>(ws0t),                            \
+                                reinterpret_cast<const T*>(ws1t),                            \
+                                reinterpret_cast<T*>(dfeat_ray), part, (size_t)part_stride, N, \
+                                S, C);                                                       \
+  }
+  if (is_bf16 && width == 256) FNERF_HEAD_BWD(__nv_bfloat16, 256)
+  else if (is_bf16) FNERF_HEAD_BWD(__nv_bfloat16, 128)
+  else if (width == 256) FNERF_HEAD_BWD(float, 256)
+  else FNERF_HEAD_BWD(float, 128)
+#undef FNERF_HEAD_BWD
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
-// Fused NeRF MLP forward for Hopper (sm_90a): kernel 1 (serving) and kernel 4 (training,
-// saves activations).
+// Fused NeRF MLP forward for Hopper (sm_90a): kernel 1 (serving), kernel 4 (training,
+// saves activations), and their semantic variants, kernels 6 and 7, with the semantic head.
 //
 // Kernel 1 replaces the Pallas TPU kernel depth_lidar_nerf_tpu/ops/fused_mlp_t.py:_fwd_kernel
 // (body _forward_tile, entry _fwd_impl). For points [3, P] (float32) with point p on ray
@@ -33,6 +33,23 @@
 // FMAs, and the view layer's per-ray half is computed once per ray rather than once per
 // point.
 //
+// Kernels 6 and 7 replace fused_mlp_t.py:_fwd_kernel_sem_only and _fwd_kernel_acts_sem
+// (head _sem_head_tile, entries _fwd_impl_sem_only and _fwd_impl_acts_sem): kernels 1 and 4
+// plus the reference's semantic head (two Dense layers off the pre-view feature, no
+// activation between) summed over each ray's samples without weights. The head is affine
+// and the sum unweighted, so they commute: per ray,
+//   fsum   = sum_s feat_s                     (float32 sum, rounded to T)
+//   s0r    = fsum W_s0 + S b_s0               (rounded to T)
+//   logits = s0r W_s1 + S b_s1                (float32, [N, C])
+// and the head runs on [N, W] ray sums, never on per-point features. The TPU kernel sums a
+// ray inside one 8,192-point VMEM tile; here a ray spans several 64-point tiles, so each
+// tile block writes a float32 partial sum per ray it touches (forward_tile's `fpart`), and
+// fused_nerf_sem_head_kernel adds a ray's partials in tile order, rounds, and runs both head
+// layers: deterministic, with no atomics. Kernel 7's head also saves fsum and s0r ([N,
+// W + W/2] in T) for the backward (kernel 8, fused_nerf_bwd.cu); they equal what the
+// backward would recompute. The head costs ~W^2 / 2 multiply-adds a ray, under 1/S of a
+// point's MLP.
+//
 // Layout. One block of 256 threads owns a tile of kTP = 64 consecutive points; a ragged
 // last tile is masked, not padded. See fused_nerf.cuh for the shared-memory layout and the
 // packed weights.
@@ -63,31 +80,111 @@ __global__ void __launch_bounds__(kThreads, 1)
   forward_tile<T, W>(net, s, pts, vd, P, S, p0, out, acts, (size_t)P * W, (size_t)p0);
 }
 
+// Kernels 6 (kActs false) and 7 (kActs true): kernels 1 and 4 plus each tile's semantic
+// partial sums, sem_tile_slots(S) x W floats per tile at fpart + tile * MR * W.
+template <typename T, int W, bool kActs>
+__global__ void __launch_bounds__(kThreads, 1)
+    fused_nerf_fwd_sem_kernel(const Net net, const float* __restrict__ pts,
+                              const float* __restrict__ vd, float* __restrict__ out,
+                              T* __restrict__ acts, float* __restrict__ fpart, int MR, int P,
+                              int S) {
+  extern __shared__ __align__(16) float smem[];
+  const Smem s = carve(smem, W, 3 + 6 * net.n_p, 3 + 6 * net.n_v);
+  const int p0 = blockIdx.x * kTP;
+  forward_tile<T, W>(net, s, pts, vd, P, S, p0, out, kActs ? acts : nullptr, (size_t)P * W,
+                     (size_t)p0, fpart + (size_t)blockIdx.x * MR * W);
+}
+
+constexpr int kHeadRays = 8;  // rays per block of the semantic head
+
+// The semantic head of kernels 6 and 7 (see the source note), kHeadRays rays per block:
+// ray R's partials are the slots R - tile_first_ray(t, S) of the tiles t that hold its
+// points, added in tile order. Weights as [in, out] in T (W_s0 [W, W/2], W_s1 [W/2, C]),
+// biases float32. With `sem_acts`, row R gets fsum then s0r (W + W/2 values of T).
 template <typename T, int W>
-int launch(const Net& net, const float* pts, const float* vd, float* out, void* acts, int P,
-           int S, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+    fused_nerf_sem_head_kernel(const float* __restrict__ fpart, int MR,
+                               const T* __restrict__ ws0, const float* __restrict__ bs0,
+                               const T* __restrict__ ws1, const float* __restrict__ bs1,
+                               float* __restrict__ sem, T* __restrict__ sem_acts, int N, int S,
+                               int C) {
+  constexpr int WH = W / 2;
+  __shared__ float fs[kHeadRays][W];
+  __shared__ float s0[kHeadRays][WH];
+  const int tid = threadIdx.x, r0 = blockIdx.x * kHeadRays;
+  const float Sf = (float)S;
+  for (int idx = tid; idx < kHeadRays * W; idx += kThreads) {
+    const int r = idx / W, c = idx % W, R = r0 + r;
+    float v = 0.f;
+    if (R < N) {
+      const int t0 = (int)(((long long)R * S) / kTP);
+      const int t1 = (int)(((long long)R * S + S - 1) / kTP);
+      float sm = 0.f;
+      for (int t = t0; t <= t1; ++t)
+        sm += fpart[((size_t)t * MR + (R - tile_first_ray(t, S))) * W + c];
+      v = rnd<T>(sm);
+      if (sem_acts) sem_acts[(size_t)R * (W + WH) + c] = from_f<T>(v);
+    }
+    fs[r][c] = v;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < kHeadRays * WH; idx += kThreads) {
+    const int r = idx / WH, j = idx % WH, R = r0 + r;
+    float acc = 0.f;
+    for (int k = 0; k < W; ++k) acc = fmaf(fs[r][k], to_f<T>(ws0[(size_t)k * WH + j]), acc);
+    const float v = rnd<T>(acc + Sf * bs0[j]);
+    s0[r][j] = v;
+    if (sem_acts && R < N) sem_acts[(size_t)R * (W + WH) + W + j] = from_f<T>(v);
+  }
+  __syncthreads();
+  for (int idx = tid; idx < kHeadRays * C; idx += kThreads) {
+    const int r = idx / C, c = idx % C, R = r0 + r;
+    if (R >= N) continue;
+    float acc = 0.f;
+    for (int k = 0; k < WH; ++k) acc = fmaf(s0[r][k], to_f<T>(ws1[(size_t)k * C + c]), acc);
+    sem[(size_t)R * C + c] = acc + Sf * bs1[c];
+  }
+}
+
+template <typename K>
+cudaError_t prepare(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// Kernel 1 (acts and fpart null), 4 (acts), 6 (fpart) or 7 (both).
+template <typename T, int W>
+int launch(const Net& net, const float* pts, const float* vd, float* out, void* acts,
+           float* fpart, int MR, int P, int S, cudaStream_t stream) {
   const size_t smem = sizeof(float) * fwd_smem_floats(W, 3 + 6 * net.n_p, 3 + 6 * net.n_v);
   const int blocks = (P + kTP - 1) / kTP;
+  T* a = reinterpret_cast<T*>(acts);
   cudaError_t e;
-  if (acts == nullptr) {
-    e = cudaFuncSetAttribute(fused_nerf_fwd_kernel<T, W>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    fused_nerf_fwd_kernel<T, W><<<blocks, kThreads, smem, stream>>>(net, pts, vd, out, P, S);
+  if (fpart != nullptr && acts != nullptr) {
+    auto k = fused_nerf_fwd_sem_kernel<T, W, true>;
+    if ((e = prepare(k, smem)) != cudaSuccess) return (int)e;
+    k<<<blocks, kThreads, smem, stream>>>(net, pts, vd, out, a, fpart, MR, P, S);
+  } else if (fpart != nullptr) {
+    auto k = fused_nerf_fwd_sem_kernel<T, W, false>;
+    if ((e = prepare(k, smem)) != cudaSuccess) return (int)e;
+    k<<<blocks, kThreads, smem, stream>>>(net, pts, vd, out, a, fpart, MR, P, S);
+  } else if (acts != nullptr) {
+    auto k = fused_nerf_fwd_acts_kernel<T, W>;
+    if ((e = prepare(k, smem)) != cudaSuccess) return (int)e;
+    k<<<blocks, kThreads, smem, stream>>>(net, pts, vd, out, a, P, S);
   } else {
-    e = cudaFuncSetAttribute(fused_nerf_fwd_acts_kernel<T, W>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    fused_nerf_fwd_acts_kernel<T, W><<<blocks, kThreads, smem, stream>>>(
-        net, pts, vd, out, reinterpret_cast<T*>(acts), P, S);
+    auto k = fused_nerf_fwd_kernel<T, W>;
+    if ((e = prepare(k, smem)) != cudaSuccess) return (int)e;
+    k<<<blocks, kThreads, smem, stream>>>(net, pts, vd, out, P, S);
   }
   return (int)cudaGetLastError();
 }
 
 int dispatch(const float* pts, const float* vd, const void* w, const float* b, float* out,
-             void* acts, int P, int S, int depth, int width, int n_p, int n_v, int skip_mask,
-             int is_bf16, const int* woff, const int* boff, void* stream) {
-  if (depth < 1 || depth > 8 || S < 1 || P % S != 0 || (width != 128 && width != 256))
+             void* acts, float* fpart, int MR, int P, int S, int depth, int width, int n_p,
+             int n_v, int skip_mask, int is_bf16, const int* woff, const int* boff,
+             void* stream) {
+  if (depth < 1 || depth > 8 || S < 1 || P % S != 0 || (width != 128 && width != 256) ||
+      (fpart != nullptr && (!sem_aligned(S) || MR < sem_tile_slots(S))))
     return (int)cudaErrorInvalidValue;
   if (P == 0) return 0;
   Net net;
@@ -99,11 +196,23 @@ int dispatch(const float* pts, const float* vd, const void* w, const float* b, f
   }
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
-    return width == 256 ? launch<__nv_bfloat16, 256>(net, pts, vd, out, acts, P, S, s)
-                        : launch<__nv_bfloat16, 128>(net, pts, vd, out, acts, P, S, s);
+    return width == 256
+               ? launch<__nv_bfloat16, 256>(net, pts, vd, out, acts, fpart, MR, P, S, s)
+               : launch<__nv_bfloat16, 128>(net, pts, vd, out, acts, fpart, MR, P, S, s);
   }
-  return width == 256 ? launch<float, 256>(net, pts, vd, out, acts, P, S, s)
-                      : launch<float, 128>(net, pts, vd, out, acts, P, S, s);
+  return width == 256 ? launch<float, 256>(net, pts, vd, out, acts, fpart, MR, P, S, s)
+                      : launch<float, 128>(net, pts, vd, out, acts, fpart, MR, P, S, s);
+}
+
+template <typename T, int W>
+int launch_head(const float* fpart, int MR, const void* ws0, const float* bs0, const void* ws1,
+                const float* bs1, float* sem, void* sem_acts, int N, int S, int C,
+                cudaStream_t stream) {
+  const int blocks = (N + kHeadRays - 1) / kHeadRays;
+  fused_nerf_sem_head_kernel<T, W><<<blocks, kThreads, 0, stream>>>(
+      fpart, MR, reinterpret_cast<const T*>(ws0), bs0, reinterpret_cast<const T*>(ws1), bs1,
+      sem, reinterpret_cast<T*>(sem_acts), N, S, C);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -114,8 +223,8 @@ extern "C" int fused_nerf_fwd_launch(const float* pts, const float* vd, const vo
                                      const float* b, float* out, int P, int S, int depth,
                                      int width, int n_p, int n_v, int skip_mask, int is_bf16,
                                      const int* woff, const int* boff, void* stream) {
-  return dispatch(pts, vd, w, b, out, nullptr, P, S, depth, width, n_p, n_v, skip_mask,
-                  is_bf16, woff, boff, stream);
+  return dispatch(pts, vd, w, b, out, nullptr, nullptr, 0, P, S, depth, width, n_p, n_v,
+                  skip_mask, is_bf16, woff, boff, stream);
 }
 
 // Kernel 4: kernel 1 plus the saved activations `acts`, (D + 1) [P, W] arrays followed by
@@ -126,8 +235,44 @@ extern "C" int fused_nerf_fwd_acts_launch(const float* pts, const float* vd, con
                                           int skip_mask, int is_bf16, const int* woff,
                                           const int* boff, void* stream) {
   if (acts == nullptr) return (int)cudaErrorInvalidValue;
-  return dispatch(pts, vd, w, b, out, acts, P, S, depth, width, n_p, n_v, skip_mask, is_bf16,
-                  woff, boff, stream);
+  return dispatch(pts, vd, w, b, out, acts, nullptr, 0, P, S, depth, width, n_p, n_v,
+                  skip_mask, is_bf16, woff, boff, stream);
+}
+
+// Kernels 6 (acts null) and 7: kernels 1 and 4 that also write each tile's semantic partial
+// sums to `fpart`, ceil(P / 64) x MR x W floats with MR >= sem_tile_slots(S), for S with
+// sem_aligned(S) (fused_nerf.cuh); fused_nerf_sem_head_launch turns them into logits.
+extern "C" int fused_nerf_fwd_sem_launch(const float* pts, const float* vd, const void* w,
+                                         const float* b, float* out, void* acts, float* fpart,
+                                         int MR, int P, int S, int depth, int width, int n_p,
+                                         int n_v, int skip_mask, int is_bf16, const int* woff,
+                                         const int* boff, void* stream) {
+  if (fpart == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch(pts, vd, w, b, out, acts, fpart, MR, P, S, depth, width, n_p, n_v,
+                  skip_mask, is_bf16, woff, boff, stream);
+}
+
+// The semantic head of kernels 6 and 7: logits `sem` [N, C] float32 from the tile partials
+// of fused_nerf_fwd_sem_launch; ws0 [W, W/2] and ws1 [W/2, C] in T, bs0 and bs1 float32;
+// with `sem_acts` (may be null) also fsum and s0r as [N, W + W/2] in T.
+extern "C" int fused_nerf_sem_head_launch(const float* fpart, const void* ws0, const float* bs0,
+                                          const void* ws1, const float* bs1, float* sem,
+                                          void* sem_acts, int MR, int N, int S, int width,
+                                          int C, int is_bf16, void* stream) {
+  if (N < 0 || !sem_aligned(S) || C < 1 || MR < sem_tile_slots(S) ||
+      (width != 128 && width != 256))
+    return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16) {
+    return width == 256 ? launch_head<__nv_bfloat16, 256>(fpart, MR, ws0, bs0, ws1, bs1, sem,
+                                                          sem_acts, N, S, C, s)
+                        : launch_head<__nv_bfloat16, 128>(fpart, MR, ws0, bs0, ws1, bs1, sem,
+                                                          sem_acts, N, S, C, s);
+  }
+  return width == 256
+             ? launch_head<float, 256>(fpart, MR, ws0, bs0, ws1, bs1, sem, sem_acts, N, S, C, s)
+             : launch_head<float, 128>(fpart, MR, ws0, bs0, ws1, bs1, sem, sem_acts, N, S, C, s);
 }
 
 extern "C" const char* fused_nerf_fwd_error_string(int e) {

@@ -7,28 +7,37 @@ second product on the encoding rows, and the view layer's per-ray half
 computed once per ray; they write channel-major raw ``[4, P]``. Their
 backwards return float32 weight gradients and zero input cotangents. Here:
 
-====  ===========================  ==========================  ======================
- #    Pallas kernel                CUDA kernel (csrc/)          wrapper
-====  ===========================  ==========================  ======================
- 1    ``_fwd_kernel``              ``fused_nerf_fwd.cu``        :func:`fused_nerf_fwd`
- 2    ``_bwd_kernel``              ``fused_nerf_bwd.cu`` dense  :func:`fused_nerf_bwd`
- 3    ``_bwd_kernel_culled``       ``fused_nerf_bwd.cu`` culled :func:`fused_nerf_bwd_culled`
- 4    ``_fwd_kernel_acts``         ``fused_nerf_fwd.cu`` acts   :func:`fused_nerf_fwd_acts`
- 5    ``_bwd_kernel_acts``         ``fused_nerf_bwd.cu`` acts   :func:`fused_nerf_bwd_acts`
-====  ===========================  ==========================  ======================
+====  ==========================  ============================  ===============================
+ #    Pallas kernel               CUDA kernel (csrc/)            wrapper
+====  ==========================  ============================  ===============================
+ 1    ``_fwd_kernel``             ``fused_nerf_fwd.cu``          :func:`fused_nerf_fwd`
+ 2    ``_bwd_kernel``             ``fused_nerf_bwd.cu`` dense    :func:`fused_nerf_bwd`
+ 3    ``_bwd_kernel_culled``      ``fused_nerf_bwd.cu`` culled   :func:`fused_nerf_bwd_culled`
+ 4    ``_fwd_kernel_acts``        ``fused_nerf_fwd.cu`` acts     :func:`fused_nerf_fwd_acts`
+ 5    ``_bwd_kernel_acts``        ``fused_nerf_bwd.cu`` acts     :func:`fused_nerf_bwd_acts`
+ 6    ``_fwd_kernel_sem_only``    ``fused_nerf_fwd.cu`` sem      :func:`fused_nerf_fwd_sem`
+ 7    ``_fwd_kernel_acts_sem``    ``fused_nerf_fwd.cu`` sem acts :func:`fused_nerf_fwd_acts_sem`
+ 8    ``_bwd_kernel_acts_sem``    ``fused_nerf_bwd.cu`` sem      :func:`fused_nerf_bwd_acts_sem`
+====  ==========================  ============================  ===============================
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
 twin (``*_plain``, the kernel's arithmetic step by step) for CPU tensors; it
 never falls back from one to the other. ``<wrapper>.launches`` counts kernel
 launches; the backward wrappers also launch ``fused_nerf_grad_reduce``, which
 sums the blocks' partial gradients (counted in ``grad_reduce.launches``).
+Kernels 6 and 7 write per-tile partial sums of the feature activation that
+the semantic head kernel (:func:`sem_head`) turns into per-ray logits;
+kernel 8 first runs the head's backward (:func:`sem_head_bwd`), whose
+per-ray feature cotangent then enters kernel 5's body.
 
 :func:`fused_nerf_apply_rays` takes the route the JAX dispatcher
 (``_apply_rays_core``) would take: without a gradient the plain forward;
 under autograd :class:`FusedActs` (kernels 4 and 5) for a pass that saves its
 activations within the byte cap, else :class:`FusedRecompute` with the
 culled (kernel 3) or dense (kernel 2) backward. The route is kept in
-``fused_nerf_apply_rays.last_route``.
+``fused_nerf_apply_rays.last_route``. :func:`fused_nerf_apply_rays_semantic`
+is the semantic variant (JAX ``_fused_t_sem``): kernel 6 without a gradient,
+:class:`FusedSem` (kernels 7 and 8) under autograd.
 
 ``params`` everywhere is a mapping of the :class:`~models.nerf_mlp.NeRFMLP`
 parameter names (``trunk_0.weight`` ``[out, in]``, ``trunk_0.bias``, ...) to
@@ -56,13 +65,22 @@ ARGTYPES = {
     "fused_nerf_fwd_launch": [_PTR] * 5 + [_INT] * 8 + [_PTR] * 3,
     # (pts, vd, w, b, out, acts, P, S, depth, ..., stream)
     "fused_nerf_fwd_acts_launch": [_PTR] * 6 + [_INT] * 8 + [_PTR] * 3,
+    # (pts, vd, w, b, out, acts, fpart, MR, P, S, depth, ..., stream)
+    "fused_nerf_fwd_sem_launch": [_PTR] * 7 + [_INT] * 9 + [_PTR] * 3,
+    # (fpart, ws0, bs0, ws1, bs1, sem, sem_acts, MR, N, S, width, C, bf16,
+    #  stream)
+    "fused_nerf_sem_head_launch": [_PTR] * 7 + [_INT] * 6 + [_PTR],
 }
 BWD_ARGTYPES = {
-    # (mode, pts, vd, g, flags, acts, w, wt, b, scratch, part, part_stride, G,
-    #  n_w, P, S, depth, width, multires, multires_views, skip_mask, bf16,
-    #  w_off, b_off, stream)
-    "fused_nerf_bwd_launch": [_INT] + [_PTR] * 10 + [ctypes.c_longlong]
+    # (mode, pts, vd, g, flags, acts, dfeat_ray, w, wt, b, scratch, part,
+    #  part_stride, G, n_w, P, S, depth, width, multires, multires_views,
+    #  skip_mask, bf16, w_off, b_off, stream)
+    "fused_nerf_bwd_launch": [_INT] + [_PTR] * 11 + [ctypes.c_longlong]
     + [_INT] * 10 + [_PTR] * 3,
+    # (gsem, sem_acts, ws0t, ws1t, dfeat_ray, part, part_stride, G, N, S,
+    #  width, C, bf16, stream)
+    "fused_nerf_sem_head_bwd_launch": [_PTR] * 6 + [ctypes.c_longlong]
+    + [_INT] * 6 + [_PTR],
     # (part, part_stride, G, n, out, stream)
     "fused_nerf_grad_reduce_launch": [_PTR, ctypes.c_longlong, _INT, _INT,
                                       _PTR, _PTR],
@@ -116,6 +134,28 @@ def supports_rays(params: Mapping[str, torch.Tensor], use_viewdirs: bool,
     return params["trunk_0.weight"].shape[0] == width and width in (128, 256)
 
 
+def supports_semantic(params: Mapping[str, torch.Tensor], use_viewdirs: bool,
+                      depth: int, width: int, multires: int,
+                      multires_views: int, skips=()) -> bool:
+    """Whether kernels 6-8 cover this model: the predicate of the JAX
+    ``fused_mlp_t.supports_semantic``, the topology of :func:`supports_rays`
+    plus the semantic head ``semantic_0``/``semantic_1``."""
+    if "semantic_0.weight" not in params or "semantic_1.weight" not in params:
+        return False
+    trunk = {k: v for k, v in params.items()
+             if not k.startswith("semantic_")}
+    return supports_rays(trunk, use_viewdirs, 0, depth, width, multires,
+                         multires_views, skips)
+
+
+def supports_rays_shape(S: int) -> bool:
+    """JAX ``supports_rays_shape``: S divides the 2,048-point JAX tile into
+    at most 128 rays (the TPU kernels' view-direction block). The port's
+    kernels take any S; the semantic route checks it so that both packages
+    choose the same route."""
+    return S > 0 and _JAX_TILE % S == 0 and _JAX_TILE // S <= 128
+
+
 # ------------------------------------------------------------ route choice
 
 def _acts_point_bytes(depth: int, width: int, dtype) -> int:
@@ -148,12 +188,22 @@ def _jax_tiles(S: int, depth: int, width: int, dtype):
             tile(min(_ACTS_TILE, 128 * S, vmem)))
 
 
+def semantic_padded_rays(n_rays: int, S: int, depth: int, width: int,
+                         dtype=torch.bfloat16) -> int:
+    """JAX ``semantic_padded_rays``: the ray count after JAX pads a
+    saved-activation pass to the LCM of its three tiles' rays per tile
+    (``_acts_pad_rays_per_tile``). The port's kernels need no padding; the
+    count only decides the route."""
+    rpt = math.lcm(*(t // S for t in _jax_tiles(S, depth, width, dtype)))
+    return n_rays + (-n_rays) % rpt
+
+
 def acts_route_ok(n_rays: int, S: int, depth: int, width: int, dtype) -> bool:
     """The JAX predicate of the saved-activation route (``_apply_rays_core``):
-    the point count after JAX's ray padding (to the LCM of its three tiles'
-    rays per tile) within :func:`acts_points_cap`."""
-    rpt = math.lcm(*(t // S for t in _jax_tiles(S, depth, width, dtype)))
-    n_full = n_rays + (-n_rays) % rpt
+    the point count after JAX's ray padding within :func:`acts_points_cap`.
+    The semantic route applies the same cap (JAX
+    ``FusedMLP.supports_raw_semantic``), to its no-grad renders too."""
+    n_full = semantic_padded_rays(n_rays, S, depth, width, dtype)
     return n_full * S <= acts_points_cap(depth, width, dtype)
 
 
@@ -171,9 +221,37 @@ def _layer_names(depth: int):
                                                    "views_0", "rgb"]
 
 
-def param_names(depth: int):
-    """Parameter names in packing order, each layer's weight then bias."""
-    return [f"{n}.{k}" for n in _layer_names(depth) for k in ("weight", "bias")]
+SEM_NAMES = ("semantic_0.weight", "semantic_0.bias", "semantic_1.weight",
+             "semantic_1.bias")
+
+
+def param_names(depth: int, semantic: bool = False):
+    """Parameter names in packing order, each layer's weight then bias; the
+    semantic head's last when ``semantic``."""
+    names = [f"{n}.{k}" for n in _layer_names(depth) for k in ("weight", "bias")]
+    return names + list(SEM_NAMES) if semantic else names
+
+
+class SemPacked(NamedTuple):
+    """The semantic head in the kernels' layout (JAX ``_pack_sem``: weights
+    in the compute dtype, biases float32), each weight as ``[in, out]`` for
+    the forward and ``[out, in]`` for the backward's input products."""
+    ws0: torch.Tensor  # [W, W/2]
+    bs0: torch.Tensor  # [W/2] float32
+    ws1: torch.Tensor  # [W/2, C]
+    bs1: torch.Tensor  # [C] float32
+    ws0t: torch.Tensor  # [W/2, W] (semantic_0.weight)
+    ws1t: torch.Tensor  # [C, W/2] (semantic_1.weight)
+
+
+def pack_sem(params: Mapping[str, torch.Tensor], dtype, device=None) -> SemPacked:
+    w0 = params["semantic_0.weight"].detach().to(device)
+    w1 = params["semantic_1.weight"].detach().to(device)
+    return SemPacked(w0.t().to(dtype).contiguous(),
+                     params["semantic_0.bias"].detach().float().to(device),
+                     w1.t().to(dtype).contiguous(),
+                     params["semantic_1.bias"].detach().float().to(device),
+                     w0.to(dtype).contiguous(), w1.to(dtype).contiguous())
 
 
 class PackedParams(NamedTuple):
@@ -184,6 +262,7 @@ class PackedParams(NamedTuple):
     b_offsets: ctypes.Array  # and in ``biases``
     dtype: torch.dtype
     weights_t: torch.Tensor  # every layer's [out, in] (Linear.weight), dtype
+    sem: SemPacked | None = None  # the semantic head, where the model has one
 
 
 def pack_params(params: Mapping[str, torch.Tensor], depth: int, dtype,
@@ -192,7 +271,8 @@ def pack_params(params: Mapping[str, torch.Tensor], depth: int, dtype,
     (the Flax kernel layout: a skip layer's encoding rows come first), the
     same weights as ``[out, in]`` (for the backward's input products), one
     float32 buffer of every bias, and the element offset of each layer in
-    both, in the order trunk_0..trunk_{D-1}, sigma, feature, views_0, rgb."""
+    both, in the order trunk_0..trunk_{D-1}, sigma, feature, views_0, rgb;
+    with a semantic head, also :func:`pack_sem`."""
     names = _layer_names(depth)
     lin = [params[f"{n}.weight"].detach() for n in names]
     ws = [w.t().to(dtype).reshape(-1) for w in lin]
@@ -206,9 +286,10 @@ def pack_params(params: Mapping[str, torch.Tensor], depth: int, dtype,
             o += t.numel()
         return (ctypes.c_int * len(out))(*out)
 
+    sem = pack_sem(params, dtype, device) if SEM_NAMES[0] in params else None
     return PackedParams(torch.cat(ws).to(device), torch.cat(bs).to(device),
                         offsets(ws), offsets(bs), dtype,
-                        torch.cat(wts).to(device))
+                        torch.cat(wts).to(device), sem)
 
 
 def unpack_grads(flat: torch.Tensor, params: Mapping[str, torch.Tensor],
@@ -330,9 +411,13 @@ def _segments(P: int, S: int, device):
     return seg, p[start] // S
 
 
-def _bwd_from_acts(params, enc, encv, acts, g, S, depth, width, dtype, skips):
+def _bwd_from_acts(params, enc, encv, acts, g, S, depth, width, dtype, skips,
+                   dfeat_ray=None):
     """The backward tile body (``_bwd_tile_body``) over all points at once:
-    gradients of every parameter, as the kernels compute them."""
+    gradients of every parameter, as the kernels compute them. With
+    ``dfeat_ray [N, W]`` (the semantic head's feature cotangent, kernel 8),
+    each point's ray row is added to the feature cotangent in float32
+    before it is rounded."""
     ls = live_skips(depth, skips)
     e_p = enc.shape[1]
 
@@ -354,7 +439,10 @@ def _bwd_from_acts(params, enc, encv, acts, g, S, depth, width, dtype, skips):
     out["views_0.weight"] = torch.cat([dhv.T @ feat, seg_sum.T @ encv[ray]],
                                       dim=1)
     out["views_0.bias"] = dhv.sum(0)
-    dfeat = rnd(dhv @ w("views_0")[:, :width])
+    dfeat = dhv @ w("views_0")[:, :width]
+    if dfeat_ray is not None:
+        dfeat = dfeat + dfeat_ray.float().repeat_interleave(S, dim=0)
+    dfeat = rnd(dfeat)
     h = hs[-1]
     out["feature.weight"] = dfeat.T @ h
     out["feature.bias"] = dfeat.sum(0)
@@ -379,9 +467,11 @@ def _bwd_from_acts(params, enc, encv, acts, g, S, depth, width, dtype, skips):
 def fused_nerf_bwd_acts_plain(params, pts_t, viewdirs_t, g, acts, S: int, *,
                               depth: int, width: int, multires: int,
                               multires_views: int, dtype=torch.float32,
-                              skips=()) -> Dict[str, torch.Tensor]:
+                              skips=(), dfeat_ray=None
+                              ) -> Dict[str, torch.Tensor]:
     """Kernel 5's twin: parameter gradients for the cotangent ``g [4, P]``
-    of raw, from the saved activations ``acts`` of kernel 4."""
+    of raw, from the saved activations ``acts`` of kernel 4 (``dfeat_ray``:
+    see :func:`_bwd_from_acts`)."""
     P = pts_t.shape[1]
 
     def rnd(x):
@@ -391,7 +481,7 @@ def fused_nerf_bwd_acts_plain(params, pts_t, viewdirs_t, g, acts, S: int, *,
     encv = rnd(positional_encoding(viewdirs_t.float().T, multires_views))
     arrays = [a.float() for a in split_acts(acts, P, depth, width)]
     return _bwd_from_acts(params, enc, encv, arrays, g, S, depth, width,
-                          dtype, skips)
+                          dtype, skips, dfeat_ray)
 
 
 def fused_nerf_bwd_plain(params, pts_t, viewdirs_t, g, S: int, *, depth: int,
@@ -411,6 +501,145 @@ def fused_nerf_bwd_plain(params, pts_t, viewdirs_t, g, S: int, *, depth: int,
     return _bwd_from_acts(params, enc, encv, acts, g, S, depth, width, dtype,
                           skips)
 
+
+# ------------------------------------------- semantic twins (kernels 6-8)
+
+HEAD_RAYS_BWD = 16  # rays per step of the head's backward (kHeadRays, bwd.cu)
+
+
+def _check_sem_samples(S: int):
+    """The semantic kernels take S that divides the 64-point tile or that
+    the tile divides (``sem_aligned`` in ``csrc/fused_nerf.cuh``), so no ray
+    straddles a tile unaligned; :func:`supports_semantic` admits no other."""
+    if S < 1 or (TILE % S and S % TILE):
+        raise ValueError(f"semantic kernels need S dividing {TILE} or a "
+                         f"multiple of it, got S={S}")
+
+
+def sem_tile_slots(S: int) -> int:
+    """Partial-sum slots per 64-point tile (``sem_tile_slots`` in
+    ``csrc/fused_nerf.cuh``): the rays that touch one tile."""
+    return max(1, TILE // S)
+
+
+def sem_tile_partials_plain(feat: torch.Tensor, S: int) -> torch.Tensor:
+    """Kernels 6 and 7's partial sums: the feature activation ``feat [P,
+    W]`` summed in float32 over each ray's points in each 64-point tile, in
+    point order, as ``[tiles, sem_tile_slots(S), W]``; slot r of tile t holds
+    ray ``64 t // S + r`` (slots past the last ray are zero here and
+    unwritten by the kernels)."""
+    _check_sem_samples(S)
+    P, W = feat.shape
+    seg, ray = _segments(P, S, feat.device)
+    part = torch.zeros((ray.numel(), W), device=feat.device).index_add_(
+        0, seg, feat.float())
+    p = torch.arange(P, device=feat.device)
+    tile = p[(p % TILE == 0) | (p % S == 0)] // TILE  # tile of each segment
+    out = torch.zeros((-(-P // TILE), sem_tile_slots(S), W),
+                      device=feat.device)
+    out[tile, ray - (tile * TILE) // S] = part
+    return out
+
+
+def sem_head_plain(fpart: torch.Tensor, sem: SemPacked, n_rays: int, S: int):
+    """The semantic head kernel's twin (JAX ``_sem_head_tile``): a ray's
+    partials added in tile order and rounded (``fsum``), ``s0r = fsum W_s0 +
+    S b_s0`` rounded, logits ``s0r W_s1 + S b_s1`` in float32. Returns the
+    logits ``[N, C]`` and ``sem_acts`` (fsum then s0r, ``[N, W + W/2]`` in the
+    compute dtype) that kernel 7 saves."""
+    _check_sem_samples(S)
+    dt = sem.ws0.dtype
+    W = fpart.shape[2]
+    R = torch.arange(n_rays, device=fpart.device)
+    total = torch.zeros((n_rays, W), device=fpart.device)
+    for k in range(-(-S // TILE)):  # the tiles a ray spans
+        t = (R * S) // TILE + k
+        total = total + fpart[t, R - (t * TILE) // S]
+    fsum = total.to(dt).float()
+    s0r = (fsum @ sem.ws0.float() + S * sem.bs0).to(dt).float()
+    logits = s0r @ sem.ws1.float() + S * sem.bs1
+    return logits, torch.cat([fsum, s0r], dim=1).to(dt)
+
+
+def sem_head_bwd_plain(gsem: torch.Tensor, sem_acts: torch.Tensor,
+                       sem: SemPacked, S: int):
+    """The head backward kernel's twin (the head part of JAX
+    ``_bwd_kernel_acts_sem``), on per-ray operands: returns the head's
+    float32 gradients flat in the kernels' ``[in, out]`` layout (d W_s0
+    ``[W, W/2]``, d b_s0, d W_s1 ``[W/2, C]``, d b_s1) and the feature
+    cotangent ``dfeat_ray [N, W]`` in the compute dtype."""
+    dt = sem.ws0.dtype
+    W = sem.ws0.shape[0]
+    gs = gsem.float()
+    gsb = gs.to(dt).float()
+    fsum, s0r = sem_acts.float().split([W, W // 2], dim=1)
+    ds = gsb @ sem.ws1t.float()  # [N, W/2]; no activation between layers
+    dsb = ds.to(dt).float()
+    dfeat_ray = (dsb @ sem.ws0t.float()).to(dt)
+    flat = torch.cat([(fsum.T @ dsb).reshape(-1), S * ds.sum(0),
+                      (s0r.T @ gsb).reshape(-1), S * gs.sum(0)])
+    return flat, dfeat_ray
+
+
+def unpack_sem_grads(flat: torch.Tensor, width: int,
+                     n_classes: int) -> Dict[str, torch.Tensor]:
+    """The head's flat gradients -> ``semantic_0/1`` weights (``[out,
+    in]``) and biases."""
+    wh = width // 2
+    dw0, db0, dw1, db1 = flat.split([width * wh, wh, wh * n_classes,
+                                     n_classes])
+    return {"semantic_0.weight": dw0.view(width, wh).t().contiguous(),
+            "semantic_0.bias": db0.clone(),
+            "semantic_1.weight": dw1.view(wh, n_classes).t().contiguous(),
+            "semantic_1.bias": db1.clone()}
+
+
+def fused_nerf_fwd_sem_plain(params, pts_t, viewdirs_t, S: int, *, depth: int,
+                             width: int, multires: int, multires_views: int,
+                             dtype=torch.float32, skips=()):
+    """Kernel 6's twin: raw ``[4, P]`` and the ray-summed semantic logits
+    ``[P // S, C]``."""
+    raw, acts, _, _ = _forward_plain(params, pts_t, viewdirs_t, S, depth,
+                                     width, multires, multires_views, dtype,
+                                     skips)
+    logits, _ = sem_head_plain(sem_tile_partials_plain(acts[depth], S),
+                               pack_sem(params, dtype, pts_t.device),
+                               pts_t.shape[1] // S, S)
+    return raw, logits
+
+
+def fused_nerf_fwd_acts_sem_plain(params, pts_t, viewdirs_t, S: int, *,
+                                  depth: int, width: int, multires: int,
+                                  multires_views: int, dtype=torch.float32,
+                                  skips=()):
+    """Kernel 7's twin: raw, the saved activations (kernel 4's buffer), the
+    logits and ``sem_acts`` (:func:`sem_head_plain`)."""
+    raw, acts, _, _ = _forward_plain(params, pts_t, viewdirs_t, S, depth,
+                                     width, multires, multires_views, dtype,
+                                     skips)
+    logits, sem_acts = sem_head_plain(
+        sem_tile_partials_plain(acts[depth], S),
+        pack_sem(params, dtype, pts_t.device), pts_t.shape[1] // S, S)
+    return (raw, torch.cat([a.to(dtype).reshape(-1) for a in acts]), logits,
+            sem_acts)
+
+
+def fused_nerf_bwd_acts_sem_plain(params, pts_t, viewdirs_t, g, gsem, acts,
+                                  sem_acts, S: int, *, depth: int, width: int,
+                                  multires: int, multires_views: int,
+                                  dtype=torch.float32, skips=()
+                                  ) -> Dict[str, torch.Tensor]:
+    """Kernel 8's twin: gradients of every parameter, the head's included,
+    for the raw cotangent ``g [4, P]`` and the logit cotangent ``gsem [N,
+    C]``, from kernel 7's ``acts`` and ``sem_acts``."""
+    sem = pack_sem(params, dtype, pts_t.device)
+    flat, dfeat_ray = sem_head_bwd_plain(gsem, sem_acts, sem, S)
+    out = fused_nerf_bwd_acts_plain(
+        params, pts_t, viewdirs_t, g, acts, S, depth=depth, width=width,
+        multires=multires, multires_views=multires_views, dtype=dtype,
+        skips=skips, dfeat_ray=dfeat_ray)
+    out.update(unpack_sem_grads(flat, width, sem.bs1.numel()))
+    return out
 
 # --------------------------------------------------------------- launches
 
@@ -438,7 +667,7 @@ def _packed_for(params, depth, dtype, device, packed):
 
 
 def _fwd_launch(fn, packed, pts_t, viewdirs_t, S, depth, width, multires,
-                multires_views, skips, acts=None):
+                multires_views, skips, acts=None, fpart=None):
     P = pts_t.shape[1]
     out = torch.empty((4, P), dtype=torch.float32, device=pts_t.device)
     skip_mask = sum(1 << s for s in live_skips(depth, skips))
@@ -450,7 +679,11 @@ def _fwd_launch(fn, packed, pts_t, viewdirs_t, S, depth, width, multires,
             torch.cuda.current_stream(pts_t.device).cuda_stream)
     head = (pts_t.data_ptr(), viewdirs_t.data_ptr(), packed.weights.data_ptr(),
             packed.biases.data_ptr(), out.data_ptr())
-    if acts is None:
+    if fpart is not None:
+        err = lib.fused_nerf_fwd_sem_launch(
+            *head, None if acts is None else acts.data_ptr(),
+            fpart.data_ptr(), fpart.shape[1], *tail)
+    elif acts is None:
         err = lib.fused_nerf_fwd_launch(*head, *tail)
     else:
         err = lib.fused_nerf_fwd_acts_launch(*head, acts.data_ptr(), *tail)
@@ -512,6 +745,105 @@ def fused_nerf_fwd_acts(params: Mapping[str, torch.Tensor], pts_t, viewdirs_t,
 
 fused_nerf_fwd_acts.launches = 0
 
+
+def _sem_packed_for(params, depth, dtype, device, packed):
+    packed = _packed_for(params, depth, dtype, device, packed)
+    if packed.sem is None:
+        raise ValueError("the packed weights hold no semantic head")
+    return packed
+
+
+def sem_head(fpart: torch.Tensor, sem: SemPacked, n_rays: int, S: int,
+             save: bool = False):
+    """The semantic head of kernels 6 and 7 (``fused_nerf_sem_head`` in
+    ``csrc/fused_nerf_fwd.cu``): logits ``[N, C]`` float32 from the tile
+    partials ``fpart``, and with ``save`` the ``sem_acts`` that kernel 8
+    reads (else None). CPU tensors run :func:`sem_head_plain`."""
+    _check_sem_samples(S)
+    if fpart.device.type == "cpu":
+        logits, sem_acts = sem_head_plain(fpart, sem, n_rays, S)
+        return logits, (sem_acts if save else None)
+    W, C = fpart.shape[2], sem.bs1.numel()
+    dev = fpart.device
+    logits = torch.empty((n_rays, C), dtype=torch.float32, device=dev)
+    sem_acts = (torch.empty((n_rays, W + W // 2), dtype=sem.ws0.dtype,
+                            device=dev) if save else None)
+    lib = _build.load(KERNEL, ARGTYPES)
+    err = lib.fused_nerf_sem_head_launch(
+        fpart.data_ptr(), sem.ws0.data_ptr(), sem.bs0.data_ptr(),
+        sem.ws1.data_ptr(), sem.bs1.data_ptr(), logits.data_ptr(),
+        None if sem_acts is None else sem_acts.data_ptr(), fpart.shape[1],
+        n_rays, S, W, C, int(sem.ws0.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, KERNEL, err)
+    sem_head.launches += 1
+    return logits, sem_acts
+
+
+sem_head.launches = 0
+
+
+def _fwd_sem(fn, params, pts_t, viewdirs_t, S, kw, packed, save):
+    packed = _sem_packed_for(params, kw["depth"], kw["dtype"], pts_t.device,
+                             packed)
+    P, width, depth = pts_t.shape[1], kw["width"], kw["depth"]
+    fpart = torch.empty((-(-P // TILE), sem_tile_slots(S), width),
+                        dtype=torch.float32, device=pts_t.device)
+    acts = (torch.empty(((depth + 1) * P * width + P * (width // 2),),
+                        dtype=kw["dtype"], device=pts_t.device)
+            if save else None)
+    raw = _fwd_launch(fn, packed, pts_t.float().contiguous(),
+                      viewdirs_t.float().contiguous(), S, depth, width,
+                      kw["multires"], kw["multires_views"], kw["skips"],
+                      acts=acts, fpart=fpart)
+    logits, sem_acts = sem_head(fpart, packed.sem, P // S, S, save=save)
+    return raw, acts, logits, sem_acts
+
+
+def fused_nerf_fwd_sem(params: Mapping[str, torch.Tensor], pts_t, viewdirs_t,
+                       S: int, *, depth: int, width: int, multires: int,
+                       multires_views: int, dtype=torch.float32, skips=(),
+                       packed: PackedParams | None = None):
+    """Kernel 6: raw ``[4, P]`` and the ray-summed semantic logits ``[P // S,
+    C]`` float32 of a model with a semantic head (then :func:`sem_head`).
+    It computes no gradient: :func:`fused_nerf_apply_rays_semantic` takes
+    :class:`FusedSem` (kernels 7 and 8) under autograd. ``packed`` as for
+    :func:`fused_nerf_fwd`."""
+    _check(pts_t, viewdirs_t, S, dtype)
+    _check_sem_samples(S)
+    kw = dict(depth=depth, width=width, multires=multires,
+              multires_views=multires_views, dtype=dtype, skips=skips)
+    if pts_t.device.type == "cpu":
+        return fused_nerf_fwd_sem_plain(params, pts_t, viewdirs_t, S, **kw)
+    raw, _, logits, _ = _fwd_sem(fused_nerf_fwd_sem, params, pts_t,
+                                 viewdirs_t, S, kw, packed, save=False)
+    return raw, logits
+
+
+fused_nerf_fwd_sem.launches = 0
+
+
+def fused_nerf_fwd_acts_sem(params: Mapping[str, torch.Tensor], pts_t,
+                            viewdirs_t, S: int, *, depth: int, width: int,
+                            multires: int, multires_views: int,
+                            dtype=torch.float32, skips=(),
+                            packed: PackedParams | None = None):
+    """Kernel 7: raw, the saved activations (kernel 4's buffer), the logits
+    and ``sem_acts`` (each ray's feature sum and first head layer, ``[N, W +
+    W/2]`` in ``dtype``), for :func:`fused_nerf_bwd_acts_sem`."""
+    _check(pts_t, viewdirs_t, S, dtype)
+    _check_sem_samples(S)
+    kw = dict(depth=depth, width=width, multires=multires,
+              multires_views=multires_views, dtype=dtype, skips=skips)
+    if pts_t.device.type == "cpu":
+        return fused_nerf_fwd_acts_sem_plain(params, pts_t, viewdirs_t, S,
+                                             **kw)
+    return _fwd_sem(fused_nerf_fwd_acts_sem, params, pts_t, viewdirs_t, S,
+                    kw, packed, save=True)
+
+
+fused_nerf_fwd_acts_sem.launches = 0
+
 _SM_COUNT: Dict[int, int] = {}
 
 
@@ -543,7 +875,7 @@ grad_reduce.launches = 0
 
 def _bwd_launch(fn, mode, params, packed, pts_t, viewdirs_t, g, S, depth,
                 width, multires, multires_views, skips, flags=None,
-                acts=None):
+                acts=None, dfeat_ray=None):
     dev = pts_t.device
     P = pts_t.shape[1]
     n_tiles = -(-P // TILE)
@@ -561,6 +893,7 @@ def _bwd_launch(fn, mode, params, packed, pts_t, viewdirs_t, g, S, depth,
         mode, pts_t.data_ptr(), viewdirs_t.data_ptr(), g.data_ptr(),
         None if flags is None else flags.data_ptr(),
         None if acts is None else acts.data_ptr(),
+        None if dfeat_ray is None else dfeat_ray.data_ptr(),
         packed.weights.data_ptr(), packed.weights_t.data_ptr(),
         packed.biases.data_ptr(),
         None if scratch is None else scratch.data_ptr(), part.data_ptr(),
@@ -572,6 +905,13 @@ def _bwd_launch(fn, mode, params, packed, pts_t, viewdirs_t, g, S, depth,
     _build.check(lib, BWD_KERNEL, err)
     fn.launches += 1
     return unpack_grads(grad_reduce(part, n_w + n_b), params, packed, depth)
+
+
+def _check_acts(acts, P, depth, width, dtype, device):
+    if acts.dtype != dtype or acts.numel() != (depth + 1) * P * width \
+            + P * (width // 2) or acts.device != device:
+        raise ValueError(f"bad activations {acts.dtype} "
+                         f"{tuple(acts.shape)} on {acts.device}")
 
 
 def _bwd_inputs(pts_t, viewdirs_t, g, S, dtype):
@@ -637,11 +977,7 @@ def fused_nerf_bwd_acts(params, pts_t, viewdirs_t, g, acts, S: int, *,
                         ) -> Dict[str, torch.Tensor]:
     """Kernel 5: the backward from the activations kernel 4 saved."""
     pts_t, viewdirs_t, g = _bwd_inputs(pts_t, viewdirs_t, g, S, dtype)
-    P = pts_t.shape[1]
-    if acts.dtype != dtype or acts.numel() != (depth + 1) * P * width \
-            + P * (width // 2) or acts.device != pts_t.device:
-        raise ValueError(f"bad activations {acts.dtype} "
-                         f"{tuple(acts.shape)} on {acts.device}")
+    _check_acts(acts, pts_t.shape[1], depth, width, dtype, pts_t.device)
     kw = dict(depth=depth, width=width, multires=multires,
               multires_views=multires_views, skips=skips)
     if pts_t.device.type == "cpu":
@@ -653,6 +989,75 @@ def fused_nerf_bwd_acts(params, pts_t, viewdirs_t, g, acts, S: int, *,
 
 
 fused_nerf_bwd_acts.launches = 0
+
+
+def sem_head_bwd(gsem: torch.Tensor, sem_acts: torch.Tensor, sem: SemPacked,
+                 S: int):
+    """The semantic head's backward of kernel 8
+    (``fused_nerf_sem_head_bwd`` in ``csrc/fused_nerf_bwd.cu``, then
+    :func:`grad_reduce`): the head's flat float32 gradients and the feature
+    cotangent ``dfeat_ray [N, W]``, as :func:`sem_head_bwd_plain`, which
+    CPU tensors run."""
+    if gsem.device.type == "cpu":
+        return sem_head_bwd_plain(gsem, sem_acts, sem, S)
+    dev = gsem.device
+    N, C = gsem.shape
+    W = sem.ws0.shape[0]
+    n_sem = W * (W // 2) + W // 2 + (W // 2) * C + C
+    G = _grid(dev, -(-N // HEAD_RAYS_BWD))
+    stride = -(-n_sem // 4) * 4
+    part = torch.zeros((G, stride), dtype=torch.float32, device=dev)
+    dfeat_ray = torch.empty((N, W), dtype=sem.ws0.dtype, device=dev)
+    lib = _build.load(BWD_KERNEL, BWD_ARGTYPES)
+    err = lib.fused_nerf_sem_head_bwd_launch(
+        gsem.data_ptr(), sem_acts.data_ptr(), sem.ws0t.data_ptr(),
+        sem.ws1t.data_ptr(), dfeat_ray.data_ptr(), part.data_ptr(), stride,
+        G, N, S, W, C, int(sem.ws0.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, BWD_KERNEL, err)
+    sem_head_bwd.launches += 1
+    return grad_reduce(part, n_sem), dfeat_ray
+
+
+sem_head_bwd.launches = 0
+
+
+def fused_nerf_bwd_acts_sem(params, pts_t, viewdirs_t, g, gsem, acts,
+                            sem_acts, S: int, *, depth: int, width: int,
+                            multires: int, multires_views: int,
+                            dtype=torch.float32, skips=(),
+                            packed: PackedParams | None = None
+                            ) -> Dict[str, torch.Tensor]:
+    """Kernel 8: gradients of every parameter (the semantic head's
+    included) for the raw cotangent ``g [4, P]`` and the logit cotangent
+    ``gsem [P // S, C]``, from what kernel 7 saved: :func:`sem_head_bwd`,
+    then kernel 5's body with the head's feature cotangent."""
+    pts_t, viewdirs_t, g = _bwd_inputs(pts_t, viewdirs_t, g, S, dtype)
+    N = pts_t.shape[1] // S
+    _check_acts(acts, pts_t.shape[1], depth, width, dtype, pts_t.device)
+    if sem_acts.dtype != dtype or sem_acts.shape != (N, width + width // 2) \
+            or gsem.dim() != 2 or gsem.shape[0] != N \
+            or gsem.device != pts_t.device \
+            or sem_acts.device != pts_t.device:
+        raise ValueError(f"bad semantic inputs {tuple(gsem.shape)}, "
+                         f"{sem_acts.dtype} {tuple(sem_acts.shape)}")
+    gsem = gsem.float().contiguous()
+    kw = dict(depth=depth, width=width, multires=multires,
+              multires_views=multires_views, skips=skips)
+    if pts_t.device.type == "cpu":
+        return fused_nerf_bwd_acts_sem_plain(params, pts_t, viewdirs_t, g,
+                                             gsem, acts, sem_acts, S,
+                                             dtype=dtype, **kw)
+    packed = _sem_packed_for(params, depth, dtype, pts_t.device, packed)
+    flat, dfeat_ray = sem_head_bwd(gsem, sem_acts.contiguous(), packed.sem, S)
+    grads = _bwd_launch(fused_nerf_bwd_acts_sem, 2, params, packed, pts_t,
+                        viewdirs_t, g, S, acts=acts.contiguous(),
+                        dfeat_ray=dfeat_ray, **kw)
+    grads.update(unpack_sem_grads(flat, width, gsem.shape[1]))
+    return grads
+
+
+fused_nerf_bwd_acts_sem.launches = 0
 
 
 # ----------------------------------------------- culling glue (kernel 3)
@@ -739,6 +1144,14 @@ def _bwd_acts_dparams(params, pts_t, vd_t, acts, g, spec: _Spec, packed=None):
                                packed=packed, **spec.kw())
 
 
+def _bwd_acts_sem_dparams(params, pts_t, vd_t, acts, sem_acts, g, gsem,
+                          spec: _Spec, packed=None):
+    """Saved-activation backward of the semantic variant (kernel 8)."""
+    return fused_nerf_bwd_acts_sem(params, pts_t, vd_t, g, gsem, acts,
+                                   sem_acts, spec.S, packed=packed,
+                                   **spec.kw())
+
+
 def _live_pack(params, spec, device):
     # Packed from the live parameters at every differentiated call, so an
     # optimizer step can never leave the kernels a stale copy.
@@ -811,6 +1224,49 @@ class FusedActs(torch.autograd.Function):
                                *[params[n] for n in names])
 
 
+class FusedSem(torch.autograd.Function):
+    """The semantic variant (JAX ``_fused_t_sem`` under a gradient): kernel
+    7 forward, which saves the activations and the head's ray sums; kernel
+    8 backward. Returns raw ``[4, P]`` and the logits ``[P // S, C]``."""
+
+    @staticmethod
+    def forward(ctx, spec, names, pts_t, vd_t, *weights):
+        params = dict(zip(names, weights))
+        packed = _live_pack(params, spec, pts_t.device)
+        ctx.spec, ctx.names, ctx.packed = spec, names, packed
+        raw, acts, logits, sem_acts = fused_nerf_fwd_acts_sem(
+            params, pts_t, vd_t, spec.S, packed=packed, **spec.kw())
+        ctx.save_for_backward(pts_t, vd_t, acts, sem_acts, *weights)
+        return raw, logits
+
+    @staticmethod
+    def backward(ctx, g, gsem):
+        pts_t, vd_t, acts, sem_acts, *weights = ctx.saved_tensors
+        params = dict(zip(ctx.names, weights))
+        grads = _bwd_acts_sem_dparams(params, pts_t, vd_t, acts, sem_acts,
+                                      g.float().contiguous(),
+                                      gsem.float().contiguous(), ctx.spec,
+                                      ctx.packed)
+        return (None, None, None, None, *[grads[n] for n in ctx.names])
+
+    @staticmethod
+    def run(params, pts_t, vd_t, S, *, depth, width, multires,
+            multires_views, dtype, skips):
+        spec = _Spec(S, depth, width, multires, multires_views, dtype,
+                     live_skips(depth, skips))
+        names = param_names(depth, semantic=True)
+        return FusedSem.apply(spec, names, pts_t.float(), vd_t.float(),
+                              *[params[n] for n in names])
+
+
+def _points_t(rays_o, rays_d, z_vals):
+    """``o + d z`` as ``[3, N * S]``."""
+    N, S = z_vals.shape
+    ot = rays_o.float().T[:, :, None]
+    dt = rays_d.float().T[:, :, None]
+    return (ot + dt * z_vals.float()[None]).reshape(3, N * S)
+
+
 def fused_nerf_apply_rays(params: Mapping[str, torch.Tensor], rays_o, rays_d,
                           viewdirs, z_vals, *, depth: int, width: int,
                           multires: int, multires_views: int,
@@ -829,9 +1285,7 @@ def fused_nerf_apply_rays(params: Mapping[str, torch.Tensor], rays_o, rays_d,
     into 16-sample blocks ("culled"), else dense ("dense").
     """
     N, S = z_vals.shape
-    ot = rays_o.float().T[:, :, None]
-    dt = rays_d.float().T[:, :, None]
-    pts_t = (ot + dt * z_vals.float()[None]).reshape(3, N * S)
+    pts_t = _points_t(rays_o, rays_d, z_vals)
     vd_t = viewdirs.float().T
     kw = dict(depth=depth, width=width, multires=multires,
               multires_views=multires_views, dtype=dtype, skips=skips)
@@ -851,3 +1305,38 @@ def fused_nerf_apply_rays(params: Mapping[str, torch.Tensor], rays_o, rays_d,
 
 
 fused_nerf_apply_rays.last_route = None
+
+
+def fused_nerf_apply_rays_semantic(params: Mapping[str, torch.Tensor], rays_o,
+                                   rays_d, viewdirs, z_vals, *, depth: int,
+                                   width: int, multires: int,
+                                   multires_views: int, dtype=torch.bfloat16,
+                                   skips=(),
+                                   packed: PackedParams | None = None):
+    """The semantic variant of :func:`fused_nerf_apply_rays` (JAX
+    ``fused_nerf_apply_rays_semantic``): raw ``[4, N, S]`` and the
+    reference's unweighted sum over samples of the semantic head's logits,
+    ``[N, C]`` float32. Without a gradient kernel 6 ("forward"); under
+    autograd :class:`FusedSem` ("acts"), as JAX has no other backward for a
+    semantic pass (its cotangent is never zero, so nothing culls). Route
+    choice by point count is the caller's (``supports_raw_semantic`` of
+    ``train.state.FusedMLP``); the route is kept in
+    ``fused_nerf_apply_rays_semantic.last_route``."""
+    N, S = z_vals.shape
+    pts_t = _points_t(rays_o, rays_d, z_vals)
+    vd_t = viewdirs.float().T
+    kw = dict(depth=depth, width=width, multires=multires,
+              multires_views=multires_views, dtype=dtype, skips=skips)
+    if torch.is_grad_enabled() and any(p.requires_grad
+                                       for p in params.values()):
+        route = "acts"
+        raw, logits = FusedSem.run(params, pts_t, vd_t, S, **kw)
+    else:
+        route = "forward"
+        raw, logits = fused_nerf_fwd_sem(params, pts_t, vd_t, S,
+                                         packed=packed, **kw)
+    fused_nerf_apply_rays_semantic.last_route = route
+    return raw.reshape(4, N, S), logits
+
+
+fused_nerf_apply_rays_semantic.last_route = None

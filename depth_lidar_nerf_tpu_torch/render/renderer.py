@@ -23,6 +23,7 @@ from depth_lidar_nerf_tpu_torch.ops.compositing import (RayOutputs,
                                                         raw2outputs,
                                                         raw2outputs_t)
 from depth_lidar_nerf_tpu_torch.ops.embedding import positional_encoding
+from depth_lidar_nerf_tpu_torch.ops.fused_mlp_t import supports_rays_shape
 from depth_lidar_nerf_tpu_torch.ops.rays import camera_rays, ndc_rays
 from depth_lidar_nerf_tpu_torch.ops.sampling import (sample_pdf,
                                                      stratified_z_vals)
@@ -123,18 +124,45 @@ def _fused_ok(model, cfg: RenderConfig, S: int) -> bool:
             and model.supports_rays_path(cfg))
 
 
+def _semantic_ok(model, cfg: RenderConfig, n_rays: int, S: int) -> bool:
+    """The predicate that picks the semantic kernels for one pass of
+    ``n_rays`` rays (JAX ``_composite_from_z``'s semantic arm): a model with
+    a semantic head within the saved-activation cap, which applies to
+    passes without a gradient too."""
+    return (cfg.num_semantic_classes > 0 and cfg.use_viewdirs
+            and hasattr(model, "apply_rays_semantic")
+            and supports_rays_shape(S)
+            and model.supports_raw_semantic(cfg, n_points=n_rays * S, S=S))
+
+
+def _sigma_noise(z_vals, cfg: RenderConfig, generator):
+    if cfg.raw_noise_std > 0.0 and generator is not None:
+        return torch.randn(z_vals.shape, dtype=torch.float32,
+                           device=z_vals.device,
+                           generator=generator) * cfg.raw_noise_std
+    return None
+
+
 def _composite_from_z(model, rays: Rays, z_vals, cfg: RenderConfig,
                       generator, save_acts: bool = False) -> RayOutputs:
     """Evaluate the field at per-ray depths and composite: the fused kernels
-    and the channel-major compositor where the topology is covered, else the
-    plain module and the standard compositor. ``save_acts`` asks a
-    differentiated fused pass to save its activations for the backward."""
-    if rays.viewdirs is not None and _fused_ok(model, cfg, z_vals.shape[-1]):
-        noise = None
-        if cfg.raw_noise_std > 0.0 and generator is not None:
-            noise = torch.randn(z_vals.shape, dtype=torch.float32,
-                                device=z_vals.device,
-                                generator=generator) * cfg.raw_noise_std
+    and the channel-major compositor where the topology is covered (the
+    semantic kernels for a model with a semantic head, whose logits come
+    already summed over each ray's samples), else the plain module and the
+    standard compositor. ``save_acts`` asks a differentiated fused pass to
+    save its activations for the backward."""
+    S = z_vals.shape[-1]
+    if rays.viewdirs is not None and _semantic_ok(model, cfg,
+                                                  z_vals.shape[0], S):
+        noise = _sigma_noise(z_vals, cfg, generator)
+        raw_t, sem_map = model.apply_rays_semantic(rays, z_vals, cfg)
+        out = raw2outputs_t(
+            raw_t, z_vals, rays.directions, raw_noise_std=cfg.raw_noise_std,
+            white_bkgd=cfg.white_bkgd, generator=generator,
+            cull_eps=cfg.cull_eps, noise=noise)
+        return out._replace(semantic=sem_map)
+    if rays.viewdirs is not None and _fused_ok(model, cfg, S):
+        noise = _sigma_noise(z_vals, cfg, generator)
         raw_t = model.apply_rays(rays, z_vals, cfg, save_acts=save_acts)
         return raw2outputs_t(
             raw_t, z_vals, rays.directions, raw_noise_std=cfg.raw_noise_std,
@@ -149,14 +177,24 @@ def _composite_from_z(model, rays: Rays, z_vals, cfg: RenderConfig,
         num_semantic_classes=cfg.num_semantic_classes, cull_eps=cfg.cull_eps)
 
 
-def fused_eval_ready(model, fine_model, cfg: RenderConfig) -> bool:
-    """True when every pass of a render takes the fused kernel, so
-    ``netchunk`` need not shrink the ray tile."""
-    if not _fused_ok(model, cfg, cfg.N_samples):
+def fused_eval_ready(model, fine_model, cfg: RenderConfig,
+                     tile: int | None = None) -> bool:
+    """True when every pass of a ``tile``-ray render (``chunk`` rays by
+    default) takes the fused kernels, so ``netchunk`` need not shrink the
+    ray tile. A semantic pass is checked at the tile's point count."""
+    if tile is None:
+        tile = cfg.render_tile(fused=True)
+
+    def pass_ok(m, S):
+        if cfg.num_semantic_classes > 0:
+            return _semantic_ok(m, cfg, tile, S)
+        return _fused_ok(m, cfg, S)
+
+    if not pass_ok(model, cfg.N_samples):
         return False
     if cfg.N_importance > 0:
         fm = fine_model if fine_model is not None else model
-        return _fused_ok(fm, cfg, cfg.N_samples + cfg.N_importance)
+        return pass_ok(fm, cfg.N_samples + cfg.N_importance)
     return True
 
 
@@ -167,10 +205,12 @@ def render_rays(model, fine_model, rays: Rays, cfg: RenderConfig,
 
     Returns the reference's result dictionary (``run_nerf.py:648-663``): the
     fine pass's ``rgb_map/disp_map/acc_map/depth_map/weights``, the coarse
-    ``rgb0/disp0/acc0/depth_map0``, and ``z_std``. ``generator`` drives the
+    ``rgb0/disp0/acc0/depth_map0``, ``z_std``, and with a semantic head the
+    ray-summed logits ``sem_preds`` (fine) and ``sem_preds0`` (coarse). ``generator`` drives the
     stratified jitter, sigma noise and random importance draws, in that order.
     Under autograd the coarse pass takes the recompute backward and the fine
-    pass saves its activations (the JAX ``render_rays``).
+    pass saves its activations (the JAX ``render_rays``); a semantic pass
+    always saves them.
     """
     z_vals = stratified_z_vals(rays.near, rays.far, cfg.N_samples,
                                lindisp=cfg.lindisp, perturb=cfg.perturb,
@@ -211,8 +251,9 @@ def render_rays(model, fine_model, rays: Rays, cfg: RenderConfig,
 def pick_render_tile(model, fine_model, cfg: RenderConfig, n: int) -> int:
     """Ray-tile policy of :func:`render_rays_tiled`: ``chunk`` rays when
     every pass is fused, else the ``netchunk``-honouring tile."""
-    if fused_eval_ready(model, fine_model, cfg):
-        return min(cfg.render_tile(fused=True), max(n, 1))
+    fused_tile = min(cfg.render_tile(fused=True), max(n, 1))
+    if fused_eval_ready(model, fine_model, cfg, fused_tile):
+        return fused_tile
     return cfg.render_tile()
 
 

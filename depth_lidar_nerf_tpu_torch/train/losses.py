@@ -6,10 +6,12 @@ Parity targets (the reference train loop):
 - LiDAR depth loss variants (weighted / normalized / relative / plain):
   ``run_nerf.py:1503-1524``;
 - depth-importance decay ``0.1^(step / (lrate_decay * 1000))``:
-  ``run_nerf.py:1531-1536``.
+  ``run_nerf.py:1531-1536``;
+- semantic cross-entropy on the ray-summed logits (``F.cross_entropy``, as
+  the JAX ``semantic_cross_entropy``).
 
-The semantic, smoothness, VGG, GAN, sigma and SSIM terms come with the
-slices that port their step variants.
+The smoothness, VGG, GAN, sigma and SSIM terms come with the slices that
+port their step variants.
 """
 
 from __future__ import annotations
@@ -50,3 +52,10 @@ def depth_loss(rendered: torch.Tensor, target: torch.Tensor,
     if relative:
         return torch.mean(((rendered - target) / (target + 1e-16)) ** 2)
     return img2mse(rendered, target)
+
+
+def semantic_cross_entropy(logits: torch.Tensor,
+                           labels: torch.Tensor) -> torch.Tensor:
+    """Mean over rays of ``-log_softmax(logits)`` at the integer label."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.mean(torch.gather(logp, -1, labels.long()[..., None]))

@@ -37,9 +37,28 @@ class FusedMLP(NeRFMLP):
             self.num_semantic_classes, self.depth, self.width, cfg.multires,
             cfg.multires_views, skips=self.skips)
 
+    def supports_raw_semantic(self, cfg: RenderConfig, n_points: int = 0,
+                              S: int = 0) -> bool:
+        """Whether the semantic kernels (6-8) take this call, as the JAX
+        ``FusedMLP.supports_raw_semantic`` decides: the topology with a
+        semantic head, and ``n_points`` (rays x samples; with ``S``, counted
+        after JAX's ray padding) within the saved-activation cap. JAX checks
+        the cap for no-grad renders too, so a pass beyond it takes the plain
+        module in both packages."""
+        if n_points and S:
+            n_points = fused_mlp_t.semantic_padded_rays(
+                -(-n_points // S), S, self.depth, self.width, self.dtype) * S
+        if n_points > fused_mlp_t.acts_points_cap(self.depth, self.width,
+                                                   self.dtype):
+            return False
+        return fused_mlp_t.supports_semantic(
+            dict(self.named_parameters()), self.use_viewdirs, self.depth,
+            self.width, cfg.multires, cfg.multires_views, skips=self.skips)
+
     def packed(self, device: torch.device) -> fused_mlp_t.PackedParams:
-        """The weights in the kernels' layout on ``device`` for passes
-        without a gradient, packed again after a parameter changed
+        """The weights (and the semantic head, where there is one) in the
+        kernels' layout on ``device`` for passes without a gradient, packed
+        again after a parameter changed
         (in-place updates and ``load_state_dict`` bump each tensor's version
         counter) or after :meth:`invalidate_pack`. Differentiated passes
         pack from the live parameters on every call."""
@@ -51,6 +70,15 @@ class FusedMLP(NeRFMLP):
                                                    self.dtype, device)
             self._packed_key = key
         return self._packed
+
+    def _nograd_pack(self, params, device):
+        """:meth:`packed` for a pass without a gradient on the card; None
+        under autograd (the Functions pack the live parameters) or on the
+        CPU (the twins read ``params``)."""
+        grad = torch.is_grad_enabled() and any(p.requires_grad
+                                               for p in params.values())
+        return self.packed(device) if device.type == "cuda" and not grad \
+            else None
 
     def invalidate_pack(self) -> None:
         """Forget the packed weights; the training step calls this after
@@ -65,16 +93,23 @@ class FusedMLP(NeRFMLP):
         JAX ``FusedMLP.apply_rays``), and ``save_acts`` asks for the
         saved-activation route."""
         params = dict(self.named_parameters())
-        grad = torch.is_grad_enabled() and any(p.requires_grad
-                                               for p in params.values())
-        packed = (self.packed(z_vals.device)
-                  if z_vals.device.type == "cuda" and not grad else None)
         return fused_mlp_t.fused_nerf_apply_rays(
             params, rays.origins, rays.directions, rays.viewdirs, z_vals,
             depth=self.depth, width=self.width, multires=cfg.multires,
             multires_views=cfg.multires_views, dtype=self.dtype,
             skips=self.skips, cull_bwd=cfg.cull_eps > 0,
-            save_acts=save_acts, packed=packed)
+            save_acts=save_acts,
+            packed=self._nograd_pack(params, z_vals.device))
+
+    def apply_rays_semantic(self, rays, z_vals, cfg: RenderConfig):
+        """Rays + per-ray depths -> (raw ``[4, N, S]``, the ray-summed
+        semantic logits ``[N, C]``) through kernels 6-8."""
+        params = dict(self.named_parameters())
+        return fused_mlp_t.fused_nerf_apply_rays_semantic(
+            params, rays.origins, rays.directions, rays.viewdirs, z_vals,
+            depth=self.depth, width=self.width, multires=cfg.multires,
+            multires_views=cfg.multires_views, dtype=self.dtype,
+            skips=self.skips, packed=self._nograd_pack(params, z_vals.device))
 
 
 class Models(NamedTuple):

@@ -2,15 +2,18 @@
 
 One step of the reference's hot loop (``run_nerf.py:1320-1847``) with RGB and
 LiDAR-depth supervision: gather a ray batch from the device-resident tables,
-render it (coarse + fine) under autograd, the RGB losses of both passes and
-the depth loss, backward, and one Adam step. On the card the MLP passes run
-the fused kernels (forward, culled or dense recompute backward, and the
-saved-activation pair for the fine pass) and sampling runs its kernel.
+render it (coarse + fine) under autograd, the RGB losses of both passes, the
+depth loss and, with ``semantic_loss``, the semantic cross-entropy of both
+passes on the RGB rays, backward, and one Adam step. On the card the MLP
+passes run the fused kernels (forward, culled or dense recompute backward,
+and the saved-activation pair for the fine pass; with a semantic head, the
+semantic saved-activation pair for both passes) and sampling runs its
+kernel.
 
 The JAX step compiles into one XLA program; here each step is eager PyTorch
 around the kernels. Step variants that the port does not run yet (patch
-losses, GAN, semantic, sigma loss, grid training, single-image batching,
-K-step dispatch) raise ``NotImplementedError``.
+losses, GAN, sigma loss, grid training, single-image batching, K-step
+dispatch) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,14 +31,15 @@ from depth_lidar_nerf_tpu_torch.train.state import Models, TrainState
 from depth_lidar_nerf_tpu_torch.train.tables import (DepthRayTable,
                                                      RgbRayTable, gather_rays)
 
-_UNPORTED = ("no_batching", "sigma_loss", "semantic_loss", "feature_loss",
-             "gan_loss", "depth_inverse_loss", "grid_train")
+_UNPORTED = ("no_batching", "sigma_loss", "feature_loss", "gan_loss",
+             "depth_inverse_loss", "grid_train")
 
 
 def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
                     hwf):
     """The step function of the base variant (JAX ``make_train_step`` with
-    no patch, GAN, grid, sigma or semantic term and ``k_steps=1``)::
+    no patch, GAN, grid or sigma term and ``k_steps=1``), with or without
+    the semantic term::
 
         metrics = step(state, rgb_table, depth_table, generator)
 
@@ -46,14 +50,15 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
     ``img_loss``, ``psnr``, ``depth_importance``, and ``img_loss0``/
     ``psnr0``/``depth_loss`` where the step has them) are detached 0-d
     tensors; reading them is left to the caller, so the step does not wait
-    for the device.
+    for the device. With ``semantic_loss`` they also hold ``semantic_loss``
+    and, with a coarse pass, ``semantic_loss0``.
     """
     unported = [n for n in _UNPORTED if getattr(cfg, n)]
-    if rcfg.num_semantic_classes:
-        unported.append("num_semantic_classes")
     if unported:
         raise NotImplementedError(
             f"training step variants not ported to PyTorch yet: {unported}")
+    if cfg.semantic_loss and not rcfg.num_semantic_classes:
+        raise ValueError("semantic_loss needs num_semantic_classes > 0")
     del hwf  # only the patch and single-image variants need the frame size
     n_depth = int(cfg.N_rand * cfg.depth_rays_prop) if cfg.colmap_depth else 0
     n_rgb = cfg.N_rand - n_depth
@@ -74,6 +79,7 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
         idx = draw(n_rgb, rgb_table, generator, idx)
         rays = gather_rays(rgb_table, idx, rcfg)
         target_s = rgb_table.rgb[idx]
+        target_sem = rgb_table.semantic[idx] if cfg.semantic_loss else None
         if n_depth > 0:
             idx_d = draw(n_depth, depth_table, generator, idx_d)
             rays_depth = gather_rays(depth_table, idx_d, rcfg)
@@ -96,6 +102,16 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
                 relative=cfg.relative_loss)
             metrics["depth_loss"] = d_loss
             loss = loss + cfg.depth_lambda * imp * d_loss
+        if cfg.semantic_loss:
+            sem_loss = losses.semantic_cross_entropy(out["sem_preds"][:n_rgb],
+                                                     target_sem)
+            metrics["semantic_loss"] = sem_loss
+            sem_loss0 = 0.0
+            if "sem_preds0" in out:
+                sem_loss0 = losses.semantic_cross_entropy(
+                    out["sem_preds0"][:n_rgb], target_sem)
+                metrics["semantic_loss0"] = sem_loss0
+            loss = loss + cfg.semantic_lambda * (sem_loss + sem_loss0)
         if coarse_on:
             img_loss0 = losses.img2mse(out["rgb0"][:n_rgb], target_s)
             metrics["img_loss0"] = img_loss0

@@ -235,3 +235,163 @@ def test_train_step_launches_each_kernel_once(cuda, cull_eps):
     assert [fn.launches - n for fn, n in zip(fns, n0)] == \
         [1, int(not culled), int(culled), 1, 1, 1, 2]
     assert all(torch.isfinite(v) for v in m.values())
+
+
+def _sem_inputs(cuda, depth, width, S, N, C, seed):
+    """Seeded weights with a semantic head (random biases, so the head's
+    S-scaled bias terms count), points, view directions, a raw cotangent
+    and a logit cotangent that is zero on the second half of the rays (as
+    the step's depth rays give)."""
+    from depth_lidar_nerf_tpu_torch.models.nerf_mlp import NeRFMLP
+
+    g = torch.Generator().manual_seed(seed)
+    m = NeRFMLP(depth=depth, width=width, num_semantic_classes=C,
+                generator=g).to(cuda)
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=g))
+        m.sigma.bias += 0.5
+    params = {k: v.detach() for k, v in m.named_parameters()}
+    rng = np.random.default_rng(seed)
+    pts = torch.from_numpy(rng.uniform(-1, 1, (3, N * S)).astype(np.float32)).to(cuda)
+    vd = torch.nn.functional.normalize(
+        torch.from_numpy(rng.normal(size=(N, 3)).astype(np.float32)), dim=-1).T.to(cuda)
+    gt = torch.from_numpy(rng.normal(size=(4, N * S)).astype(np.float32)).to(cuda)
+    gsem = torch.from_numpy(rng.normal(size=(N, C)).astype(np.float32)).to(cuda)
+    gsem[N // 2:] = 0.0
+    return params, pts, vd, gt, gsem
+
+
+def _sem_grad_err(got, ref, depth, width):
+    from depth_lidar_nerf_tpu_torch.ops.fused_mlp_t import grad_blocks
+
+    got, ref = (grad_blocks(x, depth, width, 10, (4,)) for x in (got, ref))
+    assert set(got) == set(ref)
+    return max(((got[k] - ref[k]).abs().max() / (ref[k].abs().mean() + 1e-12)).item()
+               for k in ref)
+
+
+_SEM_SHAPES = [(4, 256, 64, 37, 19), (8, 256, 128, 20, 19), (8, 128, 128, 9, 4),
+               (4, 128, 16, 50, 7), (2, 128, 4, 70, 5), (8, 256, 256, 3, 19)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("depth,width,S,N,C", _SEM_SHAPES)
+def test_fused_sem_fwd_kernels_match_plain(cuda, depth, width, S, N, C, dtype):
+    """Kernels 6 and 7 and the semantic head kernel against their twins;
+    kernels 6 and 7 give the same raw and logits."""
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f
+
+    params, pts, vd, _, _ = _sem_inputs(cuda, depth, width, S, N, C, depth + S)
+    kw = dict(depth=depth, width=width, multires=10, multires_views=4, dtype=dtype,
+              skips=(4,))
+    n0 = (f.fused_nerf_fwd_sem.launches, f.fused_nerf_fwd_acts_sem.launches,
+          f.sem_head.launches)
+    raw6, sem6 = f.fused_nerf_fwd_sem(params, pts, vd, S, **kw)
+    raw7, acts, sem7, sem_acts = f.fused_nerf_fwd_acts_sem(params, pts, vd, S, **kw)
+    torch.cuda.synchronize()
+    assert (f.fused_nerf_fwd_sem.launches, f.fused_nerf_fwd_acts_sem.launches,
+            f.sem_head.launches) == (n0[0] + 1, n0[1] + 1, n0[2] + 2)
+    assert torch.equal(raw6, raw7) and torch.equal(sem6, sem7)
+    raw_ref, acts_ref, sem_ref, sem_acts_ref = f.fused_nerf_fwd_acts_sem_plain(
+        params, pts, vd, S, **kw)
+    tol = _TOL[dtype]
+    assert (raw7 - raw_ref).abs().max().item() <= tol * raw_ref.abs().max().item()
+    assert (sem7 - sem_ref).abs().max().item() <= tol * sem_ref.abs().max().item()
+    for a, b in zip(f.split_acts(acts, N * S, depth, width),
+                    f.split_acts(acts_ref, N * S, depth, width)):
+        assert (a.float() - b.float()).abs().max().item() <= \
+            tol * b.float().abs().max().item()
+    assert (sem_acts.float() - sem_acts_ref.float()).abs().max().item() <= \
+        tol * sem_acts_ref.float().abs().max().item()
+    # The head kernel alone, on partial sums of kernel 7's feature activation.
+    feat = f.split_acts(acts, N * S, depth, width)[depth].float()
+    fpart = f.sem_tile_partials_plain(feat, S)
+    sem = f.pack_sem(params, dtype, cuda)
+    logits, head_acts = f.sem_head(fpart, sem, N, S, save=True)
+    torch.cuda.synchronize()
+    logits_ref, head_acts_ref = f.sem_head_plain(fpart, sem, N, S)
+    assert (logits - logits_ref).abs().max().item() <= \
+        tol * logits_ref.abs().max().item()
+    assert (head_acts.float() - head_acts_ref.float()).abs().max().item() <= \
+        tol * head_acts_ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("depth,width,S,N,C", _SEM_SHAPES)
+def test_fused_sem_bwd_kernel_matches_plain(cuda, depth, width, S, N, C, dtype):
+    """Kernel 8 and the head's backward kernel against their twins, on
+    kernel 7's activations; kernel 8 bit-identical run to run."""
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f
+
+    params, pts, vd, g, gsem = _sem_inputs(cuda, depth, width, S, N, C, depth * S)
+    kw = dict(depth=depth, width=width, multires=10, multires_views=4, dtype=dtype,
+              skips=(4,))
+    _, acts, _, sem_acts = f.fused_nerf_fwd_acts_sem(params, pts, vd, S, **kw)
+    n0 = (f.fused_nerf_bwd_acts_sem.launches, f.sem_head_bwd.launches,
+          f.grad_reduce.launches)
+    got = f.fused_nerf_bwd_acts_sem(params, pts, vd, g, gsem, acts, sem_acts, S, **kw)
+    again = f.fused_nerf_bwd_acts_sem(params, pts, vd, g, gsem, acts, sem_acts, S, **kw)
+    sem = f.pack_sem(params, dtype, cuda)
+    flat, dfeat_ray = f.sem_head_bwd(gsem, sem_acts, sem, S)
+    torch.cuda.synchronize()
+    assert (f.fused_nerf_bwd_acts_sem.launches, f.sem_head_bwd.launches,
+            f.grad_reduce.launches) == (n0[0] + 2, n0[1] + 3, n0[2] + 5)
+    assert set(got) == set(params)
+    assert all(torch.equal(got[k], again[k]) for k in got)
+    ref = f.fused_nerf_bwd_acts_sem_plain(params, pts, vd, g, gsem, acts, sem_acts, S,
+                                          **kw)
+    assert _sem_grad_err(got, ref, depth, width) <= _TOL[dtype]
+    flat_ref, dfeat_ref = f.sem_head_bwd_plain(gsem, sem_acts, sem, S)
+    head, head_ref = (f.unpack_sem_grads(x, width, C) for x in (flat, flat_ref))
+    for k in head_ref:
+        err = (head[k] - head_ref[k]).abs().max() / (head_ref[k].abs().mean() + 1e-12)
+        assert err.item() <= _TOL[dtype], k
+    assert (dfeat_ray.float() - dfeat_ref.float()).abs().max().item() <= \
+        _TOL[dtype] * dfeat_ref.float().abs().max().item()
+    assert not dfeat_ray[N // 2:].any()  # zero logit cotangent, zero rows
+
+
+def test_semantic_train_step_launches(cuda):
+    """One semantic training step on the card: kernels 7 and 8 for both
+    passes (with their head kernels), sampling once, no kernel of kernels
+    1-5, four gradient reductions (two trunks, two heads)."""
+    from depth_lidar_nerf_tpu_torch.data.synthetic import draw_scene
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f
+    from depth_lidar_nerf_tpu_torch.ops import sampling_cuda as s
+    from depth_lidar_nerf_tpu_torch.train.config import (TrainConfig,
+                                                         render_config_from)
+    from depth_lidar_nerf_tpu_torch.train.state import (build_models,
+                                                        init_train_state)
+    from depth_lidar_nerf_tpu_torch.train.step import make_train_step
+    from depth_lidar_nerf_tpu_torch.train.tables import (build_depth_table,
+                                                         build_rgb_table)
+
+    sc = draw_scene(n_images=2, H=16, W=24, focal=20.0, n_depth_points=50,
+                    backdrop=True, num_classes=19)
+    cfg = TrainConfig(dataset_type="llff", N_rand=256, N_samples=32,
+                      N_importance=32, netdepth=4, netwidth=128, netdepth_fine=8,
+                      netwidth_fine=128, use_viewdirs=True, no_ndc=True,
+                      raw_noise_std=1.0, colmap_depth=True, depth_loss=True,
+                      semantic_loss=True, semantic_lambda=0.04,
+                      compute_dtype="bfloat16", cull_eps=1e-4)
+    rcfg = render_config_from(cfg, sc.num_classes, sc.near, sc.far)
+    models = build_models(cfg, rcfg)
+    state = init_train_state(cfg, models)
+    tables = (build_rgb_table(sc.images, sc.poses, [0, 1], *sc.hwf, rcfg,
+                              segmentation=sc.segmentation),
+              build_depth_table(sc.depth_gts, sc.poses, [0, 1], *sc.hwf, rcfg))
+    step = make_train_step(cfg, rcfg, models, sc.hwf)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    fns = (f.fused_nerf_fwd, f.fused_nerf_bwd, f.fused_nerf_bwd_culled,
+           f.fused_nerf_fwd_acts, f.fused_nerf_bwd_acts, f.fused_nerf_fwd_sem,
+           f.fused_nerf_fwd_acts_sem, f.fused_nerf_bwd_acts_sem, f.sem_head,
+           f.sem_head_bwd, s.inverse_cdf, f.grad_reduce)
+    n0 = [fn.launches for fn in fns]
+    m = step(state, *tables, gen)
+    torch.cuda.synchronize()
+    assert [fn.launches - n for fn, n in zip(fns, n0)] == \
+        [0, 0, 0, 0, 0, 0, 2, 2, 2, 2, 1, 4]
+    assert all(torch.isfinite(v) for v in m.values())
+    assert {"semantic_loss", "semantic_loss0"} <= set(m)

@@ -91,3 +91,55 @@ def test_render_config_refuses_unported_modes():
 
     with pytest.raises(NotImplementedError, match="render_int8"):
         render_config_from(TrainConfig(render_int8=True), 0, 0.0, 1.0)
+
+
+def test_chip_smoke_imports_no_jax():
+    """``chip_smoke.py`` runs on a machine without JAX: no line of it
+    imports ``jax``, Flax or the JAX package."""
+    import ast
+
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module]
+    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                                   "depth_lidar_nerf_tpu")]
+    assert not bad, bad
+    assert any(m.startswith("depth_lidar_nerf_tpu_torch") for m in names)
+
+
+def test_semantic_wrappers_refuse_bad_inputs():
+    """The semantic kernels' wrappers check shapes and devices as the
+    others do, and refuse packed weights without a semantic head."""
+    from depth_lidar_nerf_tpu_torch.models.nerf_mlp import NeRFMLP
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f
+
+    m = NeRFMLP(depth=2, width=128, num_semantic_classes=3)
+    params = {k: v.detach() for k, v in m.named_parameters()}
+    kw = dict(depth=2, width=128, multires=10, multires_views=4)
+    pts = torch.linspace(-1, 1, 24).reshape(3, 8)
+    vd = torch.nn.functional.normalize(torch.ones(3, 2), dim=0)
+    raw, sem = f.fused_nerf_fwd_sem(params, pts, vd, 4, **kw)
+    assert raw.shape == (4, 8) and sem.shape == (2, 3)
+    with pytest.raises(ValueError, match="unsupported"):
+        f.fused_nerf_fwd_sem(params, pts.to("meta"), vd.to("meta"), 4, **kw)
+    with pytest.raises(ValueError, match="bad shapes"):
+        f.fused_nerf_fwd_acts_sem(params, pts, vd, 3, **kw)
+    pts24 = torch.linspace(-1, 1, 72).reshape(3, 24)  # one ray of 24 samples
+    for fn in (f.fused_nerf_fwd_sem, f.fused_nerf_fwd_acts_sem):
+        with pytest.raises(ValueError, match="S dividing 64"):
+            fn(params, pts24, vd[:, :1], 24, **kw)
+    _, acts, _, sem_acts = f.fused_nerf_fwd_acts_sem(params, pts, vd, 4, **kw)
+    g = torch.zeros(4, 8)
+    with pytest.raises(ValueError, match="bad semantic inputs"):
+        f.fused_nerf_bwd_acts_sem(params, pts, vd, g, torch.zeros(3, 3), acts,
+                                  sem_acts, 4, **kw)
+    trunk = {k: v for k, v in params.items() if not k.startswith("semantic")}
+    assert f.pack_params(trunk, 2, torch.float32).sem is None
+    with pytest.raises(ValueError, match="no semantic head"):
+        f._sem_packed_for(params, 2, torch.float32, torch.device("cpu"),
+                          f.pack_params(trunk, 2, torch.float32))
+    assert f.supports_semantic(params, True, 2, 128, 10, 4)
+    assert not f.supports_semantic(trunk, True, 2, 128, 10, 4)
+    assert not f.supports_rays(params, True, 3, 2, 128, 10, 4)
