@@ -19,7 +19,11 @@ which raises on failure:
    16,384 rays x S=64 and 128, on cotangents with per-ray zero suffixes
    (the backwards against the plain backward on the forward kernel's
    activations); the culled backward also against the dense one; then the
-   semantic kernels (phase 8), so that a faulty kernel stops the run early;
+   semantic kernels (phase 8); then the int8 serving kernels 10 and 11
+   (kernel 11 with the semantic head kernel) at W=256, D=4 and D=8 skip@4,
+   float32 and bfloat16, 4,096 and 32,768 rays x S=64 and 128, 19 classes,
+   on three numbers (max over max, mean over mean, share of elements off by
+   more than 1e-5 of the scale); so that a faulty kernel stops the run early;
 4. serving: ``configs/rgb_only.txt`` as shipped, at full width in bfloat16,
    seeded weights with scaled heads, ``render_path`` over 3 spiral poses of
    94 x 352 (focal 88). Asserts finite outputs of the right shapes and the
@@ -28,6 +32,13 @@ which raises on failure:
    whose opacity spreads across the frame, renders frame 0 through the
    kernels and through the plain versions (bfloat16, and float32 for scale)
    and compares;
+4b. int8 serving: the same config with ``render_int8`` set through
+   ``eval_render_config``, 3 frames through ``render_path`` (kernel 10 on
+   both passes of each tile, kernel 1 never), ms/frame and rays/s beside
+   phase 4's, one profiled frame; frame 0 of the comparison field against
+   the bf16 kernel frame (PSNR; rgb mean abs gap within JAX's 0.03); then
+   one frame each of ``render_fine_only``, ``render_fine_only`` + int8 and
+   ``render_coarse_downsample=2`` + int8, with their launch counts;
 5. training: the ``two_mlp`` stack of ``bench.py`` (coarse and fine D=4 /
    W=256, 64 + 64 samples, 16,384 rays half RGB half LiDAR depth,
    ``raw_noise_std`` 1, depth loss 0.01, bfloat16, ``cull_eps`` 1e-4, Adam)
@@ -42,7 +53,8 @@ which raises on failure:
    4,096 rays, float32 and bfloat16, perturbation and noise on; compares
    the losses and the final parameters;
 7. each kernel's time at the serving and training shapes beside its plain
-   version's and its bound;
+   version's and its bound (kernel 10's bound: int8 operations at 1,979
+   TOPS plus bf16 FLOP at 989 TFLOP/s, or bytes at 3.35 TB/s);
 8. (run within phase 3) the semantic kernels against their plain
    versions: kernels 6 (no-grad
    forward), 7 (forward saving activations) and 8 (backward), the semantic
@@ -65,15 +77,20 @@ which raises on failure:
    launch kernel 6), launch counts and a frame with few empty rays
    asserted, ms/frame, and the frame against the plain path (rgb, depth,
    acc and the semantic map, float32 and bfloat16);
+10b. int8 semantic serving: one frame of the seeded stack with
+   ``render_int8`` at ``chunk`` 32,768, whose D=8 fine tile takes kernel 11
+   (the bf16 frame would take the plain module there), launch counts,
+   ms/frame, each map against phase 10's bf16 frame; kernel 11's times at
+   the serving shapes;
 11. the semantic kernels' times at the step's shapes, then a 5-step
    trajectory of the semantic stack, kernel path against plain path (4,096
    rays, float32 and bfloat16);
 12. one ``{"kernels": [...]}`` JSON line with every kernel.
 
-It prints ``phase N done at T s`` as it goes; a whole run took under 200 s
-on an H100 (PERF.md). The last line is ``{"ok": true, "device": {...}}``.
-Without a CUDA device, or outside a checkout, it exits non-zero and prints no
-result.
+It prints ``phase N done at T s`` as it goes; a whole run took under 250 s
+on an H100, the build included (PERF.md). The last line is ``{"ok": true,
+"device": {...}}``. Without a CUDA device, or outside a checkout, it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -159,9 +176,32 @@ SEM_FRAME_TOL = {"rgb_map": (1.5e-2, 1e-5, 6e-3),
 # has acc = depth = 0 in both paths and would thin out the comparison.
 SEM_EMPTY_MAX = 0.01
 SEM_CHUNK = 16384  # rays per serving tile: 2.10 M fine points, under the D=8 cap
+# Kernels 10 and 11 against their twins, per dtype: (max abs error over the
+# twin's max abs, mean abs error over its mean abs, share of elements off by
+# more than 1e-5 of the twin's max abs); the logits on the first two. An
+# activation within float32 noise of a .5 boundary rounds to the other int8
+# value in one of the two (their float32 sums run in other orders), so the
+# max is loose; the mean and the share carry the check, since a wrong kernel
+# moves every element. Each about 3x the largest gap measured on an H100
+# (PERF.md): raw float32 1.03e-2, 6.2e-6, 1.2e-3; bfloat16 1.0e-2,
+# 1.6e-6, 2.5e-4; logits float32 3.9e-4, 1.2e-5; bfloat16 3.9e-3, 4.1e-5.
+Q8_TOL = {"float32": (3e-2, 1.8e-5, 3.6e-3), "bfloat16": (3e-2, 4.7e-6, 7.4e-4)}
+Q8_LOGIT_TOL = {"float32": (1.2e-3, 3.5e-5), "bfloat16": (1.2e-2, 1.2e-4)}
+# int8 frame against the bf16 kernel frame: rgb mean abs gap (JAX's atol,
+# tests/test_fused_q8.py:133).
+INT8_RGB_MEAN = 0.03
+# int8 semantic frame against phase 10's bf16 frame, per map, mean abs gap
+# over the bf16 frame's mean abs: about 3x the gaps measured on an H100
+# (rgb 0.0198, depth 0.0281, acc 0.0194, semantic map 0.0264; PERF.md).
+# The maxima are not held: a ray whose last sample's density is near 0
+# flips between empty and opaque (its interval is 1e10), as in phase 4.
+INT8_SEM_FRAME_MEAN = {"rgb_map": 0.06, "depth_map": 0.085, "acc_map": 0.06,
+                       "sem_preds": 0.08}
+INT8_CHUNK = 32768  # the default chunk: the int8 semantic pass has no cap
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bytes/s and FLOP/s.
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_INT8_OPS = 1979e12
 
 
 def check(cond, msg):
@@ -505,6 +545,352 @@ def sem_kernel_checks(fmt, NeRFMLP, dev, launch_fns, depths=(4, 8),
     return err
 
 
+def q8_gaps(got, ref):
+    """(max abs err / max abs ref, mean abs err / mean abs ref, share of
+    elements off by more than 1e-5 of max abs ref, max abs err)."""
+    d = (got.double() - ref.double()).abs()
+    scale = ref.double().abs().max().item()
+    return (d.max().item() / scale,
+            d.mean().item() / ref.double().abs().mean().item(),
+            (d > 1e-5 * scale).double().mean().item(), d.max().item())
+
+
+def q8_kernel_checks(fmt, NeRFMLP, dev, launch_fns, depths=(4, 8),
+                     shapes=((4096, 64), (4096, 128), (32768, 64),
+                             (32768, 128))):
+    """Phase 3: kernel 10 and kernel 11 (its trunk and the semantic head kernel)
+    against their twins at W=256, D=4 and D=8 skip@4, float32 and bfloat16,
+    4,096 and 32,768 rays x S=64 and 128, C=19; kernel 11's raw equals
+    kernel 10's bit for bit. Returns each kernel's largest max abs error."""
+    import numpy as np
+    import torch
+
+    err = {"fused_nerf_fwd_q8": 0.0, "fused_nerf_fwd_q8_sem": 0.0}
+    for depth in depths:
+        for n_rays, S in shapes:
+            params, pts, vd, _, _ = sem_inputs(NeRFMLP, dev, depth, n_rays, S,
+                                               depth * 10 + S)
+            trunk = {k: v for k, v in params.items()
+                     if not k.startswith("semantic_")}
+            for dtype in (torch.float32, torch.bfloat16):
+                name = str(dtype)[6:]
+                kw = dict(depth=depth, width=256, multires=10,
+                          multires_views=4, dtype=dtype, skips=(4,))
+                pk = fmt.pack_params_q8(params, depth, dtype, dev, (4,))
+                with torch.no_grad():
+                    raw10 = fmt.fused_nerf_fwd_q8(trunk, pts, vd, S, packed=pk,
+                                                  **kw)
+                    raw11, sem11 = fmt.fused_nerf_fwd_q8_sem(
+                        params, pts, vd, S, packed=pk, **kw)
+                    torch.cuda.synchronize()
+                    n_before = [f.launches for f in launch_fns]
+                    ref, sem_ref = fmt.fused_nerf_fwd_q8_sem_plain(
+                        params, pts, vd, S, packed=pk, **kw)
+                check([f.launches for f in launch_fns] == n_before,
+                      "a plain version launched a kernel")
+                check(torch.equal(raw10, raw11), "kernels 10 and 11 give the same raw")
+                g10, g11 = q8_gaps(raw10, ref), q8_gaps(sem11, sem_ref)
+                print(f"kernels 10-11 D={depth} N={n_rays} S={S} {name}: raw "
+                      f"max/max {g10[0]:.3g} mean/mean {g10[1]:.3g} share "
+                      f"{g10[2]:.3g} (abs {g10[3]:.3g}); logits max/max "
+                      f"{g11[0]:.3g} mean/mean {g11[1]:.3g} (abs {g11[3]:.3g}, "
+                      f"scale {sem_ref.abs().max().item():.3g}); tolerance "
+                      f"{Q8_TOL[name]}, logits {Q8_LOGIT_TOL[name]}", flush=True)
+                check(all(np.isfinite(g10[:3])) and all(
+                    g <= t for g, t in zip(g10[:3], Q8_TOL[name])),
+                    f"kernel 10 vs plain D={depth} N={n_rays} S={S} {name}")
+                check(all(g <= t for g, t in zip(g11[:2], Q8_LOGIT_TOL[name])),
+                      f"kernel 11 logits vs plain D={depth} N={n_rays} S={S} {name}")
+                err["fused_nerf_fwd_q8"] = max(err["fused_nerf_fwd_q8"], g10[3])
+                err["fused_nerf_fwd_q8_sem"] = max(err["fused_nerf_fwd_q8_sem"],
+                                                   g10[3], g11[3])
+                del raw10, raw11, sem11, ref, sem_ref, pk
+                torch.cuda.empty_cache()
+            del params, trunk, pts, vd
+            torch.cuda.empty_cache()
+    return err
+
+
+def q8_work(fmt, passes, semantic):
+    """(int8 ops, FLOP in the compute dtype, bytes) of kernel 10 (or 11 with
+    ``semantic``) over ``passes`` [(params, pts, S, depth)], bfloat16: each
+    input read once, each output written once; the head of kernel 11 on its
+    rays."""
+    ops = flops = by = 0
+    Wd, WH, e_p, e_v = 256, 128, 63, 27
+    for params, pts, S, depth in passes:
+        P = pts.shape[1]
+        N = P // S
+        ls = fmt.live_skips(depth, (4,))
+        ops += 2 * ((depth - 1) * Wd * Wd + Wd * Wd + Wd * WH) * P
+        flops += 2 * (e_p * Wd * (1 + len(ls)) + Wd + WH * 3) * P \
+            + 2 * e_v * WH * N
+        n_q8 = (depth - 1) * Wd * Wd + Wd * Wd + Wd * WH
+        n_w = sum(v.numel() for k, v in params.items()
+                  if not k.startswith("semantic_"))
+        by += (3 * P + 3 * N + 4 * P) * 4 + n_q8 + (n_w - n_q8) * 2 \
+            + -(-(depth + 1) // 8) * 8 * Wd * 4
+        if semantic:
+            C = params["semantic_1.bias"].numel()
+            flops += 2 * (Wd * WH + WH * C) * N + Wd * P
+            by += (Wd * WH + WH * C) * 2 + (WH + C) * 4 + N * C * 4
+    return ops, flops, by
+
+
+def q8_times(fmt, dev, passes, semantic, card, label):
+    """Kernel 10 (or 11) and its twin over ``passes`` (bf16, weights packed
+    once, as on the serving path): (ms, plain ms, bound ms, bound by)."""
+    import torch
+
+    fn = fmt.fused_nerf_fwd_q8_sem if semantic else fmt.fused_nerf_fwd_q8
+    plain = (fmt.fused_nerf_fwd_q8_sem_plain if semantic
+             else fmt.fused_nerf_fwd_q8_plain)
+    packs = [fmt.pack_params_q8(p, d, torch.bfloat16, dev, (4,))
+             for p, _, _, d in passes]
+
+    def run(f):
+        def go():
+            for (p, pts, S, d), pk in zip(passes, packs):
+                f(p, pts, vdt_of(pts, S), S, depth=d, width=256, multires=10,
+                  multires_views=4, dtype=torch.bfloat16, skips=(4,), packed=pk)
+        return go
+
+    vds = {}
+
+    def vdt_of(pts, S):
+        key = (pts.data_ptr(), S)
+        if key not in vds:
+            g = torch.Generator(device=dev).manual_seed(S)
+            vds[key] = torch.nn.functional.normalize(torch.randn(
+                (3, pts.shape[1] // S), device=dev, generator=g), dim=0)
+        return vds[key]
+
+    with torch.no_grad():
+        ms = cuda_ms(run(fn), reps=5)
+        plain_ms = cuda_ms(run(plain), reps=2, warmup=1)
+    ops, flops, by = q8_work(fmt, passes, semantic)
+    t_ops = ops / PEAK_INT8_OPS + flops / PEAK_FLOPS["bfloat16"]
+    t_bytes = by / PEAK_BYTES
+    bound = max(t_ops, t_bytes) * 1e3
+    by_ = "operations" if t_ops > t_bytes else "bytes"
+    print(f"{label} per frame (coarse + fine, bf16): {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, {ops / ms / 1e9:.1f} int8 TOPS + "
+          f"{flops / ms / 1e9:.1f} TFLOP/s, bound {bound:.3f} ms ({by_}) on "
+          f"{card}", flush=True)
+    return ms, plain_ms, bound, by_
+
+
+def psnr(a, b):
+    import math
+
+    mse = ((a.float() - b.float()) ** 2).mean().item()
+    return float("inf") if mse == 0 else -10.0 * math.log10(mse)
+
+
+def int8_serving_phase(fmt, sc, renderer, dev, card, cfg, rcfg, models, poses,
+                       ms_bf16, fns):
+    """Phase 4b: ``configs/rgb_only.txt`` with ``render_int8`` set through
+    ``eval_render_config`` on phase 4's field; then fine-only, fine-only +
+    int8 and coarse-downsampled + int8 frames. Returns the numbers for the
+    JSON lines and each kernel's launches on these main paths."""
+    import numpy as np
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.render.renderer import (pick_render_tile,
+                                                            render_image)
+    from depth_lidar_nerf_tpu_torch.train.config import eval_render_config
+    from depth_lidar_nerf_tpu_torch.train.loop import render_path
+
+    def zero():
+        for fn in fns.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in fns.items()}
+
+    out = {"card": card}
+    launches = dict.fromkeys(fns, 0)
+    with torch.no_grad():
+        for m in models:
+            m.sigma.bias += SIGMA_OFFSET - COMPARE_OFFSET  # phase 4's serving field
+    ecfg = eval_render_config(cfg.replace(render_int8=True), rcfg)
+    check(ecfg.render_int8 and not rcfg.render_int8,
+          "render_int8 reaches the eval config only")
+    n_tiles = -(-H * W // pick_render_tile(models.coarse, models.fine, ecfg,
+                                           H * W))
+    zero()
+    rgbs, disps = render_path(models, poses, (H, W, FOCAL), ecfg, device=dev)
+    torch.cuda.synchronize()
+    got = counts()
+    want = dict.fromkeys(fns, 0)
+    want.update({"fused_nerf_fwd_q8": 2 * n_tiles * N_FRAMES,
+                 sc.KERNEL: n_tiles * N_FRAMES})
+    print(f"int8 serving: {N_FRAMES} frames {H}x{W}, launches {got}, "
+          f"tiles/frame {n_tiles}")
+    check(got == want, f"int8 serving launch counts, want {want}")
+    check(rgbs.shape == (N_FRAMES, H, W, 3) and np.isfinite(rgbs).all()
+          and np.isfinite(disps).all(), "finite int8 frames")
+    launches = {k: launches[k] + got[k] for k in fns}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    render_path(models, poses, (H, W, FOCAL), ecfg, device=dev)
+    torch.cuda.synchronize()
+    ms_int8 = (time.time() - t0) * 1e3 / N_FRAMES
+    print(f"int8 serving steady: {ms_int8:.1f} ms/frame, "
+          f"{H * W * 1e3 / ms_int8:,.0f} rays/s; bf16 (phase 4) "
+          f"{ms_bf16:.1f} ms/frame, {H * W * 1e3 / ms_bf16:,.0f} rays/s; "
+          f"int8 / bf16 {ms_int8 / ms_bf16:.3f} on {card}", flush=True)
+    profile_step(lambda: render_image(models.coarse, models.fine, H, W, FOCAL,
+                                      poses[1], ecfg, device=dev), "int8 frame")
+    out.update(ms_per_frame=ms_int8, rays_per_s=H * W * 1e3 / ms_int8,
+               bf16_ms_per_frame=ms_bf16)
+
+    # Quality: frame 0 on phase 4's comparison field, int8 against bf16.
+    with torch.no_grad():
+        for m in models:
+            m.sigma.bias += COMPARE_OFFSET - SIGMA_OFFSET
+    fb = render_image(models.coarse, models.fine, H, W, FOCAL, poses[0], rcfg,
+                      device=dev)
+    fq = render_image(models.coarse, models.fine, H, W, FOCAL, poses[0], ecfg,
+                      device=dev)
+    gaps = {}
+    for k in ("rgb_map", "depth_map", "acc_map"):
+        d = (fq[k].float() - fb[k].float()).abs()
+        # (mean abs, max abs, rays off by more than 0.1: a ray whose last
+        # sample's density is near 0 flips between empty and opaque)
+        gaps[k] = (d.mean().item(), d.max().item(),
+                   int((d.reshape(H * W, -1).amax(1) > 0.1).sum().item()))
+    p = psnr(fq["rgb_map"], fb["rgb_map"])
+    print(f"int8 frame 0 against the bf16 kernel frame (comparison field): "
+          f"PSNR {p:.2f} dB; mean abs / max abs / rays off by > 0.1: "
+          + ", ".join(f"{k} {a:.3g} / {b:.3g} / {n}"
+                      for k, (a, b, n) in gaps.items())
+          + f"; rgb mean limit {INT8_RGB_MEAN}", flush=True)
+    check(gaps["rgb_map"][0] <= INT8_RGB_MEAN, "int8 rgb within JAX's atol")
+    out.update(psnr_vs_bf16=p, gaps_vs_bf16=gaps)
+    del fb, fq
+    with torch.no_grad():
+        for m in models:
+            m.sigma.bias += SIGMA_OFFSET - COMPARE_OFFSET
+
+    # The modes that compose with int8, one frame each on the serving field.
+    modes = {"fine_only": cfg.replace(render_fine_only=True),
+             "fine_only_int8": cfg.replace(render_fine_only=True,
+                                           render_int8=True),
+             "downsample2_int8": cfg.replace(render_coarse_downsample=2,
+                                             render_int8=True)}
+    out["modes"] = {}
+    for name, mcfg in modes.items():
+        vcfg = eval_render_config(mcfg, rcfg)
+        zero()
+        frame = render_image(models.coarse, models.fine, H, W, FOCAL,
+                             poses[1], vcfg, device=dev)
+        torch.cuda.synchronize()
+        got = counts()
+        tile = pick_render_tile(models.coarse, models.fine,
+                                dataclasses.replace(vcfg, render_fine_only=True),
+                                H * W)
+        nt = -(-H * W // tile)
+        kern = "fused_nerf_fwd_q8" if vcfg.render_int8 else "fused_nerf_fwd"
+        want = dict.fromkeys(fns, 0)
+        if vcfg.render_coarse_downsample > 1:
+            want.update({kern: 1 + nt, sc.KERNEL: 1})
+        else:
+            want.update({kern: 2 * nt, sc.KERNEL: nt})
+        check(got == want, f"{name} launch counts {got}, want {want}")
+        check(all(torch.isfinite(frame[k]).all().item()
+                  for k in ("rgb_map", "acc_map", "depth_map")),
+              f"finite {name} frame")
+        launches = {k: launches[k] + got[k] for k in fns}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        render_image(models.coarse, models.fine, H, W, FOCAL, poses[1], vcfg,
+                     device=dev)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        print(f"{name}: {ms:.1f} ms/frame, {H * W * 1e3 / ms:,.0f} rays/s, "
+              f"launches {got} on {card}", flush=True)
+        out["modes"][name] = {"ms_per_frame": ms, "launches": got}
+        del frame
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def int8_semantic_serving(fmt, sc, renderer, dev, card, cfg, rcfg, sm, pose,
+                          frame, ms_frame, fns):
+    """Phase 10b: one frame of the seeded semantic stack with ``render_int8``
+    at ``chunk`` 32,768, against phase 10's bf16 ``frame``; kernel 11's
+    times at the serving shapes. At that chunk the D=8 fine tile is beyond
+    the saved-activation cap, where the bf16 frame takes the plain module;
+    the int8 pass saves no activations, so it takes kernel 11, as in JAX."""
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.render.renderer import render_image
+    from depth_lidar_nerf_tpu_torch.train.config import eval_render_config
+
+    S_c = rcfg.N_samples
+    S_f = rcfg.N_samples + rcfg.N_importance
+    rq = dataclasses.replace(
+        eval_render_config(cfg.replace(render_int8=True), rcfg),
+        chunk=INT8_CHUNK)
+    check(not sm.fine.supports_raw_semantic(rq, n_points=INT8_CHUNK * S_f,
+                                            S=S_f)
+          and renderer._semantic_ok(sm.fine, rq, INT8_CHUNK, S_f),
+          "kernel 11 takes the D=8 fine tile of a chunk-32768 int8 frame")
+    nq = -(-H * W // INT8_CHUNK)
+    for fn in fns.values():
+        fn.launches = 0
+    fq = render_image(sm.coarse, sm.fine, H, W, FOCAL, pose, rq, device=dev)
+    torch.cuda.synchronize()
+    q_launches = {k: fn.launches for k, fn in fns.items()}
+    want = dict.fromkeys(fns, 0)
+    want.update({"fused_nerf_fwd_q8_sem": 2 * nq, "fused_nerf_sem_head": 2 * nq,
+                 sc.KERNEL: nq})
+    print(f"int8 semantic serving launches, one {H}x{W} frame in {nq} tiles: "
+          f"{q_launches}")
+    check(q_launches == want, f"int8 semantic serving launch counts, want {want}")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    render_image(sm.coarse, sm.fine, H, W, FOCAL, pose, rq, device=dev)
+    torch.cuda.synchronize()
+    ms_q = (time.time() - t0) * 1e3
+    q_err = {}
+    for key in ("rgb_map", "depth_map", "acc_map", "sem_preds"):
+        ref = frame[key].float()
+        d = (fq[key].float() - ref).abs()
+        q_err[key] = (d.max().item() / (ref.abs().max().item() + 1e-30),
+                      d.mean().item() / (ref.abs().mean().item() + 1e-30))
+        check(torch.isfinite(fq[key]).all().item()
+              and q_err[key][1] <= INT8_SEM_FRAME_MEAN[key],
+              f"int8 semantic frame {key} against the bf16 frame")
+    print(f"int8 semantic serving: {ms_q:.1f} ms/frame, "
+          f"{H * W * 1e3 / ms_q:,.0f} rays/s (bf16 frame at chunk {SEM_CHUNK}: "
+          f"{ms_frame:.1f} ms); against the bf16 frame, max over max / mean "
+          "over mean: " + ", ".join(f"{k} {a:.3g} / {b:.3g}"
+                                    for k, (a, b) in q_err.items())
+          + f" (mean limits {INT8_SEM_FRAME_MEAN}); rgb PSNR "
+          f"{psnr(fq['rgb_map'], frame['rgb_map']):.2f} dB on {card}", flush=True)
+    out = {"int8_serving": {"ms_per_frame": ms_q, "rays_per_s": H * W * 1e3 / ms_q,
+                            "launches": q_launches, "vs_bf16_frame": q_err,
+                            "card": card}}
+    del fq
+    # Kernel 11 at the serving shapes: the seeded stack on a frame's rays.
+    g = torch.Generator(device=dev).manual_seed(11)
+    N = H * W
+    ro = torch.randn((N, 3), device=dev, generator=g)
+    vd = torch.nn.functional.normalize(torch.randn((N, 3), device=dev,
+                                                   generator=g), dim=-1)
+    passes = []
+    for m, S in ((sm.coarse, S_c), (sm.fine, S_f)):
+        z = torch.sort(torch.rand((N, S), device=dev, generator=g), -1).values
+        pts = (ro.T[:, :, None] + vd.T[:, :, None] * z[None]).reshape(3, N * S)
+        passes.append(({k: v.detach() for k, v in m.named_parameters()},
+                       pts.contiguous(), S, m.depth))
+    out["q8_sem_times"] = q8_times(fmt, dev, passes, True, card,
+                                   "fused_nerf_fwd_q8_sem")
+    return out, q_launches
+
+
 def kernel_fns(fmt, sc):
     """Every kernel wrapper with a launch counter, by kernel name."""
     return {"fused_nerf_fwd": fmt.fused_nerf_fwd,
@@ -518,6 +904,8 @@ def kernel_fns(fmt, sc):
             "fused_nerf_sem_head": fmt.sem_head,
             "fused_nerf_sem_head_bwd": fmt.sem_head_bwd,
             "fused_nerf_grad_reduce": fmt.grad_reduce,
+            "fused_nerf_fwd_q8": fmt.fused_nerf_fwd_q8,
+            "fused_nerf_fwd_q8_sem": fmt.fused_nerf_fwd_q8_sem,
             sc.KERNEL: sc.inverse_cdf}
 
 
@@ -691,15 +1079,21 @@ def semantic_phases(fmt, sc, renderer, dev, card, plain_sampler):
               f"semantic frame {key} kernel vs plain, float32")
         check(b16[3] <= SEM_FRAME_TOL[key][2],
               f"semantic frame {key} kernel vs plain, bfloat16")
-    del frames, frame
+    del frames
     out["serving"] = {"ms_per_frame": ms_frame,
                       "rays_per_s": H * W * 1e3 / ms_frame,
                       "launches": s_launches, "empty_share": empty,
                       "frame_kernel_vs_plain": frame_err, "card": card}
-    out["launches"] = {k: launches[k] + s_launches[k] for k in fns}
-    del sm, tables
-    torch.cuda.empty_cache()
     print(f"phase 10 done at {time.time() - T_START:.0f} s", flush=True)
+
+    q_out, q_launches = int8_semantic_serving(
+        fmt, sc, renderer, dev, card, cfg, rcfg, sm, pose, frame, ms_frame, fns)
+    out.update(q_out)
+    out["launches"] = {k: launches[k] + s_launches[k] + q_launches[k]
+                       for k in fns}
+    del sm, tables, frame
+    torch.cuda.empty_cache()
+    print(f"phase 10b done at {time.time() - T_START:.0f} s", flush=True)
 
     # ---- 11a. semantic kernel times at the step's shapes (bf16) -------------
     passes = []
@@ -1000,9 +1394,11 @@ def main() -> int:
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.time()
-    logs = _build.build_all([fmt.KERNEL, fmt.BWD_KERNEL, sc.KERNEL])
+    logs = _build.build_all([fmt.KERNEL, fmt.BWD_KERNEL, fmt.Q8_KERNEL,
+                             sc.KERNEL])
     for name, types in ((fmt.KERNEL, fmt.ARGTYPES),
                         (fmt.BWD_KERNEL, fmt.BWD_ARGTYPES),
+                        (fmt.Q8_KERNEL, fmt.Q8_ARGTYPES),
                         (sc.KERNEL, sc.ARGTYPES)):
         _build.load(name, types)
     print(f"build: {time.time() - t0:.1f} s (nvcc {' '.join(_build.ARCH_FLAGS)})")
@@ -1077,7 +1473,10 @@ def main() -> int:
     print(f"training kernels checked in {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
     err.update(sem_kernel_checks(fmt, NeRFMLP, dev, all_fns))
-    print(f"semantic kernels checked in {time.time() - t0:.1f} s; phase 3 "
+    print(f"semantic kernels checked in {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    err.update(q8_kernel_checks(fmt, NeRFMLP, dev, all_fns))
+    print(f"int8 kernels checked in {time.time() - t0:.1f} s; phase 3 "
           f"done at {time.time() - T_START:.0f} s", flush=True)
 
     # ---- 4. serving -----------------------------------------------------
@@ -1194,6 +1593,13 @@ def main() -> int:
         check(e16[1] <= BF16_TOL_MEAN,
               f"frame 0 {key} kernel vs plain, bfloat16")
     del frames
+    print(f"phase 4 done at {time.time() - T_START:.0f} s", flush=True)
+
+    # ---- 4b. int8 serving and the modes that compose with it ---------------
+    int8_out, int8_launches = int8_serving_phase(
+        fmt, sc, renderer, dev, card, cfg, rcfg, models, poses, ms_frame,
+        kernel_fns(fmt, sc))
+    print(f"phase 4b done at {time.time() - T_START:.0f} s", flush=True)
 
     # ---- 5. kernel times at the serving shapes ----------------------------
     ro = torch.randn((N, 3), device=dev, generator=g)
@@ -1247,6 +1653,7 @@ def main() -> int:
     sp_bound = sp_bytes / PEAK_BYTES * 1e3
     print(f"sample_pdf per frame: {sp_ms:.4f} ms, plain {sp_plain_ms:.4f} ms, "
           f"bound {sp_bound:.4f} ms (bytes) on {card}")
+    q8_rgb_times = q8_times(fmt, dev, work, False, card, "fused_nerf_fwd_q8")
     del work, models
     torch.cuda.empty_cache()
 
@@ -1401,7 +1808,8 @@ def main() -> int:
 
     src = "depth_lidar_nerf_tpu_torch/csrc/"
     main_launches = {k: launches.get(k, 0) + train_launches.get(k, 0)
-                     + sem["launches"][k] for k in sem["launches"]}
+                     + int8_launches[k] + sem["launches"][k]
+                     for k in sem["launches"]}
     kernels = [
         {"name": fmt.KERNEL, "route": "cuda", "source": src + "fused_nerf_fwd.cu",
          "replaces": "depth_lidar_nerf_tpu/ops/fused_mlp_t.py:249",
@@ -1436,6 +1844,18 @@ def main() -> int:
             "launches": main_launches[k], "max_abs_err": err[k], "ms": ms_,
             "plain_ms": plain_, "bound_ms": bound_, "bound_by": by_,
             "library_ms": None})
+    for k, line, times in (("fused_nerf_fwd_q8", 1789, q8_rgb_times),
+                           ("fused_nerf_fwd_q8_sem", 1795, sem["q8_sem_times"])):
+        kernels.append({
+            "name": k, "route": "cuda", "source": src + "fused_nerf_q8.cu",
+            "replaces": f"depth_lidar_nerf_tpu/ops/fused_mlp_t.py:{line}",
+            "launches": main_launches[k], "max_abs_err": err[k], "ms": times[0],
+            "plain_ms": times[1], "bound_ms": times[2], "bound_by": times[3],
+            "library_ms": None})
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} launched on a main path")
+    print(json.dumps({"int8_serving": int8_out}))
+    print(json.dumps({"int8_semantic_serving": sem["int8_serving"]}))
     print(json.dumps({"semantic_training": {
         **sem["training"], "trajectory_kernel_vs_plain": sem["trajectory"]}}))
     print(json.dumps({"semantic_serving": sem["serving"]}))

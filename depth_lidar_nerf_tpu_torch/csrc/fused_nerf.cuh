@@ -1,4 +1,5 @@
-// Shared device code of the fused NeRF MLP kernels (fused_nerf_fwd.cu, fused_nerf_bwd.cu).
+// Shared device code of the fused NeRF MLP kernels (fused_nerf_fwd.cu, fused_nerf_bwd.cu,
+// fused_nerf_q8.cu).
 //
 // The MLP and its packed layout (see fused_nerf_fwd.cu for the forward's source note):
 // for points [3, P] (float32) with point p on ray p / S and per-ray unit view directions
@@ -204,6 +205,65 @@ __host__ __device__ inline int tile_first_ray(int t, int S) {
   return (int)(((long long)t * kTP) / S);
 }
 
+// Sigma head (row 3 of raw [4, P]) from the last trunk activation h, one thread a point.
+template <typename T, int W>
+__device__ __forceinline__ void sigma_head(const Net& net, const float* __restrict__ h,
+                                           float* __restrict__ out, int P, int p0, int n_valid) {
+  const int tid = threadIdx.x;
+  if (tid < n_valid) {
+    const T* ws = reinterpret_cast<const T*>(net.w) + net.woff[net.depth];
+    float sg = net.b[net.boff[net.depth]];
+    for (int k = 0; k < W; ++k) sg = fmaf(h[k * kLD + tid], to_f<T>(ws[k]), sg);
+    out[(size_t)3 * P + p0 + tid] = sg;
+  }
+}
+
+// Semantic partial sums of one tile: the rounded feature `feat` [W][kLD] of each ray's points
+// in the tile, summed in float32 in point order; slot r holds ray r_lo + r.
+template <int W>
+__device__ __forceinline__ void sem_partials(const float* __restrict__ feat,
+                                             float* __restrict__ fpart, int S, int p0,
+                                             int n_valid, int r_lo, int n_rays) {
+  for (int idx = threadIdx.x; idx < n_rays * W; idx += kThreads) {
+    const int r = idx / W, c = idx % W;
+    const int lo = max(0, (r_lo + r) * S - p0), hi = min(n_valid, (r_lo + r + 1) * S - p0);
+    float sm = 0.f;
+    for (int p = lo; p < hi; ++p) sm += feat[c * kLD + p];
+    fpart[r * W + c] = sm;
+  }
+}
+
+// Per-ray half of the view layer, enc_v W_v[W:] rounded to T, once per ray the tile touches,
+// into hv_ray [n_rays][W / 2].
+template <typename T, int W>
+__device__ __forceinline__ void view_ray_half(const Net& net, const Smem& s,
+                                              float* __restrict__ hv_ray, int n_rays, int e_v) {
+  constexpr int WV = W / 2;
+  const T* wv = reinterpret_cast<const T*>(net.w) + net.woff[net.depth + 2];
+  for (int idx = threadIdx.x; idx < n_rays * WV; idx += kThreads) {
+    const int r = idx / WV, c = idx % WV;
+    float sm = 0.f;
+    for (int k = 0; k < e_v; ++k)
+      sm = fmaf(s.encv[r * e_v + k], to_f<T>(wv[(size_t)(W + k) * WV + c]), sm);
+    hv_ray[r * WV + c] = rnd<T>(sm);
+  }
+}
+
+// RGB head (rows 0-2 of raw [4, P]) from the view activation hv [W / 2][kLD].
+template <typename T, int W>
+__device__ __forceinline__ void rgb_head(const Net& net, const float* __restrict__ hv,
+                                         float* __restrict__ out, int P, int p0, int n_valid) {
+  constexpr int WV = W / 2;
+  const T* wr = reinterpret_cast<const T*>(net.w) + net.woff[net.depth + 3];
+  for (int idx = threadIdx.x; idx < 3 * kTP; idx += kThreads) {
+    const int c = idx / kTP, p = idx % kTP;
+    if (p >= n_valid) continue;
+    float sm = net.b[net.boff[net.depth + 3] + c];
+    for (int k = 0; k < WV; ++k) sm = fmaf(hv[k * kLD + p], to_f<T>(wr[k * 3 + c]), sm);
+    out[(size_t)c * P + p0 + p] = sm;
+  }
+}
+
 // One tile of the forward: encodings, trunk, sigma and feature heads, view layer, rgb head.
 // `out` (raw [4, P]) may be null: then the heads are skipped. With `acts`, each trunk
 // activation, the feature activation and the view activation of the tile's valid points
@@ -255,48 +315,26 @@ __device__ void forward_tile(const Net& net, const Smem& s, const float* __restr
   float* feat = (h == s.buf0) ? s.buf1 : s.buf0;
   float* hbuf = (h == s.buf0) ? s.buf0 : s.buf1;
 
-  // Sigma head (row 3 of the output) from the last trunk activation.
-  if (out && tid < n_valid) {
-    const T* ws = w + net.woff[D];
-    float sg = b[net.boff[D]];
-    for (int k = 0; k < W; ++k) sg = fmaf(h[k * kLD + tid], to_f<T>(ws[k]), sg);
-    out[(size_t)3 * P + p0 + tid] = sg;
-  }
+  if (out) sigma_head<T, W>(net, h, out, P, p0, n_valid);
   // Feature layer (linear).
   init_acc<NJ>(acc, b + net.boff[D + 1], tx);
   mac<T, NJ>(acc, h, W, w + net.woff[D + 1], W, ty, tx);
   store<T, NJ>(acc, feat, false, ty, tx, arow ? arow + D * lstride : nullptr, W, n_valid);
   __syncthreads();
 
-  // Semantic partial sums: the rounded feature of each ray's points in this tile.
-  if (fpart) {
-    for (int idx = tid; idx < n_rays * W; idx += kThreads) {
-      const int r = idx / W, c = idx % W;
-      const int lo = max(0, (r_lo + r) * S - p0), hi = min(n_valid, (r_lo + r + 1) * S - p0);
-      float sm = 0.f;
-      for (int p = lo; p < hi; ++p) sm += feat[c * kLD + p];
-      fpart[r * W + c] = sm;
-    }
-  }
+  if (fpart) sem_partials<W>(feat, fpart, S, p0, n_valid, r_lo, n_rays);
 
   // Per-ray half of the view layer, once per ray, into the free trunk buffer.
   float* hv = hbuf;                 // [WV][kLD]
   float* hv_ray = hbuf + WV * kLD;  // [n_rays][WV]
-  const T* wv = w + net.woff[D + 2];
-  for (int idx = tid; idx < n_rays * WV; idx += kThreads) {
-    const int r = idx / WV, c = idx % WV;
-    float sm = 0.f;
-    for (int k = 0; k < e_v; ++k)
-      sm = fmaf(s.encv[r * e_v + k], to_f<T>(wv[(size_t)(W + k) * WV + c]), sm);
-    hv_ray[r * WV + c] = rnd<T>(sm);
-  }
+  view_ray_half<T, W>(net, s, hv_ray, n_rays, e_v);
   __syncthreads();
 
   // View layer: feat rows of views_0 per point plus the ray's term.
   {
     float accv[8][NJV];
     init_acc<NJV>(accv, b + net.boff[D + 2], tx);
-    mac<T, NJV>(accv, feat, W, wv, WV, ty, tx);
+    mac<T, NJV>(accv, feat, W, w + net.woff[D + 2], WV, ty, tx);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int p = min(ty * 8 + i, n_valid - 1);
@@ -310,17 +348,7 @@ __device__ void forward_tile(const Net& net, const Smem& s, const float* __restr
   }
   __syncthreads();
 
-  // RGB head (rows 0-2 of the output).
-  if (out) {
-    const T* wr = w + net.woff[D + 3];
-    for (int idx = tid; idx < 3 * kTP; idx += kThreads) {
-      const int c = idx / kTP, p = idx % kTP;
-      if (p >= n_valid) continue;
-      float sm = b[net.boff[D + 3] + c];
-      for (int k = 0; k < WV; ++k) sm = fmaf(hv[k * kLD + p], to_f<T>(wr[k * 3 + c]), sm);
-      out[(size_t)c * P + p0 + p] = sm;
-    }
-  }
+  if (out) rgb_head<T, W>(net, hv, out, P, p0, n_valid);
 }
 
 }  // namespace fnerf

@@ -18,6 +18,8 @@ backwards return float32 weight gradients and zero input cotangents. Here:
  6    ``_fwd_kernel_sem_only``    ``fused_nerf_fwd.cu`` sem      :func:`fused_nerf_fwd_sem`
  7    ``_fwd_kernel_acts_sem``    ``fused_nerf_fwd.cu`` sem acts :func:`fused_nerf_fwd_acts_sem`
  8    ``_bwd_kernel_acts_sem``    ``fused_nerf_bwd.cu`` sem      :func:`fused_nerf_bwd_acts_sem`
+10    ``_fwd_kernel_q8``          ``fused_nerf_q8.cu``           :func:`fused_nerf_fwd_q8`
+11    ``_fwd_kernel_q8_sem``      ``fused_nerf_q8.cu`` + head    :func:`fused_nerf_fwd_q8_sem`
 ====  ==========================  ============================  ===============================
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
@@ -38,6 +40,13 @@ culled (kernel 3) or dense (kernel 2) backward. The route is kept in
 ``fused_nerf_apply_rays.last_route``. :func:`fused_nerf_apply_rays_semantic`
 is the semantic variant (JAX ``_fused_t_sem``): kernel 6 without a gradient,
 :class:`FusedSem` (kernels 7 and 8) under autograd.
+
+Kernels 10 and 11 are the W8A8 serving forwards (JAX ``render_int8``), with
+no backward: :func:`pack_params_q8` quantizes the wide weights per output
+column (:func:`quant_cols`), the kernels quantize each point's activation
+row (:func:`qdot_plain` is the arithmetic), and
+:func:`fused_nerf_apply_rays_q8` / :func:`fused_nerf_apply_rays_semantic_q8`
+raise under autograd.
 
 ``params`` everywhere is a mapping of the :class:`~models.nerf_mlp.NeRFMLP`
 parameter names (``trunk_0.weight`` ``[out, in]``, ``trunk_0.bias``, ...) to
@@ -84,6 +93,12 @@ BWD_ARGTYPES = {
     # (part, part_stride, G, n, out, stream)
     "fused_nerf_grad_reduce_launch": [_PTR, ctypes.c_longlong, _INT, _INT,
                                       _PTR, _PTR],
+}
+Q8_KERNEL = "fused_nerf_q8"
+Q8_ARGTYPES = {
+    # (pts, vd, w, b, wq, sc, out, fpart, MR, P, S, depth, width, multires,
+    #  multires_views, skip_mask, bf16, w_off, b_off, q_off, stream)
+    "fused_nerf_q8_launch": [_PTR] * 8 + [_INT] * 9 + [_PTR] * 4,
 }
 _DTYPES = (torch.float32, torch.bfloat16)
 TILE = 64  # points per CUDA block tile (kTP in csrc/fused_nerf.cuh)
@@ -174,18 +189,22 @@ def acts_points_cap(depth: int, width: int, dtype=torch.bfloat16) -> int:
                                          - 16)
 
 
+def _jax_tile(cap: int) -> int:
+    return max(_JAX_TILE, (cap // _JAX_TILE) * _JAX_TILE)
+
+
+def jax_fwd_tile(S: int) -> int:
+    """JAX ``_fwd_tile_size``: the forward kernels' points per tile."""
+    return _jax_tile(min(_JAX_TILE_FWD, 128 * S))
+
+
 def _jax_tiles(S: int, depth: int, width: int, dtype):
     """JAX's forward, saved-activation forward and saved-activation
     backward tiles (``_fwd_tile_size``, ``_acts_tile_fwd``, ``_acts_tile``)."""
     vmem = (_ACTS_VMEM_MB * 1024 * 1024) // (
         2 * _acts_point_bytes(depth, width, dtype))
-
-    def tile(cap):
-        return max(_JAX_TILE, (cap // _JAX_TILE) * _JAX_TILE)
-
-    return (tile(min(_JAX_TILE_FWD, 128 * S)),
-            tile(min(_ACTS_TILE_FWD, 128 * S, vmem)),
-            tile(min(_ACTS_TILE, 128 * S, vmem)))
+    return (jax_fwd_tile(S), _jax_tile(min(_ACTS_TILE_FWD, 128 * S, vmem)),
+            _jax_tile(min(_ACTS_TILE, 128 * S, vmem)))
 
 
 def semantic_padded_rays(n_rays: int, S: int, depth: int, width: int,
@@ -328,6 +347,26 @@ def grad_blocks(grads: Mapping[str, torch.Tensor], depth: int, width: int,
 
 # ------------------------------------------------------------ plain twins
 
+def _plain_weights(params, dtype):
+    """``w(name)``: a layer's weight ``[out, in]`` rounded to ``dtype`` (as
+    float32); ``b(name)``: its float32 bias."""
+    def w(name):
+        return params[f"{name}.weight"].detach().float().to(dtype).float()
+
+    def b(name):
+        return params[f"{name}.bias"].detach().float()
+
+    return w, b
+
+
+def _plain_encodings(pts_t, viewdirs_t, multires, multires_views, dtype):
+    """The kernels' encodings rounded to ``dtype``: per point ``[P, e_p]``
+    and per ray ``[N, e_v]``."""
+    return (positional_encoding(pts_t.float().T, multires).to(dtype).float(),
+            positional_encoding(viewdirs_t.float().T,
+                                multires_views).to(dtype).float())
+
+
 def _forward_plain(params, pts_t, viewdirs_t, S, depth, width, multires,
                    multires_views, dtype, skips):
     """The forward kernel's arithmetic: operands rounded to ``dtype``,
@@ -341,13 +380,9 @@ def _forward_plain(params, pts_t, viewdirs_t, S, depth, width, multires,
     def rnd(x):
         return x.to(dtype).float()
 
-    def w(name):
-        return rnd(params[f"{name}.weight"].detach().float())
-
-    def b(name):
-        return params[f"{name}.bias"].detach().float()
-
-    enc = rnd(positional_encoding(pts_t.float().T, multires))  # [P, e_p]
+    w, b = _plain_weights(params, dtype)
+    enc, encv = _plain_encodings(pts_t, viewdirs_t, multires, multires_views,
+                                 dtype)
     hs, h = [], enc
     for i in range(depth):
         wi = w(f"trunk_{i}")
@@ -362,7 +397,6 @@ def _forward_plain(params, pts_t, viewdirs_t, S, depth, width, multires,
     sigma = h @ w("sigma").T + b("sigma")  # [P, 1]
     feat = rnd(h @ w("feature").T + b("feature"))
     wv = w("views_0")
-    encv = rnd(positional_encoding(viewdirs_t.float().T, multires_views))
     hv_ray = rnd(encv @ wv[:, width:].T)  # [N, W/2], once per ray
     hv = rnd(torch.relu(feat @ wv[:, :width].T
                         + hv_ray.repeat_interleave(S, dim=0) + b("views_0")))
@@ -424,9 +458,7 @@ def _bwd_from_acts(params, enc, encv, acts, g, S, depth, width, dtype, skips,
     def rnd(x):
         return x.to(dtype).float()
 
-    def w(name):
-        return rnd(params[f"{name}.weight"].detach().float())
-
+    w, _ = _plain_weights(params, dtype)
     g = g.float()
     gb = rnd(g)  # [4, P]
     hs, feat, hv = acts[:depth], acts[depth], acts[depth + 1]
@@ -473,12 +505,8 @@ def fused_nerf_bwd_acts_plain(params, pts_t, viewdirs_t, g, acts, S: int, *,
     of raw, from the saved activations ``acts`` of kernel 4 (``dfeat_ray``:
     see :func:`_bwd_from_acts`)."""
     P = pts_t.shape[1]
-
-    def rnd(x):
-        return x.to(dtype).float()
-
-    enc = rnd(positional_encoding(pts_t.float().T, multires))
-    encv = rnd(positional_encoding(viewdirs_t.float().T, multires_views))
+    enc, encv = _plain_encodings(pts_t, viewdirs_t, multires, multires_views,
+                                 dtype)
     arrays = [a.float() for a in split_acts(acts, P, depth, width)]
     return _bwd_from_acts(params, enc, encv, arrays, g, S, depth, width,
                           dtype, skips, dfeat_ray)
@@ -1340,3 +1368,297 @@ def fused_nerf_apply_rays_semantic(params: Mapping[str, torch.Tensor], rays_o,
 
 
 fused_nerf_apply_rays_semantic.last_route = None
+
+
+# ------------------------------------------- int8 serving (kernels 10, 11)
+
+_INV127 = 1.0 / 127.0  # multiplied in float32, as JAX's ``* (1.0 / 127.0)``
+
+
+def quant_cols(w: torch.Tensor):
+    """JAX ``_quant_cols``: per-output-column symmetric int8 quantization of
+    a ``[K, N]`` weight (already rounded to the compute dtype). ``s =
+    max(m, 1e-30) * (1/127)`` from the column max-abs ``m``, then ``q =
+    round(w / s)`` (a true division, rounded half to even). Returns (q int8
+    ``[K, N]``, s float32 ``[1, N]``)."""
+    wf = w.float()
+    s = torch.clamp_min(wf.abs().amax(0, keepdim=True), 1e-30) * _INV127
+    return torch.round(wf / s).to(torch.int8), s
+
+
+def qdot_plain(h: torch.Tensor, wq: torch.Tensor,
+               srow: torch.Tensor) -> torch.Tensor:
+    """JAX ``_qdot``: the W8A8 product of ``h [T, K]`` (values of the compute
+    dtype) and ``wq [K, N]`` int8 with column scales ``srow [1, N]``, float32
+    ``[T, N]``. Each row is quantized by its own max-abs ``m``: ``r = 127 /
+    max(m, 1e-30)`` (a true division), ``q = round(h r)`` half to even, then
+    ``acc * ((m * (1/127)) * srow)`` with ``acc`` the exact integer product.
+    The product runs as a float32 matrix product, which is exact here: its
+    operands are integers of at most 127 in magnitude and every partial sum
+    is an integer below ``K * 127^2 < 2^24`` for ``K <= 1040`` (the kernels
+    take ``K <= 256``)."""
+    hf = h.float()
+    m = hf.abs().amax(1, keepdim=True)
+    mc = torch.clamp_min(m, 1e-30)
+    r = torch.full_like(mc, 127.0) / mc  # not 127.0 / mc: torch takes the reciprocal
+    acc = torch.round(hf * r) @ wq.float()
+    return acc * ((m * _INV127) * srow)
+
+
+class PackedQ8(NamedTuple):
+    """The int8 serving weights (JAX ``_pack_params_q8``), made by
+    :func:`pack_params_q8`."""
+    base: PackedParams  # every layer in dtype: the first layer, the skip
+    # products, the heads and the view layer's per-ray half are read here
+    q: tuple  # int8 [K, N] (Flax layout): trunk_1..trunk_{D-1} (their trunk
+    # rows after a live skip), feature, views_0's feature rows
+    scales: torch.Tensor  # [pad8(D + 1), W] float32, row j scales q[j]
+    wq4: torch.Tensor  # each q as [K/4, N] int32 words of 4 int8 along K
+    q_offsets: ctypes.Array  # word offset of each q in ``wq4``
+
+
+def pack_params_q8(params: Mapping[str, torch.Tensor], depth: int, dtype,
+                   device=None, skips=()) -> PackedQ8:
+    """JAX ``_pack_params_q8``: the packed weights of :func:`pack_params`
+    (with the semantic head, where there is one) plus int8 twins of the
+    wide layers, quantized by :func:`quant_cols` from the weights rounded to
+    ``dtype``, and their column scales stacked into one float32 matrix
+    ``[pad8(D + 1), W]`` (rows 0..D-2 the trunk, D-1 the feature layer, D the
+    view layer, zero-padded from W/2)."""
+    base = pack_params(params, depth, dtype, device)
+    W, e_p = params["trunk_0.weight"].shape
+    ls = live_skips(depth, skips)
+
+    def kernel(name):  # [in, out] in dtype
+        return params[f"{name}.weight"].detach().t().to(dtype)
+
+    mats = [kernel(f"trunk_{i}")[e_p if (i - 1) in ls else 0:]
+            for i in range(1, depth)]
+    mats += [kernel("feature"), kernel("views_0")[:W]]
+    qs, ss = zip(*(quant_cols(m) for m in mats))
+    s_v = torch.nn.functional.pad(ss[-1], (0, W - ss[-1].shape[1]))
+    sc = torch.cat(list(ss[:-1]) + [s_v])
+    sc = torch.nn.functional.pad(sc, (0, 0, 0, (-sc.shape[0]) % 8))
+    words, offs, o = [], [], 0
+    for q in qs:
+        K, N = q.shape
+        words.append(q.reshape(K // 4, 4, N).transpose(1, 2).contiguous()
+                     .view(torch.int32).reshape(-1))
+        offs.append(o)
+        o += words[-1].numel()
+    return PackedQ8(base, tuple(q.to(device) for q in qs), sc.to(device),
+                    torch.cat(words).to(device), (ctypes.c_int * len(offs))(*offs))
+
+
+def _forward_q8_plain(params, pts_t, viewdirs_t, S, depth, width, multires,
+                      multires_views, dtype, skips, packed: PackedQ8):
+    """Kernel 10's arithmetic (JAX ``_forward_tile_q8``): kernel 1's
+    forward with :func:`qdot_plain` for trunk layers 1..D-1, the feature
+    layer and the view layer's feature half; a trunk layer adds its bias,
+    then a live skip's encoding product; the view layer adds the ray's term,
+    then its bias. Returns raw ``[4, P]`` and the feature activation ``[P,
+    W]`` (float32 holding ``dtype`` values)."""
+    ls = live_skips(depth, skips)
+    e_p = 3 + 6 * multires
+    q, sc = packed.q, packed.scales
+
+    def rnd(x):
+        return x.to(dtype).float()
+
+    w, b = _plain_weights(params, dtype)
+    enc, encv = _plain_encodings(pts_t, viewdirs_t, multires, multires_views,
+                                 dtype)
+    h = rnd(torch.relu(enc @ w("trunk_0").T + b("trunk_0")))
+    for i in range(1, depth):
+        acc = qdot_plain(h, q[i - 1], sc[i - 1:i]) + b(f"trunk_{i}")
+        if (i - 1) in ls:
+            acc = acc + enc @ w(f"trunk_{i}")[:, :e_p].T
+        h = rnd(torch.relu(acc))
+    feat = rnd(qdot_plain(h, q[depth - 1], sc[depth - 1:depth])
+               + b("feature"))
+    sigma = h @ w("sigma").T + b("sigma")
+    hv_ray = rnd(encv @ w("views_0")[:, width:].T)  # [N, W/2], once per ray
+    hv = rnd(torch.relu(
+        qdot_plain(feat, q[depth], sc[depth:depth + 1, :width // 2])
+        + hv_ray.repeat_interleave(S, dim=0) + b("views_0")))
+    rgb = hv @ w("rgb").T + b("rgb")
+    return torch.cat([rgb, sigma], dim=-1).T.contiguous(), feat
+
+
+def _q8_packed_for(params, depth, dtype, device, skips, packed, semantic):
+    if packed is None:
+        packed = pack_params_q8(params, depth, dtype, device, skips)
+    if packed.base.dtype != dtype or packed.wq4.device != device:
+        raise ValueError(f"packed int8 weights are for {packed.base.dtype} on "
+                         f"{packed.wq4.device}, want {dtype} on {device}")
+    if semantic and packed.base.sem is None:
+        raise ValueError("the packed weights hold no semantic head")
+    return packed
+
+
+def fused_nerf_fwd_q8_plain(params, pts_t, viewdirs_t, S: int, *, depth: int,
+                            width: int, multires: int, multires_views: int,
+                            dtype=torch.float32, skips=(),
+                            packed: PackedQ8 | None = None) -> torch.Tensor:
+    """Kernel 10's twin: raw ``[4, P]``."""
+    packed = _q8_packed_for(params, depth, dtype, pts_t.device, skips, packed,
+                            False)
+    return _forward_q8_plain(params, pts_t, viewdirs_t, S, depth, width,
+                             multires, multires_views, dtype, skips, packed)[0]
+
+
+def fused_nerf_fwd_q8_sem_plain(params, pts_t, viewdirs_t, S: int, *,
+                                depth: int, width: int, multires: int,
+                                multires_views: int, dtype=torch.float32,
+                                skips=(), packed: PackedQ8 | None = None):
+    """Kernel 11's twin: raw ``[4, P]`` and the ray-summed logits ``[P // S,
+    C]`` of the semantic head (:func:`sem_head_plain`, kernel 6's) on the int8
+    trunk's feature ``(qdot(h, W_feat) + b_feat)`` rounded to ``dtype``."""
+    _check_sem_samples(S)
+    packed = _q8_packed_for(params, depth, dtype, pts_t.device, skips, packed,
+                            True)
+    raw, feat = _forward_q8_plain(params, pts_t, viewdirs_t, S, depth, width,
+                                  multires, multires_views, dtype, skips,
+                                  packed)
+    logits, _ = sem_head_plain(sem_tile_partials_plain(feat, S),
+                               packed.base.sem, pts_t.shape[1] // S, S)
+    return raw, logits
+
+
+def _eval_only(params: Mapping[str, torch.Tensor], name: str):
+    """The int8 forwards have no backward (JAX defines no VJP): refuse a call
+    whose result autograd would have to differentiate."""
+    if torch.is_grad_enabled() and any(p.requires_grad
+                                       for p in params.values()):
+        raise RuntimeError(
+            f"{name} is eval only and has no backward: call it under "
+            "torch.no_grad() or with parameters that require no gradient")
+
+
+def _q8_launch(fn, packed: PackedQ8, pts_t, viewdirs_t, S, depth, width,
+               multires, multires_views, skips, fpart=None):
+    P = pts_t.shape[1]
+    out = torch.empty((4, P), dtype=torch.float32, device=pts_t.device)
+    base = packed.base
+    lib = _build.load(Q8_KERNEL, Q8_ARGTYPES)
+    err = lib.fused_nerf_q8_launch(
+        pts_t.data_ptr(), viewdirs_t.data_ptr(), base.weights.data_ptr(),
+        base.biases.data_ptr(), packed.wq4.data_ptr(),
+        packed.scales.data_ptr(), out.data_ptr(),
+        None if fpart is None else fpart.data_ptr(),
+        0 if fpart is None else fpart.shape[1], P, S, depth, width, multires,
+        multires_views, sum(1 << s for s in live_skips(depth, skips)),
+        int(base.dtype == torch.bfloat16), ctypes.addressof(base.w_offsets),
+        ctypes.addressof(base.b_offsets), ctypes.addressof(packed.q_offsets),
+        torch.cuda.current_stream(pts_t.device).cuda_stream)
+    _build.check(lib, Q8_KERNEL, err)
+    fn.launches += 1
+    return out
+
+
+def fused_nerf_fwd_q8(params: Mapping[str, torch.Tensor], pts_t, viewdirs_t,
+                      S: int, *, depth: int, width: int, multires: int,
+                      multires_views: int, dtype=torch.float32, skips=(),
+                      packed: PackedQ8 | None = None) -> torch.Tensor:
+    """Kernel 10: raw ``[4, P]`` of the W8A8 forward for ``pts_t [3, P]``
+    and ``viewdirs_t [3, P // S]``. Eval only: raises under autograd.
+    ``packed`` is ``pack_params_q8(params, depth, dtype, device, skips)``
+    made once by a caller that launches many times with unchanged weights;
+    without it every call quantizes the weights anew."""
+    _eval_only(params, "fused_nerf_fwd_q8")
+    _check(pts_t, viewdirs_t, S, dtype)
+    packed = _q8_packed_for(params, depth, dtype, pts_t.device, skips, packed,
+                            False)
+    if pts_t.device.type == "cpu":
+        return _forward_q8_plain(params, pts_t, viewdirs_t, S, depth, width,
+                                 multires, multires_views, dtype, skips,
+                                 packed)[0]
+    return _q8_launch(fused_nerf_fwd_q8, packed, pts_t.float().contiguous(),
+                      viewdirs_t.float().contiguous(), S, depth, width,
+                      multires, multires_views, skips)
+
+
+fused_nerf_fwd_q8.launches = 0
+
+
+def fused_nerf_fwd_q8_sem(params: Mapping[str, torch.Tensor], pts_t,
+                          viewdirs_t, S: int, *, depth: int, width: int,
+                          multires: int, multires_views: int,
+                          dtype=torch.float32, skips=(),
+                          packed: PackedQ8 | None = None):
+    """Kernel 11: raw ``[4, P]`` and the ray-summed semantic logits ``[P //
+    S, C]`` float32: kernel 10's trunk writing kernel 6's per-tile feature
+    partial sums, then the semantic head kernel (:func:`sem_head`). Eval
+    only."""
+    _eval_only(params, "fused_nerf_fwd_q8_sem")
+    _check(pts_t, viewdirs_t, S, dtype)
+    _check_sem_samples(S)
+    packed = _q8_packed_for(params, depth, dtype, pts_t.device, skips, packed,
+                            True)
+    if pts_t.device.type == "cpu":
+        return fused_nerf_fwd_q8_sem_plain(
+            params, pts_t, viewdirs_t, S, depth=depth, width=width,
+            multires=multires, multires_views=multires_views, dtype=dtype,
+            skips=skips, packed=packed)
+    P = pts_t.shape[1]
+    fpart = torch.empty((-(-P // TILE), sem_tile_slots(S), width),
+                        dtype=torch.float32, device=pts_t.device)
+    raw = _q8_launch(fused_nerf_fwd_q8_sem, packed, pts_t.float().contiguous(),
+                     viewdirs_t.float().contiguous(), S, depth, width,
+                     multires, multires_views, skips, fpart=fpart)
+    logits, _ = sem_head(fpart, packed.base.sem, P // S, S)
+    return raw, logits
+
+
+fused_nerf_fwd_q8_sem.launches = 0
+
+
+def _padded_rays(rays_o, rays_d, viewdirs, z_vals):
+    """JAX ``_apply_rays_q8_core``'s padding: zero rays up to a whole number
+    of JAX forward tiles (:func:`jax_fwd_tile`). The port's kernels mask a
+    ragged tile and need none; the padding keeps the launch's points the
+    TPU kernel's grid."""
+    N, S = z_vals.shape
+    n_pad = (-N) % max(1, jax_fwd_tile(S) // S)
+    if n_pad:
+        rays_o, rays_d, viewdirs, z_vals = (
+            torch.nn.functional.pad(x, (0, 0, 0, n_pad))
+            for x in (rays_o, rays_d, viewdirs, z_vals))
+    return (_points_t(rays_o, rays_d, z_vals), viewdirs.float().T.contiguous(),
+            N, S, N + n_pad)
+
+
+def fused_nerf_apply_rays_q8(params: Mapping[str, torch.Tensor], rays_o,
+                             rays_d, viewdirs, z_vals, *, depth: int,
+                             width: int, multires: int, multires_views: int,
+                             dtype=torch.bfloat16, skips=(),
+                             packed: PackedQ8 | None = None) -> torch.Tensor:
+    """The W8A8 serving forward (JAX ``fused_nerf_apply_rays_q8``): rays
+    ``[N, 3]`` + depths ``z_vals [N, S]`` -> channel-major raw ``[4, N, S]``
+    through kernel 10. Eval only: under autograd with a parameter that
+    requires a gradient it raises, as JAX defines no VJP. Rays are padded
+    to whole JAX forward tiles and sliced back."""
+    pts_t, vd_t, N, S, n_full = _padded_rays(rays_o, rays_d, viewdirs, z_vals)
+    raw = fused_nerf_fwd_q8(params, pts_t, vd_t, S, depth=depth, width=width,
+                            multires=multires, multires_views=multires_views,
+                            dtype=dtype, skips=skips, packed=packed)
+    return raw.reshape(4, n_full, S)[:, :N]
+
+
+def fused_nerf_apply_rays_semantic_q8(params: Mapping[str, torch.Tensor],
+                                      rays_o, rays_d, viewdirs, z_vals, *,
+                                      depth: int, width: int, multires: int,
+                                      multires_views: int,
+                                      dtype=torch.bfloat16, skips=(),
+                                      packed: PackedQ8 | None = None):
+    """The W8A8 semantic serving forward (JAX
+    ``fused_nerf_apply_rays_semantic_q8``): raw ``[4, N, S]`` and the
+    ray-summed logits ``[N, C]`` through kernel 11. Eval only, as
+    :func:`fused_nerf_apply_rays_q8`; it saves no activations, so no point
+    cap applies."""
+    pts_t, vd_t, N, S, n_full = _padded_rays(rays_o, rays_d, viewdirs, z_vals)
+    raw, logits = fused_nerf_fwd_q8_sem(
+        params, pts_t, vd_t, S, depth=depth, width=width, multires=multires,
+        multires_views=multires_views, dtype=dtype, skips=skips,
+        packed=packed)
+    return raw.reshape(4, n_full, S)[:, :N], logits[:N]

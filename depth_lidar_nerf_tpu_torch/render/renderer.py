@@ -2,10 +2,13 @@
 training step's differentiated render).
 
 ``render_image`` -> ``render_rays_tiled`` -> ``render_rays`` ->
-``_composite_from_z``, as in the JAX package. Where JAX compiles the tile loop
-into one ``lax.map``, the port runs a Python loop over ray tiles: PyTorch is
-eager, and each tile's work is a few large kernel launches. The modules own
-their weights, so the JAX functions' ``params`` argument is gone.
+``_composite_from_z``, as in the JAX package, and the serving modes that
+compose with it: int8 (``render_int8``), fine-only (``render_fine_only``) and
+coarse-downsampled frames (``render_image_coarse_downsampled``). Where JAX
+compiles the tile loop into one ``lax.map``, the port runs a Python loop over
+ray tiles: PyTorch is eager, and each tile's work is a few large kernel
+launches. The modules own their weights, so the JAX functions' ``params``
+argument is gone.
 
 Ray parametrization parity (``run_nerf.py:112-194``): rays carry origin,
 direction, near, far and the unit *pre-NDC* view direction.
@@ -24,7 +27,8 @@ from depth_lidar_nerf_tpu_torch.ops.compositing import (RayOutputs,
                                                         raw2outputs_t)
 from depth_lidar_nerf_tpu_torch.ops.embedding import positional_encoding
 from depth_lidar_nerf_tpu_torch.ops.fused_mlp_t import supports_rays_shape
-from depth_lidar_nerf_tpu_torch.ops.rays import camera_rays, ndc_rays
+from depth_lidar_nerf_tpu_torch.ops.rays import (camera_rays, ndc_rays,
+                                                 rays_by_coord)
 from depth_lidar_nerf_tpu_torch.ops.sampling import (sample_pdf,
                                                      stratified_z_vals)
 from depth_lidar_nerf_tpu_torch.ops.sampling_cuda import sample_pdf_cuda
@@ -34,9 +38,9 @@ from depth_lidar_nerf_tpu_torch.ops.sampling_cuda import sample_pdf_cuda
 class RenderConfig:
     """Static rendering hyperparameters (config_parser flags, run_nerf.py:693-747).
 
-    The serving modes of the JAX ``RenderConfig`` that the port does not run
-    yet (int8, density grid, fine-only, coarse downsampling) are absent, and
-    ``train.config.render_config_from`` refuses configs that ask for them.
+    The JAX ``RenderConfig``'s baked-density-grid serving (``render_grid``
+    and its two refinements) is not ported yet: its fields are absent, and
+    ``train.config.render_config_from`` refuses configs that ask for it.
     """
 
     N_samples: int = 64
@@ -63,6 +67,18 @@ class RenderConfig:
     # Samples whose incoming transmittance is below cull_eps get exactly zero
     # weight (no reference counterpart); 0.0 = strict reference math.
     cull_eps: float = 0.0
+    # Serving modes, eval renders only (no reference counterpart; the
+    # training RenderConfig never sets them, ``train.config.
+    # eval_render_config`` does). ``render_int8``: the W8A8 forwards
+    # (kernels 10 and 11; no backward). ``render_fine_only``: the fine pass
+    # evaluates only the N_importance samples the coarse pass placed, not
+    # the stratified + importance union. ``render_coarse_downsample`` k > 1:
+    # ``render_image`` runs the coarse pass at (H/k, W/k), one ray per k x k
+    # pixel block, shares its sample depths across the block and renders
+    # the fine-only pass at full resolution; 0/1 = off.
+    render_int8: bool = False
+    render_fine_only: bool = False
+    render_coarse_downsample: int = 0
 
     def render_tile(self, fused: bool = False) -> int:
         """Rays per tile. The fused kernel keeps every activation in shared
@@ -118,21 +134,29 @@ def query_network(model, pts, viewdirs, cfg: RenderConfig) -> torch.Tensor:
 
 
 def _fused_ok(model, cfg: RenderConfig, S: int) -> bool:
-    """The predicate that picks the fused kernel for one pass."""
-    return (S > 0 and cfg.use_viewdirs and cfg.num_semantic_classes == 0
-            and hasattr(model, "apply_rays")
+    """The predicate that picks the fused kernels (kernel 1, or kernel 10
+    with ``render_int8``) for one RGB pass, as JAX's: S divides the 2,048-point
+    JAX tile into at most 128 rays, and the topology is covered."""
+    return (cfg.use_viewdirs and cfg.num_semantic_classes == 0
+            and supports_rays_shape(S) and hasattr(model, "apply_rays")
             and model.supports_rays_path(cfg))
+
+
+def _int8_semantic(model, cfg: RenderConfig) -> bool:
+    return cfg.render_int8 and hasattr(model, "apply_rays_semantic_q8")
 
 
 def _semantic_ok(model, cfg: RenderConfig, n_rays: int, S: int) -> bool:
     """The predicate that picks the semantic kernels for one pass of
     ``n_rays`` rays (JAX ``_composite_from_z``'s semantic arm): a model with
     a semantic head within the saved-activation cap, which applies to
-    passes without a gradient too."""
+    passes without a gradient too; the int8 pass saves no activations, so
+    it is checked with no points (``n_points=0``), as in JAX."""
+    n_points = 0 if _int8_semantic(model, cfg) else n_rays * S
     return (cfg.num_semantic_classes > 0 and cfg.use_viewdirs
             and hasattr(model, "apply_rays_semantic")
             and supports_rays_shape(S)
-            and model.supports_raw_semantic(cfg, n_points=n_rays * S, S=S))
+            and model.supports_raw_semantic(cfg, n_points=n_points, S=S))
 
 
 def _sigma_noise(z_vals, cfg: RenderConfig, generator):
@@ -149,18 +173,30 @@ def _composite_from_z(model, rays: Rays, z_vals, cfg: RenderConfig,
     and the channel-major compositor where the topology is covered (the
     semantic kernels for a model with a semantic head, whose logits come
     already summed over each ray's samples), else the plain module and the
-    standard compositor. ``save_acts`` asks a differentiated fused pass to
-    save its activations for the backward."""
+    standard compositor. With ``render_int8`` the covered passes take the
+    int8 kernels (11 for a semantic pass, else 10), in JAX's order.
+    ``save_acts`` asks a differentiated fused pass to save its activations
+    for the backward."""
     S = z_vals.shape[-1]
     if rays.viewdirs is not None and _semantic_ok(model, cfg,
                                                   z_vals.shape[0], S):
         noise = _sigma_noise(z_vals, cfg, generator)
-        raw_t, sem_map = model.apply_rays_semantic(rays, z_vals, cfg)
+        if _int8_semantic(model, cfg):
+            raw_t, sem_map = model.apply_rays_semantic_q8(rays, z_vals, cfg)
+        else:
+            raw_t, sem_map = model.apply_rays_semantic(rays, z_vals, cfg)
         out = raw2outputs_t(
             raw_t, z_vals, rays.directions, raw_noise_std=cfg.raw_noise_std,
             white_bkgd=cfg.white_bkgd, generator=generator,
             cull_eps=cfg.cull_eps, noise=noise)
         return out._replace(semantic=sem_map)
+    if (cfg.render_int8 and rays.viewdirs is not None
+            and hasattr(model, "apply_rays_q8") and _fused_ok(model, cfg, S)):
+        raw_t = model.apply_rays_q8(rays, z_vals, cfg)
+        return raw2outputs_t(
+            raw_t, z_vals, rays.directions, raw_noise_std=cfg.raw_noise_std,
+            white_bkgd=cfg.white_bkgd, generator=generator,
+            cull_eps=cfg.cull_eps)
     if rays.viewdirs is not None and _fused_ok(model, cfg, S):
         noise = _sigma_noise(z_vals, cfg, generator)
         raw_t = model.apply_rays(rays, z_vals, cfg, save_acts=save_acts)
@@ -181,7 +217,9 @@ def fused_eval_ready(model, fine_model, cfg: RenderConfig,
                      tile: int | None = None) -> bool:
     """True when every pass of a ``tile``-ray render (``chunk`` rays by
     default) takes the fused kernels, so ``netchunk`` need not shrink the
-    ray tile. A semantic pass is checked at the tile's point count."""
+    ray tile. A semantic pass is checked at the tile's point count (none
+    with ``render_int8``); with ``render_fine_only`` the fine pass has
+    ``N_importance`` samples."""
     if tile is None:
         tile = cfg.render_tile(fused=True)
 
@@ -194,7 +232,8 @@ def fused_eval_ready(model, fine_model, cfg: RenderConfig,
         return False
     if cfg.N_importance > 0:
         fm = fine_model if fine_model is not None else model
-        return pass_ok(fm, cfg.N_samples + cfg.N_importance)
+        return pass_ok(fm, cfg.N_importance if cfg.render_fine_only
+                       else cfg.N_samples + cfg.N_importance)
     return True
 
 
@@ -210,7 +249,8 @@ def render_rays(model, fine_model, rays: Rays, cfg: RenderConfig,
     stratified jitter, sigma noise and random importance draws, in that order.
     Under autograd the coarse pass takes the recompute backward and the fine
     pass saves its activations (the JAX ``render_rays``); a semantic pass
-    always saves them.
+    always saves them. With ``render_fine_only`` the fine pass evaluates
+    only the sorted importance samples.
     """
     z_vals = stratified_z_vals(rays.near, rays.far, cfg.N_samples,
                                lindisp=cfg.lindisp, perturb=cfg.perturb,
@@ -231,7 +271,11 @@ def render_rays(model, fine_model, rays: Rays, cfg: RenderConfig,
         z_samples = sampler(z_mid.detach(), coarse.weights[..., 1:-1].detach(),
                             cfg.N_importance, det=not cfg.perturb,
                             generator=generator)
-        z_all = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1).values
+        if cfg.render_fine_only:
+            z_all = torch.sort(z_samples, dim=-1).values
+        else:
+            z_all = torch.sort(torch.cat([z_vals, z_samples], dim=-1),
+                               dim=-1).values
         fine = _composite_from_z(
             fine_model if fine_model is not None else model, rays, z_all,
             cfg, generator, save_acts=True)
@@ -279,7 +323,13 @@ def render_image(model, fine_model, H: int, W: int, focal, c2w,
                  cfg: RenderConfig, tile: int | None = None,
                  device=None) -> Dict[str, torch.Tensor]:
     """Render a full image pose on ``device`` (``cuda`` unless given):
-    ``render(..., c2w=...)`` plus chunking (``run_nerf.py:138-189``)."""
+    ``render(..., c2w=...)`` plus chunking (``run_nerf.py:138-189``). With
+    ``render_coarse_downsample`` k > 1, a fine pass and k dividing H and W,
+    the frame is :func:`render_image_coarse_downsampled`'s."""
+    k = cfg.render_coarse_downsample
+    if k > 1 and cfg.N_importance > 0 and H % k == 0 and W % k == 0:
+        return render_image_coarse_downsampled(model, fine_model, H, W, focal,
+                                               c2w, cfg, tile, device)
     device = resolve_device(device)
     c2w = torch.as_tensor(c2w, dtype=torch.float32, device=device)[:3, :4]
     rays_o, rays_d = camera_rays(H, W, focal, c2w)
@@ -287,3 +337,71 @@ def render_image(model, fine_model, H: int, W: int, focal, c2w,
     out = render_rays_tiled(model, fine_model, rays, cfg.eval_mode(),
                             generator=None, tile=tile)
     return {k: v.reshape((H, W) + v.shape[1:]) for k, v in out.items()}
+
+
+@torch.no_grad()
+def render_image_coarse_downsampled(model, fine_model, H: int, W: int, focal,
+                                    c2w, cfg: RenderConfig,
+                                    tile: int | None = None,
+                                    device=None) -> Dict[str, torch.Tensor]:
+    """Serving with ``render_coarse_downsample = k`` (JAX
+    ``render_image_coarse_downsampled``): the coarse pass at ``(H/k, W/k)``,
+    one ray through the centre of each k x k pixel block, untiled;
+    deterministic inverse-CDF sampling (kernel 14 on the card); the sorted
+    sample depths shared by the block; a full-resolution fine-only pass in
+    ``tile``-ray tiles (picked as for a ``render_fine_only`` frame). Returns
+    the fine ``rgb_map``/``disp_map``/``acc_map``/``depth_map`` (and
+    ``sem_preds``) and the coarse ``rgb0``/``depth_map0``/``acc0`` upsampled
+    to full resolution."""
+    k = cfg.render_coarse_downsample
+    if k <= 1 or cfg.N_importance <= 0 or H % k or W % k:
+        raise ValueError(
+            f"render_coarse_downsample={k} needs k>1, N_importance>0 and "
+            f"k | H,W (H={H}, W={W})")
+    device = resolve_device(device)
+    cfg = cfg.eval_mode()
+    c2w = torch.as_tensor(c2w, dtype=torch.float32, device=device)[:3, :4]
+    Hd, Wd = H // k, W // k
+    if tile is None:
+        tile = pick_render_tile(model, fine_model,
+                                dataclasses.replace(cfg, render_fine_only=True),
+                                H * W)
+    tile = max(1, min(tile, H * W))
+
+    jj, ii = torch.meshgrid(torch.arange(Hd, dtype=torch.float32, device=device),
+                            torch.arange(Wd, dtype=torch.float32, device=device),
+                            indexing="ij")
+    coords = torch.stack([ii * k + (k - 1) * 0.5, jj * k + (k - 1) * 0.5],
+                         dim=-1).reshape(-1, 2)
+    ro, rd = rays_by_coord(H, W, focal, c2w, coords)
+    rays_lo = make_rays(ro, rd, cfg, H, W, focal)
+    z_lo = stratified_z_vals(rays_lo.near, rays_lo.far, cfg.N_samples,
+                             lindisp=cfg.lindisp, perturb=False)
+    coarse = _composite_from_z(model, rays_lo, z_lo, cfg, None)
+    z_mid = 0.5 * (z_lo[..., 1:] + z_lo[..., :-1])
+    sampler = sample_pdf_cuda if z_mid.device.type == "cuda" else sample_pdf
+    z_samples = torch.sort(sampler(z_mid, coarse.weights[..., 1:-1],
+                                   cfg.N_importance, det=True), dim=-1).values
+
+    def up(a):  # [Hd * Wd, ...] -> [H, W, ...], each value over its block
+        a = a.reshape((Hd, Wd) + a.shape[1:])
+        return a.repeat_interleave(k, dim=0).repeat_interleave(k, dim=1)
+
+    z_full = up(z_samples).reshape(H * W, -1)
+    rays_o, rays_d = camera_rays(H, W, focal, c2w)
+    rays = make_rays(rays_o, rays_d, cfg, H, W, focal)
+    fm = fine_model if fine_model is not None else model
+    outs = []
+    for s in range(0, H * W, tile):
+        sub = Rays(*(None if x is None else x[s:s + tile] for x in rays))
+        fine = _composite_from_z(fm, sub, z_full[s:s + tile], cfg, None)
+        o = {"rgb_map": fine.rgb, "disp_map": fine.disp,
+             "acc_map": fine.acc, "depth_map": fine.depth}
+        if fine.semantic is not None:
+            o["sem_preds"] = fine.semantic
+        outs.append(o)
+    out = {key: torch.cat([o[key] for o in outs]).reshape(
+        (H, W) + outs[0][key].shape[1:]) for key in outs[0]}
+    out.update({"rgb0": up(coarse.rgb), "depth_map0": up(coarse.depth),
+                "acc0": up(coarse.acc)})
+    return out

@@ -353,23 +353,28 @@ def parse_args(argv: Optional[List[str]] = None) -> TrainConfig:
     return TrainConfig(**values)
 
 
-def render_config_from(cfg: TrainConfig, num_semantic_classes: int,
-                       near: float, far: float):
-    """Derive the static RenderConfig (create_nerf/render_kwargs assembly,
-    run_nerf.py:481-507).
+_UNPORTED_SERVING = ("render_grid", "render_grid_fine_only",
+                     "render_grid_samples")
 
-    Serving modes the port does not implement yet raise rather than being
-    silently ignored."""
-    from depth_lidar_nerf_tpu_torch.render.renderer import RenderConfig
 
-    unported = [name for name in ("render_int8", "render_grid",
-                                  "render_grid_fine_only",
-                                  "render_fine_only",
-                                  "render_coarse_downsample")
-                if getattr(cfg, name)]
+def _refuse_unported_serving(cfg: TrainConfig):
+    unported = [name for name in _UNPORTED_SERVING if getattr(cfg, name)]
     if unported:
         raise NotImplementedError(
             f"serving modes not ported to PyTorch yet: {unported}")
+
+
+def render_config_from(cfg: TrainConfig, num_semantic_classes: int,
+                       near: float, far: float):
+    """Derive the static RenderConfig (create_nerf/render_kwargs assembly,
+    run_nerf.py:481-507): the one training renders with. The serving modes
+    ``render_int8``, ``render_fine_only`` and ``render_coarse_downsample``
+    are left off it, as in JAX; :func:`eval_render_config` sets them on the
+    eval renders' copy. Serving modes the port does not implement yet (the
+    density grid) raise rather than being silently ignored."""
+    from depth_lidar_nerf_tpu_torch.render.renderer import RenderConfig
+
+    _refuse_unported_serving(cfg)
     use_ndc = cfg.dataset_type == "llff" and not cfg.no_ndc
     return RenderConfig(
         N_samples=cfg.N_samples,
@@ -390,6 +395,29 @@ def render_config_from(cfg: TrainConfig, num_semantic_classes: int,
         netchunk=cfg.netchunk,
         cull_eps=cfg.cull_eps,
     )
+
+
+def eval_render_config(cfg: TrainConfig, rcfg):
+    """The RenderConfig of eval renders (``--render_only`` frames and the
+    ``i_img``/``i_testset``/``i_video`` renders; JAX ``train/loop.py:588-598``):
+    ``rcfg`` with ``render_int8``, ``render_fine_only`` and
+    ``render_coarse_downsample`` (when above 1) taken from ``cfg``. Training
+    keeps ``rcfg``: the int8 kernels have no backward."""
+    _refuse_unported_serving(cfg)
+    if cfg.render_fine_only and cfg.N_importance <= 0:
+        raise ValueError(
+            "--render_fine_only renders the image with the fine pass over "
+            "the importance samples; with N_importance=0 there is no fine "
+            "pass. Use N_importance > 0 or drop --render_fine_only.")
+    out = rcfg
+    if cfg.render_int8:
+        out = dataclasses.replace(out, render_int8=True)
+    if cfg.render_fine_only:
+        out = dataclasses.replace(out, render_fine_only=True)
+    if cfg.render_coarse_downsample > 1:
+        out = dataclasses.replace(
+            out, render_coarse_downsample=cfg.render_coarse_downsample)
+    return out
 
 
 def dump_args(cfg: TrainConfig) -> str:

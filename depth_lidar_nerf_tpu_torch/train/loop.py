@@ -17,7 +17,9 @@ from depth_lidar_nerf_tpu_torch.train.state import Models
 def render_path(models: Models, render_poses, hwf, cfg_render: RenderConfig,
                 render_factor: int = 0, device=None):
     """Render every pose (``run_nerf.py:268-359``); returns numpy stacks
-    ``rgbs [F, H, W, 3]`` and ``disps [F, H, W]``."""
+    ``rgbs [F, H, W, 3]`` and ``disps [F, H, W]``. ``cfg_render`` is the
+    eval config, ``train.config.eval_render_config(cfg, rcfg)``, which
+    carries the serving modes (int8, fine-only, coarse-downsampled)."""
     device = resolve_device(device)
     H, W, focal = hwf
     if render_factor:

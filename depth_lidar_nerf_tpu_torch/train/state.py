@@ -55,6 +55,10 @@ class FusedMLP(NeRFMLP):
             dict(self.named_parameters()), self.use_viewdirs, self.depth,
             self.width, cfg.multires, cfg.multires_views, skips=self.skips)
 
+    def _pack_key(self, device, params):
+        return (self.dtype, device,
+                tuple((p.data_ptr(), p._version) for p in params.values()))
+
     def packed(self, device: torch.device) -> fused_mlp_t.PackedParams:
         """The weights (and the semantic head, where there is one) in the
         kernels' layout on ``device`` for passes without a gradient, packed
@@ -63,13 +67,24 @@ class FusedMLP(NeRFMLP):
         counter) or after :meth:`invalidate_pack`. Differentiated passes
         pack from the live parameters on every call."""
         params = dict(self.named_parameters())
-        key = (self.dtype, device,
-               tuple((p.data_ptr(), p._version) for p in params.values()))
+        key = self._pack_key(device, params)
         if getattr(self, "_packed_key", None) != key:
             self._packed = fused_mlp_t.pack_params(params, self.depth,
                                                    self.dtype, device)
             self._packed_key = key
         return self._packed
+
+    def packed_q8(self, device: torch.device) -> fused_mlp_t.PackedQ8:
+        """The int8 serving pack (:func:`ops.fused_mlp_t.pack_params_q8`) on
+        ``device``, cached as :meth:`packed` caches its pack, so that a
+        served frame quantizes the weights once, not once per tile."""
+        params = dict(self.named_parameters())
+        key = self._pack_key(device, params)
+        if getattr(self, "_packed_q8_key", None) != key:
+            self._packed_q8 = fused_mlp_t.pack_params_q8(
+                params, self.depth, self.dtype, device, self.skips)
+            self._packed_q8_key = key
+        return self._packed_q8
 
     def _nograd_pack(self, params, device):
         """:meth:`packed` for a pass without a gradient on the card; None
@@ -84,7 +99,7 @@ class FusedMLP(NeRFMLP):
         """Forget the packed weights; the training step calls this after
         every optimizer step rather than trust that the optimizer bumped
         every parameter's version counter."""
-        self._packed_key = None
+        self._packed_key = self._packed_q8_key = None
 
     def apply_rays(self, rays, z_vals, cfg: RenderConfig,
                    save_acts: bool = False) -> torch.Tensor:
@@ -110,6 +125,28 @@ class FusedMLP(NeRFMLP):
             depth=self.depth, width=self.width, multires=cfg.multires,
             multires_views=cfg.multires_views, dtype=self.dtype,
             skips=self.skips, packed=self._nograd_pack(params, z_vals.device))
+
+    def _q8_kw(self, z_vals, cfg: RenderConfig):
+        return dict(params=dict(self.named_parameters()), depth=self.depth, width=self.width,
+                    multires=cfg.multires, multires_views=cfg.multires_views,
+                    dtype=self.dtype, skips=self.skips,
+                    packed=self.packed_q8(z_vals.device))
+
+    def apply_rays_q8(self, rays, z_vals, cfg: RenderConfig) -> torch.Tensor:
+        """The W8A8 serving forward (kernel 10): raw ``[4, N, S]``. Eval
+        renders only: raises under autograd (JAX defines no VJP)."""
+        kw = self._q8_kw(z_vals, cfg)
+        return fused_mlp_t.fused_nerf_apply_rays_q8(
+            rays_o=rays.origins, rays_d=rays.directions,
+            viewdirs=rays.viewdirs, z_vals=z_vals, **kw)
+
+    def apply_rays_semantic_q8(self, rays, z_vals, cfg: RenderConfig):
+        """The W8A8 semantic serving forward (kernel 11): raw ``[4, N, S]``
+        and the ray-summed logits ``[N, C]``. Eval renders only."""
+        kw = self._q8_kw(z_vals, cfg)
+        return fused_mlp_t.fused_nerf_apply_rays_semantic_q8(
+            rays_o=rays.origins, rays_d=rays.directions,
+            viewdirs=rays.viewdirs, z_vals=z_vals, **kw)
 
 
 class Models(NamedTuple):

@@ -32,7 +32,7 @@ from depth_lidar_nerf_tpu_torch.train.tables import (DepthRayTable,
                                                      RgbRayTable, gather_rays)
 
 _UNPORTED = ("no_batching", "sigma_loss", "feature_loss", "gan_loss",
-             "depth_inverse_loss", "grid_train")
+             "depth_inverse_loss", "grid_train", "patch_ng_int8")
 
 
 def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,

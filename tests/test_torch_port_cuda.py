@@ -395,3 +395,146 @@ def test_semantic_train_step_launches(cuda):
         [0, 0, 0, 0, 0, 0, 2, 2, 2, 2, 1, 4]
     assert all(torch.isfinite(v) for v in m.values())
     assert {"semantic_loss", "semantic_loss0"} <= set(m)
+
+
+# Kernels 10 and 11 against their twins, on the three numbers of
+# tests/torch_port_q8_helpers.py (max over max, mean over mean, share of
+# elements off by more than 1e-5 of the scale), per dtype; the logits on the
+# first two. An activation within float32 noise of a .5 boundary rounds to
+# the other int8 value in one of the two (their float32 sums run in other
+# orders), so the max is loose and the mean and the share carry the check.
+# Each about 3x the largest gap measured on an H100 over these shapes: raw
+# float32 6.6e-3, 1.2e-5, 1.3e-3; bfloat16 5.6e-3, 1.1e-5, 7.9e-3; logits
+# float32 4.5e-4, 1.1e-5; bfloat16 1.5e-3, 1.1e-4.
+_Q8_TOL = {torch.float32: (2e-2, 3.5e-5, 4e-3), torch.bfloat16: (1.7e-2, 3.4e-5, 2.4e-2)}
+_Q8_LOGIT_TOL = {torch.float32: (1.4e-3, 3.4e-5), torch.bfloat16: (4.6e-3, 3.4e-4)}
+_Q8_SHAPES = [(4, 256, 64, 37), (8, 256, 128, 20), (8, 128, 128, 9), (4, 128, 16, 50),
+              (2, 128, 4, 70)]
+
+
+def _q8_gaps(got, ref):
+    d = (got.double() - ref.double()).abs()
+    scale = ref.double().abs().max()
+    return ((d.max() / scale).item(), (d.mean() / ref.double().abs().mean()).item(),
+            (d > 1e-5 * scale).double().mean().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("depth,width,S,N", _Q8_SHAPES)
+def test_fused_q8_kernels_match_plain(cuda, depth, width, S, N, dtype):
+    """Kernel 10 and kernel 11 (with the semantic head kernel) against their
+    twins; kernel 11's raw equals kernel 10's bit for bit."""
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f
+
+    params, pts, vd, _, _ = _sem_inputs(cuda, depth, width, S, N, 19, depth * 7 + S)
+    trunk = {k: v for k, v in params.items() if not k.startswith("semantic")}
+    kw = dict(depth=depth, width=width, multires=10, multires_views=4, dtype=dtype,
+              skips=(4,))
+    n0 = (f.fused_nerf_fwd_q8.launches, f.fused_nerf_fwd_q8_sem.launches,
+          f.sem_head.launches)
+    raw10 = f.fused_nerf_fwd_q8(trunk, pts, vd, S, **kw)
+    raw11, sem11 = f.fused_nerf_fwd_q8_sem(params, pts, vd, S, **kw)
+    torch.cuda.synchronize()
+    assert (f.fused_nerf_fwd_q8.launches, f.fused_nerf_fwd_q8_sem.launches,
+            f.sem_head.launches) == (n0[0] + 1, n0[1] + 1, n0[2] + 1)
+    assert torch.equal(raw10, raw11)
+    raw_ref, sem_ref = f.fused_nerf_fwd_q8_sem_plain(params, pts, vd, S, **kw)
+    gaps = _q8_gaps(raw10, raw_ref)
+    assert all(g <= t for g, t in zip(gaps, _Q8_TOL[dtype])), gaps
+    lg = _q8_gaps(sem11, sem_ref)[:2]
+    assert all(g <= t for g, t in zip(lg, _Q8_LOGIT_TOL[dtype])), lg
+
+
+def test_fused_q8_refuses_autograd_on_card(cuda):
+    """Under autograd the int8 entry points raise before any launch."""
+    from depth_lidar_nerf_tpu_torch.models.nerf_mlp import NeRFMLP
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f
+
+    m = NeRFMLP(depth=4, width=128).to(cuda)
+    params = dict(m.named_parameters())
+    ro, rd = torch.randn(8, 3, device=cuda), torch.randn(8, 3, device=cuda)
+    vd = torch.nn.functional.normalize(rd, dim=-1)
+    z = torch.sort(torch.rand(8, 16, device=cuda), -1).values
+    kw = dict(depth=4, width=128, multires=10, multires_views=4)
+    n0 = f.fused_nerf_fwd_q8.launches
+    with pytest.raises(RuntimeError, match="eval only"):
+        f.fused_nerf_apply_rays_q8(params, ro, rd, vd, z, **kw)
+    assert f.fused_nerf_fwd_q8.launches == n0
+    with torch.no_grad():
+        raw = f.fused_nerf_apply_rays_q8(params, ro, rd, vd, z, **kw)
+    torch.cuda.synchronize()
+    assert f.fused_nerf_fwd_q8.launches == n0 + 1 and raw.shape == (4, 8, 16)
+
+
+def _serving_models(cuda, semantic=False, **extra):
+    from depth_lidar_nerf_tpu_torch.train.config import (TrainConfig,
+                                                         eval_render_config,
+                                                         render_config_from)
+    from depth_lidar_nerf_tpu_torch.train.state import build_models
+
+    cfg = TrainConfig(netdepth=4, netdepth_fine=8, netwidth=128, netwidth_fine=128,
+                      N_samples=32, N_importance=32, use_viewdirs=True,
+                      dataset_type="llff", compute_dtype="bfloat16", **extra)
+    rcfg = render_config_from(cfg, 19 if semantic else 0, 0.0, 1.0)
+    ms = build_models(cfg, rcfg, device=cuda)
+    with torch.no_grad():
+        for m in ms:
+            m.sigma.weight *= 20.0
+    return ms, rcfg, eval_render_config(cfg, rcfg)
+
+
+@pytest.mark.parametrize("semantic", [False, True])
+def test_int8_frame_launches(cuda, semantic):
+    """An int8 frame runs kernel 10 (kernel 11 and its head for a semantic
+    stack) on both passes of each tile, sampling once a tile, and no bf16
+    MLP kernel; its rgb is within JAX's int8 atol (0.03) of the bf16
+    frame."""
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f
+    from depth_lidar_nerf_tpu_torch.ops import sampling_cuda as s
+    from depth_lidar_nerf_tpu_torch.render.renderer import render_image
+
+    ms, rcfg, ecfg = _serving_models(cuda, semantic, render_int8=True)
+    assert ecfg.render_int8 and not rcfg.render_int8
+    fns = (f.fused_nerf_fwd, f.fused_nerf_fwd_sem, f.fused_nerf_fwd_q8,
+           f.fused_nerf_fwd_q8_sem, f.sem_head, s.inverse_cdf)
+    n0 = [fn.launches for fn in fns]
+    out = render_image(ms.coarse, ms.fine, 10, 12, 9.0, torch.eye(4)[:3], ecfg,
+                       tile=64)
+    torch.cuda.synchronize()
+    n_tiles = 2  # 120 rays in tiles of 64
+    want = ([0, 0, 0, 2 * n_tiles, 2 * n_tiles, n_tiles] if semantic
+            else [0, 0, 2 * n_tiles, 0, 0, n_tiles])
+    assert [fn.launches - n for fn, n in zip(fns, n0)] == want
+    ref = render_image(ms.coarse, ms.fine, 10, 12, 9.0, torch.eye(4)[:3], rcfg,
+                       tile=64)
+    for k in ("rgb_map", "acc_map"):
+        assert torch.isfinite(out[k]).all()
+        assert (out[k] - ref[k]).abs().mean().item() <= 0.03, k
+
+
+def test_downsampled_int8_frame_on_card(cuda):
+    """``render_coarse_downsample=2`` with int8: kernel 10 once on the
+    (H/2, W/2) coarse pass and once a full-resolution tile, sampling once;
+    the frame matches the same render on the CPU twins within the int8
+    render tolerance of the CPU tests (max over max 1.1e-3 is for float32;
+    here bfloat16 on both sides, mean abs within 0.03 as JAX's atol)."""
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f
+    from depth_lidar_nerf_tpu_torch.ops import sampling_cuda as s
+    from depth_lidar_nerf_tpu_torch.render.renderer import render_image
+
+    ms, rcfg, ecfg = _serving_models(cuda, render_int8=True,
+                                     render_coarse_downsample=2)
+    fns = (f.fused_nerf_fwd, f.fused_nerf_fwd_q8, s.inverse_cdf)
+    n0 = [fn.launches for fn in fns]
+    out = render_image(ms.coarse, ms.fine, 10, 12, 9.0, torch.eye(4)[:3], ecfg,
+                       tile=64)
+    torch.cuda.synchronize()
+    assert [fn.launches - n for fn, n in zip(fns, n0)] == [0, 1 + 2, 1]
+    assert set(out) == {"rgb_map", "disp_map", "acc_map", "depth_map", "rgb0",
+                        "depth_map0", "acc0"}
+    cpu = [m.to("cpu") for m in ms]
+    ref = render_image(cpu[0], cpu[1], 10, 12, 9.0, torch.eye(4)[:3], ecfg,
+                       tile=64, device="cpu")
+    for k in ("rgb_map", "acc_map", "rgb0"):
+        assert torch.isfinite(out[k]).all()
+        assert (out[k].cpu() - ref[k]).abs().mean().item() <= 0.03, k

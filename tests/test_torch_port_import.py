@@ -89,8 +89,11 @@ def test_render_config_refuses_unported_modes():
     from depth_lidar_nerf_tpu_torch.train.config import (TrainConfig,
                                                          render_config_from)
 
-    with pytest.raises(NotImplementedError, match="render_int8"):
-        render_config_from(TrainConfig(render_int8=True), 0, 0.0, 1.0)
+    with pytest.raises(NotImplementedError, match="render_grid"):
+        render_config_from(TrainConfig(render_grid=64), 0, 0.0, 1.0)
+    with pytest.raises(NotImplementedError, match="render_grid_fine_only"):
+        render_config_from(TrainConfig(render_grid_fine_only=True), 0, 0.0,
+                           1.0)
 
 
 def test_chip_smoke_imports_no_jax():

@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import assert_render_close, interpret_pallas, ray_batch
-from torch_port_semantic_helpers import flax_sem_params
+from torch_port_helpers import assert_render_close, ray_batch
+from torch_port_semantic_helpers import flax_sem_params, sem_render_pair
 
 
 @pytest.mark.parametrize("depth,width,dtype", [(8, 256, "bfloat16"),
@@ -60,41 +60,6 @@ def test_semantic_route_matches_jax(monkeypatch, depth, width, dtype):
         assert tm.supports_raw_semantic(tr, n_points=16384 * 128, S=128)
 
 
-def _sem_render_pair(monkeypatch):
-    """JAX and port models built by ``build_models`` from one semantic config
-    (coarse D=4, fine D=8 skip@4, W=128, 19 classes, f32, NDC off), the
-    port's weights converted from JAX's."""
-    import jax
-
-    from depth_lidar_nerf_tpu.train import config as jcfg
-    from depth_lidar_nerf_tpu.train.state import build_models as jbuild
-    from depth_lidar_nerf_tpu_torch.train import config as tcfg
-    from depth_lidar_nerf_tpu_torch.train.state import build_models as tbuild
-    from depth_lidar_nerf_tpu_torch.weights import params_from_jax
-
-    import depth_lidar_nerf_tpu.ops.fused_mlp as fm
-    import depth_lidar_nerf_tpu.ops.fused_mlp_t as fmt
-
-    monkeypatch.setenv("DLNERF_PALLAS_INTERPRET", "1")
-    interpret_pallas(monkeypatch, fm, fmt)
-    fields = dict(netdepth=4, netdepth_fine=8, netwidth=128,
-                  netwidth_fine=128, N_samples=64, N_importance=64,
-                  use_viewdirs=True, dataset_type="llff", no_ndc=True,
-                  semantic_loss=True)
-    jc, tc = jcfg.TrainConfig(**fields), tcfg.TrainConfig(**fields)
-    jr = jcfg.render_config_from(jc, 19, 2.0, 6.0).eval_mode()
-    tr = tcfg.render_config_from(tc, 19, 2.0, 6.0).eval_mode()
-    jm = jbuild(jc, jr)
-    tm = tbuild(tc, tr, device="cpu")
-    _, pc = flax_sem_params(4, 128, 19, seed=0)
-    _, pf = flax_sem_params(8, 128, 19, seed=1)
-    params = {"coarse": pc, "fine": pf}
-    sds = params_from_jax(params)
-    tm.coarse.load_state_dict(sds["coarse"])
-    tm.fine.load_state_dict(sds["fine"])
-    return jm, jax.tree.map(np.asarray, params), jr, tm, tr
-
-
 def test_composite_from_z_semantic_matches_jax(monkeypatch):
     import jax.numpy as jnp
 
@@ -103,7 +68,7 @@ def test_composite_from_z_semantic_matches_jax(monkeypatch):
     from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as tfmt
     from depth_lidar_nerf_tpu_torch.render import renderer as trend
 
-    jm, params, jr, tm, tr = _sem_render_pair(monkeypatch)
+    jm, params, jr, tm, tr = sem_render_pair(monkeypatch)
     calls = []
     orig = jfmt.fused_nerf_apply_rays_semantic
     monkeypatch.setattr(jfmt, "fused_nerf_apply_rays_semantic",
@@ -152,7 +117,7 @@ def test_render_rays_semantic_matches_jax(monkeypatch):
     from depth_lidar_nerf_tpu.render import renderer as jrend
     from depth_lidar_nerf_tpu_torch.render import renderer as trend
 
-    jm, params, jr, tm, tr = _sem_render_pair(monkeypatch)
+    jm, params, jr, tm, tr = sem_render_pair(monkeypatch)
     N = 8
     ro, rd, vd, _ = ray_batch(N, 4, seed=3)
     near, far = np.full((N, 1), 2.0, np.float32), np.full((N, 1), 6.0, np.float32)

@@ -84,3 +84,38 @@ def port_inputs(params, rays):
     N, S = z.shape
     pts_t = (ro.T[:, :, None] + rd.T[:, :, None] * z[None]).reshape(3, N * S)
     return mlp_state_dict(params), (ro, rd, vd, z), pts_t, vd.T.contiguous()
+
+
+def sem_render_pair(monkeypatch):
+    """JAX and port models built by ``build_models`` from one semantic config
+    (coarse D=4, fine D=8 skip@4, W=128, 19 classes, f32, NDC off), the
+    port's weights converted from JAX's."""
+    import jax
+
+    from depth_lidar_nerf_tpu.train import config as jcfg
+    from depth_lidar_nerf_tpu.train.state import build_models as jbuild
+    from depth_lidar_nerf_tpu_torch.train import config as tcfg
+    from depth_lidar_nerf_tpu_torch.train.state import build_models as tbuild
+    from depth_lidar_nerf_tpu_torch.weights import params_from_jax
+
+    import depth_lidar_nerf_tpu.ops.fused_mlp as fm
+    import depth_lidar_nerf_tpu.ops.fused_mlp_t as fmt
+
+    monkeypatch.setenv("DLNERF_PALLAS_INTERPRET", "1")
+    interpret_pallas(monkeypatch, fm, fmt)
+    fields = dict(netdepth=4, netdepth_fine=8, netwidth=128,
+                  netwidth_fine=128, N_samples=64, N_importance=64,
+                  use_viewdirs=True, dataset_type="llff", no_ndc=True,
+                  semantic_loss=True)
+    jc, tc = jcfg.TrainConfig(**fields), tcfg.TrainConfig(**fields)
+    jr = jcfg.render_config_from(jc, 19, 2.0, 6.0).eval_mode()
+    tr = tcfg.render_config_from(tc, 19, 2.0, 6.0).eval_mode()
+    jm = jbuild(jc, jr)
+    tm = tbuild(tc, tr, device="cpu")
+    _, pc = flax_sem_params(4, 128, 19, seed=0)
+    _, pf = flax_sem_params(8, 128, 19, seed=1)
+    params = {"coarse": pc, "fine": pf}
+    sds = params_from_jax(params)
+    tm.coarse.load_state_dict(sds["coarse"])
+    tm.fine.load_state_dict(sds["fine"])
+    return jm, jax.tree.map(np.asarray, params), jr, tm, tr
