@@ -23,7 +23,14 @@ which raises on failure:
    (kernel 11 with the semantic head kernel) at W=256, D=4 and D=8 skip@4,
    float32 and bfloat16, 4,096 and 32,768 rays x S=64 and 128, 19 classes,
    on three numbers (max over max, mean over mean, share of elements off by
-   more than 1e-5 of the scale); so that a faulty kernel stops the run early;
+   more than 1e-5 of the scale); then the packed-lane kernels 12 and 13 at
+   W=256, D=4 and D=2, float32 and bfloat16, 8,192 rays x S=64 and 1,000
+   rays x S=8 (padded to 1,024), against their twins; then the
+   early-terminating forward, kernel 9, on an occluding field (16,384 and
+   4,000 rays x 128 samples, scrambled key): live raw equal to kernel 1's
+   bit for bit, the twin's skipped blocks, the skipped share, and the
+   composited outputs and weight gradients of its route against the dense
+   route; so that a faulty kernel stops the run early;
 4. serving: ``configs/rgb_only.txt`` as shipped, at full width in bfloat16,
    seeded weights with scaled heads, ``render_path`` over 3 spiral poses of
    94 x 352 (focal 88). Asserts finite outputs of the right shapes and the
@@ -48,6 +55,19 @@ which raises on failure:
    kernel, and a falling loss (mean of the last 10 of the first 25 steps
    below the mean of the first 10); prints ms/step and rays/s and profiles
    one step;
+5b. sigma-loss training: the same stack with ``sigma_loss`` (lambda 0.1):
+   5 warm-up steps, 10 timed. Asserts finite losses, the exact launch counts
+   (kernels 12 and 13 once a step beside phase 5's, one more gradient
+   reduction), that the total and the sigma loss fall; prints ms/step and
+   rays/s beside phase 5's and profiles one step;
+5c. the early-terminating forward: phase 5's stack with
+   ``DLNERF_CULL_FWD=1`` (patched into the environment for this phase
+   only): kernels 1 and 9 once a step, kernel 3 twice, kernels 4 and 5
+   never; ms/step beside phase 5's and the share of fine blocks skipped;
+   then 5-step trajectories (4,096 rays, float32 and bfloat16): the
+   sigma-loss stack, kernel path against plain path, and the cf step
+   against the dense kernel step; then kernels 9, 12 and 13 timed at the
+   steps' shapes;
 6. trajectory: 5 steps of the kernel path and of the plain path (plain
    modules and the sampling twin) from the same weights and generator seed,
    4,096 rays, float32 and bfloat16, perturbation and noise on; compares
@@ -87,8 +107,8 @@ which raises on failure:
    rays, float32 and bfloat16);
 12. one ``{"kernels": [...]}`` JSON line with every kernel.
 
-It prints ``phase N done at T s`` as it goes; a whole run took under 250 s
-on an H100, the build included (PERF.md). The last line is ``{"ok": true,
+It prints ``phase N done at T s`` as it goes; a whole run should stay well
+within the 1,200 s limit on an H100, the build included (PERF.md). The last line is ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or outside a checkout, it exits
 non-zero and prints no result.
 """
@@ -202,6 +222,44 @@ INT8_CHUNK = 32768  # the default chunk: the int8 semantic pass has no cap
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_INT8_OPS = 1979e12
+# Kernels 12 and 13 against their twins: raw max abs error over the twin's
+# max abs; gradients per parameter block (the view layer's feature and
+# encoding rows apart), max abs error over the twin's mean abs and mean abs
+# error over mean abs (a ReLU gate within float32 rounding of zero could
+# open in one summation order and not the other and move a gradient row;
+# the mean would still carry the check). About 3x the largest gaps measured
+# on an H100 (PERF.md): float32 8.7e-7, 4.2e-5, 1.6e-6; bfloat16
+# 4.1e-7, 2.0e-5, 8.8e-7.
+PACKED_TOL = {"float32": (3e-6, 1.3e-4, 5e-6), "bfloat16": (1.5e-6, 6e-5, 3e-6)}
+PACKED_SHAPES = ((8192, 64), (1000, 8))  # 1,000 rays x 8 pad to 1,024
+# Kernel 9 against its twin (live raw, max abs error over max abs): about
+# 3x the largest gap measured on an H100 (PERF.md: float32 1.0e-6,
+# bfloat16 9.2e-7). The composited outputs and weight gradients of the
+# early-terminating route against the dense route (float32) are held to
+# JAX's test_fused_fwd_cull_exact limits (rtol 1e-4 / atol 1e-5; 1e-4 of a
+# gradient's mean); measured equal bit for bit, since both routes run
+# kernel 3 on the same cotangents.
+CF_TWIN_TOL = {"float32": 3e-6, "bfloat16": 3e-6}
+CF_N_RAYS = (TRAIN_N_RAYS, 4000)  # 4,000 pad to 4,096
+CF_S, CF_EPS = 128, 1e-4
+# Trajectories of the sigma-loss stack, kernel vs plain, as TRAJ_TOL: about
+# 3x the gaps measured on an H100 (PERF.md: float32 1.54e-3 and
+# 1.13e-2, bfloat16 1.4e-3 and 5.4e-2). The float32 gaps are those of plain
+# bfloat16 against plain float32 (1.36e-3, 8.3e-2): the sigma loss makes the
+# stack's 5-step trajectory sensitive to float32 summation order, so the
+# one-step gradient check below carries the float32 power.
+SIGMA_TRAJ_TOL = {"float32": (4.6e-3, 3.4e-2), "bfloat16": (4.2e-3, 0.16)}
+# The sigma-loss term's gradients of one step, kernel path against plain
+# path from the same weights, rays and generator (float32): per fine-net
+# parameter, max abs error over the plain path's mean abs and mean abs
+# error over mean abs. About 3x the gaps measured on an H100 (PERF.md:
+# 2.0e-5 and 1.6e-6).
+SIGMA_GRAD_TOL = (6e-5, 5e-6)
+# The cf step against the dense kernel step: max relative loss gap over 5
+# steps (float32 1e-5: the cull is exact, the fine backward sums in another
+# order), and the bf16 loss gap.
+CF_TRAJ_TOL = {"float32": 1e-5, "bfloat16": 3e-3}
+SIGMA_STEPS = (5, 10)  # warm-up, timed
 
 
 def check(cond, msg):
@@ -893,6 +951,8 @@ def int8_semantic_serving(fmt, sc, renderer, dev, card, cfg, rcfg, sm, pose,
 
 def kernel_fns(fmt, sc):
     """Every kernel wrapper with a launch counter, by kernel name."""
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp as fm
+
     return {"fused_nerf_fwd": fmt.fused_nerf_fwd,
             "fused_nerf_fwd_acts": fmt.fused_nerf_fwd_acts,
             "fused_nerf_bwd": fmt.fused_nerf_bwd,
@@ -906,6 +966,9 @@ def kernel_fns(fmt, sc):
             "fused_nerf_grad_reduce": fmt.grad_reduce,
             "fused_nerf_fwd_q8": fmt.fused_nerf_fwd_q8,
             "fused_nerf_fwd_q8_sem": fmt.fused_nerf_fwd_q8_sem,
+            "fused_nerf_fwd_cf": fmt.fused_nerf_fwd_cf,
+            "fused_nerf_packed_fwd": fm.fused_packed_fwd,
+            "fused_nerf_packed_bwd": fm.fused_packed_bwd,
             sc.KERNEL: sc.inverse_cdf}
 
 
@@ -1240,10 +1303,483 @@ def semantic_phases(fmt, sc, renderer, dev, card, plain_sampler):
     return out
 
 
-def bench_stack(dev, n_rand, dtype, fused=True, semantic=False):
+def packed_macs(depth, width, e_p=63, e_v=27):
+    """Multiply-adds per point of kernel 12: the first layer over the
+    position lanes, the trunk, the feature and sigma columns, the view layer
+    over the feature and the view lanes, the rgb head."""
+    return (e_p * width + (depth - 1) * width * width + width * (width + 1)
+            + (width + e_v) * (width // 2) + (width // 2) * 3)
+
+
+def packed_kernel_checks(fm, fmt, NeRFMLP, dev, launch_fns):
+    """Phase 3, kernels 12 and 13 against their twins at W=256, D=4 and 2,
+    float32 and bfloat16, 8,192 rays x S=64 and 1,000 rays x S=8 (padded as
+    ``fused_nerf_apply_raw`` pads). Returns each kernel's largest max abs
+    error."""
+    import numpy as np
+    import torch
+
+    err = {"fused_nerf_packed_fwd": 0.0, "fused_nerf_packed_bwd": 0.0}
+    for depth in (4, 2):
+        for n_rays, S in PACKED_SHAPES:
+            g = torch.Generator().manual_seed(depth * 100 + S)
+            m = NeRFMLP(depth=depth, width=256, generator=g).to(dev)
+            with torch.no_grad():
+                m.sigma.bias += 0.5
+            params = {k: v.detach() for k, v in m.named_parameters()}
+            rng = np.random.default_rng(depth * 100 + S)
+            Nf = n_rays + (-n_rays) % (fm.TILE // S)
+            pts = torch.from_numpy(rng.uniform(-1, 1, (Nf, S, 3)).astype(
+                np.float32)).to(dev)
+            vd = torch.nn.functional.normalize(torch.from_numpy(rng.normal(
+                size=(Nf, 3)).astype(np.float32)), dim=-1).to(dev)
+            gt = torch.randn((Nf * S, 8), device=dev, generator=torch.Generator(
+                device=dev).manual_seed(S))
+            for dtype in (torch.float32, torch.bfloat16):
+                name = str(dtype)[6:]
+                x = fm.pack_encoding(pts, vd, 10, 4, dtype)
+                ws = fm.pack_params(params, depth, 63, 27, dtype, dev)
+                kw = dict(depth=depth, e_p=63, e_v=27, dtype=dtype)
+                out = fm.fused_packed_fwd(ws, x, **kw)
+                dws = fm.fused_packed_bwd(ws, x, gt, **kw)
+                torch.cuda.synchronize()
+                n_before = [f.launches for f in launch_fns]
+                ref = fm.fused_packed_fwd_plain(ws, x, depth, dtype)
+                ref_d = fm.fused_packed_bwd_plain(ws, x, gt, depth, dtype)
+                check([f.launches for f in launch_fns] == n_before,
+                      "a plain version launched a kernel")
+                e12 = rel_err(out, ref)
+                got_g, ref_g = (fmt.grad_blocks(fm.unpack_grads(
+                    d, params, depth, 63, 27), depth, 256, 10, ())
+                    for d in (dws, ref_d))
+                mx = max(((got_g[k] - ref_g[k]).abs().max()
+                          / (ref_g[k].abs().mean() + 1e-12)).item() for k in ref_g)
+                mn = max(((got_g[k] - ref_g[k]).abs().mean()
+                          / (ref_g[k].abs().mean() + 1e-12)).item() for k in ref_g)
+                e13 = max((got_g[k] - ref_g[k]).abs().max().item() for k in ref_g)
+                tol = PACKED_TOL[name]
+                print(f"kernels 12-13 D={depth} N={n_rays} S={S} {name}: fwd "
+                      f"{e12[1]:.3g} (abs {e12[0]:.3g}), bwd max/mean {mx:.3g} "
+                      f"mean/mean {mn:.3g} (abs {e13:.3g}); tolerance {tol}",
+                      flush=True)
+                check(np.isfinite(e12[1]) and e12[1] <= tol[0],
+                      f"kernel 12 vs plain D={depth} N={n_rays} S={S} {name}")
+                check(np.isfinite(mx) and mx <= tol[1] and mn <= tol[2],
+                      f"kernel 13 vs plain D={depth} N={n_rays} S={S} {name}")
+                err["fused_nerf_packed_fwd"] = max(err["fused_nerf_packed_fwd"],
+                                                   e12[0])
+                err["fused_nerf_packed_bwd"] = max(err["fused_nerf_packed_bwd"],
+                                                   e13)
+                del x, ws, out, dws, ref, ref_d, got_g, ref_g
+                torch.cuda.empty_cache()
+            del params, pts, vd, gt
+            torch.cuda.empty_cache()
+    return err
+
+
+def cf_inputs(NeRFMLP, dev, n_rays, seed):
+    """An occluding field (the density bias at 30, as JAX's
+    ``_occluding_params``) at W=256, D=4, and rays of CF_S sorted depths on
+    [2, 6] with a scrambled sort key, the compositor's distance terms and
+    unit sigma noise: (params, rays_o, rays_d, viewdirs, z, key, deltas,
+    noise)."""
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.ops.compositing import composit_dists
+
+    g = torch.Generator().manual_seed(seed)
+    m = NeRFMLP(depth=4, width=256, generator=g).to(dev)
+    with torch.no_grad():
+        m.sigma.bias.fill_(30.0)
+    params = {k: v.detach() for k, v in m.named_parameters()}
+    gd = torch.Generator(device=dev).manual_seed(seed)
+    ro = 0.2 * torch.randn((n_rays, 3), device=dev, generator=gd)
+    rd = torch.randn((n_rays, 3), device=dev, generator=gd)
+    vd = torch.nn.functional.normalize(rd, dim=-1)
+    z = torch.sort(2 + 4 * torch.rand((n_rays, CF_S), device=dev, generator=gd),
+                   -1).values
+    key = torch.rand((n_rays,), device=dev, generator=gd)
+    noise = torch.randn((n_rays, CF_S), device=dev, generator=gd)
+    return params, ro, rd, vd, z, key, composit_dists(z, rd), noise
+
+
+def cf_kernel_checks(fmt, NeRFMLP, dev, launch_fns):
+    """Phase 3, kernel 9 on an occluding field, 16,384 and 4,000 rays x 128
+    samples, scrambled key: live raw equal to kernel 1's on the same points
+    (in the rays' own order, S=128) bit for bit, float32 and bfloat16; the
+    same blocks skipped as its twin and live raw within CF_TWIN_TOL; the
+    skipped share; the composited rgb, depth and weights and the weight
+    gradients of a loss over them through the early-terminating route
+    (kernel 9, then kernel 3) against the dense kernel route (kernel 1,
+    then kernel 3), float32. Returns (largest max abs error against the
+    twin, skipped share at 16,384 rays)."""
+    import numpy as np
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.ops.compositing import raw2outputs_t
+
+    err, skipped_main = 0.0, None
+    for n_rays in CF_N_RAYS:
+        params, ro, rd, vd, z, key, deltas, noise = cf_inputs(NeRFMLP, dev,
+                                                              n_rays, n_rays)
+        pts_t = fmt._points_t(ro, rd, z).contiguous()
+        vd_t = vd.T.contiguous()
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            kw = dict(depth=4, width=256, multires=10, multires_views=4,
+                      dtype=dtype)
+            xb, vb, aux, order = fmt.cf_layout(pts_t, vd_t, key, deltas, noise,
+                                               CF_S)
+            with torch.no_grad():
+                out_b = fmt.fused_nerf_fwd_cf(params, xb, vb, aux, CF_S,
+                                              0.5 * CF_EPS, **kw)
+                dense = fmt.fused_nerf_fwd(params, pts_t, vd_t, CF_S, **kw)
+                torch.cuda.synchronize()
+                n_before = [f.launches for f in launch_fns]
+                twin = fmt.fused_nerf_fwd_cf_plain(params, xb, vb, aux, CF_S,
+                                                   0.5 * CF_EPS, **kw)
+            check([f.launches for f in launch_fns] == n_before,
+                  "a plain version launched a kernel")
+            dead = (out_b[3].reshape(-1, 2048) == -1e10).all(1)
+            skipped = dead.float().mean().item()
+            live_b = ~dead.repeat_interleave(2048)
+            check(torch.equal(
+                (twin[3].reshape(-1, 2048) == -1e10).all(1), dead),
+                f"kernel 9 and its twin skip the same blocks N={n_rays} {name}")
+            e_twin = rel_err(out_b[:, live_b], twin[:, live_b])
+            raw = fmt.cf_unlayout(out_b, order, n_rays, CF_S)
+            live = fmt.cf_unlayout(live_b.float()[None].expand(4, -1), order,
+                                   n_rays, CF_S)[0] > 0
+            bitwise = torch.equal(raw[:, live], dense[:, live])
+            dead_ok = bool((raw[:3, ~live] == 0).all()
+                           and (raw[3, ~live] == -1e10).all())
+            print(f"kernel 9 N={n_rays} S={CF_S} {name}: skipped blocks "
+                  f"{skipped:.3f}, live raw == kernel 1 bit for bit: {bitwise}, "
+                  f"vs twin {e_twin[1]:.3g} (abs {e_twin[0]:.3g}; tolerance "
+                  f"{CF_TWIN_TOL[name]:g})", flush=True)
+            check(bitwise and dead_ok,
+                  f"kernel 9 live raw equals kernel 1's N={n_rays} {name}")
+            check(e_twin[1] <= CF_TWIN_TOL[name], f"kernel 9 vs twin N={n_rays} {name}")
+            if n_rays == TRAIN_N_RAYS:
+                check(skipped > 0.1, f"kernel 9 skips > 10% of blocks ({name})")
+                skipped_main = skipped
+            err = max(err, e_twin[0])
+            del xb, vb, aux, out_b, dense, twin, raw
+            torch.cuda.empty_cache()
+
+        # The early-terminating route against the dense route, float32.
+        lp = {k: v.clone().requires_grad_() for k, v in params.items()}
+        kw = dict(depth=4, width=256, multires=10, multires_views=4,
+                  dtype=torch.float32, cull_bwd=True)
+        res = {}
+        for fwd in (True, False):
+            for p in lp.values():
+                p.grad = None
+            with mock.patch.dict(os.environ, {"DLNERF_CULL_FWD": "1"}):
+                raw = fmt.fused_nerf_apply_rays(
+                    lp, ro, rd, vd, z, fwd_cull=(key, deltas, noise, CF_EPS)
+                    if fwd else None, **kw)
+                check(fmt.fused_nerf_apply_rays.last_route
+                      == ("cf" if fwd else "culled"), "cf route")
+            o = raw2outputs_t(raw, z, rd, cull_eps=CF_EPS, noise=noise)
+            (torch.mean(o.rgb ** 2) + torch.mean(o.depth ** 2)
+             + torch.mean(o.acc)).backward()
+            res[fwd] = (o, {k: p.grad.clone() for k, p in lp.items()})
+        (oc, gc), (od, gd) = res[True], res[False]
+        for a, b, label in ((oc.rgb, od.rgb, "rgb"), (oc.depth, od.depth, "depth"),
+                            (oc.weights, od.weights, "weights")):
+            d = (a - b).abs()
+            ok = bool((d <= 1e-5 + 1e-4 * b.abs()).all())
+            print(f"kernel 9 route N={n_rays} {label} vs dense route: max abs "
+                  f"{d.max().item():.3g} (rtol 1e-4, atol 1e-5)")
+            check(ok, f"cf route {label} equals the dense route's N={n_rays}")
+        ge = max(((gc[k] - gd[k]).abs().max() / (gd[k].abs().mean() + 1e-12)).item()
+                 for k in gd)
+        print(f"kernel 9 route N={n_rays} weight gradients vs dense route: "
+              f"max/mean {ge:.3g} (tolerance 1e-4)", flush=True)
+        check(ge <= 1e-4, f"cf route gradients N={n_rays}")
+        del lp, res, oc, od, gc, gd, params
+        torch.cuda.empty_cache()
+    return err, skipped_main
+
+
+def sigma_grad_check(fm, dev, fns):
+    """The sigma-loss term alone (``train.step._sigma_loss_term``) on the
+    depth rays of a TRAJ_N_RAYS step, float32, through kernels 12 and 13
+    and through the plain module from the same weights and generator seed:
+    the fine net's gradients per parameter, (max over parameters of max
+    abs error over mean abs, of mean abs error over mean abs)."""
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.train.state import Models
+    from depth_lidar_nerf_tpu_torch.train.step import _sigma_loss_term
+    from depth_lidar_nerf_tpu_torch.train.tables import gather_rays
+
+    cfg, rcfg, mk, tabs, _ = bench_stack(dev, TRAJ_N_RAYS, "float32",
+                                         sigma_loss=True)
+    mp = Models(*path_models(cfg, rcfg, mk, "float32", True, dev))
+    table = tabs[1]
+    idx = torch.randint(0, table.origins.shape[0], (TRAJ_N_RAYS // 2,),
+                        device=dev, generator=torch.Generator(
+                            device=dev).manual_seed(3))
+    rays = gather_rays(table, idx, rcfg)
+    grads = {}
+    for label, models in (("kernel", mk), ("plain", mp)):
+        n_before = (fm.fused_packed_fwd.launches, fm.fused_packed_bwd.launches)
+        gen = torch.Generator(device=dev).manual_seed(4)
+        loss = _sigma_loss_term(cfg, rcfg, models, rays, table.depth[idx], gen)
+        loss.backward()
+        torch.cuda.synchronize()
+        n = (fm.fused_packed_fwd.launches - n_before[0],
+             fm.fused_packed_bwd.launches - n_before[1])
+        check(n == ((1, 1) if label == "kernel" else (0, 0)),
+              f"sigma-loss term launches on the {label} path: {n}")
+        grads[label] = {k: p.grad.detach().clone()
+                        for k, p in models.fine.named_parameters()}
+    gk, gp = grads["kernel"], grads["plain"]
+    mx = max(((gk[k] - gp[k]).abs().max() / (gp[k].abs().mean() + 1e-30)).item()
+             for k in gp)
+    mn = max(((gk[k] - gp[k]).abs().mean() / (gp[k].abs().mean() + 1e-30)).item()
+             for k in gp)
+    print(f"sigma-loss term gradients of one step ({TRAJ_N_RAYS // 2} depth rays, "
+          f"float32), kernel vs plain: max/mean {mx:.3g}, mean/mean {mn:.3g} "
+          f"(tolerance {SIGMA_GRAD_TOL})", flush=True)
+    check(mx <= SIGMA_GRAD_TOL[0] and mn <= SIGMA_GRAD_TOL[1],
+          "sigma-loss term gradients, kernel vs plain")
+    return mx, mn
+
+
+def sigma_and_cf_training(fm, fmt, sc, renderer, dev, card, plain_sampler,
+                          all_fns, ms_step_5):
+    """Phases 5b and 5c and their trajectories (see the module note), then
+    kernels 9, 12 and 13 at the steps' shapes. Returns the numbers for the
+    JSON lines."""
+    import numpy as np
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.train.state import init_train_state
+    from depth_lidar_nerf_tpu_torch.train.step import make_train_step
+
+    out = {"launches": {}}
+    fns = kernel_fns(fmt, sc)
+    warm, timed = SIGMA_STEPS
+    n = warm + timed
+
+    def run(step, state, tables, gen):
+        for fn in fns.values():
+            fn.launches = 0
+        metrics = [step(state, *tables, gen) for _ in range(warm)]
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+        ev0.record()
+        metrics += [step(state, *tables, gen) for _ in range(timed)]
+        ev1.record()
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in fns.items() if fn.launches}
+        vals = [{k: v.item() for k, v in m.items()} for m in metrics]
+        check(all(np.isfinite(v) for m in vals for v in m.values()),
+              "finite metrics")
+        return ev0.elapsed_time(ev1) / timed, launches, vals
+
+    # ---- 5b. sigma-loss training ---------------------------------------------
+    cfg, rcfg, tm, tables, scene = bench_stack(dev, TRAIN_N_RAYS, "bfloat16",
+                                               sigma_loss=True)
+    state = init_train_state(cfg, tm)
+    step = make_train_step(cfg, rcfg, tm, scene.hwf)
+    check(tm.fine.supports_raw(rcfg), "the packed-lane kernels cover the fine net")
+    ms, launches, vals = run(step, state, tables,
+                             torch.Generator(device=dev).manual_seed(0))
+    want = {fmt.KERNEL: n, "fused_nerf_fwd_acts": n, "fused_nerf_bwd_culled": n,
+            "fused_nerf_bwd_acts": n, sc.KERNEL: n, "fused_nerf_grad_reduce": 3 * n,
+            "fused_nerf_packed_fwd": n, "fused_nerf_packed_bwd": n}
+    print(f"sigma-loss training launches over {n} steps: {launches}", flush=True)
+    check(launches == want, f"sigma-loss launch counts, want {want}")
+    losses = [m["loss"] for m in vals]
+    s_losses = [m["sigma_loss"] for m in vals]
+    k = 5
+    print("sigma-loss training loss per step: " + " ".join(f"{x:.4f}" for x in losses))
+    print("sigma loss per step: " + " ".join(f"{x:.5f}" for x in s_losses))
+    check(np.mean(losses[-k:]) < np.mean(losses[:k]), "sigma-loss step: loss falls")
+    check(np.mean(s_losses[-k:]) < np.mean(s_losses[:k]), "sigma loss falls")
+    print(f"sigma-loss training steady: {ms:.1f} ms/step, "
+          f"{TRAIN_N_RAYS * 1e3 / ms:,.0f} rays/s (phase 5: {ms_step_5:.1f} "
+          f"ms/step) on {card}", flush=True)
+    out["sigma_training"] = {"ms_per_step": ms, "rays_per_s": TRAIN_N_RAYS * 1e3 / ms,
+                             "losses": losses, "sigma_losses": s_losses,
+                             "launches": launches}
+    out["launches"] = {k: v for k, v in launches.items()}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    profile_step(lambda: step(state, *tables, gen), "sigma-loss step")
+    captured = {}
+    orig_bwd = fm.fused_packed_bwd
+
+    def cap_bwd(ws, x, g, **kw):
+        captured["packed"] = (ws, x, g, kw)
+        return orig_bwd(ws, x, g, **kw)
+
+    # A wrapper counts its launches through its module-level name, which
+    # the stand-in takes over: give it a counter of its own.
+    cap_bwd.launches = 0
+    with mock.patch.object(fm, "fused_packed_bwd", cap_bwd):
+        step(state, *tables, gen)
+    torch.cuda.synchronize()
+    del state, step, tm, tables
+    torch.cuda.empty_cache()
+    print(f"phase 5b done at {time.time() - T_START:.0f} s", flush=True)
+
+    # ---- 5c. the early-terminating forward -------------------------------------
+    cfg, rcfg, tm, tables, scene = bench_stack(dev, TRAIN_N_RAYS, "bfloat16")
+    state = init_train_state(cfg, tm)
+    step = make_train_step(cfg, rcfg, tm, scene.hwf)
+    with mock.patch.dict(os.environ, {"DLNERF_CULL_FWD": "1"}):
+        ms_cf, launches, vals = run(step, state, tables,
+                                    torch.Generator(device=dev).manual_seed(0))
+        want = {fmt.KERNEL: n, "fused_nerf_fwd_cf": n, "fused_nerf_bwd_culled": 2 * n,
+                sc.KERNEL: n, "fused_nerf_grad_reduce": 2 * n}
+        print(f"cf training launches over {n} steps: {launches}", flush=True)
+        check(launches == want, f"cf launch counts, want {want}")
+        for key, v in launches.items():
+            out["launches"][key] = out["launches"].get(key, 0) + v
+        cf_losses = [m["loss"] for m in vals]
+        # Three more steps, each fine pass's skipped share read from kernel
+        # 9's output, and the last one's inputs kept for the kernel times.
+        skipped = []
+        orig_cf, orig_fn = fmt._fwd_cf, fmt.fused_nerf_fwd_cf
+
+        def count_skips(*a, **kw):
+            o = orig_fn(*a, **kw)
+            skipped.append((o[3].reshape(-1, 2048) == -1e10).all(1)
+                           .float().mean().item())
+            return o
+
+        count_skips.launches = 0  # as cap_bwd's in phase 5b
+
+        def cap_cf(*a):
+            captured["cf"] = a[:8]
+            return orig_cf(*a)
+
+        gen = torch.Generator(device=dev).manual_seed(1)
+        profile_step(lambda: step(state, *tables, gen), "cf step")
+        with mock.patch.object(fmt, "fused_nerf_fwd_cf", count_skips), \
+                mock.patch.object(fmt, "_fwd_cf", cap_cf):
+            for _ in range(3):
+                step(state, *tables, gen)
+        torch.cuda.synchronize()
+    print("cf training loss per step: " + " ".join(f"{x:.4f}" for x in cf_losses))
+    print(f"cf training steady: {ms_cf:.1f} ms/step, "
+          f"{TRAIN_N_RAYS * 1e3 / ms_cf:,.0f} rays/s (phase 5, dense fine "
+          f"forward: {ms_step_5:.1f} ms/step); fine blocks skipped per step "
+          + " ".join(f"{s:.3f}" for s in skipped) + f" on {card}", flush=True)
+    out["cf_training"] = {"ms_per_step": ms_cf, "rays_per_s": TRAIN_N_RAYS * 1e3 / ms_cf,
+                          "losses": cf_losses, "fine_blocks_skipped": skipped,
+                          "launches": launches}
+    del state, step, tm, tables
+    torch.cuda.empty_cache()
+    print(f"phase 5c done at {time.time() - T_START:.0f} s", flush=True)
+
+    # ---- the sigma-loss term's gradients, kernel path against plain path -----
+    out["sigma_grad"] = sigma_grad_check(fm, dev, fns)
+
+    # ---- trajectories ----------------------------------------------------------
+    out["sigma_trajectory"] = trajectories(
+        "sigma-loss trajectory", SIGMA_TRAJ_TOL, dev, list(fns.values()), renderer,
+        plain_sampler, semantic=False, sigma_loss=True)
+    cf_gaps = {}
+    for dtype in ("float32", "bfloat16"):
+        ls = {}
+        for knob in ("0", "1"):
+            cfg, rcfg, mj, tabs, scn = bench_stack(dev, TRAJ_N_RAYS, dtype)
+            st = init_train_state(cfg, mj)
+            stp = make_train_step(cfg, rcfg, mj, scn.hwf)
+            gen = torch.Generator(device=dev).manual_seed(7)
+            n9 = fmt.fused_nerf_fwd_cf.launches
+            with mock.patch.dict(os.environ, {"DLNERF_CULL_FWD": knob}):
+                ls[knob] = np.array([stp(st, *tabs, gen)["loss"].item()
+                                     for _ in range(5)])
+            check((fmt.fused_nerf_fwd_cf.launches - n9) == (5 if knob == "1" else 0),
+                  "cf trajectory routes")
+            del st, stp, mj, tabs
+            torch.cuda.empty_cache()
+        cf_gaps[dtype] = float(np.max(np.abs(ls["1"] - ls["0"]) / np.abs(ls["0"])))
+        print(f"cf trajectory {dtype}, 5 steps of {TRAJ_N_RAYS} rays, cf vs dense "
+              f"kernel step: max loss gap {cf_gaps[dtype]:.3g} (tolerance "
+              f"{CF_TRAJ_TOL[dtype]:g}); losses cf " + " ".join(f"{x:.6f}" for x in ls["1"])
+              + " dense " + " ".join(f"{x:.6f}" for x in ls["0"]), flush=True)
+        check(cf_gaps[dtype] <= CF_TRAJ_TOL[dtype], f"cf trajectory {dtype}")
+    out["cf_trajectory"] = cf_gaps
+    print(f"trajectories of phases 5b-5c done at {time.time() - T_START:.0f} s",
+          flush=True)
+
+    # ---- kernels 9, 12 and 13 at the steps' shapes (bf16) ---------------------
+    times = {}
+    ws, x, g, kw = captured["packed"]
+    kw = {k_: v for k_, v in kw.items() if k_ != "kw"}
+    depth, W = kw["depth"], ws[0].shape[1]
+    kwt = fm.kernel_weights(ws, depth)
+    P = x.shape[0]
+    n_w = sum(t.numel() for t in ws)
+    with torch.no_grad():
+        t12 = (cuda_ms(lambda: fm.fused_packed_fwd(ws, x, kw=kwt, **kw), 10),
+               cuda_ms(lambda: fm.fused_packed_fwd_plain(ws, x, depth, kw["dtype"]), 3, 1))
+        t13 = (cuda_ms(lambda: fm.fused_packed_bwd(ws, x, g, kw=kwt, **kw), 5, 1),
+               cuda_ms(lambda: fm.fused_packed_bwd_plain(ws, x, g, depth, kw["dtype"]), 2, 1))
+    macs = packed_macs(depth, W)
+    # Kernel 13: the forward recomputed, a weight-gradient product per weight
+    # and an input-gradient product per weight past the first layer.
+    bwd_m = macs + 2 * macs - 63 * W - 27 * (W // 2)
+    work = {"fused_nerf_packed_fwd": (2 * macs * P, P * 128 * 2 + P * 8 * 4 + n_w * 2),
+            "fused_nerf_packed_bwd": (2 * bwd_m * P, P * 128 * 2 + P * 8 * 4 + n_w * 2
+                                      + n_w * 4)}
+    for k_, t_ in (("fused_nerf_packed_fwd", t12), ("fused_nerf_packed_bwd", t13)):
+        fl, by = work[k_]
+        t_ops, t_bytes = fl / PEAK_FLOPS["bfloat16"], by / PEAK_BYTES
+        times[k_] = (t_[0], t_[1], max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops > t_bytes else "bytes")
+    params, pts_t, vd_t, key, deltas, noise, spec, eps = captured["cf"]
+    params = {k_: v.detach() for k_, v in params.items()}
+    xb, vb, aux, order = fmt.cf_layout(pts_t, vd_t, key, deltas, noise, spec.S)
+    pk = fmt.pack_params(params, spec.depth, spec.dtype, dev)
+    kw9 = spec.kw()
+    with torch.no_grad():
+        o9 = fmt.fused_nerf_fwd_cf(params, xb, vb, aux, spec.S, 0.5 * eps,
+                                   packed=pk, **kw9)
+        dead = (o9[3].reshape(-1, 2048) == -1e10).all(1)
+        t9 = (cuda_ms(lambda: fmt.fused_nerf_fwd_cf(params, xb, vb, aux, spec.S,
+                                                    0.5 * eps, packed=pk, **kw9), 5),
+              cuda_ms(lambda: fmt.fused_nerf_fwd_cf_plain(params, xb, vb, aux, spec.S,
+                                                          0.5 * eps, **kw9), 2, 1))
+        glue_ms = cuda_ms(lambda: (
+            fmt.cf_layout(pts_t, vd_t, key, deltas, noise, spec.S),
+            fmt.cf_unlayout(o9, order, vd_t.shape[1], spec.S)), 5)
+    P9 = xb.shape[1]
+    live_pts = int((~dead).sum().item()) * 2048
+    fl = 2 * mlp_macs(spec.depth, 256, 63, 27, (), fmt.SAMPLE_BLOCK) * live_pts
+    n_w9 = sum(v.numel() for v in params.values())
+    by = live_pts * (3 + 2) * 4 + live_pts // 16 * 3 * 4 + P9 * 4 * 4 + n_w9 * 2
+    t_ops, t_bytes = fl / PEAK_FLOPS["bfloat16"], by / PEAK_BYTES
+    times["fused_nerf_fwd_cf"] = (t9[0], t9[1], max(t_ops, t_bytes) * 1e3,
+                                  "operations" if t_ops > t_bytes else "bytes")
+    print(f"fine pass of a cf step: {dead.numel()} blocks, "
+          f"{100 * dead.float().mean().item():.2f}% skipped; cf glue (sort, "
+          f"regroup, un-permute): {glue_ms:.3f} ms")
+    for k_, (ms_, plain_, bound_, by_) in times.items():
+        print(f"{k_} at the step's shapes (bf16): {ms_:.3f} ms, plain {plain_:.3f} "
+              f"ms, bound {bound_:.3f} ms ({by_}) on {card}", flush=True)
+    out["times"] = times
+    out["cf_glue_ms"] = glue_ms
+    del captured, xb, vb, aux, o9, x, g
+    torch.cuda.empty_cache()
+    print(f"phase 7 (kernels 9, 12, 13) done at {time.time() - T_START:.0f} s",
+          flush=True)
+    return out
+
+
+def bench_stack(dev, n_rand, dtype, fused=True, semantic=False,
+                sigma_loss=False):
     """``bench.py``'s ``two_mlp`` configuration, or with ``semantic`` its
     ``ref_default_semantic_two_mlp`` (fine D=8 skip@4, a 19-class head on
-    both MLPs, semantic loss 0.04), on the in-memory synthetic scene:
+    both MLPs, semantic loss 0.04), on the in-memory synthetic scene; with
+    ``sigma_loss`` the DS-NeRF sigma loss (JAX's default lambda 0.1):
     (cfg, rcfg, models, tables, scene)."""
     from depth_lidar_nerf_tpu_torch.data.synthetic import draw_scene
     from depth_lidar_nerf_tpu_torch.train.config import (TrainConfig,
@@ -1260,6 +1796,7 @@ def bench_stack(dev, n_rand, dtype, fused=True, semantic=False):
                       use_viewdirs=True, no_ndc=True, raw_noise_std=1.0,
                       colmap_depth=True, depth_loss=True, depth_lambda=0.01,
                       semantic_loss=semantic, semantic_lambda=0.04,
+                      sigma_loss=sigma_loss, sigma_lambda=0.1,
                       compute_dtype=dtype, cull_eps=1e-4, seed=0,
                       use_fused_mlp=fused)
     rcfg = render_config_from(cfg, sc.num_classes if semantic else 0, sc.near,
@@ -1288,7 +1825,8 @@ def path_models(cfg, rcfg, models, dtype, plain, dev):
     return pm.coarse.to(dev), pm.fine.to(dev)
 
 
-def trajectories(label, tol, dev, fns, renderer, plain_sampler, semantic):
+def trajectories(label, tol, dev, fns, renderer, plain_sampler, semantic,
+                 sigma_loss=False):
     """5 steps of the kernel path and of the plain path (plain modules and
     the sampling twin, which must launch no kernel) of a :func:`bench_stack`
     from the same weights and generator seed, TRAJ_N_RAYS rays, float32 and
@@ -1307,7 +1845,8 @@ def trajectories(label, tol, dev, fns, renderer, plain_sampler, semantic):
         for plain in (False, True):
             cfg, rcfg, mj, tabs, scn = bench_stack(dev, TRAJ_N_RAYS, dtype,
                                                    fused=not plain,
-                                                   semantic=semantic)
+                                                   semantic=semantic,
+                                                   sigma_loss=sigma_loss)
             check(isinstance(mj.coarse, FusedMLP) != plain, "trajectory models")
             st = init_train_state(cfg, mj)
             stp = make_train_step(cfg, rcfg, mj, scn.hwf)
@@ -1374,6 +1913,7 @@ def main() -> int:
     from depth_lidar_nerf_tpu_torch.data.poses import generate_render_path
     from depth_lidar_nerf_tpu_torch.models.nerf_mlp import NeRFMLP
     from depth_lidar_nerf_tpu_torch.ops import _build
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp as fm
     from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as fmt
     from depth_lidar_nerf_tpu_torch.ops import sampling_cuda as sc
     from depth_lidar_nerf_tpu_torch.ops.sampling import pdf_uniforms
@@ -1395,10 +1935,11 @@ def main() -> int:
     # ---- 2. build -------------------------------------------------------
     t0 = time.time()
     logs = _build.build_all([fmt.KERNEL, fmt.BWD_KERNEL, fmt.Q8_KERNEL,
-                             sc.KERNEL])
+                             fm.KERNEL, sc.KERNEL])
     for name, types in ((fmt.KERNEL, fmt.ARGTYPES),
                         (fmt.BWD_KERNEL, fmt.BWD_ARGTYPES),
                         (fmt.Q8_KERNEL, fmt.Q8_ARGTYPES),
+                        (fm.KERNEL, fm.ARGTYPES),
                         (sc.KERNEL, sc.ARGTYPES)):
         _build.load(name, types)
     print(f"build: {time.time() - t0:.1f} s (nvcc {' '.join(_build.ARCH_FLAGS)})")
@@ -1476,8 +2017,15 @@ def main() -> int:
     print(f"semantic kernels checked in {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
     err.update(q8_kernel_checks(fmt, NeRFMLP, dev, all_fns))
-    print(f"int8 kernels checked in {time.time() - t0:.1f} s; phase 3 "
-          f"done at {time.time() - T_START:.0f} s", flush=True)
+    print(f"int8 kernels checked in {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    err.update(packed_kernel_checks(fm, fmt, NeRFMLP, dev, all_fns))
+    print(f"packed-lane kernels checked in {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    err["fused_nerf_fwd_cf"], cf_skipped = cf_kernel_checks(fmt, NeRFMLP, dev,
+                                                            all_fns)
+    print(f"early-terminating forward checked in {time.time() - t0:.1f} s; "
+          f"phase 3 done at {time.time() - T_START:.0f} s", flush=True)
 
     # ---- 4. serving -----------------------------------------------------
     # The config as shipped: on the card both kernels run whatever its
@@ -1803,12 +2351,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"phase 7 done at {time.time() - T_START:.0f} s", flush=True)
 
+    # ---- 5b, 5c and their trajectories; kernels 9, 12, 13 at the steps' shapes
+    s5 = sigma_and_cf_training(fm, fmt, sc, renderer, dev, card, plain_sampler,
+                               all_fns, ms_step)
+
     # ---- 9-11. the semantic stack ----------------------------------------------
     sem = semantic_phases(fmt, sc, renderer, dev, card, plain_sampler)
 
     src = "depth_lidar_nerf_tpu_torch/csrc/"
     main_launches = {k: launches.get(k, 0) + train_launches.get(k, 0)
                      + int8_launches[k] + sem["launches"][k]
+                     + s5["launches"].get(k, 0)
                      for k in sem["launches"]}
     kernels = [
         {"name": fmt.KERNEL, "route": "cuda", "source": src + "fused_nerf_fwd.cu",
@@ -1852,6 +2405,20 @@ def main() -> int:
             "launches": main_launches[k], "max_abs_err": err[k], "ms": times[0],
             "plain_ms": times[1], "bound_ms": times[2], "bound_by": times[3],
             "library_ms": None})
+    for k, source, where in (
+            ("fused_nerf_fwd_cf", "fused_nerf_fwd.cu", "fused_mlp_t.py:1233"),
+            ("fused_nerf_packed_fwd", "fused_nerf_packed.cu", "fused_mlp.py:108"),
+            ("fused_nerf_packed_bwd", "fused_nerf_packed.cu", "fused_mlp.py:115")):
+        ms_, plain_, bound_, by_ = s5["times"][k]
+        kernels.append({
+            "name": k, "route": "cuda", "source": src + source,
+            "replaces": f"depth_lidar_nerf_tpu/ops/{where}",
+            "launches": main_launches[k], "max_abs_err": err[k], "ms": ms_,
+            "plain_ms": plain_, "bound_ms": bound_, "bound_by": by_,
+            "library_ms": None})
+    heads = {"fused_nerf_sem_head", "fused_nerf_sem_head_bwd"}  # parts of rows 6-8
+    check(len({k["name"] for k in kernels} - heads) == 14,
+          "every TPU kernel has its counterpart")
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} launched on a main path")
     print(json.dumps({"int8_serving": int8_out}))
@@ -1859,6 +2426,13 @@ def main() -> int:
     print(json.dumps({"semantic_training": {
         **sem["training"], "trajectory_kernel_vs_plain": sem["trajectory"]}}))
     print(json.dumps({"semantic_serving": sem["serving"]}))
+    print(json.dumps({"sigma_loss_training": {
+        **s5["sigma_training"], "trajectory_kernel_vs_plain": s5["sigma_trajectory"],
+        "term_gradients_kernel_vs_plain": s5["sigma_grad"], "card": card}}))
+    print(json.dumps({"cf_training": {
+        **s5["cf_training"], "trajectory_cf_vs_dense": s5["cf_trajectory"],
+        "kernel_checks_blocks_skipped": cf_skipped, "cf_glue_ms": s5["cf_glue_ms"],
+        "card": card}}))
     print(f"total {time.time() - T_START:.0f} s")
     print(json.dumps({"training": {
         "ms_per_step": ms_step, "rays_per_s": TRAIN_N_RAYS * 1e3 / ms_step,

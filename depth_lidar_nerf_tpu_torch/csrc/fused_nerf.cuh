@@ -1,5 +1,5 @@
 // Shared device code of the fused NeRF MLP kernels (fused_nerf_fwd.cu, fused_nerf_bwd.cu,
-// fused_nerf_q8.cu).
+// fused_nerf_q8.cu, fused_nerf_packed.cu).
 //
 // The MLP and its packed layout (see fused_nerf_fwd.cu for the forward's source note):
 // for points [3, P] (float32) with point p on ray p / S and per-ray unit view directions
@@ -186,6 +186,80 @@ __device__ __forceinline__ void store_masked(float (&acc)[8][NJ], const float* _
     float4* dst = reinterpret_cast<float4*>(out + c * kLD + ty * 8);
     dst[0] = make_float4(v[0], v[1], v[2], v[3]);
     dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+}
+
+// ---- backward building blocks (fused_nerf_bwd.cu, fused_nerf_packed.cu) ----
+
+// dW[k * ld + j] += sum_p a[k][p] * d[j][p] for k < K, j < N (N % 8 == 0; ld = N unless
+// given, a multiple of 4); a and d in shared memory as [rows][kLD]; dW is this block's own
+// float32 partial. Lane tx takes
+// rows k = k0 + tx + 32 i (a warp's float4 loads of a then hit distinct banks), warp ty
+// the 8-column groups ty, ty + 8, ...; every load of d is a broadcast.
+__device__ __forceinline__ void outer(float* __restrict__ dW, const float* __restrict__ a,
+                                      int K, const float* __restrict__ d, int N, int ty,
+                                      int tx, int ld = 0) {
+  if (ld == 0) ld = N;
+  for (int k0 = 0; k0 < K; k0 += 256) {
+    for (int jb = ty; jb < N / 8; jb += 8) {
+      float acc[8][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 1
+      for (int p = 0; p < kTP; p += 4) {
+        float4 dv[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          dv[j] = *reinterpret_cast<const float4*>(d + (jb * 8 + j) * kLD + p);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int k = k0 + tx + 32 * i;
+          const float4 av = k < K ? *reinterpret_cast<const float4*>(a + k * kLD + p)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            acc[i][j] = fmaf(av.x, dv[j].x, acc[i][j]);
+            acc[i][j] = fmaf(av.y, dv[j].y, acc[i][j]);
+            acc[i][j] = fmaf(av.z, dv[j].z, acc[i][j]);
+            acc[i][j] = fmaf(av.w, dv[j].w, acc[i][j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int k = k0 + tx + 32 * i;
+        if (k < K) {
+          float4* dst = reinterpret_cast<float4*>(dW + (size_t)k * ld + jb * 8);
+          float4 u = dst[0], v = dst[1];
+          u.x += acc[i][0]; u.y += acc[i][1]; u.z += acc[i][2]; u.w += acc[i][3];
+          v.x += acc[i][4]; v.y += acc[i][5]; v.z += acc[i][6]; v.w += acc[i][7];
+          dst[0] = u;
+          dst[1] = v;
+        }
+      }
+    }
+  }
+}
+
+// db[j] += sum_p d[j][p] for j < N.
+__device__ __forceinline__ void bias_sum(float* __restrict__ db, const float* __restrict__ d,
+                                         int N) {
+  for (int j = threadIdx.x; j < N; j += kThreads) {
+    float sm = 0.f;
+    for (int p = 0; p < kTP; ++p) sm += d[j * kLD + p];
+    db[j] += sm;
+  }
+}
+
+// dst[c][p] = src row p, column c (rows row0 + p of a [rows][C] array in T), 0 past n_valid.
+template <typename T>
+__device__ __forceinline__ void load_rows(float* __restrict__ dst, const T* __restrict__ src,
+                                          int C, int n_valid) {
+  for (int idx = threadIdx.x; idx < kTP * C; idx += kThreads) {
+    const int p = idx / C, c = idx % C;
+    dst[c * kLD + p] = p < n_valid ? to_f<T>(src[(size_t)p * C + c]) : 0.f;
   }
 }
 

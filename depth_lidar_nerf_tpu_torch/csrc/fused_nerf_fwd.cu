@@ -1,5 +1,6 @@
 // Fused NeRF MLP forward for Hopper (sm_90a): kernel 1 (serving), kernel 4 (training,
-// saves activations), and their semantic variants, kernels 6 and 7, with the semantic head.
+// saves activations), their semantic variants, kernels 6 and 7, with the semantic head, and
+// kernel 9 (the early-terminating forward).
 //
 // Kernel 1 replaces the Pallas TPU kernel depth_lidar_nerf_tpu/ops/fused_mlp_t.py:_fwd_kernel
 // (body _forward_tile, entry _fwd_impl). For points [3, P] (float32) with point p on ray
@@ -50,6 +51,24 @@
 // backward would recompute. The head costs ~W^2 / 2 multiply-adds a ray, under 1/S of a
 // point's MLP.
 //
+// Kernel 9 replaces fused_mlp_t.py:_fwd_kernel_cf (entry _fwd_impl_cf): kernel 1's forward
+// with early ray termination, for the fine pass of a training step under DLNERF_CULL_FWD=1.
+// Its input is regrouped (fused_mlp_t.py:cf_layout): rays sorted by a termination estimate,
+// padded to groups of kCfRays = 128, each group cut into blocks of 128 rays x kCfSB = 16
+// samples, a group's blocks in sample order; point q of block k is sample q % 16 of the
+// block's ray q / 16, so kernel 1's tile body runs on it unchanged with S = 16 and one view
+// direction per (ray, block). One block of threads takes one group and walks its blocks in
+// order, carrying each ray's transmittance T (1 at the first block) in shared memory. A
+// block whose 128 rays all have T < eps (half the compositor's cull_eps) is skipped and
+// written as (0, 0, 0, -1e10): the compositor gives its samples exactly zero weight either
+// way. Otherwise its 32 tiles of 64 points run kernel 1's body, whose result for a point
+// does not depend on the tile it lies in (kernel 1 gives the same bits on the same point),
+// and each ray's T is multiplied by exp(sum over its 16 samples of log(exp(-max(sigma +
+// noise, 0) delta) + 1e-10)), the compositor's factors (deltas and noise come with the
+// points as aux [2, P]). Bound: as kernel 1, on the live blocks only. The fine pass's
+// 16,384 rays make 128 groups, one wave on the H100's 132 SMs; a group's blocks run in
+// sequence, since a block's skip depends on the blocks before it.
+//
 // Layout. One block of 256 threads owns a tile of kTP = 64 consecutive points; a ragged
 // last tile is masked, not padded. See fused_nerf.cuh for the shared-memory layout and the
 // packed weights.
@@ -93,6 +112,53 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int p0 = blockIdx.x * kTP;
   forward_tile<T, W>(net, s, pts, vd, P, S, p0, out, kActs ? acts : nullptr, (size_t)P * W,
                      (size_t)p0, fpart + (size_t)blockIdx.x * MR * W);
+}
+
+constexpr int kCfRays = 128;                    // rays per group (kernel 9)
+constexpr int kCfSB = 16;                       // samples per block
+constexpr int kCfPoints = kCfRays * kCfSB;      // points per block
+
+// Kernel 9 (see the source note): block g takes group g, points [g nSB kCfPoints,
+// (g + 1) nSB kCfPoints) of the regrouped pts [3, P], vd [3, P / 16] and aux [2, P]
+// (deltas, noise); out [4, P].
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads, 1)
+    fused_nerf_fwd_cf_kernel(const Net net, const float* __restrict__ pts,
+                             const float* __restrict__ vd, const float* __restrict__ aux,
+                             float* out, int P, int nSB, float eps) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float t_ray[kCfRays];
+  const Smem s = carve(smem, W, 3 + 6 * net.n_p, 3 + 6 * net.n_v);
+  const int tid = threadIdx.x;
+  if (tid < kCfRays) t_ray[tid] = 1.f;
+  for (int sb = 0; sb < nSB; ++sb) {
+    const int q0 = (blockIdx.x * nSB + sb) * kCfPoints;
+    // Orders this block's T update (and every write of the block before) before the test.
+    const bool live = __syncthreads_or(tid < kCfRays && t_ray[tid] >= eps);
+    if (live) {
+      for (int t = 0; t < kCfPoints / kTP; ++t) {
+        forward_tile<T, W>(net, s, pts, vd, P, kCfSB, q0 + t * kTP, out, nullptr, 0, 0);
+        __syncthreads();
+      }
+      if (tid < kCfRays) {
+        float sm = 0.f;
+        for (int i = 0; i < kCfSB; ++i) {
+          const size_t q = (size_t)q0 + tid * kCfSB + i;
+          const float sg = fmaxf(out[(size_t)3 * P + q] + aux[(size_t)P + q], 0.f) * aux[q];
+          sm += logf(expf(-sg) + 1e-10f);
+        }
+        t_ray[tid] *= expf(sm);
+      }
+    } else {
+      for (int i = tid; i < kCfPoints; i += kThreads) {
+        const size_t q = (size_t)q0 + i;
+        out[q] = 0.f;
+        out[(size_t)P + q] = 0.f;
+        out[(size_t)2 * P + q] = 0.f;
+        out[(size_t)3 * P + q] = -1e10f;
+      }
+    }
+  }
 }
 
 constexpr int kHeadRays = 8;  // rays per block of the semantic head
@@ -205,6 +271,17 @@ int dispatch(const float* pts, const float* vd, const void* w, const float* b, f
 }
 
 template <typename T, int W>
+int launch_cf(const Net& net, const float* pts, const float* vd, const float* aux, float* out,
+              int P, int nSB, float eps, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * fwd_smem_floats(W, 3 + 6 * net.n_p, 3 + 6 * net.n_v);
+  auto k = fused_nerf_fwd_cf_kernel<T, W>;
+  cudaError_t e;
+  if ((e = prepare(k, smem)) != cudaSuccess) return (int)e;
+  k<<<P / (nSB * kCfPoints), kThreads, smem, stream>>>(net, pts, vd, aux, out, P, nSB, eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int W>
 int launch_head(const float* fpart, int MR, const void* ws0, const float* bs0, const void* ws1,
                 const float* bs1, float* sem, void* sem_acts, int N, int S, int C,
                 cudaStream_t stream) {
@@ -273,6 +350,35 @@ extern "C" int fused_nerf_sem_head_launch(const float* fpart, const void* ws0, c
   return width == 256
              ? launch_head<float, 256>(fpart, MR, ws0, bs0, ws1, bs1, sem, sem_acts, N, S, C, s)
              : launch_head<float, 128>(fpart, MR, ws0, bs0, ws1, bs1, sem, sem_acts, N, S, C, s);
+}
+
+// Kernel 9: the early-terminating forward on the regrouped layout of the source note. pts
+// [3, P] and aux [2, P] (deltas, noise) float32 with P = groups x nSB x 2,048, vd [3, P / 16]
+// (one view direction per ray and block), out [4, P]; eps is the skip threshold (half the
+// compositor's cull_eps). Weights as fused_nerf_fwd_launch; no skip concat.
+extern "C" int fused_nerf_fwd_cf_launch(const float* pts, const float* vd, const float* aux,
+                                        const void* w, const float* b, float* out, int P,
+                                        int nSB, float eps, int depth, int width, int n_p,
+                                        int n_v, int is_bf16, const int* woff, const int* boff,
+                                        void* stream) {
+  if (depth < 1 || depth > 8 || nSB < 1 || P < 0 || P % (nSB * kCfPoints) != 0 ||
+      (width != 128 && width != 256))
+    return (int)cudaErrorInvalidValue;
+  if (P == 0) return 0;
+  Net net;
+  net.w = w; net.wt = nullptr; net.b = b;
+  net.depth = depth; net.n_p = n_p; net.n_v = n_v; net.skip_mask = 0;
+  for (int i = 0; i < kMaxLayers; ++i) {
+    net.woff[i] = i < depth + 4 ? woff[i] : 0;
+    net.boff[i] = i < depth + 4 ? boff[i] : 0;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16) {
+    return width == 256 ? launch_cf<__nv_bfloat16, 256>(net, pts, vd, aux, out, P, nSB, eps, s)
+                        : launch_cf<__nv_bfloat16, 128>(net, pts, vd, aux, out, P, nSB, eps, s);
+  }
+  return width == 256 ? launch_cf<float, 256>(net, pts, vd, aux, out, P, nSB, eps, s)
+                      : launch_cf<float, 128>(net, pts, vd, aux, out, P, nSB, eps, s);
 }
 
 extern "C" const char* fused_nerf_fwd_error_string(int e) {

@@ -18,6 +18,7 @@ backwards return float32 weight gradients and zero input cotangents. Here:
  6    ``_fwd_kernel_sem_only``    ``fused_nerf_fwd.cu`` sem      :func:`fused_nerf_fwd_sem`
  7    ``_fwd_kernel_acts_sem``    ``fused_nerf_fwd.cu`` sem acts :func:`fused_nerf_fwd_acts_sem`
  8    ``_bwd_kernel_acts_sem``    ``fused_nerf_bwd.cu`` sem      :func:`fused_nerf_bwd_acts_sem`
+ 9    ``_fwd_kernel_cf``          ``fused_nerf_fwd.cu`` cf       :func:`fused_nerf_fwd_cf`
 10    ``_fwd_kernel_q8``          ``fused_nerf_q8.cu``           :func:`fused_nerf_fwd_q8`
 11    ``_fwd_kernel_q8_sem``      ``fused_nerf_q8.cu`` + head    :func:`fused_nerf_fwd_q8_sem`
 ====  ==========================  ============================  ===============================
@@ -33,10 +34,14 @@ kernel 8 first runs the head's backward (:func:`sem_head_bwd`), whose
 per-ray feature cotangent then enters kernel 5's body.
 
 :func:`fused_nerf_apply_rays` takes the route the JAX dispatcher
-(``_apply_rays_core``) would take: without a gradient the plain forward;
-under autograd :class:`FusedActs` (kernels 4 and 5) for a pass that saves its
-activations within the byte cap, else :class:`FusedRecompute` with the
-culled (kernel 3) or dense (kernel 2) backward. The route is kept in
+(``_apply_rays_core``) would take: with ``fwd_cull`` under
+``DLNERF_CULL_FWD=1`` the early-terminating forward (kernel 9, on the
+regrouped layout of :func:`cf_layout`; :class:`FusedCullFwd` under
+autograd, with kernel 3's or kernel 2's backward); else without a gradient
+the plain forward; under autograd :class:`FusedActs` (kernels 4 and 5) for a
+pass that saves its activations within the byte cap, else
+:class:`FusedRecompute` with the culled (kernel 3) or dense (kernel 2)
+backward. The route is kept in
 ``fused_nerf_apply_rays.last_route``. :func:`fused_nerf_apply_rays_semantic`
 is the semantic variant (JAX ``_fused_t_sem``): kernel 6 without a gradient,
 :class:`FusedSem` (kernels 7 and 8) under autograd.
@@ -58,6 +63,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 from typing import Dict, Mapping, NamedTuple
 
 import torch
@@ -79,6 +85,10 @@ ARGTYPES = {
     # (fpart, ws0, bs0, ws1, bs1, sem, sem_acts, MR, N, S, width, C, bf16,
     #  stream)
     "fused_nerf_sem_head_launch": [_PTR] * 7 + [_INT] * 6 + [_PTR],
+    # (pts, vd, aux, w, b, out, P, nSB, eps, depth, width, multires,
+    #  multires_views, bf16, w_off, b_off, stream)
+    "fused_nerf_fwd_cf_launch": [_PTR] * 6 + [_INT] * 2 + [ctypes.c_float]
+    + [_INT] * 5 + [_PTR] * 3,
 }
 BWD_ARGTYPES = {
     # (mode, pts, vd, g, flags, acts, dfeat_ray, w, wt, b, scratch, part,
@@ -231,6 +241,32 @@ def cull_blocks_ok(S: int) -> bool:
     16-sample block (and at least one block)."""
     sb = min(SAMPLE_BLOCK, S)
     return S % sb == 0 and _JAX_TILE // sb <= 128
+
+
+CF_RAYS = 128  # rays per group of the early-terminating forward (JAX RB)
+
+
+def cull_fwd_enabled() -> bool:
+    """JAX ``cull_fwd_enabled``: the early-terminating forward (kernel 9)
+    runs where its route applies only under ``DLNERF_CULL_FWD=1``, read at
+    call time. Off by default, as in JAX."""
+    return os.environ.get("DLNERF_CULL_FWD", "0") == "1"
+
+
+def cull_bwd_cf_enabled() -> bool:
+    """JAX ``spec_bwd_cull``: the early-terminating forward's backward is the
+    culled one (kernel 3) unless ``DLNERF_CULL_BWD_CF=0`` asks for the dense
+    one (kernel 2)."""
+    return os.environ.get("DLNERF_CULL_BWD_CF", "1") == "1"
+
+
+def cf_route_ok(S: int, eps: float, depth: int, skips=()) -> bool:
+    """JAX ``_apply_rays_core``'s ``use_cf`` (given a sort key): a positive
+    ``cull_eps``, whole 16-sample blocks of exactly 128 rays a block, the
+    knob set, and no live skip (kernel 9 has no skip variant)."""
+    sb = min(SAMPLE_BLOCK, S)
+    return (eps > 0.0 and cull_blocks_ok(S) and _JAX_TILE // sb == CF_RAYS
+            and cull_fwd_enabled() and not live_skips(depth, skips))
 
 
 # ----------------------------------------------------------------- packing
@@ -1134,6 +1170,153 @@ def culled_layout(pts_t, viewdirs_t, g, S: int):
     return regroup(xch), vb, regroup(gch), flags
 
 
+# -------------------------------- the early-terminating forward (kernel 9)
+
+def cf_layout(pts_t, vd_t, key, deltas, noise, S: int):
+    """JAX ``_fwd_impl_cf``'s regrouping for kernel 9.
+
+    Rays (``pts_t [3, N * S]``, ``vd_t [3, N]``, and per sample the
+    compositor's distance terms ``deltas [N, S]`` and sigma noise ``noise [N,
+    S]``) are padded to a multiple of 128 with key ``+inf``, delta 0 and
+    noise 0 (JAX ``_apply_rays_core``: a padded ray sorts last and never
+    terminates), sorted by ``key [N]`` (a stable argsort, as
+    ``jnp.argsort``; any order is exact, the key only makes groups terminate
+    together), and cut into groups of 128 rays, each group into blocks of 128
+    rays x 16 samples in sample order. Returns the regrouped points ``[3,
+    P']``, one view direction per (ray, block) ``[3, P' / 16]`` (the
+    convention of :func:`culled_layout`), ``aux [2, P']`` (deltas, noise) and
+    the sort order, for :func:`cf_unlayout`."""
+    SB, RB = SAMPLE_BLOCK, CF_RAYS
+    N = vd_t.shape[1]
+    nSB = S // SB
+    n_pad = (-N) % RB
+    pad = torch.nn.functional.pad
+    x = pts_t.float().reshape(3, N, S)
+    aux = torch.stack([deltas.float(), noise.float()])
+    key = key.float()
+    if n_pad:
+        x = pad(x, (0, 0, 0, n_pad))
+        vd_t = pad(vd_t, (0, n_pad))
+        aux = pad(aux, (0, 0, 0, n_pad))
+        key = pad(key, (0, n_pad), value=float("inf"))
+    order = torch.argsort(key, stable=True)
+    nRB = (N + n_pad) // RB
+
+    def regroup(a):
+        c = a.shape[0]
+        return (a[:, order].reshape(c, nRB, RB, nSB, SB)
+                .permute(0, 1, 3, 2, 4).reshape(c, -1).contiguous())
+
+    vb = (vd_t.float()[:, order].reshape(3, nRB, 1, RB)
+          .expand(3, nRB, nSB, RB).reshape(3, -1).contiguous())
+    return regroup(x), vb, regroup(aux), order
+
+
+def cf_unlayout(out_b, order, N: int, S: int):
+    """Kernel 9's regrouped output ``[4, P']`` -> ``[4, N * S]`` in the rays'
+    own order (JAX's inverse permutation), the padded rays dropped."""
+    SB, RB = SAMPLE_BLOCK, CF_RAYS
+    Nf = order.numel()
+    o = (out_b.reshape(4, Nf // RB, S // SB, RB, SB).permute(0, 1, 3, 2, 4)
+         .reshape(4, Nf, S))
+    out = torch.empty_like(o)
+    out[:, order] = o
+    return out[:, :N].reshape(4, N * S)
+
+
+_CF_DEAD = (0.0, 0.0, 0.0, -1e10)  # raw written for a skipped block
+
+
+def fused_nerf_fwd_cf_plain(params, xb, vb, aux, S: int, eps: float, *,
+                            depth: int, width: int, multires: int,
+                            multires_views: int, dtype=torch.float32,
+                            skips=()) -> torch.Tensor:
+    """Kernel 9's twin (JAX ``_fwd_kernel_cf``) on :func:`cf_layout`'s
+    arrays: per group of 128 rays, blocks in sample order; a block runs
+    kernel 1's forward (:func:`fused_nerf_fwd_plain`, 16 samples a ray)
+    while the largest transmittance of its group is at least ``eps``, else
+    it is ``(0, 0, 0, -1e10)``; after a live block each ray's transmittance
+    is multiplied by ``exp(sum log(exp(-max(sigma + noise, 0) delta) +
+    1e-10))`` over its 16 samples. Returns raw ``[4, P']``, regrouped."""
+    SB, RB = SAMPLE_BLOCK, CF_RAYS
+    nSB = S // SB
+    B = RB * SB
+    G = xb.shape[1] // (nSB * B)
+    dev = xb.device
+    x = xb.reshape(3, G, nSB, B)
+    v = vb.reshape(3, G, nSB, RB)
+    a = aux.reshape(2, G, nSB, B)
+    out = torch.empty((4, G, nSB, B), dtype=torch.float32, device=dev)
+    out[:] = torch.tensor(_CF_DEAD, device=dev)[:, None, None, None]
+    T = torch.ones((G, RB), dtype=torch.float32, device=dev)
+    kw = dict(depth=depth, width=width, multires=multires,
+              multires_views=multires_views, dtype=dtype, skips=skips)
+    for sb in range(nSB):
+        idx = (T.amax(1) >= eps).nonzero()[:, 0]
+        if idx.numel() == 0:
+            continue
+        raw = fused_nerf_fwd_plain(params, x[:, idx, sb].reshape(3, -1),
+                                   v[:, idx, sb].reshape(3, -1), SB,
+                                   **kw).reshape(4, -1, B)
+        out[:, idx, sb] = raw
+        sg = torch.relu(raw[3] + a[1, idx, sb]) * a[0, idx, sb]
+        logt = torch.log(torch.exp(-sg) + 1e-10).reshape(-1, RB, SB).sum(-1)
+        T[idx] = T[idx] * torch.exp(logt)
+    return out.reshape(4, -1)
+
+
+def fused_nerf_fwd_cf(params: Mapping[str, torch.Tensor], xb, vb, aux, S: int,
+                      eps: float, *, depth: int, width: int, multires: int,
+                      multires_views: int, dtype=torch.float32, skips=(),
+                      packed: PackedParams | None = None) -> torch.Tensor:
+    """Kernel 9: the early-terminating forward on :func:`cf_layout`'s
+    regrouped points ``xb [3, P']``, view directions ``vb [3, P' / 16]`` and
+    ``aux [2, P']``, for rays of ``S`` samples and the skip threshold
+    ``eps`` (half the compositor's ``cull_eps``). Raw ``[4, P']``, regrouped;
+    a skipped block reads ``(0, 0, 0, -1e10)``. No gradient of its own
+    (:class:`FusedCullFwd` pairs it with a backward)."""
+    if live_skips(depth, skips):
+        raise ValueError("kernel 9 has no skip-concat variant")
+    nSB = S // SAMPLE_BLOCK
+    P = xb.shape[1]
+    if S % SAMPLE_BLOCK or nSB < 1 or P % (nSB * CF_RAYS * SAMPLE_BLOCK) \
+            or aux.shape != (2, P):
+        raise ValueError(f"bad regrouped shapes {tuple(xb.shape)}, "
+                         f"{tuple(aux.shape)} for S={S}")
+    _check(xb, vb, SAMPLE_BLOCK, dtype)
+    kw = dict(depth=depth, width=width, multires=multires,
+              multires_views=multires_views, dtype=dtype, skips=skips)
+    if xb.device.type == "cpu":
+        return fused_nerf_fwd_cf_plain(params, xb, vb, aux, S, eps, **kw)
+    packed = _packed_for(params, depth, dtype, xb.device, packed)
+    out = torch.empty((4, P), dtype=torch.float32, device=xb.device)
+    xb, vb, aux = (t.float().contiguous() for t in (xb, vb, aux))
+    lib = _build.load(KERNEL, ARGTYPES)
+    err = lib.fused_nerf_fwd_cf_launch(
+        xb.data_ptr(), vb.data_ptr(), aux.data_ptr(), packed.weights.data_ptr(),
+        packed.biases.data_ptr(), out.data_ptr(), P, nSB, float(eps), depth,
+        width, multires, multires_views, int(packed.dtype == torch.bfloat16),
+        ctypes.addressof(packed.w_offsets), ctypes.addressof(packed.b_offsets),
+        torch.cuda.current_stream(xb.device).cuda_stream)
+    _build.check(lib, KERNEL, err)
+    fused_nerf_fwd_cf.launches += 1
+    return out
+
+
+fused_nerf_fwd_cf.launches = 0
+
+
+def _fwd_cf(params, pts_t, vd_t, key, deltas, noise, spec, eps, packed=None):
+    """JAX ``_fwd_impl_cf``: :func:`cf_layout`, kernel 9 at ``eps / 2`` (a
+    2x margin over the compositor's hard-zero threshold, so float
+    reassociation of the transmittance product never skips a sample the
+    compositor keeps), :func:`cf_unlayout`. Raw ``[4, N * S]``."""
+    xb, vb, aux, order = cf_layout(pts_t, vd_t, key, deltas, noise, spec.S)
+    out_b = fused_nerf_fwd_cf(params, xb, vb, aux, spec.S, 0.5 * float(eps),
+                              packed=packed, **spec.kw())
+    return cf_unlayout(out_b, order, vd_t.shape[1], spec.S)
+
+
 # ------------------------------------------------------- backward routes
 
 class _Spec(NamedTuple):
@@ -1287,6 +1470,45 @@ class FusedSem(torch.autograd.Function):
                               *[params[n] for n in names])
 
 
+class FusedCullFwd(torch.autograd.Function):
+    """The early-terminating forward under autograd (JAX ``_fused_t_cf``):
+    kernel 9 forward; the backward of the un-permuted points (JAX
+    ``_vjp_bwd_cf``), culled (kernel 3) unless ``DLNERF_CULL_BWD_CF=0``,
+    then dense (kernel 2). A skipped block's samples get an exactly zero
+    cotangent from the compositor, so either backward is exact. Points,
+    view directions, the key, deltas and noise get no gradient."""
+
+    @staticmethod
+    def forward(ctx, spec, names, eps, pts_t, vd_t, key, deltas, noise,
+                *weights):
+        params = dict(zip(names, weights))
+        packed = _live_pack(params, spec, pts_t.device)
+        ctx.spec, ctx.names, ctx.packed = spec, names, packed
+        ctx.save_for_backward(pts_t, vd_t, *weights)
+        return _fwd_cf(params, pts_t, vd_t, key, deltas, noise, spec, eps,
+                       packed)
+
+    @staticmethod
+    def backward(ctx, g):
+        pts_t, vd_t, *weights = ctx.saved_tensors
+        params = dict(zip(ctx.names, weights))
+        fn = _bwd_culled_dparams if cull_bwd_cf_enabled() \
+            else _bwd_dense_dparams
+        grads = fn(params, pts_t, vd_t, g.float().contiguous(), ctx.spec,
+                   ctx.packed)
+        return (None,) * 8 + tuple(grads[n] for n in ctx.names)
+
+    @staticmethod
+    def run(params, pts_t, vd_t, S, key, deltas, noise, eps, *, depth, width,
+            multires, multires_views, dtype, skips):
+        spec = _Spec(S, depth, width, multires, multires_views, dtype,
+                     live_skips(depth, skips))
+        names = param_names(depth)
+        return FusedCullFwd.apply(spec, names, eps, pts_t.float(),
+                                  vd_t.float(), key, deltas, noise,
+                                  *[params[n] for n in names])
+
+
 def _points_t(rays_o, rays_d, z_vals):
     """``o + d z`` as ``[3, N * S]``."""
     N, S = z_vals.shape
@@ -1300,25 +1522,41 @@ def fused_nerf_apply_rays(params: Mapping[str, torch.Tensor], rays_o, rays_d,
                           multires: int, multires_views: int,
                           dtype=torch.bfloat16, skips=(),
                           cull_bwd: bool = False, save_acts: bool = False,
+                          fwd_cull=None,
                           packed: PackedParams | None = None) -> torch.Tensor:
     """Rays ``[N, 3]`` + depths ``z_vals [N, S]`` -> channel-major raw
     ``[4, N, S]`` (rgb 0-2, sigma 3), as the JAX ``fused_nerf_apply_rays``.
 
     Points are formed transposed, ``o + d z`` as ``[3, N, S]``; ``viewdirs``
-    are the unit pre-NDC directions, one per ray. Without a gradient the
-    plain forward runs (``packed`` as for :func:`fused_nerf_fwd`). Under
-    autograd the route is JAX's: ``save_acts`` within
-    :func:`acts_route_ok` saves activations ("acts"); otherwise the
-    recompute backward, culled when ``cull_bwd`` and the samples divide
-    into 16-sample blocks ("culled"), else dense ("dense").
+    are the unit pre-NDC directions, one per ray. ``fwd_cull = (key [N],
+    deltas [N, S], noise [N, S], cull_eps)`` (the sort key, the
+    compositor's distance terms and the exact sigma noise it adds) takes
+    the early-terminating forward ("cf", kernel 9, with or without a
+    gradient) where :func:`cf_route_ok` holds, as JAX does. Otherwise,
+    without a gradient the plain forward runs (``packed`` as for
+    :func:`fused_nerf_fwd`); under autograd the route is JAX's:
+    ``save_acts`` within :func:`acts_route_ok` saves activations ("acts");
+    otherwise the recompute backward, culled when ``cull_bwd`` and the
+    samples divide into 16-sample blocks ("culled"), else dense ("dense").
     """
     N, S = z_vals.shape
     pts_t = _points_t(rays_o, rays_d, z_vals)
     vd_t = viewdirs.float().T
     kw = dict(depth=depth, width=width, multires=multires,
               multires_views=multires_views, dtype=dtype, skips=skips)
-    if not (torch.is_grad_enabled()
-            and any(p.requires_grad for p in params.values())):
+    grad = torch.is_grad_enabled() and any(p.requires_grad
+                                           for p in params.values())
+    if fwd_cull is not None and cf_route_ok(S, fwd_cull[3], depth, skips):
+        route = "cf"
+        key, deltas, noise, eps = fwd_cull
+        if grad:
+            raw = FusedCullFwd.run(params, pts_t, vd_t, S, key.detach(),
+                                   deltas.detach(), noise.detach(), eps, **kw)
+        else:
+            raw = _fwd_cf(params, pts_t, vd_t, key, deltas, noise,
+                          _Spec(S, depth, width, multires, multires_views,
+                                dtype, live_skips(depth, skips)), eps, packed)
+    elif not grad:
         route = "forward"
         raw = fused_nerf_fwd(params, pts_t, vd_t, S, packed=packed, **kw)
     elif save_acts and acts_route_ok(N, S, depth, width, dtype):

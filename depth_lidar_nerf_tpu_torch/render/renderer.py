@@ -23,6 +23,7 @@ import torch
 
 from depth_lidar_nerf_tpu_torch.device import resolve_device
 from depth_lidar_nerf_tpu_torch.ops.compositing import (RayOutputs,
+                                                        composit_dists,
                                                         raw2outputs,
                                                         raw2outputs_t)
 from depth_lidar_nerf_tpu_torch.ops.embedding import positional_encoding
@@ -122,7 +123,16 @@ def make_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, cfg: RenderConfig,
 
 
 def query_network(model, pts, viewdirs, cfg: RenderConfig) -> torch.Tensor:
-    """Encode and evaluate the plain module at ``pts [N, S, 3]``."""
+    """Encode and evaluate the field at ``pts [N, S, 3]``: through the
+    packed-lane kernels 12 and 13 (``model.apply_raw``) on JAX's predicate
+    (``render/renderer.py`` ``query_network``: ``[N, S, 3]`` points with S
+    dividing 1,024, view directions, and a model that ``supports_raw``),
+    else the plain module. The port has no frozen-sigma model, JAX's other
+    condition."""
+    if (hasattr(model, "supports_raw") and pts.dim() == 3
+            and pts.shape[-2] > 0 and 1024 % pts.shape[-2] == 0
+            and viewdirs is not None and model.supports_raw(cfg)):
+        return model.apply_raw(pts, viewdirs, cfg)
     dtype = getattr(model, "dtype", torch.float32)
     pts_embed = positional_encoding(pts, cfg.multires).to(dtype)
     views_embed = None
@@ -168,7 +178,8 @@ def _sigma_noise(z_vals, cfg: RenderConfig, generator):
 
 
 def _composite_from_z(model, rays: Rays, z_vals, cfg: RenderConfig,
-                      generator, save_acts: bool = False) -> RayOutputs:
+                      generator, save_acts: bool = False,
+                      fwd_sort_key=None) -> RayOutputs:
     """Evaluate the field at per-ray depths and composite: the fused kernels
     and the channel-major compositor where the topology is covered (the
     semantic kernels for a model with a semantic head, whose logits come
@@ -176,7 +187,11 @@ def _composite_from_z(model, rays: Rays, z_vals, cfg: RenderConfig,
     standard compositor. With ``render_int8`` the covered passes take the
     int8 kernels (11 for a semantic pass, else 10), in JAX's order.
     ``save_acts`` asks a differentiated fused pass to save its activations
-    for the backward."""
+    for the backward. ``fwd_sort_key [N]`` (each ray's estimated
+    termination depth) with ``cull_eps > 0`` hands the fused RGB pass what
+    the early-terminating forward needs (JAX ``fwd_cull``): the key, the
+    compositor's distance terms and the one sigma noise tensor that the
+    compositor also adds."""
     S = z_vals.shape[-1]
     if rays.viewdirs is not None and _semantic_ok(model, cfg,
                                                   z_vals.shape[0], S):
@@ -199,7 +214,15 @@ def _composite_from_z(model, rays: Rays, z_vals, cfg: RenderConfig,
             cull_eps=cfg.cull_eps)
     if rays.viewdirs is not None and _fused_ok(model, cfg, S):
         noise = _sigma_noise(z_vals, cfg, generator)
-        raw_t = model.apply_rays(rays, z_vals, cfg, save_acts=save_acts)
+        fwd_cull = None
+        if fwd_sort_key is not None and cfg.cull_eps > 0.0:
+            fwd_cull = (fwd_sort_key.detach(),
+                        composit_dists(z_vals, rays.directions),
+                        noise if noise is not None
+                        else torch.zeros_like(z_vals, dtype=torch.float32),
+                        cfg.cull_eps)
+        raw_t = model.apply_rays(rays, z_vals, cfg, save_acts=save_acts,
+                                 fwd_cull=fwd_cull)
         return raw2outputs_t(
             raw_t, z_vals, rays.directions, raw_noise_std=cfg.raw_noise_std,
             white_bkgd=cfg.white_bkgd, generator=generator,
@@ -249,8 +272,10 @@ def render_rays(model, fine_model, rays: Rays, cfg: RenderConfig,
     stratified jitter, sigma noise and random importance draws, in that order.
     Under autograd the coarse pass takes the recompute backward and the fine
     pass saves its activations (the JAX ``render_rays``); a semantic pass
-    always saves them. With ``render_fine_only`` the fine pass evaluates
-    only the sorted importance samples.
+    always saves them. With ``cull_eps > 0`` and ``DLNERF_CULL_FWD=1`` the
+    fine pass takes the early-terminating forward (kernel 9), sorted by the
+    coarse pass's termination estimate. With ``render_fine_only`` the fine
+    pass evaluates only the sorted importance samples.
     """
     z_vals = stratified_z_vals(rays.near, rays.far, cfg.N_samples,
                                lindisp=cfg.lindisp, perturb=cfg.perturb,
@@ -276,9 +301,15 @@ def render_rays(model, fine_model, rays: Rays, cfg: RenderConfig,
         else:
             z_all = torch.sort(torch.cat([z_vals, z_samples], dim=-1),
                                dim=-1).values
+        # The early-terminating forward's sort key: the coarse pass's
+        # expected termination depth, unterminated (low-acc) rays last. Only
+        # an ordering heuristic; exactness never depends on it.
+        fine_key = None
+        if cfg.cull_eps > 0.0:
+            fine_key = (coarse.depth + (1.0 - coarse.acc) * 1e6).detach()
         fine = _composite_from_z(
             fine_model if fine_model is not None else model, rays, z_all,
-            cfg, generator, save_acts=True)
+            cfg, generator, save_acts=True, fwd_sort_key=fine_key)
         ret.update({
             "rgb0": coarse.rgb, "disp0": coarse.disp, "acc0": coarse.acc,
             "depth_map0": coarse.depth,
@@ -405,3 +436,30 @@ def render_image_coarse_downsampled(model, fine_model, H: int, W: int, focal,
     out.update({"rgb0": up(coarse.rgb), "depth_map0": up(coarse.depth),
                 "acc0": up(coarse.acc)})
     return out
+
+
+def sample_sigma(model, rays: Rays, z_vals, cfg: RenderConfig):
+    """Query the field at explicit depths ``z_vals [N, S]`` (JAX
+    ``sample_sigma``; the reference's ``sample_sigma``,
+    ``run_nerf_helpers.py:598-611``): returns (rgb ``[N, S, 3]``, sigma
+    ``[N, S]``, the composited :class:`RayOutputs`). The probing API of
+    depth-ray diagnostics; its raw query takes kernels 12 and 13 where
+    :func:`query_network` routes it there."""
+    pts = (rays.origins[..., None, :]
+           + rays.directions[..., None, :] * z_vals[..., :, None])
+    raw = query_network(model, pts, rays.viewdirs, cfg).float()
+    rgb = torch.sigmoid(raw[..., :3])
+    sigma = torch.relu(raw[..., 3])
+    outs = raw2outputs(raw, z_vals, rays.directions,
+                       num_semantic_classes=cfg.num_semantic_classes)
+    return rgb, sigma, outs
+
+
+def render_test_ray(model, rays: Rays, cfg: RenderConfig):
+    """Uniform near -> far probe along given rays (JAX ``render_test_ray``,
+    ``run_nerf.py:361-386``): (rgb, sigma, z_vals, depth)."""
+    t = torch.linspace(0.0, 1.0, cfg.N_samples, dtype=torch.float32,
+                       device=rays.near.device)
+    z_vals = rays.near * (1.0 - t) + rays.far * t
+    rgb, sigma, outs = sample_sigma(model, rays, z_vals, cfg)
+    return rgb, sigma, z_vals, outs.depth

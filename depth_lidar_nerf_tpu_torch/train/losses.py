@@ -8,10 +8,11 @@ Parity targets (the reference train loop):
 - depth-importance decay ``0.1^(step / (lrate_decay * 1000))``:
   ``run_nerf.py:1531-1536``;
 - semantic cross-entropy on the ray-summed logits (``F.cross_entropy``, as
-  the JAX ``semantic_cross_entropy``).
+  the JAX ``semantic_cross_entropy``);
+- the DS-NeRF sigma loss's per-ray term (``loss.py:15-44``).
 
-The smoothness, VGG, GAN, sigma and SSIM terms come with the slices that
-port their step variants.
+The smoothness, VGG, GAN and SSIM terms come with the slices that port
+their step variants.
 """
 
 from __future__ import annotations
@@ -52,6 +53,18 @@ def depth_loss(rendered: torch.Tensor, target: torch.Tensor,
     if relative:
         return torch.mean(((rendered - target) / (target + 1e-16)) ** 2)
     return img2mse(rendered, target)
+
+
+def sigma_loss_from_sigma(sigma: torch.Tensor) -> torch.Tensor:
+    """DS-NeRF's KL surrogate (JAX ``sigma_loss_from_sigma``) for post-ReLU
+    ``sigma [N_rays, N_samples]`` sampled on ``[near, gt_depth]``, the last
+    sample at the LiDAR depth: per ray ``-exp(s_last) / (sum exp(s) + 1)``
+    (``loss.py:43``), evaluated with a row-max shift so that a large sigma
+    cannot overflow ``exp``."""
+    m = sigma.amax(1, keepdim=True)
+    num = torch.exp(sigma[:, -1] - m[:, 0])
+    den = torch.exp(sigma - m).sum(1) + torch.exp(-m[:, 0])
+    return -num / den
 
 
 def semantic_cross_entropy(logits: torch.Tensor,

@@ -19,7 +19,7 @@ from torch import nn
 
 from depth_lidar_nerf_tpu_torch.device import resolve_device
 from depth_lidar_nerf_tpu_torch.models.nerf_mlp import NeRFMLP
-from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t
+from depth_lidar_nerf_tpu_torch.ops import fused_mlp, fused_mlp_t
 from depth_lidar_nerf_tpu_torch.ops.embedding import embedding_dim
 from depth_lidar_nerf_tpu_torch.render.renderer import RenderConfig
 from depth_lidar_nerf_tpu_torch.train.config import TrainConfig
@@ -29,7 +29,28 @@ class FusedMLP(NeRFMLP):
     """A :class:`NeRFMLP` (same parameters, same plain ``forward``) whose
     per-ray evaluation goes through the fused kernels
     (:func:`ops.fused_mlp_t.fused_nerf_apply_rays`) when the topology is
-    covered."""
+    covered, and whose raw queries at arbitrary points go through the
+    packed-lane kernels 12 and 13 (:func:`ops.fused_mlp.fused_nerf_apply_raw`)
+    where :meth:`supports_raw` holds. On CUDA tensors the kernels run; on
+    CPU tensors their plain twins."""
+
+    def supports_raw(self, cfg: RenderConfig) -> bool:
+        """JAX ``FusedMLP.supports_raw``: the packed-lane kernels cover this
+        model (``fused_mlp.supports``, the sample count checked by the
+        caller)."""
+        return fused_mlp.supports(
+            dict(self.named_parameters()), self.use_viewdirs,
+            self.num_semantic_classes, self.depth, self.width, S=-1,
+            multires=cfg.multires, multires_views=cfg.multires_views,
+            skips=self.skips)
+
+    def apply_raw(self, pts, viewdirs, cfg: RenderConfig) -> torch.Tensor:
+        """Raw queries: ``pts [N, S, 3]``, unit ``viewdirs [N, 3]`` -> raw
+        ``[N, S, 4]`` float32 through kernels 12 and 13."""
+        return fused_mlp.fused_nerf_apply_raw(
+            dict(self.named_parameters()), pts, viewdirs, depth=self.depth,
+            width=self.width, multires=cfg.multires,
+            multires_views=cfg.multires_views, dtype=self.dtype)
 
     def supports_rays_path(self, cfg: RenderConfig) -> bool:
         return fused_mlp_t.supports_rays(
@@ -102,18 +123,19 @@ class FusedMLP(NeRFMLP):
         self._packed_key = self._packed_q8_key = None
 
     def apply_rays(self, rays, z_vals, cfg: RenderConfig,
-                   save_acts: bool = False) -> torch.Tensor:
+                   save_acts: bool = False, fwd_cull=None) -> torch.Tensor:
         """Rays + per-ray depths -> channel-major raw ``[4, N, S]``. Under
         autograd the backward is culled when ``cfg.cull_eps > 0`` (as the
         JAX ``FusedMLP.apply_rays``), and ``save_acts`` asks for the
-        saved-activation route."""
+        saved-activation route; ``fwd_cull`` asks for the early-terminating
+        forward (kernel 9) under ``DLNERF_CULL_FWD=1``."""
         params = dict(self.named_parameters())
         return fused_mlp_t.fused_nerf_apply_rays(
             params, rays.origins, rays.directions, rays.viewdirs, z_vals,
             depth=self.depth, width=self.width, multires=cfg.multires,
             multires_views=cfg.multires_views, dtype=self.dtype,
             skips=self.skips, cull_bwd=cfg.cull_eps > 0,
-            save_acts=save_acts,
+            save_acts=save_acts, fwd_cull=fwd_cull,
             packed=self._nograd_pack(params, z_vals.device))
 
     def apply_rays_semantic(self, rays, z_vals, cfg: RenderConfig):

@@ -538,3 +538,122 @@ def test_downsampled_int8_frame_on_card(cuda):
     for k in ("rgb_map", "acc_map", "rgb0"):
         assert torch.isfinite(out[k]).all()
         assert (out[k].cpu() - ref[k]).abs().mean().item() <= 0.03, k
+
+
+_PACKED_SHAPES = [(4, 256, 64, 300), (2, 256, 8, 1000), (1, 128, 128, 40)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("depth,width,S,N", _PACKED_SHAPES)
+def test_packed_kernels_match_plain(cuda, depth, width, S, N, dtype):
+    """Kernels 12 and 13 (the packed-lane MLP) against their twins, on
+    ``fused_nerf_apply_raw``'s padded input."""
+    from depth_lidar_nerf_tpu_torch.models.nerf_mlp import NeRFMLP
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp as fm
+
+    g = torch.Generator().manual_seed(depth * 10 + S)
+    m = NeRFMLP(depth=depth, width=width, generator=g).to(cuda)
+    with torch.no_grad():
+        m.sigma.bias += 0.5
+    params = {k: v.detach() for k, v in m.named_parameters()}
+    rng = np.random.default_rng(S)
+    Nf = N + (-N) % (fm.TILE // S)
+    pts = torch.from_numpy(rng.uniform(-1, 1, (Nf, S, 3)).astype(np.float32)).to(cuda)
+    vd = torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(size=(Nf, 3)).astype(np.float32)), dim=-1).to(cuda)
+    x = fm.pack_encoding(pts, vd, 10, 4, dtype)
+    ws = fm.pack_params(params, depth, 63, 27, dtype, cuda)
+    gt = torch.from_numpy(rng.normal(size=(Nf * S, 8)).astype(np.float32)).to(cuda)
+    n12, n13 = fm.fused_packed_fwd.launches, fm.fused_packed_bwd.launches
+    got = fm.fused_packed_fwd(ws, x, depth=depth, e_p=63, e_v=27, dtype=dtype)
+    dws = fm.fused_packed_bwd(ws, x, gt, depth=depth, e_p=63, e_v=27, dtype=dtype)
+    torch.cuda.synchronize()
+    assert (fm.fused_packed_fwd.launches, fm.fused_packed_bwd.launches) == (n12 + 1, n13 + 1)
+    ref = fm.fused_packed_fwd_plain(ws, x, depth, dtype)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+    unpack = lambda d: fm.unpack_grads(d, params, depth, 63, 27)  # noqa: E731
+    got_g, ref_g = unpack(dws), unpack(fm.fused_packed_bwd_plain(ws, x, gt, depth, dtype))
+    err = max(((got_g[k] - ref_g[k]).abs().max() / (ref_g[k].abs().mean() + 1e-12)).item()
+              for k in ref_g)
+    assert err <= (2e-4 if dtype == torch.float32 else 2e-2), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [256, 300])
+def test_cf_kernel_matches_twin_and_kernel1(cuda, N, dtype, monkeypatch):
+    """Kernel 9 on an occluding field: its live blocks equal kernel 1's raw
+    on the same points bit for bit, it skips the blocks its twin skips, and
+    skipped blocks read (0, 0, 0, -1e10)."""
+    from depth_lidar_nerf_tpu_torch.models.nerf_mlp import NeRFMLP
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f
+
+    S, eps = 128, 1e-4
+    g = torch.Generator().manual_seed(N)
+    m = NeRFMLP(depth=4, width=256, generator=g).to(cuda)
+    with torch.no_grad():
+        m.sigma.bias.fill_(30.0)
+    params = {k: v.detach() for k, v in m.named_parameters()}
+    rng = np.random.default_rng(N)
+    rd = torch.from_numpy(rng.normal(size=(N, 3)).astype(np.float32)).to(cuda)
+    z = torch.sort(torch.from_numpy(rng.uniform(2, 6, (N, S)).astype(np.float32)),
+                   -1).values.to(cuda)
+    pts_t = (rd.T[:, :, None] * z[None]).reshape(3, -1).contiguous()
+    vd_t = torch.nn.functional.normalize(rd, dim=-1).T.contiguous()
+    key = torch.from_numpy(rng.uniform(size=N).astype(np.float32)).to(cuda)
+    from depth_lidar_nerf_tpu_torch.ops.compositing import composit_dists
+    deltas = composit_dists(z, rd)
+    noise = torch.randn((N, S), device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(1))
+    kw = dict(depth=4, width=256, multires=10, multires_views=4, dtype=dtype)
+    xb, vb, aux, order = f.cf_layout(pts_t, vd_t, key, deltas, noise, S)
+    n9 = f.fused_nerf_fwd_cf.launches
+    out = f.fused_nerf_fwd_cf(params, xb, vb, aux, S, 0.5 * eps, **kw)
+    dense = f.fused_nerf_fwd(params, xb, vb, f.SAMPLE_BLOCK, **kw)
+    torch.cuda.synchronize()
+    assert f.fused_nerf_fwd_cf.launches == n9 + 1
+    dead = (out[3].reshape(-1, 2048) == -1e10).all(1)
+    live = ~dead.repeat_interleave(2048)
+    assert torch.equal(out[:, live], dense[:, live])
+    assert (out[:3, ~live] == 0).all() and (out[3, ~live] == -1e10).all()
+    twin = f.fused_nerf_fwd_cf_plain(params, xb, vb, aux, S, 0.5 * eps, **kw)
+    assert torch.equal((twin[3].reshape(-1, 2048) == -1e10).all(1), dead)
+    if N % 128 == 0:
+        assert dead.float().mean().item() > 0.1
+
+
+def test_sigma_loss_and_cf_steps_launch(cuda, monkeypatch):
+    """A ``two_mlp``-shaped step with the sigma loss launches kernels 12 and
+    13 once; with ``DLNERF_CULL_FWD=1`` the fine pass launches kernel 9
+    and the culled backward, not kernels 4 and 5."""
+    from depth_lidar_nerf_tpu_torch.data.synthetic import draw_scene
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp as fm
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f
+    from depth_lidar_nerf_tpu_torch.train.config import TrainConfig, render_config_from
+    from depth_lidar_nerf_tpu_torch.train.state import build_models, init_train_state
+    from depth_lidar_nerf_tpu_torch.train.step import make_train_step
+    from depth_lidar_nerf_tpu_torch.train.tables import build_depth_table, build_rgb_table
+
+    sc = draw_scene(n_images=1, H=16, W=32, focal=20.0, n_depth_points=200, seed=0,
+                    backdrop=True)
+    cfg = TrainConfig(dataset_type="llff", N_rand=512, N_samples=64, N_importance=64,
+                      netdepth=4, netwidth=256, netdepth_fine=4, netwidth_fine=256,
+                      use_viewdirs=True, no_ndc=True, raw_noise_std=1.0,
+                      colmap_depth=True, depth_loss=True, sigma_loss=True,
+                      compute_dtype="bfloat16", cull_eps=1e-4)
+    rcfg = render_config_from(cfg, 0, sc.near, sc.far)
+    models = build_models(cfg, rcfg, device=cuda)
+    tabs = (build_rgb_table(sc.images, sc.poses, [0], *sc.hwf, rcfg, device=cuda),
+            build_depth_table(sc.depth_gts, sc.poses, [0], *sc.hwf, rcfg, device=cuda))
+    step = make_train_step(cfg, rcfg, models, sc.hwf)
+    state = init_train_state(cfg, models)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    fns = (fm.fused_packed_fwd, fm.fused_packed_bwd, f.fused_nerf_fwd_cf,
+           f.fused_nerf_fwd_acts, f.fused_nerf_bwd_acts, f.fused_nerf_bwd_culled)
+    for knob, want in (("0", (1, 1, 0, 1, 1, 1)), ("1", (1, 1, 1, 0, 0, 2))):
+        monkeypatch.setenv("DLNERF_CULL_FWD", knob)
+        n0 = [fn.launches for fn in fns]
+        metrics = step(state, *tabs, gen)
+        torch.cuda.synchronize()
+        assert tuple(fn.launches - n for fn, n in zip(fns, n0)) == want, knob
+        assert np.isfinite(metrics["sigma_loss"].item())

@@ -72,7 +72,7 @@ def test_packed_weights_follow_an_optimizer_step():
     assert not torch.equal(after.weights[:n0], before.weights[:n0])
 
 
-@pytest.mark.parametrize("flag", ["depth_inverse_loss", "sigma_loss", "gan_loss",
+@pytest.mark.parametrize("flag", ["depth_inverse_loss", "gan_loss",
                                   "feature_loss", "grid_train", "no_batching"])
 def test_step_refuses_unported_variants(flag):
     from depth_lidar_nerf_tpu_torch.train.config import (TrainConfig,

@@ -90,13 +90,15 @@ def grad_compare_bf16(ref, got, tol=3e-2):
         assert err < tol, (k, err)
 
 
-def train_pair(monkeypatch, cull_eps, n_rand=64, seed=0, semantic=False):
+def train_pair(monkeypatch, cull_eps, n_rand=64, seed=0, semantic=False,
+               netdepth_fine=8, sigma_loss=False):
     """Both packages' base training step on the same tiny synthetic scene:
-    coarse D=4 / fine D=8 skip@4 / W=128, 64 + 64 samples, half RGB and half
-    depth rays, float32, ``perturb=False``, ``raw_noise_std=0``; with
-    ``semantic``, a 19-class semantic head on both MLPs and the semantic
-    loss (lambda 0.04, the scene's labels). The port's weights are
-    converted from the JAX ones. Returns a dict of both sides' objects.
+    coarse D=4 / fine D=8 skip@4 (or ``netdepth_fine``) / W=128, 64 + 64
+    samples, half RGB and half depth rays, float32, ``perturb=False``,
+    ``raw_noise_std=0``; with ``semantic``, a 19-class semantic head on both
+    MLPs and the semantic loss (lambda 0.04, the scene's labels); with
+    ``sigma_loss``, the DS-NeRF sigma loss (lambda 0.1). The port's weights
+    are converted from the JAX ones. Returns a dict of both sides' objects.
 
     Two choices keep the importance samples of both packages within float32
     noise of each other, so that the fine pass is compared at the same
@@ -128,7 +130,8 @@ def train_pair(monkeypatch, cull_eps, n_rand=64, seed=0, semantic=False):
                     num_classes=19 if semantic else None)
     H, W, focal = sc.hwf
     fields = dict(dataset_type="llff", N_rand=n_rand, N_samples=64,
-                  N_importance=64, netdepth=4, netwidth=128, netdepth_fine=8,
+                  N_importance=64, netdepth=4, netwidth=128,
+                  netdepth_fine=netdepth_fine, sigma_loss=sigma_loss,
                   netwidth_fine=128, use_viewdirs=True, no_ndc=True,
                   perturb=0.0, raw_noise_std=0.0, colmap_depth=True,
                   depth_loss=True, depth_lambda=0.01, cull_eps=cull_eps,
