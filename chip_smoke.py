@@ -8,7 +8,10 @@ which raises on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA sources of ``depth_lidar_nerf_tpu_torch/csrc`` with nvcc
-   for ``sm_90a``, one nvcc each, in parallel;
+   for ``sm_90a``, one nvcc each, in parallel; ``cuobjdump --dump-sass``
+   shows tensor-core HMMA instructions in every bfloat16 instantiation of
+   the forward tile (kernels 1, 4, 6, 7, 9 and the recompute of 2-3) and
+   none in the float32 ones;
 3. each kernel against its plain PyTorch version on the card: the fused
    NeRF MLP forward at W=256 (coarse D=4, fine D=8 skip@4; float32 and
    bfloat16; S=64 and 128; 4,096 rays and the serving tiles of 32,768 and
@@ -18,7 +21,9 @@ which raises on failure:
    backwards) at W=256, D=4 and D=8 skip@4, float32 and bfloat16, 4,096 and
    16,384 rays x S=64 and 128, on cotangents with per-ray zero suffixes
    (the backwards against the plain backward on the forward kernel's
-   activations); the culled backward also against the dense one; then the
+   activations); the culled backward also against the dense one; the
+   bfloat16 tile's activations at 4,096 rays against a float64 witness
+   (no more rounded the wrong way than by float32 products); then the
    semantic kernels (phase 8); then the int8 serving kernels 10 and 11
    (kernel 11 with the semantic head kernel) at W=256, D=4 and D=8 skip@4,
    float32 and bfloat16, 4,096 and 32,768 rays x S=64 and 128, 19 classes,
@@ -73,7 +78,7 @@ which raises on failure:
    4,096 rays, float32 and bfloat16, perturbation and noise on; compares
    the losses and the final parameters;
 7. each kernel's time at the serving and training shapes beside its plain
-   version's and its bound (kernel 10's bound: int8 operations at 1,979
+   version's, its achieved TFLOP/s and its bound (kernel 10's bound: int8 operations at 1,979
    TOPS plus bf16 FLOP at 989 TFLOP/s, or bytes at 3.35 TB/s);
 8. (run within phase 3) the semantic kernels against their plain
    versions: kernels 6 (no-grad
@@ -240,6 +245,15 @@ PACKED_SHAPES = ((8192, 64), (1000, 8))  # 1,000 rays x 8 pad to 1,024
 # gradient's mean); measured equal bit for bit, since both routes run
 # kernel 3 on the same cotangents.
 CF_TWIN_TOL = {"float32": 3e-6, "bfloat16": 3e-6}
+# The bfloat16 tile's accuracy, independent of its layout twin: summed over
+# a net's layers, the share of kernel 4's activations that round otherwise
+# than the layer recomputed in float64 from the kernel's own inputs
+# (fused_mlp_t.bf16_product_witness) is at most the share for float32
+# products on those inputs (the float32-FMA tile's arithmetic before the
+# tensor cores). Measured on an H100 (PERF.md): 0.8x of it per net, 1.4x
+# before each k-step's tensor-core sum was added to the accumulators in
+# float32.
+WITNESS_RATIO = 1.0
 CF_N_RAYS = (TRAIN_N_RAYS, 4000)  # 4,000 pad to 4,096
 CF_S, CF_EPS = 128, 1e-4
 # Trajectories of the sigma-loss stack, kernel vs plain, as TRAJ_TOL: about
@@ -324,6 +338,33 @@ def profile_step(fn, label):
         print(f"  {t:9.3f} ms  {name[:90]}")
 
 
+def sass_tensor_core_check(_build, fmt):
+    """The bfloat16 forward tile runs its products on the tensor cores:
+    ``cuobjdump --dump-sass`` of the built libraries shows HMMA in every
+    bfloat16 instantiation of the forward kernels (1, 4, 6, 7, 9) and of the
+    recompute backward (2, 3), which runs the same tile, and none in their
+    float32 ones."""
+    import re
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    kernel = re.compile(r"\d+(fused_nerf_fwd\w*_kernel|fused_nerf_bwd_recompute_kernel)"
+                        r"I(13__nv_bfloat16|f)")
+    hmma = {"bf16": [], "f32": []}
+    for lib in (fmt.KERNEL, fmt.BWD_KERNEL):
+        sass = subprocess.run([tool, "--dump-sass", str(_build.library_path(lib))],
+                              capture_output=True, text=True, check=True).stdout
+        for chunk in sass.split("Function : ")[1:]:
+            m = kernel.search(chunk.split()[0])
+            if m:
+                hmma["f32" if m.group(2) == "f" else "bf16"].append(chunk.count("HMMA"))
+    print(f"SASS: HMMA per bfloat16 forward-tile kernel {sorted(hmma['bf16'])}, per "
+          f"float32 one {sorted(hmma['f32'])}")
+    check(len(hmma["bf16"]) == len(hmma["f32"]) == 14,
+          "14 instantiations of each type in the SASS")
+    check(all(v > 0 for v in hmma["bf16"]), "HMMA in every bfloat16 forward tile")
+    check(all(v == 0 for v in hmma["f32"]), "no HMMA in a float32 forward tile")
+
+
 def mlp_macs(depth, width, e_p, e_v, live_skips, S):
     """Multiply-adds per point of the fused forward (per-ray view term
     spread over the ray's S points)."""
@@ -373,9 +414,10 @@ def grad_err(fmt, got, ref, depth):
 
 
 def train_kernel_checks(fmt, NeRFMLP, dev, launch_fns):
-    """Phase 3, training kernels: kernel 4 against the plain forward; kernels
-    2, 3 and 5 against the plain backward run on kernel 4's activations;
-    kernel 3 against kernel 2. Returns each kernel's largest max abs error.
+    """Phase 3, training kernels: kernel 4 against the plain forward, and in
+    bfloat16 against the float64 witness (WITNESS_RATIO); kernels 2, 3 and 5
+    against the plain backward run on kernel 4's activations; kernel 3
+    against kernel 2. Returns each kernel's largest max abs error.
 
     The backward references take kernel 4's activations, which are bitwise
     the ones kernels 2 and 3 recompute (the same device code), because at
@@ -412,6 +454,21 @@ def train_kernel_checks(fmt, NeRFMLP, dev, launch_fns):
                     d = (a.float() - b).abs().max().item()
                     e4 = [max(e4[0], d), max(e4[1], d / b.abs().max().item())]
                 del raw, raw_ref, acts_ref
+                if dtype == torch.bfloat16 and n_rays == 4096:
+                    wit = fmt.bf16_product_witness(
+                        params, pts, vd, acts, S, depth=depth, width=256,
+                        multires=10, multires_views=4, skips=(4,))
+                    sk, s32 = sum(wit["kernel"]), sum(wit["float32"])
+                    print(f"bf16 tile against the float64 witness D={depth} "
+                          f"N={n_rays} S={S}: share rounded otherwise per layer "
+                          "(trunk.., feature, view) kernel "
+                          + " ".join(f"{x:.3g}" for x in wit["kernel"])
+                          + "; float32 products "
+                          + " ".join(f"{x:.3g}" for x in wit["float32"])
+                          + f"; summed {sk:.4g} against {s32:.4g} "
+                          f"({sk / s32:.3f}x, limit {WITNESS_RATIO:g}x)", flush=True)
+                    check(sk <= WITNESS_RATIO * s32,
+                          f"bf16 tile against the float64 witness D={depth} S={S}")
                 ref = fmt.fused_nerf_bwd_acts_plain(params, pts, vd, g, acts,
                                                     S, **kw)
                 e5 = grad_err(fmt, from_acts, ref, depth)
@@ -1277,19 +1334,26 @@ def semantic_phases(fmt, sc, renderer, dev, card, plain_sampler):
                 "kernel 8": lambda: fmt.fused_nerf_bwd_acts_sem(
                     q["params"], q["pts"], q["vd"], q["g"], q["gsem"], q["acts"],
                     q["sem_acts"], S, packed=q["pk"], **kw)}
-            print(f"semantic step pass D={q['spec'].depth} P={q['pts'].shape[1]} "
-                  "(bf16): " + ", ".join(f"{k} {cuda_ms(f, 3):.3f} ms"
-                                         for k, f in one.items()), flush=True)
+            # The MLP's FLOP (a semantic head adds under 1/S of a point's).
+            d, P = q["spec"].depth, q["pts"].shape[1]
+            ls = fmt.live_skips(d, kw["skips"])
+            fl_f = 2 * mlp_macs(d, kw["width"], 63, 27, ls, S) * P
+            fl = {"kernel 8": 2 * bwd_macs(d, kw["width"], 63, 27, ls, S) * P}
+            ms = {k: cuda_ms(f, 3) for k, f in one.items()}
+            print(f"semantic step pass D={d} P={P} (bf16): " + ", ".join(
+                f"{k} {ms[k]:.3f} ms ({fl.get(k, fl_f) / ms[k] / 1e9:.1f} TFLOP/s)"
+                for k in one), flush=True)
             # Half the points: whether saving activations costs by depth or
             # by the size of the buffer it writes.
-            half = q["pts"].shape[1] // 2
+            half = P // 2
             pts_h = q["pts"][:, :half].contiguous()
             vd_h = q["vd"][:, :half // S].contiguous()
             t1, t4 = (cuda_ms(lambda f=f: f(trunk, pts_h, vd_h, S, packed=pk,
                                             **kw), 3)
                       for f in (fmt.fused_nerf_fwd, fmt.fused_nerf_fwd_acts))
-            print(f"  first half of the pass (P={half}): kernel 1 {t1:.3f} ms, "
-                  f"kernel 4 {t4:.3f} ms", flush=True)
+            print(f"  first half of the pass (P={half}): kernel 1 {t1:.3f} ms "
+                  f"({fl_f / 2 / t1 / 1e9:.1f} TFLOP/s), kernel 4 {t4:.3f} ms "
+                  f"({fl_f / 2 / t4 / 1e9:.1f} TFLOP/s)", flush=True)
             torch.cuda.empty_cache()
     del passes
     torch.cuda.empty_cache()
@@ -1762,9 +1826,12 @@ def sigma_and_cf_training(fm, fmt, sc, renderer, dev, card, plain_sampler,
     print(f"fine pass of a cf step: {dead.numel()} blocks, "
           f"{100 * dead.float().mean().item():.2f}% skipped; cf glue (sort, "
           f"regroup, un-permute): {glue_ms:.3f} ms")
+    flops = {k_: work[k_][0] for k_ in work}
+    flops["fused_nerf_fwd_cf"] = fl
     for k_, (ms_, plain_, bound_, by_) in times.items():
         print(f"{k_} at the step's shapes (bf16): {ms_:.3f} ms, plain {plain_:.3f} "
-              f"ms, bound {bound_:.3f} ms ({by_}) on {card}", flush=True)
+              f"ms, {flops[k_] / ms_ / 1e9:.1f} TFLOP/s, bound {bound_:.3f} ms "
+              f"({by_}) on {card}", flush=True)
     out["times"] = times
     out["cf_glue_ms"] = glue_ms
     del captured, xb, vb, aux, o9, x, g
@@ -1950,6 +2017,7 @@ def main() -> int:
                 fn = line.split("'")[1][:60]
             elif "registers" in line or "spill" in line or "error" in line:
                 print(f"  {name} {fn}: {line.strip()}")
+    sass_tensor_core_check(_build, fmt)
 
     # ---- 3. kernels against their plain versions ----------------------------
     # Kernel 1 at 4,096 rays and at the serving path's own tiles of a

@@ -11,16 +11,36 @@
 // weight load of a warp is contiguous.
 //
 // One block of 256 threads owns a tile of kTP = 64 consecutive points. Activations live
-// transposed in shared memory, [channel][kLD] with kLD = kTP + 4. A thread's register tile
-// is 8 points (warp ty owns points 8 ty .. 8 ty + 7) x (W / 32) columns (lane tx owns
-// columns tx + 32 j). Every product accumulates in float32 and every stored activation or
-// activation gradient is rounded to T, where the JAX kernel rounds
+// transposed in shared memory, [channel][kLD] with kLD = kTP + 4. The generic products (`mac`
+// for every float32 product and for the backward's input products, `outer` for the weight
+// gradients) run on the CUDA cores (FMA): a thread's register tile is 8 points (warp ty
+// owns points 8 ty .. 8 ty + 7) x (W / 32) columns (lane tx owns columns tx + 32 j). The
+// bfloat16 forward tile's trunk, skip, feature and view-layer products run on the tensor
+// cores instead (`tc_layer`, mma.sync m16n8k16): warp ty owns all 64 points and an eighth
+// of the output columns, and reads its B operand from a third weight copy, `wp` (below).
+// Each mma sums one k-step's 16 products from zero and the result is added to a float32
+// accumulator (round to nearest), k-step by k-step: the tensor cores align a sum to its
+// largest term and truncate, so carrying the accumulator through the mma would truncate
+// at its magnitude every k-step and round more activations the wrong way than FMA sums do.
+// Every product accumulates in float32 and every stored activation or activation gradient
+// is rounded to T, where the JAX kernel rounds
 // (depth_lidar_nerf_tpu/ops/fused_mlp_t.py: _forward_tile, _bwd_tile_body).
+//
+// `wp` (bfloat16 only, ops/fused_mlp_t.py:pack_params) holds the tensor-core rows of the
+// trunk, feature and views_0 layers at poff[l], each as [out][K] with the input segments
+// (the encoding's rows, then the previous activation's; views_0 keeps only its W feature
+// rows) each zero-padded to a multiple of 16, and each run of 16 k stored in the order
+// 0 1 8 9 2 3 10 11 4 5 12 13 6 7 14 15, so that lane t of a quad loads its four B values
+// (k = 2t, 2t + 1, 2t + 8, 2t + 9) as one 8-byte word. The encoding in shared memory has
+// zero rows up to pad16(e_p), so the padded K adds exact zeros.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace fnerf {
 
@@ -32,11 +52,32 @@ constexpr int kMaxLayers = 12;    // depth <= 8 trunk layers + sigma, feature, v
 struct Net {
   const void* w;    // packed weights [in, out] (T)
   const void* wt;   // packed weights [out, in] (T); backward only
+  const void* wp;   // tensor-core rows, padded [out][K] (bfloat16 forward only; see above)
   const float* b;   // packed biases
   int depth, n_p, n_v, skip_mask;
   int woff[kMaxLayers];
   int boff[kMaxLayers];
+  int poff[kMaxLayers];  // offsets into wp (trunk, feature and views_0 layers)
 };
+
+// The launchers' Net from their arguments: wt (backward only) and wp with poff (the
+// bfloat16 forward tile's tensor-core rows) may be null where unused.
+inline Net make_net(const void* w, const void* wt, const void* wp, const float* b, int depth,
+                    int n_p, int n_v, int skip_mask, const int* woff, const int* boff,
+                    const int* poff) {
+  Net net;
+  net.w = w; net.wt = wt; net.wp = wp; net.b = b;
+  net.depth = depth; net.n_p = n_p; net.n_v = n_v; net.skip_mask = skip_mask;
+  for (int i = 0; i < kMaxLayers; ++i) {
+    net.woff[i] = i < depth + 4 ? woff[i] : 0;
+    net.boff[i] = i < depth + 4 ? boff[i] : 0;
+    net.poff[i] = i < depth + 4 && poff != nullptr ? poff[i] : 0;
+  }
+  return net;
+}
+
+// K of an input segment of a tensor-core product: a multiple of the mma's 16.
+__host__ __device__ inline int pad16(int k) { return (k + 15) & ~15; }
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -72,7 +113,7 @@ struct Smem {
 };
 
 __host__ __device__ inline size_t fwd_smem_floats(int W, int e_p, int e_v) {
-  return (size_t)2 * W * kLD + (size_t)e_p * kLD + (size_t)kTP * e_v;
+  return (size_t)2 * W * kLD + (size_t)pad16(e_p) * kLD + (size_t)kTP * e_v;
 }
 __host__ __device__ inline size_t bwd_smem_floats(int W, int e_p, int e_v) {
   return fwd_smem_floats(W, e_p, e_v) + (size_t)4 * kLD + (size_t)kTP * (W / 2);
@@ -84,21 +125,26 @@ __device__ __forceinline__ Smem carve(float* smem, int W, int e_p, int e_v) {
   s.buf0 = smem;
   s.buf1 = s.buf0 + W * kLD;
   s.enc = s.buf1 + W * kLD;
-  s.encv = s.enc + e_p * kLD;
+  s.encv = s.enc + pad16(e_p) * kLD;
   s.gb = s.encv + kTP * e_v;
   s.seg = s.gb + 4 * kLD;
   return s;
 }
 
-// Encodings of one tile: per point (masked points encode x = 0) and per ray.
+// Encodings of one tile: per point (masked points encode x = 0; rows e_p .. pad16(e_p) - 1
+// are zero) and per ray.
 template <typename T>
 __device__ __forceinline__ void encode_tile(const Smem& s, const float* __restrict__ pts,
                                             const float* __restrict__ vd, int P, int S, int p0,
                                             int n_valid, int e_p, int e_v) {
   const int N = P / S, r_lo = p0 / S;
   const int n_rays = (p0 + n_valid - 1) / S - r_lo + 1;
-  for (int idx = threadIdx.x; idx < e_p * kTP; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < pad16(e_p) * kTP; idx += kThreads) {
     const int row = idx / kTP, p = idx % kTP;
+    if (row >= e_p) {
+      s.enc[row * kLD + p] = 0.f;
+      continue;
+    }
     float x[3] = {0.f, 0.f, 0.f};
     if (p < n_valid) {
 #pragma unroll
@@ -338,6 +384,134 @@ __device__ __forceinline__ void rgb_head(const Net& net, const float* __restrict
   }
 }
 
+// ---- the bfloat16 forward tile's products on the tensor cores ----
+
+constexpr int kMT = kTP / 16;  // m16 tiles of a tile's points
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // cvt.rn.bf16x2.f32
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c += a b over one m16n8k16 step: bfloat16 operands; the step's 16 products summed on the
+// tensor cores from zero, then added to the float32 accumulators c (header note).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint2 b) {
+  float d[4];
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y), "f"(0.f), "f"(0.f),
+        "f"(0.f), "f"(0.f));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += d[i];
+}
+
+// acc[mt][nt] += in[k][16 mt + row] * B[n0 + 8 nt + col][k] for k < K (K % 16 == 0), k-steps
+// in order, in the m16n8k16 fragment layout: lane (g = lane / 4, t = lane % 4) holds rows g and
+// g + 8 of columns 2t and 2t + 1. `in` is [K][kLD] float32 in shared memory whose values are
+// bfloat16 already, so converting the A fragments is exact; lane (g, t) reads (2t) kLD + g +
+// ..., banks 8t + g, all 32 distinct. B is row-major [n][ldk] in the permuted order of the
+// header note, read through L1/L2 one k-step ahead of the MMAs that use it (three steps ahead
+// measured slower, PERF.md).
+template <int NT>
+__device__ __forceinline__ void tc_mac(float (&acc)[kMT][NT][4], const float* __restrict__ in,
+                                       int K, const __nv_bfloat16* __restrict__ w, int ldk,
+                                       int n0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const __nv_bfloat16* bp = w + (size_t)(n0 + g) * ldk + 4 * t;
+  const float* ap = in + 2 * t * kLD + g;
+  uint2 b[NT];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+    b[nt] = __ldg(reinterpret_cast<const uint2*>(bp + (size_t)nt * 8 * ldk));
+#pragma unroll 1
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    const int kn = k0 + 16 < K ? k0 + 16 : k0;
+    uint2 bn[NT];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      bn[nt] = __ldg(reinterpret_cast<const uint2*>(bp + (size_t)nt * 8 * ldk + kn));
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      const float* a = ap + k0 * kLD + 16 * mt;
+      const uint32_t af[4] = {bf16x2(a[0], a[kLD]), bf16x2(a[8], a[kLD + 8]),
+                              bf16x2(a[8 * kLD], a[9 * kLD]),
+                              bf16x2(a[8 * kLD + 8], a[9 * kLD + 8])};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], af, b[nt]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) b[nt] = bn[nt];
+  }
+}
+
+// One dense layer of the bfloat16 forward tile over N = 64 NT outputs, warp ty taking
+// columns n0 = 8 NT ty .. n0 + 8 NT - 1 of all 64 points: the products of input a
+// ([Ka][kLD], Ka % 16 == 0) and then of input b ([Kb][kLD], may be absent) with the layer's
+// rows `w` ([N][Ka + Kb]), accumulated from zero k-step by k-step (mma_bf16); then, in
+// float32, with `hv_ray` ([n_rays][N], the view layer) the term of each point's ray, then the
+// bias; the ReLU if asked, rounding to bfloat16 and the transposed store into `out`
+// ([N][kLD]); with `g`, also the tile's valid rows to device memory as [point][N]. This is
+// the order of the plain
+// twin's `relu(x @ W^T (+ hv) + b)` (ops/fused_mlp_t.py:_forward_plain), whose bfloat16
+// products add the same 16-k sums in the same order (ops/fused_mlp_t.py:_tc_mm).
+template <int NT>
+__device__ __forceinline__ void tc_layer(const float* __restrict__ bias,
+                                         const float* __restrict__ a, int Ka,
+                                         const float* __restrict__ b, int Kb,
+                                         const __nv_bfloat16* __restrict__ w,
+                                         float* __restrict__ out, bool relu,
+                                         __nv_bfloat16* __restrict__ g, int n_valid,
+                                         const float* __restrict__ hv_ray = nullptr, int S = 1,
+                                         int p0 = 0) {
+  constexpr int N = 64 * NT;
+  const int lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+  const int n0 = (threadIdx.x >> 5) * 8 * NT;
+  float acc[kMT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  tc_mac<NT>(acc, a, Ka, w, Ka + Kb, n0, lane);
+  if (Kb) tc_mac<NT>(acc, b, Kb, w + Ka, Ka + Kb, n0, lane);
+  if (hv_ray) {
+    const int r_lo = p0 / S;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = min(16 * mt + gq + 8 * h, n_valid - 1);
+        const float* hr = hv_ray + ((p0 + p) / S - r_lo) * N + n0 + 2 * t;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          acc[mt][nt][2 * h] += hr[8 * nt];
+          acc[mt][nt][2 * h + 1] += hr[8 * nt + 1];
+        }
+      }
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const float b0 = bias[n0 + 8 * nt + 2 * t], b1 = bias[n0 + 8 * nt + 2 * t + 1];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = 16 * mt + gq + 8 * h, c = n0 + 8 * nt + 2 * t;
+        const float x0 = acc[mt][nt][2 * h] + b0, x1 = acc[mt][nt][2 * h + 1] + b1;
+        const float v0 = rnd<__nv_bfloat16>(relu ? fmaxf(x0, 0.f) : x0);
+        const float v1 = rnd<__nv_bfloat16>(relu ? fmaxf(x1, 0.f) : x1);
+        out[c * kLD + p] = v0;
+        out[(c + 1) * kLD + p] = v1;
+        if (g && p < n_valid)
+          *reinterpret_cast<__nv_bfloat162*>(g + (size_t)p * N + c) =
+              __floats2bfloat162_rn(v0, v1);
+      }
+  }
+}
+
 // One tile of the forward: encodings, trunk, sigma and feature heads, view layer, rgb head.
 // `out` (raw [4, P]) may be null: then the heads are skipped. With `acts`, each trunk
 // activation, the feature activation and the view activation of the tile's valid points
@@ -364,6 +538,11 @@ __device__ void forward_tile(const Net& net, const Smem& s, const float* __restr
   const int D = net.depth;
   T* arow = acts ? acts + row0 * W : nullptr;
 
+  // The bfloat16 products run on the tensor cores (tc_layer), the float32 ones on FMA (mac).
+  constexpr bool kTC = std::is_same<T, __nv_bfloat16>::value;
+  const __nv_bfloat16* wp = reinterpret_cast<const __nv_bfloat16*>(net.wp);
+  const int ep16 = pad16(e_p);
+
   encode_tile<T>(s, pts, vd, P, S, p0, n_valid, e_p, e_v);
   __syncthreads();
 
@@ -372,17 +551,25 @@ __device__ void forward_tile(const Net& net, const Smem& s, const float* __restr
   const float* h = s.enc;
   for (int l = 0; l < D; ++l) {
     float* dst = (l & 1) ? s.buf1 : s.buf0;
-    const T* wl = w + net.woff[l];
-    init_acc<NJ>(acc, b + net.boff[l], tx);
-    if (l == 0) {
-      mac<T, NJ>(acc, s.enc, e_p, wl, W, ty, tx);
-    } else if ((net.skip_mask >> (l - 1)) & 1) {
-      mac<T, NJ>(acc, s.enc, e_p, wl, W, ty, tx);
-      mac<T, NJ>(acc, h, W, wl + (size_t)e_p * W, W, ty, tx);
+    if constexpr (kTC) {
+      const bool skip = l > 0 && ((net.skip_mask >> (l - 1)) & 1);
+      const bool enc_first = l == 0 || skip;
+      tc_layer<W / 64>(b + net.boff[l], enc_first ? s.enc : h, enc_first ? ep16 : W, h,
+                       skip ? W : 0, wp + net.poff[l], dst, true,
+                       arow ? arow + l * lstride : nullptr, n_valid);
     } else {
-      mac<T, NJ>(acc, h, W, wl, W, ty, tx);
+      const T* wl = w + net.woff[l];
+      init_acc<NJ>(acc, b + net.boff[l], tx);
+      if (l == 0) {
+        mac<T, NJ>(acc, s.enc, e_p, wl, W, ty, tx);
+      } else if ((net.skip_mask >> (l - 1)) & 1) {
+        mac<T, NJ>(acc, s.enc, e_p, wl, W, ty, tx);
+        mac<T, NJ>(acc, h, W, wl + (size_t)e_p * W, W, ty, tx);
+      } else {
+        mac<T, NJ>(acc, h, W, wl, W, ty, tx);
+      }
+      store<T, NJ>(acc, dst, true, ty, tx, arow ? arow + l * lstride : nullptr, W, n_valid);
     }
-    store<T, NJ>(acc, dst, true, ty, tx, arow ? arow + l * lstride : nullptr, W, n_valid);
     __syncthreads();
     h = dst;
   }
@@ -391,9 +578,14 @@ __device__ void forward_tile(const Net& net, const Smem& s, const float* __restr
 
   if (out) sigma_head<T, W>(net, h, out, P, p0, n_valid);
   // Feature layer (linear).
-  init_acc<NJ>(acc, b + net.boff[D + 1], tx);
-  mac<T, NJ>(acc, h, W, w + net.woff[D + 1], W, ty, tx);
-  store<T, NJ>(acc, feat, false, ty, tx, arow ? arow + D * lstride : nullptr, W, n_valid);
+  if constexpr (kTC) {
+    tc_layer<W / 64>(b + net.boff[D + 1], h, W, nullptr, 0, wp + net.poff[D + 1], feat, false,
+                     arow ? arow + D * lstride : nullptr, n_valid);
+  } else {
+    init_acc<NJ>(acc, b + net.boff[D + 1], tx);
+    mac<T, NJ>(acc, h, W, w + net.woff[D + 1], W, ty, tx);
+    store<T, NJ>(acc, feat, false, ty, tx, arow ? arow + D * lstride : nullptr, W, n_valid);
+  }
   __syncthreads();
 
   if (fpart) sem_partials<W>(feat, fpart, S, p0, n_valid, r_lo, n_rays);
@@ -405,7 +597,11 @@ __device__ void forward_tile(const Net& net, const Smem& s, const float* __restr
   __syncthreads();
 
   // View layer: feat rows of views_0 per point plus the ray's term.
-  {
+  if constexpr (kTC) {
+    tc_layer<W / 128>(b + net.boff[D + 2], feat, W, nullptr, 0, wp + net.poff[D + 2], hv, true,
+                      acts ? acts + (D + 1) * lstride + row0 * WV : nullptr, n_valid, hv_ray, S,
+                      p0);
+  } else {
     float accv[8][NJV];
     init_acc<NJV>(accv, b + net.boff[D + 2], tx);
     mac<T, NJV>(accv, feat, W, w + net.woff[D + 2], WV, ty, tx);

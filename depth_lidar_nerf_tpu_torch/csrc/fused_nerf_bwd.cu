@@ -38,7 +38,9 @@
 // backward (the input products and the weight products), 3x with the recompute: ~0.93 M
 // at D = 4 / W = 256, against 16 bytes of cotangent (kernel 5 also reads the ~2.8 KB of
 // saved activations a point in bfloat16, still far above the card's 295 FLOP per byte).
-// This first version runs on the CUDA cores (FMA), not the tensor cores.
+// The backward's products run on the CUDA cores (FMA), not the tensor cores; the forward
+// that kernels 2 and 3 recompute is forward_tile, whose bfloat16 products run on the tensor
+// cores (fused_nerf.cuh tc_layer), so its activations equal kernel 4's saved ones.
 //
 // Design. One block of 256 threads takes a tile of kTP = 64 points; a grid of one block
 // per SM walks over the tiles in a fixed stride (block b takes tiles b, b + G, ...), so
@@ -341,18 +343,6 @@ __global__ void fused_nerf_grad_reduce_kernel(const float* __restrict__ part,
   out[i] = sm;
 }
 
-Net make_net(const void* w, const void* wt, const float* b, int depth, int n_p, int n_v,
-             int skip_mask, const int* woff, const int* boff) {
-  Net net;
-  net.w = w; net.wt = wt; net.b = b;
-  net.depth = depth; net.n_p = n_p; net.n_v = n_v; net.skip_mask = skip_mask;
-  for (int i = 0; i < kMaxLayers; ++i) {
-    net.woff[i] = i < depth + 4 ? woff[i] : 0;
-    net.boff[i] = i < depth + 4 ? boff[i] : 0;
-  }
-  return net;
-}
-
 template <typename K>
 cudaError_t prepare(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -399,6 +389,8 @@ int launch(int mode, const Net& net, const float* pts, const float* vd, const fl
 //   dfeat_ray (mode 2 only, may be null) the semantic head's feature cotangent [P / S, W]
 //            in T, from fused_nerf_sem_head_bwd_launch: kernel 8's trunk;
 //   w, wt    the packed weights [in, out] and [out, in] in T; b the packed biases;
+//   wp, poff the tensor-core rows of the recompute's forward (fused_nerf.cuh; modes 0 and 1
+//            in bfloat16; may be null otherwise) and their offsets;
 //   scratch  G x ((D + 1) 64 W + 64 W / 2) elements of T (modes 0 and 1);
 //   part     G rows of part_stride floats, zeroed: row b is block b's partial gradient,
 //            weights first (n_w floats, packed [in, out] offsets) then biases.
@@ -406,18 +398,19 @@ int launch(int mode, const Net& net, const float* pts, const float* vd, const fl
 extern "C" int fused_nerf_bwd_launch(int mode, const float* pts, const float* vd,
                                      const float* g, const int* flags, const void* acts,
                                      const void* dfeat_ray, const void* w, const void* wt,
-                                     const float* b, void* scratch, float* part,
-                                     long long part_stride, int G, int n_w, int P, int S,
-                                     int depth, int width, int n_p, int n_v, int skip_mask,
-                                     int is_bf16, const int* woff, const int* boff,
-                                     void* stream) {
+                                     const void* wp, const float* b, void* scratch,
+                                     float* part, long long part_stride, int G, int n_w, int P,
+                                     int S, int depth, int width, int n_p, int n_v,
+                                     int skip_mask, int is_bf16, const int* woff,
+                                     const int* boff, const int* poff, void* stream) {
   if (depth < 1 || depth > 8 || S < 1 || P % S != 0 || (width != 128 && width != 256) ||
       mode < 0 || mode > 2 || G < 1 || (mode == 1 && flags == nullptr) ||
       (mode == 2 && acts == nullptr) || (mode != 2 && scratch == nullptr) ||
-      (mode != 2 && dfeat_ray != nullptr) || part_stride % 4)
+      (mode != 2 && dfeat_ray != nullptr) || part_stride % 4 ||
+      (is_bf16 && mode != 2 && (wp == nullptr || poff == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (P == 0) return 0;
-  const Net net = make_net(w, wt, b, depth, n_p, n_v, skip_mask, woff, boff);
+  const Net net = make_net(w, wt, wp, b, depth, n_p, n_v, skip_mask, woff, boff, poff);
   cudaStream_t s = (cudaStream_t)stream;
   const size_t ps = (size_t)part_stride;
   if (is_bf16) {

@@ -25,14 +25,21 @@
 // D = 8 with a skip fine) a point costs ~0.3-0.6 M multiply-adds against 28 bytes of input
 // and output, thousands of FLOP per byte. Kernel 4 also writes (D + 1) W + W / 2 values a
 // point (2,816 bytes in bfloat16 at D = 4, W = 256), which at 989 TFLOP/s against
-// 3.35 TB/s makes it bound by bytes. This first version runs the products on the CUDA
-// cores (FMA), not the tensor cores, so it reaches neither bound; wgmma/TMA are later
-// work. What it does about the bound: every intermediate activation stays in shared memory
-// (device memory sees only the points, the view directions, the weights through L2, the
-// raw output and, for kernel 4, one coalesced write of each saved activation), each thread
-// keeps an 8-point x (W/32)-column register tile so that each weight it loads feeds 8
-// FMAs, and the view layer's per-ray half is computed once per ray rather than once per
-// point.
+// 3.35 TB/s makes it bound by bytes. In bfloat16 the trunk, skip, feature and view-layer
+// products run on the tensor cores (mma.sync m16n8k16, each k-step's sum added to float32
+// accumulators; fused_nerf.cuh tc_layer): each warp owns all 64 points of the tile and 32
+// (trunk) or 16 (view) output columns, converts its A fragments from the float32
+// activations in shared memory (exact: they are bfloat16 values) and reads its B
+// fragments from the padded tensor-core weight rows through L1/L2, one k-step ahead. In float32 the products stay on the CUDA cores
+// (FMA, an 8-point x W/32-column register tile a thread): TF32 would not keep float32
+// parity. The 1-column sigma head, the 3-column rgb head and the per-ray half of the view
+// layer stay on FMA in both. What else the design does about the bound: every intermediate
+// activation stays in shared memory (device memory sees only the points, the view
+// directions, the weights through L2, the raw output and, for kernel 4, one write of each
+// saved activation), and the view layer's per-ray half is computed once per ray rather
+// than once per point. What bounds the bfloat16 tile: each 64-point tile reads the whole
+// net's weights through L2 (~0.63 MB at D = 4, ~1.19 MB at D = 8 with a skip), so the
+// tile size, not the tensor cores, sets its floor (PERF.md).
 //
 // Kernels 6 and 7 replace fused_mlp_t.py:_fwd_kernel_sem_only and _fwd_kernel_acts_sem
 // (head _sem_head_tile, entries _fwd_impl_sem_only and _fwd_impl_acts_sem): kernels 1 and 4
@@ -245,21 +252,16 @@ int launch(const Net& net, const float* pts, const float* vd, float* out, void* 
   return (int)cudaGetLastError();
 }
 
-int dispatch(const float* pts, const float* vd, const void* w, const float* b, float* out,
-             void* acts, float* fpart, int MR, int P, int S, int depth, int width, int n_p,
-             int n_v, int skip_mask, int is_bf16, const int* woff, const int* boff,
-             void* stream) {
+int dispatch(const float* pts, const float* vd, const void* w, const void* wp, const float* b,
+             float* out, void* acts, float* fpart, int MR, int P, int S, int depth, int width,
+             int n_p, int n_v, int skip_mask, int is_bf16, const int* woff, const int* boff,
+             const int* poff, void* stream) {
   if (depth < 1 || depth > 8 || S < 1 || P % S != 0 || (width != 128 && width != 256) ||
-      (fpart != nullptr && (!sem_aligned(S) || MR < sem_tile_slots(S))))
+      (fpart != nullptr && (!sem_aligned(S) || MR < sem_tile_slots(S))) ||
+      (is_bf16 && (wp == nullptr || poff == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (P == 0) return 0;
-  Net net;
-  net.w = w; net.wt = nullptr; net.b = b;
-  net.depth = depth; net.n_p = n_p; net.n_v = n_v; net.skip_mask = skip_mask;
-  for (int i = 0; i < kMaxLayers; ++i) {
-    net.woff[i] = i < depth + 4 ? woff[i] : 0;
-    net.boff[i] = i < depth + 4 ? boff[i] : 0;
-  }
+  const Net net = make_net(w, nullptr, wp, b, depth, n_p, n_v, skip_mask, woff, boff, poff);
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
     return width == 256
@@ -294,39 +296,44 @@ int launch_head(const float* fpart, int MR, const void* ws0, const float* bs0, c
 
 }  // namespace
 
-// Kernel 1. Returns a cudaError_t (0 on success). woff/boff are host arrays of depth + 4
-// offsets (elements) into w and b: trunk_0..trunk_{D-1}, sigma, feature, views_0, rgb.
+// Kernel 1. Returns a cudaError_t (0 on success). woff/boff/poff are host arrays of
+// depth + 4 offsets (elements) into w, b and wp: trunk_0..trunk_{D-1}, sigma, feature,
+// views_0, rgb (poff's sigma and rgb entries unused). wp and poff: the tensor-core rows of
+// fused_nerf.cuh, required in bfloat16, may be null in float32.
 extern "C" int fused_nerf_fwd_launch(const float* pts, const float* vd, const void* w,
-                                     const float* b, float* out, int P, int S, int depth,
-                                     int width, int n_p, int n_v, int skip_mask, int is_bf16,
-                                     const int* woff, const int* boff, void* stream) {
-  return dispatch(pts, vd, w, b, out, nullptr, nullptr, 0, P, S, depth, width, n_p, n_v,
-                  skip_mask, is_bf16, woff, boff, stream);
+                                     const void* wp, const float* b, float* out, int P, int S,
+                                     int depth, int width, int n_p, int n_v, int skip_mask,
+                                     int is_bf16, const int* woff, const int* boff,
+                                     const int* poff, void* stream) {
+  return dispatch(pts, vd, w, wp, b, out, nullptr, nullptr, 0, P, S, depth, width, n_p, n_v,
+                  skip_mask, is_bf16, woff, boff, poff, stream);
 }
 
 // Kernel 4: kernel 1 plus the saved activations `acts`, (D + 1) [P, W] arrays followed by
 // one [P, W / 2] array, contiguous, in the weights' type.
 extern "C" int fused_nerf_fwd_acts_launch(const float* pts, const float* vd, const void* w,
-                                          const float* b, float* out, void* acts, int P, int S,
-                                          int depth, int width, int n_p, int n_v,
-                                          int skip_mask, int is_bf16, const int* woff,
-                                          const int* boff, void* stream) {
+                                          const void* wp, const float* b, float* out,
+                                          void* acts, int P, int S, int depth, int width,
+                                          int n_p, int n_v, int skip_mask, int is_bf16,
+                                          const int* woff, const int* boff, const int* poff,
+                                          void* stream) {
   if (acts == nullptr) return (int)cudaErrorInvalidValue;
-  return dispatch(pts, vd, w, b, out, acts, nullptr, 0, P, S, depth, width, n_p, n_v,
-                  skip_mask, is_bf16, woff, boff, stream);
+  return dispatch(pts, vd, w, wp, b, out, acts, nullptr, 0, P, S, depth, width, n_p, n_v,
+                  skip_mask, is_bf16, woff, boff, poff, stream);
 }
 
 // Kernels 6 (acts null) and 7: kernels 1 and 4 that also write each tile's semantic partial
 // sums to `fpart`, ceil(P / 64) x MR x W floats with MR >= sem_tile_slots(S), for S with
 // sem_aligned(S) (fused_nerf.cuh); fused_nerf_sem_head_launch turns them into logits.
 extern "C" int fused_nerf_fwd_sem_launch(const float* pts, const float* vd, const void* w,
-                                         const float* b, float* out, void* acts, float* fpart,
-                                         int MR, int P, int S, int depth, int width, int n_p,
-                                         int n_v, int skip_mask, int is_bf16, const int* woff,
-                                         const int* boff, void* stream) {
+                                         const void* wp, const float* b, float* out,
+                                         void* acts, float* fpart, int MR, int P, int S,
+                                         int depth, int width, int n_p, int n_v, int skip_mask,
+                                         int is_bf16, const int* woff, const int* boff,
+                                         const int* poff, void* stream) {
   if (fpart == nullptr) return (int)cudaErrorInvalidValue;
-  return dispatch(pts, vd, w, b, out, acts, fpart, MR, P, S, depth, width, n_p, n_v,
-                  skip_mask, is_bf16, woff, boff, stream);
+  return dispatch(pts, vd, w, wp, b, out, acts, fpart, MR, P, S, depth, width, n_p, n_v,
+                  skip_mask, is_bf16, woff, boff, poff, stream);
 }
 
 // The semantic head of kernels 6 and 7: logits `sem` [N, C] float32 from the tile partials
@@ -357,21 +364,16 @@ extern "C" int fused_nerf_sem_head_launch(const float* fpart, const void* ws0, c
 // (one view direction per ray and block), out [4, P]; eps is the skip threshold (half the
 // compositor's cull_eps). Weights as fused_nerf_fwd_launch; no skip concat.
 extern "C" int fused_nerf_fwd_cf_launch(const float* pts, const float* vd, const float* aux,
-                                        const void* w, const float* b, float* out, int P,
-                                        int nSB, float eps, int depth, int width, int n_p,
-                                        int n_v, int is_bf16, const int* woff, const int* boff,
+                                        const void* w, const void* wp, const float* b,
+                                        float* out, int P, int nSB, float eps, int depth,
+                                        int width, int n_p, int n_v, int is_bf16,
+                                        const int* woff, const int* boff, const int* poff,
                                         void* stream) {
   if (depth < 1 || depth > 8 || nSB < 1 || P < 0 || P % (nSB * kCfPoints) != 0 ||
-      (width != 128 && width != 256))
+      (width != 128 && width != 256) || (is_bf16 && (wp == nullptr || poff == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (P == 0) return 0;
-  Net net;
-  net.w = w; net.wt = nullptr; net.b = b;
-  net.depth = depth; net.n_p = n_p; net.n_v = n_v; net.skip_mask = 0;
-  for (int i = 0; i < kMaxLayers; ++i) {
-    net.woff[i] = i < depth + 4 ? woff[i] : 0;
-    net.boff[i] = i < depth + 4 ? boff[i] : 0;
-  }
+  const Net net = make_net(w, nullptr, wp, b, depth, n_p, n_v, 0, woff, boff, poff);
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
     return width == 256 ? launch_cf<__nv_bfloat16, 256>(net, pts, vd, aux, out, P, nSB, eps, s)

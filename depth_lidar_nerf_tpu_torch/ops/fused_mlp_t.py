@@ -75,27 +75,27 @@ KERNEL = "fused_nerf_fwd"
 BWD_KERNEL = "fused_nerf_bwd"
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 ARGTYPES = {
-    # (pts, vd, w, b, out, P, S, depth, width, multires, multires_views,
-    #  skip_mask, bf16, w_off, b_off, stream)
-    "fused_nerf_fwd_launch": [_PTR] * 5 + [_INT] * 8 + [_PTR] * 3,
-    # (pts, vd, w, b, out, acts, P, S, depth, ..., stream)
-    "fused_nerf_fwd_acts_launch": [_PTR] * 6 + [_INT] * 8 + [_PTR] * 3,
-    # (pts, vd, w, b, out, acts, fpart, MR, P, S, depth, ..., stream)
-    "fused_nerf_fwd_sem_launch": [_PTR] * 7 + [_INT] * 9 + [_PTR] * 3,
+    # (pts, vd, w, wp, b, out, P, S, depth, width, multires, multires_views,
+    #  skip_mask, bf16, w_off, b_off, p_off, stream)
+    "fused_nerf_fwd_launch": [_PTR] * 6 + [_INT] * 8 + [_PTR] * 4,
+    # (pts, vd, w, wp, b, out, acts, P, S, depth, ..., stream)
+    "fused_nerf_fwd_acts_launch": [_PTR] * 7 + [_INT] * 8 + [_PTR] * 4,
+    # (pts, vd, w, wp, b, out, acts, fpart, MR, P, S, depth, ..., stream)
+    "fused_nerf_fwd_sem_launch": [_PTR] * 8 + [_INT] * 9 + [_PTR] * 4,
     # (fpart, ws0, bs0, ws1, bs1, sem, sem_acts, MR, N, S, width, C, bf16,
     #  stream)
     "fused_nerf_sem_head_launch": [_PTR] * 7 + [_INT] * 6 + [_PTR],
-    # (pts, vd, aux, w, b, out, P, nSB, eps, depth, width, multires,
-    #  multires_views, bf16, w_off, b_off, stream)
-    "fused_nerf_fwd_cf_launch": [_PTR] * 6 + [_INT] * 2 + [ctypes.c_float]
-    + [_INT] * 5 + [_PTR] * 3,
+    # (pts, vd, aux, w, wp, b, out, P, nSB, eps, depth, width, multires,
+    #  multires_views, bf16, w_off, b_off, p_off, stream)
+    "fused_nerf_fwd_cf_launch": [_PTR] * 7 + [_INT] * 2 + [ctypes.c_float]
+    + [_INT] * 5 + [_PTR] * 4,
 }
 BWD_ARGTYPES = {
-    # (mode, pts, vd, g, flags, acts, dfeat_ray, w, wt, b, scratch, part,
+    # (mode, pts, vd, g, flags, acts, dfeat_ray, w, wt, wp, b, scratch, part,
     #  part_stride, G, n_w, P, S, depth, width, multires, multires_views,
-    #  skip_mask, bf16, w_off, b_off, stream)
-    "fused_nerf_bwd_launch": [_INT] + [_PTR] * 11 + [ctypes.c_longlong]
-    + [_INT] * 10 + [_PTR] * 3,
+    #  skip_mask, bf16, w_off, b_off, p_off, stream)
+    "fused_nerf_bwd_launch": [_INT] + [_PTR] * 12 + [ctypes.c_longlong]
+    + [_INT] * 10 + [_PTR] * 4,
     # (gsem, sem_acts, ws0t, ws1t, dfeat_ray, part, part_stride, G, N, S,
     #  width, C, bf16, stream)
     "fused_nerf_sem_head_bwd_launch": [_PTR] * 6 + [ctypes.c_longlong]
@@ -121,7 +121,10 @@ _JAX_TILE_FWD = 8192
 _ACTS_TILE = 4096
 _ACTS_TILE_FWD = 8192
 _ACTS_VMEM_MB = 96
-_ACTS_MAX_POINTS = 4 * 1024 * 1024
+# JAX's ``_ACTS_MAX_POINTS`` knob, read at import as JAX reads it: the
+# saved-activation cap in D=4/W=256 bfloat16 points (see acts_points_cap).
+_ACTS_MAX_POINTS = int(os.environ.get("DLNERF_BWD_ACTS_MAX_POINTS",
+                                      4 * 1024 * 1024))
 
 
 def live_skips(depth: int, skips) -> tuple:
@@ -227,6 +230,13 @@ def semantic_padded_rays(n_rays: int, S: int, depth: int, width: int,
     return n_rays + (-n_rays) % rpt
 
 
+def bwd_acts_enabled() -> bool:
+    """JAX ``bwd_acts_enabled``: a differentiated pass that asks to save its
+    activations does so unless ``DLNERF_BWD_ACTS`` is other than "1", read
+    at call time; then it takes the recompute backward."""
+    return os.environ.get("DLNERF_BWD_ACTS", "1") == "1"
+
+
 def acts_route_ok(n_rays: int, S: int, depth: int, width: int, dtype) -> bool:
     """The JAX predicate of the saved-activation route (``_apply_rays_core``):
     the point count after JAX's ray padding within :func:`acts_points_cap`.
@@ -318,6 +328,55 @@ class PackedParams(NamedTuple):
     dtype: torch.dtype
     weights_t: torch.Tensor  # every layer's [out, in] (Linear.weight), dtype
     sem: SemPacked | None = None  # the semantic head, where the model has one
+    # bfloat16 only: the tensor-core rows (:func:`_tc_rows`) and their
+    # offsets, indexed as ``w_offsets`` (sigma's and rgb's unused)
+    weights_p: torch.Tensor | None = None
+    p_offsets: ctypes.Array | None = None
+
+
+# Order of the 16 k of each k-step in ``weights_p``: lane t of an mma quad
+# loads k = 2t, 2t + 1, 2t + 8, 2t + 9 (its two B registers) as one word.
+TC_KPERM = (0, 1, 8, 9, 2, 3, 10, 11, 4, 5, 12, 13, 6, 7, 14, 15)
+
+
+def _pad16(k: int) -> int:
+    return -(-k // 16) * 16
+
+
+def _tc_segments(name: str, w: torch.Tensor, width: int):
+    """The input segments (column counts of ``Linear.weight`` ``w``, in
+    order) whose products the bfloat16 forward runs on the tensor cores:
+    a trunk layer's encoding rows and/or previous activation, the feature
+    layer's activation, views_0's W feature rows (its view-encoding rows
+    stay on FMA); None for the sigma and rgb heads."""
+    n_in = w.shape[1]
+    if name == "trunk_0":
+        return [n_in]
+    if name.startswith("trunk_"):
+        return [n_in - width, width] if n_in > width else [n_in]
+    if name in ("feature", "views_0"):
+        return [width]
+    return None
+
+
+def _tc_rows(w: torch.Tensor, segs) -> torch.Tensor:
+    """``Linear.weight`` ``[out, in]`` -> its tensor-core rows ``[out, K]``
+    flat: each segment zero-padded to a multiple of 16 columns, each run of
+    16 columns in :data:`TC_KPERM` order."""
+    parts, o = [], 0
+    for k in segs:
+        parts.append(torch.nn.functional.pad(w[:, o:o + k], (0, _pad16(k) - k)))
+        o += k
+    rows = torch.cat(parts, 1)
+    return rows.reshape(rows.shape[0], -1, 16)[..., list(TC_KPERM)].reshape(-1)
+
+
+def _offsets(parts):
+    out, o = [], 0
+    for t in parts:
+        out.append(o)
+        o += t.numel()
+    return (ctypes.c_int * len(out))(*out)
 
 
 def pack_params(params: Mapping[str, torch.Tensor], depth: int, dtype,
@@ -327,24 +386,25 @@ def pack_params(params: Mapping[str, torch.Tensor], depth: int, dtype,
     same weights as ``[out, in]`` (for the backward's input products), one
     float32 buffer of every bias, and the element offset of each layer in
     both, in the order trunk_0..trunk_{D-1}, sigma, feature, views_0, rgb;
-    with a semantic head, also :func:`pack_sem`."""
+    with a semantic head, also :func:`pack_sem`. In bfloat16 also the
+    tensor-core rows of the forward's trunk, feature and views_0 products
+    (``weights_p``, :func:`_tc_rows`; csrc/fused_nerf.cuh)."""
     names = _layer_names(depth)
     lin = [params[f"{n}.weight"].detach() for n in names]
     ws = [w.t().to(dtype).reshape(-1) for w in lin]
     wts = [w.to(dtype).reshape(-1) for w in lin]
     bs = [params[f"{n}.bias"].detach().float().reshape(-1) for n in names]
-
-    def offsets(parts):
-        out, o = [], 0
-        for t in parts:
-            out.append(o)
-            o += t.numel()
-        return (ctypes.c_int * len(out))(*out)
-
     sem = pack_sem(params, dtype, device) if SEM_NAMES[0] in params else None
+    wp = p_off = None
+    if dtype == torch.bfloat16:
+        width = lin[0].shape[0]
+        segs = [_tc_segments(n, w, width) for n, w in zip(names, lin)]
+        tc = [_tc_rows(w.to(dtype), sg) if sg else w.new_empty(0, dtype=dtype)
+              for w, sg in zip(lin, segs)]
+        wp, p_off = torch.cat(tc).to(device), _offsets(tc)
     return PackedParams(torch.cat(ws).to(device), torch.cat(bs).to(device),
-                        offsets(ws), offsets(bs), dtype,
-                        torch.cat(wts).to(device), sem)
+                        _offsets(ws), _offsets(bs), dtype,
+                        torch.cat(wts).to(device), sem, wp, p_off)
 
 
 def unpack_grads(flat: torch.Tensor, params: Mapping[str, torch.Tensor],
@@ -403,18 +463,45 @@ def _plain_encodings(pts_t, viewdirs_t, multires, multires_views, dtype):
                                 multires_views).to(dtype).float())
 
 
+def _tc_mm(x, w):
+    """``x @ w.T`` of bfloat16 values (``x`` ``[P, K]``, K a multiple of 16)
+    as the bfloat16 forward tile forms it (csrc/fused_nerf.cuh:mma_bf16):
+    on the card, each run of 16 k summed from zero on the tensor cores
+    (cuBLAS, a 16-deep product), the runs added in k order in float32; on
+    the CPU in float32, as the JAX package's reference multiplies there. The
+    twin built on it checks the kernels' layout: with the order pinned here
+    and no longer cuBLAS's, it rounds every bfloat16 activation as they do
+    (measured at each shape of the card tests and the smoke). Their accuracy
+    is held to :func:`bf16_product_witness`, which depends on no summation
+    order."""
+    if not x.is_cuda:
+        return x @ w.T
+    x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    acc = torch.mm(x[:, :16], w[:, :16].T, out_dtype=torch.float32)
+    for k in range(16, x.shape[1], 16):
+        acc += torch.mm(x[:, k:k + 16], w[:, k:k + 16].T, out_dtype=torch.float32)
+    return acc
+
+
 def _forward_plain(params, pts_t, viewdirs_t, S, depth, width, multires,
                    multires_views, dtype, skips):
     """The forward kernel's arithmetic: operands rounded to ``dtype``,
-    products in float32, each activation rounded to ``dtype``. Returns raw
-    ``[4, P]``, the activations ``[h_0 .. h_{D-1}, feat, hv]`` (each
-    ``[P, C]`` float32 holding ``dtype`` values), and the point and ray
-    encodings."""
+    products accumulated in float32, each activation rounded to ``dtype``.
+    In bfloat16 the trunk, feature and view-layer products are
+    :func:`_tc_mm`'s, a skip layer's over ``[enc, 0 .. , h]`` with the
+    encoding zero-padded to a multiple of 16 columns, as the kernel's.
+    Returns raw ``[4, P]``, the activations ``[h_0 .. h_{D-1}, feat, hv]``
+    (each ``[P, C]`` float32 holding ``dtype`` values), and the point and
+    ray encodings."""
     ls = live_skips(depth, skips)
     e_p = 3 + 6 * multires
+    tc = dtype == torch.bfloat16
 
     def rnd(x):
         return x.to(dtype).float()
+
+    def pad(x):  # the encoding's columns up to a multiple of 16, zero
+        return torch.nn.functional.pad(x, (0, _pad16(e_p) - e_p))
 
     w, b = _plain_weights(params, dtype)
     enc, encv = _plain_encodings(pts_t, viewdirs_t, multires, multires_views,
@@ -422,7 +509,14 @@ def _forward_plain(params, pts_t, viewdirs_t, S, depth, width, multires,
     hs, h = [], enc
     for i in range(depth):
         wi = w(f"trunk_{i}")
-        if i == 0:
+        if tc and i == 0:
+            acc = _tc_mm(pad(enc), pad(wi))
+        elif tc and (i - 1) in ls:
+            acc = _tc_mm(torch.cat([pad(enc), h], 1),
+                         torch.cat([pad(wi[:, :e_p]), wi[:, e_p:]], 1))
+        elif tc:
+            acc = _tc_mm(h, wi)
+        elif i == 0:
             acc = enc @ wi.T
         elif (i - 1) in ls:
             acc = enc @ wi[:, :e_p].T + h @ wi[:, e_p:].T
@@ -430,11 +524,12 @@ def _forward_plain(params, pts_t, viewdirs_t, S, depth, width, multires,
             acc = h @ wi.T
         h = rnd(torch.relu(acc + b(f"trunk_{i}")))
         hs.append(h)
+    mm = _tc_mm if tc else (lambda x, wt: x @ wt.T)
     sigma = h @ w("sigma").T + b("sigma")  # [P, 1]
-    feat = rnd(h @ w("feature").T + b("feature"))
+    feat = rnd(mm(h, w("feature")) + b("feature"))
     wv = w("views_0")
     hv_ray = rnd(encv @ wv[:, width:].T)  # [N, W/2], once per ray
-    hv = rnd(torch.relu(feat @ wv[:, :width].T
+    hv = rnd(torch.relu(mm(feat, wv[:, :width])
                         + hv_ray.repeat_interleave(S, dim=0) + b("views_0")))
     rgb = hv @ w("rgb").T + b("rgb")
     raw = torch.cat([rgb, sigma], dim=-1).T.contiguous()
@@ -449,6 +544,55 @@ def fused_nerf_fwd_plain(params: Mapping[str, torch.Tensor], pts_t: torch.Tensor
     raw ``[4, P]``."""
     return _forward_plain(params, pts_t, viewdirs_t, S, depth, width,
                           multires, multires_views, dtype, skips)[0]
+
+
+def bf16_product_witness(params, pts_t, viewdirs_t, acts, S: int, *,
+                         depth: int, width: int, multires: int,
+                         multires_views: int, skips=()):
+    """How often the bfloat16 forward's products round an activation the
+    wrong way, against a witness independent of the kernels and of any
+    float32 summation order: each trunk layer, the feature layer and the
+    view layer recomputed from ``acts``' own inputs (kernel 4's saved
+    activations, :func:`split_acts`) with float64 products of the same
+    bfloat16 operands, rounded once. Returns, per layer, the share of
+    ``acts`` off that exact rounding, and the same share for float32
+    products on the same inputs (the float32 twin's arithmetic, and the
+    float32-FMA tile's before the tensor cores)."""
+    P = pts_t.shape[1]
+    e_p = 3 + 6 * multires
+    ls = live_skips(depth, skips)
+    w, b = _plain_weights(params, torch.bfloat16)
+    enc, encv = _plain_encodings(pts_t, viewdirs_t, multires, multires_views,
+                                 torch.bfloat16)
+    got = [a.float() for a in split_acts(acts, P, depth, width)]
+    # per layer: (input, weight [out, in], bias, ReLU, per-ray term or None)
+    layers = []
+    for i in range(depth):
+        x = enc if i == 0 else got[i - 1]
+        if (i - 1) in ls:
+            x = torch.cat([enc, x], 1)
+        layers.append((x, w(f"trunk_{i}"), b(f"trunk_{i}"), True, None))
+    layers.append((got[depth - 1], w("feature"), b("feature"), False, None))
+    wv = w("views_0")
+    hv_ray = {dt: (encv.to(dt) @ wv[:, width:].T.to(dt)).float()
+              .to(torch.bfloat16).float().repeat_interleave(S, dim=0)
+              for dt in (torch.float32, torch.float64)}
+    layers.append((got[depth], wv[:, :width], b("views_0"), True, hv_ray))
+
+    def rounded(x, wl, bl, relu, hv, dt):
+        z = x.to(dt) @ wl.T.to(dt)
+        if hv is not None:
+            z = z + hv[dt].to(dt)
+        z = z + bl.to(dt)
+        return (torch.relu(z) if relu else z).float().to(torch.bfloat16).float()
+
+    kernel, f32 = [], []
+    for (x, wl, bl, relu, hv), a in zip(layers, got):
+        exact = rounded(x, wl, bl, relu, hv, torch.float64)
+        kernel.append((a != exact).float().mean().item())
+        f32.append((rounded(x, wl, bl, relu, hv, torch.float32) != exact)
+                   .float().mean().item())
+    return {"kernel": kernel, "float32": f32}
 
 
 def split_acts(acts: torch.Tensor, P: int, depth: int, width: int):
@@ -730,6 +874,19 @@ def _packed_for(params, depth, dtype, device, packed):
     return packed
 
 
+def _tc_ptr(packed):
+    return None if packed.weights_p is None else packed.weights_p.data_ptr()
+
+
+def _offset_ptrs(packed):
+    """``w_offsets``, ``b_offsets`` and ``p_offsets`` (None in float32) as
+    the launches take them."""
+    return (ctypes.addressof(packed.w_offsets),
+            ctypes.addressof(packed.b_offsets),
+            None if packed.p_offsets is None
+            else ctypes.addressof(packed.p_offsets))
+
+
 def _fwd_launch(fn, packed, pts_t, viewdirs_t, S, depth, width, multires,
                 multires_views, skips, acts=None, fpart=None):
     P = pts_t.shape[1]
@@ -737,12 +894,10 @@ def _fwd_launch(fn, packed, pts_t, viewdirs_t, S, depth, width, multires,
     skip_mask = sum(1 << s for s in live_skips(depth, skips))
     lib = _build.load(KERNEL, ARGTYPES)
     tail = (P, S, depth, width, multires, multires_views, skip_mask,
-            int(packed.dtype == torch.bfloat16),
-            ctypes.addressof(packed.w_offsets),
-            ctypes.addressof(packed.b_offsets),
+            int(packed.dtype == torch.bfloat16), *_offset_ptrs(packed),
             torch.cuda.current_stream(pts_t.device).cuda_stream)
     head = (pts_t.data_ptr(), viewdirs_t.data_ptr(), packed.weights.data_ptr(),
-            packed.biases.data_ptr(), out.data_ptr())
+            _tc_ptr(packed), packed.biases.data_ptr(), out.data_ptr())
     if fpart is not None:
         err = lib.fused_nerf_fwd_sem_launch(
             *head, None if acts is None else acts.data_ptr(),
@@ -959,12 +1114,11 @@ def _bwd_launch(fn, mode, params, packed, pts_t, viewdirs_t, g, S, depth,
         None if acts is None else acts.data_ptr(),
         None if dfeat_ray is None else dfeat_ray.data_ptr(),
         packed.weights.data_ptr(), packed.weights_t.data_ptr(),
-        packed.biases.data_ptr(),
+        _tc_ptr(packed), packed.biases.data_ptr(),
         None if scratch is None else scratch.data_ptr(), part.data_ptr(),
         stride, G, n_w, P, S, depth, width, multires, multires_views,
         sum(1 << s for s in live_skips(depth, skips)),
-        int(packed.dtype == torch.bfloat16),
-        ctypes.addressof(packed.w_offsets), ctypes.addressof(packed.b_offsets),
+        int(packed.dtype == torch.bfloat16), *_offset_ptrs(packed),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, BWD_KERNEL, err)
     fn.launches += 1
@@ -1294,9 +1448,9 @@ def fused_nerf_fwd_cf(params: Mapping[str, torch.Tensor], xb, vb, aux, S: int,
     lib = _build.load(KERNEL, ARGTYPES)
     err = lib.fused_nerf_fwd_cf_launch(
         xb.data_ptr(), vb.data_ptr(), aux.data_ptr(), packed.weights.data_ptr(),
-        packed.biases.data_ptr(), out.data_ptr(), P, nSB, float(eps), depth,
-        width, multires, multires_views, int(packed.dtype == torch.bfloat16),
-        ctypes.addressof(packed.w_offsets), ctypes.addressof(packed.b_offsets),
+        _tc_ptr(packed), packed.biases.data_ptr(), out.data_ptr(), P, nSB,
+        float(eps), depth, width, multires, multires_views,
+        int(packed.dtype == torch.bfloat16), *_offset_ptrs(packed),
         torch.cuda.current_stream(xb.device).cuda_stream)
     _build.check(lib, KERNEL, err)
     fused_nerf_fwd_cf.launches += 1
@@ -1535,7 +1689,8 @@ def fused_nerf_apply_rays(params: Mapping[str, torch.Tensor], rays_o, rays_d,
     gradient) where :func:`cf_route_ok` holds, as JAX does. Otherwise,
     without a gradient the plain forward runs (``packed`` as for
     :func:`fused_nerf_fwd`); under autograd the route is JAX's:
-    ``save_acts`` within :func:`acts_route_ok` saves activations ("acts");
+    ``save_acts`` with :func:`bwd_acts_enabled` and within
+    :func:`acts_route_ok` saves activations ("acts");
     otherwise the recompute backward, culled when ``cull_bwd`` and the
     samples divide into 16-sample blocks ("culled"), else dense ("dense").
     """
@@ -1559,7 +1714,8 @@ def fused_nerf_apply_rays(params: Mapping[str, torch.Tensor], rays_o, rays_d,
     elif not grad:
         route = "forward"
         raw = fused_nerf_fwd(params, pts_t, vd_t, S, packed=packed, **kw)
-    elif save_acts and acts_route_ok(N, S, depth, width, dtype):
+    elif save_acts and bwd_acts_enabled() \
+            and acts_route_ok(N, S, depth, width, dtype):
         route = "acts"
         raw = FusedActs.run(params, pts_t, vd_t, S, **kw)
     else:

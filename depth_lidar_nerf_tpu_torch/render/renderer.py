@@ -17,6 +17,7 @@ direction, near, far and the unit *pre-NDC* view direction.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, NamedTuple, Optional
 
 import torch
@@ -270,17 +271,20 @@ def render_rays(model, fine_model, rays: Rays, cfg: RenderConfig,
     ``rgb0/disp0/acc0/depth_map0``, ``z_std``, and with a semantic head the
     ray-summed logits ``sem_preds`` (fine) and ``sem_preds0`` (coarse). ``generator`` drives the
     stratified jitter, sigma noise and random importance draws, in that order.
-    Under autograd the coarse pass takes the recompute backward and the fine
-    pass saves its activations (the JAX ``render_rays``); a semantic pass
-    always saves them. With ``cull_eps > 0`` and ``DLNERF_CULL_FWD=1`` the
-    fine pass takes the early-terminating forward (kernel 9), sorted by the
-    coarse pass's termination estimate. With ``render_fine_only`` the fine
+    Under autograd the coarse pass takes the recompute backward (or, under
+    ``DLNERF_ACTS_COARSE=1``, read at call time, saves its activations) and
+    the fine pass saves its activations (the JAX ``render_rays``); a
+    semantic pass always saves them. With ``cull_eps > 0`` and
+    ``DLNERF_CULL_FWD=1`` the fine pass takes the early-terminating forward
+    (kernel 9), sorted by the coarse pass's termination estimate. With ``render_fine_only`` the fine
     pass evaluates only the sorted importance samples.
     """
     z_vals = stratified_z_vals(rays.near, rays.far, cfg.N_samples,
                                lindisp=cfg.lindisp, perturb=cfg.perturb,
                                generator=generator)
-    coarse = _composite_from_z(model, rays, z_vals, cfg, generator)
+    coarse = _composite_from_z(
+        model, rays, z_vals, cfg, generator,
+        save_acts=os.environ.get("DLNERF_ACTS_COARSE", "0") == "1")
     ret = {"rgb_map": coarse.rgb, "disp_map": coarse.disp,
            "acc_map": coarse.acc, "depth_map": coarse.depth,
            "weights": coarse.weights}

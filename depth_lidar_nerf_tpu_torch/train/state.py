@@ -12,6 +12,7 @@ of a step is read at the step count before the update.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple, Optional
 
 import torch
@@ -122,19 +123,27 @@ class FusedMLP(NeRFMLP):
         every parameter's version counter."""
         self._packed_key = self._packed_q8_key = None
 
+    @staticmethod
+    def _cull_bwd(cfg: RenderConfig) -> bool:
+        """JAX ``FusedMLP.apply_rays``: the cotangent-culled backward under
+        ``cull_eps > 0``, unless ``DLNERF_NO_BWD_CULL=1`` (read at call
+        time) asks for the dense one."""
+        return cfg.cull_eps > 0 and \
+            os.environ.get("DLNERF_NO_BWD_CULL", "0") != "1"
+
     def apply_rays(self, rays, z_vals, cfg: RenderConfig,
                    save_acts: bool = False, fwd_cull=None) -> torch.Tensor:
         """Rays + per-ray depths -> channel-major raw ``[4, N, S]``. Under
-        autograd the backward is culled when ``cfg.cull_eps > 0`` (as the
-        JAX ``FusedMLP.apply_rays``), and ``save_acts`` asks for the
-        saved-activation route; ``fwd_cull`` asks for the early-terminating
-        forward (kernel 9) under ``DLNERF_CULL_FWD=1``."""
+        autograd the backward is culled as :meth:`_cull_bwd` says, and
+        ``save_acts`` asks for the saved-activation route; ``fwd_cull`` asks
+        for the early-terminating forward (kernel 9) under
+        ``DLNERF_CULL_FWD=1``."""
         params = dict(self.named_parameters())
         return fused_mlp_t.fused_nerf_apply_rays(
             params, rays.origins, rays.directions, rays.viewdirs, z_vals,
             depth=self.depth, width=self.width, multires=cfg.multires,
             multires_views=cfg.multires_views, dtype=self.dtype,
-            skips=self.skips, cull_bwd=cfg.cull_eps > 0,
+            skips=self.skips, cull_bwd=self._cull_bwd(cfg),
             save_acts=save_acts, fwd_cull=fwd_cull,
             packed=self._nograd_pack(params, z_vals.device))
 

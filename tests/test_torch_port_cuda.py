@@ -109,6 +109,22 @@ def test_fused_fwd_acts_kernel_matches_plain(cuda, depth, width, S, N, dtype):
             tol * b.float().abs().max().item()
 
 
+@pytest.mark.parametrize("depth,S", [(4, 64), (8, 128)])
+def test_bf16_tile_against_float64_witness(cuda, depth, S):
+    """The bfloat16 tile's accuracy, independent of its layout twin: at 256
+    rays, summed over the net's layers, kernel 4's activations round
+    otherwise than the float64 recomputation from their own inputs no more
+    often than float32 products on those inputs do (chip_smoke.py's
+    WITNESS_RATIO)."""
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f
+
+    params, pts, vd, _ = _mlp_inputs(cuda, depth, 256, S, 256, depth * S)
+    kw = dict(depth=depth, width=256, multires=10, multires_views=4, skips=(4,))
+    _, acts = f.fused_nerf_fwd_acts(params, pts, vd, S, dtype=torch.bfloat16, **kw)
+    wit = f.bf16_product_witness(params, pts, vd, acts, S, **kw)
+    assert sum(wit["kernel"]) <= sum(wit["float32"])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("depth,width,S,N", _MLP_SHAPES)
 def test_fused_bwd_kernels_match_plain(cuda, depth, width, S, N, dtype):
