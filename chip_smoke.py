@@ -23,7 +23,11 @@ which raises on failure:
    (the backwards against the plain backward on the forward kernel's
    activations); the culled backward also against the dense one; the
    bfloat16 tile's activations at 4,096 rays against a float64 witness
-   (no more rounded the wrong way than by float32 products); then the
+   (no more rounded the wrong way than by float32 products); the split
+   backward of kernel 5 in bfloat16: bit for bit run to run, its cotangents
+   against the float64 witness of the backward's products at D=4 S=64 and
+   D=8 S=128, and each phase alone against its twin on a fine pass's first
+   chunk of 2^18 points (phase 2 on phase 1's cotangents); then the
    semantic kernels (phase 8); then the int8 serving kernels 10 and 11
    (kernel 11 with the semantic head kernel) at W=256, D=4 and D=8 skip@4,
    float32 and bfloat16, 4,096 and 32,768 rays x S=64 and 128, 19 classes,
@@ -79,7 +83,8 @@ which raises on failure:
    the losses and the final parameters;
 7. each kernel's time at the serving and training shapes beside its plain
    version's, its achieved TFLOP/s and its bound (kernel 10's bound: int8 operations at 1,979
-   TOPS plus bf16 FLOP at 989 TFLOP/s, or bytes at 3.35 TB/s);
+   TOPS plus bf16 FLOP at 989 TFLOP/s, or bytes at 3.35 TB/s); each phase of kernel 5's split
+   backward alone over the fine pass's chunks, and the device memory the split takes;
 8. (run within phase 3) the semantic kernels against their plain
    versions: kernels 6 (no-grad
    forward), 7 (forward saving activations) and 8 (backward), the semantic
@@ -87,7 +92,8 @@ which raises on failure:
    and D=8 skip@4, float32 and bfloat16, 4,096 and 16,384 rays x S=64 and
    128, on logit cotangents that are zero on the second half of the rays
    (the backward against the plain backward on kernel 7's activations;
-   kernels 6 and 7 bitwise equal; kernel 8 bit for bit run to run);
+   kernels 6 and 7 bitwise equal; kernel 8 bit for bit run to run; in
+   its bfloat16 chain's input products on FMA, in the twin's order);
 9. semantic training: ``bench.py``'s ``ref_default_semantic_two_mlp``
    stack (coarse D=4 and fine D=8 skip@4 at W=256, both with a 19-class
    semantic head, 64 + 64 samples, 16,384 rays half RGB half LiDAR depth,
@@ -107,7 +113,8 @@ which raises on failure:
    (the bf16 frame would take the plain module there), launch counts,
    ms/frame, each map against phase 10's bf16 frame; kernel 11's times at
    the serving shapes;
-11. the semantic kernels' times at the step's shapes, then a 5-step
+11. the semantic kernels' times at the step's shapes (and the device
+   memory of kernel 8's split), then a 5-step
    trajectory of the semantic stack, kernel path against plain path (4,096
    rays, float32 and bfloat16);
 12. one ``{"kernels": [...]}`` JSON line with every kernel.
@@ -254,6 +261,10 @@ CF_TWIN_TOL = {"float32": 3e-6, "bfloat16": 3e-6}
 # before each k-step's tensor-core sum was added to the accumulators in
 # float32.
 WITNESS_RATIO = 1.0
+# Phase 2 of the split backward (fused_nerf_wgrad_kernel) against its twin:
+# max abs error over the output's max abs. Both add exact bfloat16 products
+# in float32, in other orders, over up to 2^18 points.
+WGRAD_TOL = 1e-5
 CF_N_RAYS = (TRAIN_N_RAYS, 4000)  # 4,000 pad to 4,096
 CF_S, CF_EPS = 128, 1e-4
 # Trajectories of the sigma-loss stack, kernel vs plain, as TRAJ_TOL: about
@@ -339,30 +350,57 @@ def profile_step(fn, label):
 
 
 def sass_tensor_core_check(_build, fmt):
-    """The bfloat16 forward tile runs its products on the tensor cores:
-    ``cuobjdump --dump-sass`` of the built libraries shows HMMA in every
-    bfloat16 instantiation of the forward kernels (1, 4, 6, 7, 9) and of the
-    recompute backward (2, 3), which runs the same tile, and none in their
-    float32 ones."""
+    """The bfloat16 products run on the tensor cores: ``cuobjdump
+    --dump-sass`` of the built libraries shows HMMA (or HGMMA) in every
+    bfloat16 instantiation of the forward kernels (1, 4, 6, 7, 9), of the
+    recompute backward (2, 3; more than the forward tile alone has, so its
+    backward tile has them too), of the split backward's phase 1
+    (``fused_nerf_bwd_acts_kernel``: kernel 5's) and in phase 2's
+    ``fused_nerf_wgrad_kernel``; none in a float32 instantiation. Kernel 8's
+    phase 1 keeps its input products on FMA, in its twin's order (the note
+    of ``backward_tile`` in csrc/fused_nerf_bwd.cu): its count is printed."""
     import re
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    kernel = re.compile(r"\d+(fused_nerf_fwd\w*_kernel|fused_nerf_bwd_recompute_kernel)"
-                        r"I(13__nv_bfloat16|f)")
-    hmma = {"bf16": [], "f32": []}
+    kernel = re.compile(r"\d+(fused_nerf_\w+?_kernel)"
+                        r"(?:I(13__nv_bfloat16|f)Li(\d+)E((?:Lb[01]E)*))?")
+    found = []  # (name, type, W, flags, tensor-core instructions) per instantiation
     for lib in (fmt.KERNEL, fmt.BWD_KERNEL):
         sass = subprocess.run([tool, "--dump-sass", str(_build.library_path(lib))],
                               capture_output=True, text=True, check=True).stdout
         for chunk in sass.split("Function : ")[1:]:
             m = kernel.search(chunk.split()[0])
             if m:
-                hmma["f32" if m.group(2) == "f" else "bf16"].append(chunk.count("HMMA"))
-    print(f"SASS: HMMA per bfloat16 forward-tile kernel {sorted(hmma['bf16'])}, per "
-          f"float32 one {sorted(hmma['f32'])}")
-    check(len(hmma["bf16"]) == len(hmma["f32"]) == 14,
-          "14 instantiations of each type in the SASS")
-    check(all(v > 0 for v in hmma["bf16"]), "HMMA in every bfloat16 forward tile")
-    check(all(v == 0 for v in hmma["f32"]), "no HMMA in a float32 forward tile")
+                found.append((m.group(1), {"f": "f32", None: "bf16 only"}.get(
+                    m.group(2), "bf16"), m.group(3), m.group(4),
+                    chunk.count("HMMA") + chunk.count("HGMMA")))
+    tile = [k for k in found if k[0].startswith("fused_nerf_fwd")
+            or k[0] == "fused_nerf_bwd_recompute_kernel"]
+    # fused_nerf_bwd_acts_kernel<T, W, kSem>: Lb0E kernel 5, Lb1E kernel 8
+    split = [k for k in found if k[0] == "fused_nerf_wgrad_kernel"
+             or (k[0] == "fused_nerf_bwd_acts_kernel" and k[3] == "Lb0E")]
+    sem = [k for k in found if k[0] == "fused_nerf_bwd_acts_kernel" and k[3] == "Lb1E"]
+    for label, group in (("forward-tile", tile), ("split-backward", split),
+                         ("kernel 8 phase-1 (FMA, its twin's order)", sem)):
+        print(f"SASS: tensor-core instructions per bfloat16 {label} kernel "
+              f"{sorted(k[4] for k in group if k[1] != 'f32')}, per float32 one "
+              f"{sorted(k[4] for k in group if k[1] == 'f32')}")
+    check(sum(k[1] == "bf16" for k in tile) == sum(k[1] == "f32" for k in tile) == 14,
+          "14 forward-tile instantiations of each type in the SASS")
+    check(sum(k[1] == "bf16" for k in split) == sum(k[1] == "f32" for k in split) == 2
+          and [k[0] for k in split if k[1] == "bf16 only"] == ["fused_nerf_wgrad_kernel"]
+          and len(sem) == 4, "2 bfloat16 and 2 float32 kernel-5 instantiations, 4 of kernel "
+          "8 and the phase-2 kernel in the SASS")
+    check(all(k[4] > 0 for k in tile + split if k[1] != "f32"),
+          "HMMA in every bfloat16 kernel")
+    check(all(k[4] == 0 for k in tile + split + sem if k[1] == "f32"),
+          "no HMMA in a float32 kernel")
+    fwd = {k[2]: k[4] for k in tile if k[0] == "fused_nerf_fwd_acts_kernel"
+           and k[1] == "bf16"}
+    for name, typ, width, _, n in tile:
+        if name == "fused_nerf_bwd_recompute_kernel" and typ == "bf16":
+            check(n > fwd[width], f"HMMA in the recompute backward's tile (W={width}: "
+                  f"{n} against the forward tile's {fwd[width]})")
 
 
 def mlp_macs(depth, width, e_p, e_v, live_skips, S):
@@ -379,6 +417,64 @@ def bwd_macs(depth, width, e_p, e_v, live_skips, S):
     gradients (none into the encodings)."""
     fwd = mlp_macs(depth, width, e_p, e_v, live_skips, S)
     return 2 * fwd - e_p * width * (1 + len(live_skips)) - e_v * (width // 2) / S
+
+
+def wgrad_macs(depth, width, e_p, live_skips):
+    """Multiply-adds per point of phase 2 of the split backward: the weight
+    gradients of the trunk (encoding rows of layer 0 and of each live skip
+    layer, trunk rows of the others), feature and views_0's feature rows."""
+    return (e_p * width * (1 + len(live_skips)) + (depth - 1) * width * width
+            + width * width + width * (width // 2))
+
+
+def split_memory(fmt, label, fn, P, depth):
+    """Device memory a split backward's call takes beyond its inputs, by the
+    allocator's peak, beside the cotangent buffer of one chunk."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    cot = fmt.cot_numel(min(P, fmt.BWD_CHUNK), depth, 256, 10) * 2
+    print(f"split backward, {label}: {P} points in chunks of {fmt.BWD_CHUNK}; "
+          f"extra device memory {peak / 2**30:.3f} GiB at peak, of which the "
+          f"cotangent buffer {cot / 2**30:.3f} GiB", flush=True)
+    return {"peak_bytes": peak, "cotangent_buffer_bytes": cot}
+
+
+def split_phase_times(fmt, params, pts, vd, g, acts, S, kw, pk):
+    """(ms, plain ms) of each phase of kernel 5's split backward alone over
+    every chunk of a pass, phase 2 on phase 1's cotangents."""
+    import torch
+
+    P, depth = pts.shape[1], kw["depth"]
+    pts, vd, g = (x.float().contiguous() for x in (pts, vd, g))
+    chunks = [(c, min(fmt.BWD_CHUNK, P - c)) for c in range(0, P, fmt.BWD_CHUNK)]
+    stride = -(-(pk.weights.numel() + pk.biases.numel()) // 4) * 4
+    part = torch.zeros((2 * fmt._grid(pts.device, 1 << 30), stride), device=pts.device)
+    cots = [fmt.fused_nerf_bwd_chain(params, pts, vd, g, acts, S, c, n, part,
+                                     packed=pk, **kw) for c, n in chunks]
+    ents = [fmt.wgrad_entries(acts, cot, P, c, n, depth, 256, 10, kw["skips"],
+                              pk.w_offsets) for cot, (c, n) in zip(cots, chunks)]
+    args = (params, pts, vd, g, acts, S)
+    out = {
+        "fused_nerf_bwd_chain": (
+            cuda_ms(lambda: [fmt.fused_nerf_bwd_chain(*args, c, n, part, packed=pk,
+                                                      cot=cot, **kw)
+                             for cot, (c, n) in zip(cots, chunks)], 3, 1),
+            cuda_ms(lambda: [fmt.fused_nerf_bwd_chain_plain(*args, c, n, **kw)
+                             for c, n in chunks], 1, 1)),
+        "fused_nerf_bwd_weight_grads": (
+            cuda_ms(lambda: [fmt.bwd_weight_grads(e, part, n)
+                             for e, (_, n) in zip(ents, chunks)], 3, 1),
+            cuda_ms(lambda: [fmt.bwd_weight_grads_plain(e, part[:1])
+                             for e in ents], 2, 1))}
+    del cots, ents, part
+    torch.cuda.empty_cache()
+    return out
 
 
 def mlp_inputs(NeRFMLP, dev, depth, n_rays, S, seed):
@@ -429,7 +525,8 @@ def train_kernel_checks(fmt, NeRFMLP, dev, launch_fns):
     import torch
 
     err = {"fused_nerf_fwd_acts": 0.0, "fused_nerf_bwd": 0.0,
-           "fused_nerf_bwd_culled": 0.0, "fused_nerf_bwd_acts": 0.0}
+           "fused_nerf_bwd_culled": 0.0, "fused_nerf_bwd_acts": 0.0,
+           "fused_nerf_bwd_chain": 0.0, "fused_nerf_bwd_weight_grads": 0.0}
     for depth in (4, 8):
         for n_rays, S in ((4096, 64), (4096, 128), (TRAIN_N_RAYS, 64),
                           (TRAIN_N_RAYS, 128)):
@@ -443,7 +540,19 @@ def train_kernel_checks(fmt, NeRFMLP, dev, launch_fns):
                 raw, acts = fmt.fused_nerf_fwd_acts(params, pts, vd, S, **kw)
                 from_acts = fmt.fused_nerf_bwd_acts(params, pts, vd, g, acts,
                                                     S, **kw)
+                if n_rays == 4096 and S == 64:
+                    again = fmt.fused_nerf_bwd_acts(params, pts, vd, g, acts, S, **kw)
+                    check(all(torch.equal(from_acts[k], again[k]) for k in again),
+                          f"kernel 5 bit-identical run to run D={depth} {name}")
+                    del again
                 torch.cuda.synchronize()
+                if dtype == torch.bfloat16 and n_rays == 4096 \
+                        and (depth, S) in ((4, 64), (8, 128)):
+                    bwd_witness(fmt, params, pts, vd, g, acts, from_acts, S, depth)
+                if dtype == torch.bfloat16 and n_rays == TRAIN_N_RAYS and S == 128:
+                    for k, e in split_phase_checks(fmt, params, pts, vd, g, acts, S,
+                                                   kw).items():
+                        err[k] = max(err[k], e)
                 n_before = [f.launches for f in launch_fns]
                 raw_ref, acts_ref, _, _ = fmt._forward_plain(
                     params, pts, vd, S, depth, 256, 10, 4, dtype, (4,))
@@ -514,6 +623,86 @@ def train_kernel_checks(fmt, NeRFMLP, dev, launch_fns):
             del params, pts, vd, g
             torch.cuda.empty_cache()
     return err
+
+
+def bwd_witness(fmt, params, pts, vd, g, acts, grads, S, depth):
+    """Phase 3: the bfloat16 split backward against the float64 witness
+    (fused_mlp_t.bwd_product_witness): phase 1's cotangents of all the
+    points (one chunk) rounded otherwise no more often than by float32
+    products (WITNESS_RATIO, summed over the layers); the weight gradients'
+    max-over-mean errors against float64 products printed beside float32's."""
+    import torch
+
+    P = pts.shape[1]
+    kw = dict(depth=depth, width=256, multires=10, multires_views=4, skips=(4,))
+    pk = fmt.pack_params(params, depth, torch.bfloat16, pts.device)
+    part = torch.zeros((fmt._grid(pts.device, 1 << 30),
+                        -(-(pk.weights.numel() + pk.biases.numel()) // 4) * 4),
+                       device=pts.device)
+    cot = fmt.fused_nerf_bwd_chain(params, pts.contiguous(), vd.contiguous(), g, acts,
+                                   S, 0, P, part, dtype=torch.bfloat16, packed=pk, **kw)
+    wit = fmt.bwd_product_witness(params, g, acts, cot, grads, S, depth=depth,
+                                  width=256, multires=10, skips=(4,))
+    sk, s32 = sum(wit["kernel"]), sum(wit["float32"])
+    wk, w32 = max(wit["wgrad_kernel"].values()), max(wit["wgrad_float32"].values())
+    print(f"bf16 backward against the float64 witness D={depth} N={P // S} S={S}: "
+          "cotangents rounded otherwise per layer (dhv, dfeat, dh_D-1 .. dh_0) kernel "
+          + " ".join(f"{x:.3g}" for x in wit["kernel"]) + "; float32 products "
+          + " ".join(f"{x:.3g}" for x in wit["float32"])
+          + f"; summed {sk:.4g} against {s32:.4g} ({sk / s32:.3f}x, limit "
+          f"{WITNESS_RATIO:g}x); weight gradients max abs err over mean abs, worst "
+          f"block: kernel {wk:.3g}, float32 products {w32:.3g}", flush=True)
+    check(sk <= WITNESS_RATIO * s32,
+          f"bf16 backward against the float64 witness D={depth} S={S}")
+    del cot, part
+    torch.cuda.empty_cache()
+
+
+def split_phase_checks(fmt, params, pts, vd, g, acts, S, kw):
+    """Phase 3: each phase of the split backward on its own against its twin,
+    on the first chunk of a step's fine pass: phase 1's cotangents (max abs
+    error over max abs, per layer) and small gradients (as TRAIN_TOL) within
+    TRAIN_TOL; phase 2 on phase 1's cotangents within WGRAD_TOL of its
+    output's max abs. Returns each phase's largest max abs error."""
+    import torch
+
+    depth, dev = kw["depth"], pts.device
+    P, count = pts.shape[1], min(pts.shape[1], fmt.BWD_CHUNK)
+    pk = fmt.pack_params(params, depth, kw["dtype"], dev)
+    n = pk.weights.numel() + pk.biases.numel()
+    stride = -(-n // 4) * 4
+    part = torch.zeros((fmt._grid(dev, 1 << 30), stride), device=dev)
+    args = (params, pts.contiguous(), vd.contiguous(), g, acts, S, 0, count)
+    cot = fmt.fused_nerf_bwd_chain(*args, part, packed=pk, **kw)
+    ents = fmt.wgrad_entries(acts, cot, P, 0, count, depth, 256, 10, (4,), pk.w_offsets)
+    wpart = torch.zeros((fmt._wgrad_splits(ents, count, dev), stride), device=dev)
+    fmt.bwd_weight_grads(ents, wpart, count)
+    torch.cuda.synchronize()
+    cot_ref, small_ref = fmt.fused_nerf_bwd_chain_plain(*args, **kw)
+    e1 = [(a.float() - b.float()).abs().max().item() / (b.float().abs().max().item()
+                                                           + 1e-30)
+          for a, b in zip(fmt.split_cot(cot, count, depth, 256, 10),
+                          fmt.split_cot(cot_ref, count, depth, 256, 10))]
+    e1_abs = (cot.float() - cot_ref.float()).abs().max().item()
+    got = fmt.unpack_grads(part.sum(0)[:n], params, pk, depth)
+    small = grad_err(fmt, got, fmt.unpack_grads(small_ref, params, pk, depth), depth)
+    wref = torch.zeros((1, stride), device=dev)
+    fmt.bwd_weight_grads_plain(ents, wref)
+    e2_abs = (wpart.sum(0) - wref[0]).abs().max().item()
+    e2 = e2_abs / wref.abs().max().item()
+    print(f"split backward phases D={depth} N={P // S} S={S} bfloat16, first chunk of "
+          f"{count} points: phase 1 cotangents max abs err over max abs per layer "
+          + " ".join(f"{x:.3g}" for x in e1) + f", small gradients {small[0]:.3g} "
+          f"(tolerance {TRAIN_TOL['bfloat16']:g}); phase 2 {e2:.3g} of its max "
+          f"(abs {e2_abs:.3g}; tolerance {WGRAD_TOL:g}), {wpart.shape[0]} splits",
+          flush=True)
+    check(max(e1) <= TRAIN_TOL["bfloat16"] and small[0] <= TRAIN_TOL["bfloat16"],
+          f"split backward phase 1 vs plain D={depth} S={S}")
+    check(e2 <= WGRAD_TOL, f"split backward phase 2 vs plain D={depth} S={S}")
+    del cot, cot_ref, part, wpart, wref, ents
+    torch.cuda.empty_cache()
+    return {"fused_nerf_bwd_chain": max(e1_abs, small[1]),
+            "fused_nerf_bwd_weight_grads": e2_abs}
 
 
 def sem_inputs(NeRFMLP, dev, depth, n_rays, S, seed):
@@ -1021,6 +1210,8 @@ def kernel_fns(fmt, sc):
             "fused_nerf_sem_head": fmt.sem_head,
             "fused_nerf_sem_head_bwd": fmt.sem_head_bwd,
             "fused_nerf_grad_reduce": fmt.grad_reduce,
+            "fused_nerf_bwd_chain": fmt.fused_nerf_bwd_chain,
+            "fused_nerf_bwd_weight_grads": fmt.bwd_weight_grads,
             "fused_nerf_fwd_q8": fmt.fused_nerf_fwd_q8,
             "fused_nerf_fwd_q8_sem": fmt.fused_nerf_fwd_q8_sem,
             "fused_nerf_fwd_cf": fmt.fused_nerf_fwd_cf,
@@ -1069,9 +1260,14 @@ def semantic_phases(fmt, sc, renderer, dev, card, plain_sampler):
     launches = {k: fn.launches for k, fn in fns.items()}
     n = 25
     want = dict.fromkeys(fns, 0)
+    # Kernel 8's split backward: 2^20 coarse and 2^21 fine points a step,
+    # 4 + 8 chunks of BWD_CHUNK, one launch of each phase a chunk.
+    n_chunks = sum(-(-TRAIN_N_RAYS * S // fmt.BWD_CHUNK) for S in (64, 128))
     want.update({"fused_nerf_fwd_acts_sem": 2 * n, "fused_nerf_bwd_acts_sem": 2 * n,
                  "fused_nerf_sem_head": 2 * n, "fused_nerf_sem_head_bwd": 2 * n,
-                 "fused_nerf_grad_reduce": 4 * n, sc.KERNEL: n})
+                 "fused_nerf_grad_reduce": 4 * n, sc.KERNEL: n,
+                 "fused_nerf_bwd_chain": n_chunks * n,
+                 "fused_nerf_bwd_weight_grads": n_chunks * n})
     print(f"semantic training launches over {n} steps: {launches}", flush=True)
     check(launches == want, f"semantic training launch counts, want {want}")
     vals = [{k: v.item() for k, v in m.items()} for m in metrics]
@@ -1314,6 +1510,14 @@ def semantic_phases(fmt, sc, renderer, dev, card, plain_sampler):
               f"{fl / t[k][0] / 1e9:.2f} TFLOP/s, bound {bounds[k][0]:.4f} ms "
               f"({bounds[k][1]}) on {card}", flush=True)
     out["times"] = {k: (t[k][0], t[k][1]) + bounds[k] for k in t}
+    q = passes[-1]  # the fine pass (D=8 skip@4)
+    out["split_memory"] = split_memory(
+        fmt, "kernel 8 (fine pass of the semantic step)",
+        lambda: fmt.fused_nerf_bwd_acts_sem(
+            q["params"], q["pts"], q["vd"], q["g"], q["gsem"], q["acts"],
+            q["sem_acts"], q["spec"].S, packed=q["pk"], **q["spec"].kw()),
+        q["pts"].shape[1], q["spec"].depth)
+    del q
     # Each pass alone, beside kernels 1 and 4 on the same points without the
     # head (what the semantic variants add).
     with torch.no_grad():
@@ -1653,9 +1857,12 @@ def sigma_and_cf_training(fm, fmt, sc, renderer, dev, card, plain_sampler,
     check(tm.fine.supports_raw(rcfg), "the packed-lane kernels cover the fine net")
     ms, launches, vals = run(step, state, tables,
                              torch.Generator(device=dev).manual_seed(0))
+    n_chunks = -(-TRAIN_N_RAYS * 128 // fmt.BWD_CHUNK)  # kernel 5's split, fine pass
     want = {fmt.KERNEL: n, "fused_nerf_fwd_acts": n, "fused_nerf_bwd_culled": n,
             "fused_nerf_bwd_acts": n, sc.KERNEL: n, "fused_nerf_grad_reduce": 3 * n,
-            "fused_nerf_packed_fwd": n, "fused_nerf_packed_bwd": n}
+            "fused_nerf_packed_fwd": n, "fused_nerf_packed_bwd": n,
+            "fused_nerf_bwd_chain": n_chunks * n,
+            "fused_nerf_bwd_weight_grads": n_chunks * n}
     print(f"sigma-loss training launches over {n} steps: {launches}", flush=True)
     check(launches == want, f"sigma-loss launch counts, want {want}")
     losses = [m["loss"] for m in vals]
@@ -2287,7 +2494,9 @@ def main() -> int:
           f"{tables[1].origins.shape[0]} depth rays, near {rcfg_t.near:.3f}, "
           f"far {rcfg_t.far:.3f})", flush=True)
     counted = {fmt.KERNEL: fmt.fused_nerf_fwd, **train_fns,
-               sc.KERNEL: sc.inverse_cdf, "fused_nerf_grad_reduce": fmt.grad_reduce}
+               sc.KERNEL: sc.inverse_cdf, "fused_nerf_grad_reduce": fmt.grad_reduce,
+               "fused_nerf_bwd_chain": fmt.fused_nerf_bwd_chain,
+               "fused_nerf_bwd_weight_grads": fmt.bwd_weight_grads}
     for fn in counted.values():
         fn.launches = 0
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2302,9 +2511,13 @@ def main() -> int:
     metrics += [step_strict(state, *tables, gen) for _ in range(3)]
     torch.cuda.synchronize()
     train_launches = {k: fn.launches for k, fn in counted.items()}
+    n_chunks = -(-TRAIN_N_RAYS * (rcfg_t.N_samples + rcfg_t.N_importance)
+                 // fmt.BWD_CHUNK)  # kernel 5's split, fine pass
     want = {fmt.KERNEL: 28, "fused_nerf_fwd_acts": 28, "fused_nerf_bwd": 3,
             "fused_nerf_bwd_culled": 25, "fused_nerf_bwd_acts": 28,
-            sc.KERNEL: 28, "fused_nerf_grad_reduce": 56}
+            sc.KERNEL: 28, "fused_nerf_grad_reduce": 56,
+            "fused_nerf_bwd_chain": 28 * n_chunks,
+            "fused_nerf_bwd_weight_grads": 28 * n_chunks}
     print(f"training launches over 25 steps at cull_eps 1e-4 and 3 at 0: "
           f"{train_launches}", flush=True)
     check(train_launches == want, f"training launch counts, want {want}")
@@ -2371,6 +2584,11 @@ def main() -> int:
                                                     **kw_f), 3, 1),
             cuda_ms(lambda: fmt.fused_nerf_bwd_acts_plain(pf, ptf, vdf, gf, actsf,
                                                           spec_f.S, **kw_f), 2, 1))
+        split_mem = split_memory(fmt, "kernel 5 (fine pass of the two_mlp step)",
+                                 lambda: fmt.fused_nerf_bwd_acts(
+                                     pf, ptf, vdf, gf, actsf, spec_f.S, packed=pk_f,
+                                     **kw_f), ptf.shape[1], spec_f.depth)
+        t.update(split_phase_times(fmt, pf, ptf, vdf, gf, actsf, spec_f.S, kw_f, pk_f))
         t["fused_nerf_bwd_culled"] = (
             cuda_ms(lambda: fmt.fused_nerf_bwd_culled(pc, xb, vb, gb,
                                                       fmt.SAMPLE_BLOCK, flags,
@@ -2395,9 +2613,20 @@ def main() -> int:
     live_pts = int(flags.sum().item()) * fmt.TILE
     io = lambda P, N: (3 * P + 3 * N + 4 * P) * 4  # noqa: E731
     acts_bytes = actsf.numel() * actsf.element_size()
+    wg_f = wgrad_macs(spec_f.depth, 256, 63, ())
+    cot_bytes = fmt.cot_numel(P_f, spec_f.depth, 256, 10) * 2
     work_t = {  # (FLOP, bytes) of this run's inputs
         "fused_nerf_fwd_acts": (2 * fwd_f * P_f,
                                 io(P_f, N_f) + n_w * 2 + acts_bytes),
+        # phase 1 reads what kernel 5 reads and writes the cotangents and the
+        # small gradients; phase 2 reads the activations it multiplies and
+        # the cotangents and writes the large gradients
+        "fused_nerf_bwd_chain": (2 * (bwd_f - wg_f) * P_f,
+                                 io(P_f, N_f) + 2 * n_w * 2 + acts_bytes + cot_bytes
+                                 + (n_w + n_b) * 4),
+        "fused_nerf_bwd_weight_grads": (2 * wg_f * P_f,
+                                        (spec_f.depth + 1) * P_f * 256 * 2 + cot_bytes
+                                        + n_w * 4),
         "fused_nerf_bwd_acts": (2 * bwd_f * P_f,
                                 io(P_f, N_f) + 2 * n_w * 2 + acts_bytes
                                 + (n_w + n_b) * 4),
@@ -2446,7 +2675,10 @@ def main() -> int:
     for k, source, line in (("fused_nerf_bwd", "fused_nerf_bwd.cu", 316),
                             ("fused_nerf_bwd_culled", "fused_nerf_bwd.cu", 334),
                             ("fused_nerf_fwd_acts", "fused_nerf_fwd.cu", 662),
-                            ("fused_nerf_bwd_acts", "fused_nerf_bwd.cu", 677)):
+                            ("fused_nerf_bwd_acts", "fused_nerf_bwd.cu", 677),
+                            # the two phases of kernels 5 and 8 in bfloat16
+                            ("fused_nerf_bwd_chain", "fused_nerf_bwd.cu", 677),
+                            ("fused_nerf_bwd_weight_grads", "fused_nerf_bwd.cu", 677)):
         kernels.append({
             "name": k, "route": "cuda", "source": src + source,
             "replaces": f"depth_lidar_nerf_tpu/ops/fused_mlp_t.py:{line}",
@@ -2484,15 +2716,17 @@ def main() -> int:
             "launches": main_launches[k], "max_abs_err": err[k], "ms": ms_,
             "plain_ms": plain_, "bound_ms": bound_, "bound_by": by_,
             "library_ms": None})
-    heads = {"fused_nerf_sem_head", "fused_nerf_sem_head_bwd"}  # parts of rows 6-8
-    check(len({k["name"] for k in kernels} - heads) == 14,
+    parts = {"fused_nerf_sem_head", "fused_nerf_sem_head_bwd",  # parts of rows 6-8
+             "fused_nerf_bwd_chain", "fused_nerf_bwd_weight_grads"}  # of rows 5, 8
+    check(len({k["name"] for k in kernels} - parts) == 14,
           "every TPU kernel has its counterpart")
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} launched on a main path")
     print(json.dumps({"int8_serving": int8_out}))
     print(json.dumps({"int8_semantic_serving": sem["int8_serving"]}))
     print(json.dumps({"semantic_training": {
-        **sem["training"], "trajectory_kernel_vs_plain": sem["trajectory"]}}))
+        **sem["training"], "trajectory_kernel_vs_plain": sem["trajectory"],
+        "split_backward_memory": sem["split_memory"]}}))
     print(json.dumps({"semantic_serving": sem["serving"]}))
     print(json.dumps({"sigma_loss_training": {
         **s5["sigma_training"], "trajectory_kernel_vs_plain": s5["sigma_trajectory"],
@@ -2506,6 +2740,7 @@ def main() -> int:
         "ms_per_step": ms_step, "rays_per_s": TRAIN_N_RAYS * 1e3 / ms_step,
         "losses": losses, "launches": train_launches,
         "coarse_tiles_skipped": 1 - live, "culling_glue_ms": glue_ms,
+        "split_backward_memory": split_mem,
         "trajectory_kernel_vs_plain": traj_err, "card": card}}))
     print(json.dumps({"serving": {"ms_per_frame": ms_frame,
                                   "rays_per_s": H * W * 1e3 / ms_frame,

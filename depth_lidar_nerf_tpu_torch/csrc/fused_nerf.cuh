@@ -12,11 +12,12 @@
 //
 // One block of 256 threads owns a tile of kTP = 64 consecutive points. Activations live
 // transposed in shared memory, [channel][kLD] with kLD = kTP + 4. The generic products (`mac`
-// for every float32 product and for the backward's input products, `outer` for the weight
-// gradients) run on the CUDA cores (FMA): a thread's register tile is 8 points (warp ty
+// for every float32 product and for the backward's float32 input products, `outer` for the
+// weight gradients) run on the CUDA cores (FMA): a thread's register tile is 8 points (warp ty
 // owns points 8 ty .. 8 ty + 7) x (W / 32) columns (lane tx owns columns tx + 32 j). The
 // bfloat16 forward tile's trunk, skip, feature and view-layer products run on the tensor
-// cores instead (`tc_layer`, mma.sync m16n8k16): warp ty owns all 64 points and an eighth
+// cores instead (`tc_layer`, mma.sync m16n8k16; the bfloat16 backward's input products and
+// weight gradients likewise, in fused_nerf_bwd.cu): warp ty owns all 64 points and an eighth
 // of the output columns, and reads its B operand from a third weight copy, `wp` (below).
 // Each mma sums one k-step's 16 products from zero and the result is added to a float32
 // accumulator (round to nearest), k-step by k-step: the tensor cores align a sum to its
@@ -53,6 +54,8 @@ struct Net {
   const void* w;    // packed weights [in, out] (T)
   const void* wt;   // packed weights [out, in] (T); backward only
   const void* wp;   // tensor-core rows, padded [out][K] (bfloat16 forward only; see above)
+  const void* wi;   // the backward's tensor-core rows (bfloat16 backward only; set by its
+                    // launchers, fused_nerf_bwd.cu tc_mac_in)
   const float* b;   // packed biases
   int depth, n_p, n_v, skip_mask;
   int woff[kMaxLayers];
@@ -66,7 +69,7 @@ inline Net make_net(const void* w, const void* wt, const void* wp, const float* 
                     int n_p, int n_v, int skip_mask, const int* woff, const int* boff,
                     const int* poff) {
   Net net;
-  net.w = w; net.wt = wt; net.wp = wp; net.b = b;
+  net.w = w; net.wt = wt; net.wp = wp; net.wi = nullptr; net.b = b;
   net.depth = depth; net.n_p = n_p; net.n_v = n_v; net.skip_mask = skip_mask;
   for (int i = 0; i < kMaxLayers; ++i) {
     net.woff[i] = i < depth + 4 ? woff[i] : 0;

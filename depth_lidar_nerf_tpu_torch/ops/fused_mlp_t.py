@@ -46,6 +46,14 @@ backward. The route is kept in
 is the semantic variant (JAX ``_fused_t_sem``): kernel 6 without a gradient,
 :class:`FusedSem` (kernels 7 and 8) under autograd.
 
+On the card in bfloat16, kernels 5 and 8 run as the split backward
+(:func:`_bwd_split`): phase 1, :func:`fused_nerf_bwd_chain`, backpropagates
+each tile and writes its cotangents; phase 2, :func:`bwd_weight_grads`, forms
+the large weight gradients from them as one split-K GEMM on the tensor
+cores, a chunk of ``BWD_CHUNK`` points at a time; each phase has its own
+launch counter and plain twin, and :func:`bwd_product_witness` holds its
+bfloat16 products against float64 ones.
+
 Kernels 10 and 11 are the W8A8 serving forwards (JAX ``render_int8``), with
 no backward: :func:`pack_params_q8` quantizes the wide weights per output
 column (:func:`quant_cols`), the kernels quantize each point's activation
@@ -91,10 +99,10 @@ ARGTYPES = {
     + [_INT] * 5 + [_PTR] * 4,
 }
 BWD_ARGTYPES = {
-    # (mode, pts, vd, g, flags, acts, dfeat_ray, w, wt, wp, b, scratch, part,
-    #  part_stride, G, n_w, P, S, depth, width, multires, multires_views,
-    #  skip_mask, bf16, w_off, b_off, p_off, stream)
-    "fused_nerf_bwd_launch": [_INT] + [_PTR] * 12 + [ctypes.c_longlong]
+    # (mode, pts, vd, g, flags, acts, dfeat_ray, w, wt, wp, wi, b, scratch,
+    #  part, part_stride, G, n_w, P, S, depth, width, multires,
+    #  multires_views, skip_mask, bf16, w_off, b_off, p_off, stream)
+    "fused_nerf_bwd_launch": [_INT] + [_PTR] * 13 + [ctypes.c_longlong]
     + [_INT] * 10 + [_PTR] * 4,
     # (gsem, sem_acts, ws0t, ws1t, dfeat_ray, part, part_stride, G, N, S,
     #  width, C, bf16, stream)
@@ -103,6 +111,14 @@ BWD_ARGTYPES = {
     # (part, part_stride, G, n, out, stream)
     "fused_nerf_grad_reduce_launch": [_PTR, ctypes.c_longlong, _INT, _INT,
                                       _PTR, _PTR],
+    # (pts, vd, g, acts, dfeat_ray, w, wt, wi, b, cot, part, part_stride, G,
+    #  n_w, P, S, c0, n_pts, depth, width, multires, multires_views,
+    #  skip_mask, w_off, b_off, stream)
+    "fused_nerf_bwd_chain_launch": [_PTR] * 11 + [ctypes.c_longlong]
+    + [_INT] * 11 + [_PTR] * 3,
+    # (entries, n_entries, P, part, part_stride, n_split, stream)
+    "fused_nerf_wgrad_launch": [_PTR, _INT, _INT, _PTR, ctypes.c_longlong,
+                                _INT, _PTR],
 }
 Q8_KERNEL = "fused_nerf_q8"
 Q8_ARGTYPES = {
@@ -332,10 +348,14 @@ class PackedParams(NamedTuple):
     # offsets, indexed as ``w_offsets`` (sigma's and rgb's unused)
     weights_p: torch.Tensor | None = None
     p_offsets: ctypes.Array | None = None
+    # bfloat16 only: the backward's tensor-core rows (:func:`_tc_in_rows`),
+    # at ``w_offsets``
+    weights_ip: torch.Tensor | None = None
 
 
-# Order of the 16 k of each k-step in ``weights_p``: lane t of an mma quad
-# loads k = 2t, 2t + 1, 2t + 8, 2t + 9 (its two B registers) as one word.
+# Order of the 16 k of each k-step in ``weights_p`` and ``weights_ip``: lane
+# t of an mma quad loads k = 2t, 2t + 1, 2t + 8, 2t + 9 (its two B
+# registers) as one word.
 TC_KPERM = (0, 1, 8, 9, 2, 3, 10, 11, 4, 5, 12, 13, 6, 7, 14, 15)
 
 
@@ -371,6 +391,18 @@ def _tc_rows(w: torch.Tensor, segs) -> torch.Tensor:
     return rows.reshape(rows.shape[0], -1, 16)[..., list(TC_KPERM)].reshape(-1)
 
 
+def _tc_in_rows(w: torch.Tensor) -> torch.Tensor:
+    """``Linear.weight`` ``[out, in]`` -> the B rows of the backward's
+    input product ``dX = dY W`` on the tensor cores, flat: ``[in, out]``
+    (the layout of ``weights``) with each run of 16 outputs in
+    :data:`TC_KPERM` order where ``out`` is a multiple of 16 (trunk,
+    feature, views_0; sigma and rgb as they are)."""
+    rows = w.t()
+    if w.shape[0] % 16:
+        return rows.reshape(-1)
+    return rows.reshape(rows.shape[0], -1, 16)[..., list(TC_KPERM)].reshape(-1)
+
+
 def _offsets(parts):
     out, o = [], 0
     for t in parts:
@@ -388,23 +420,26 @@ def pack_params(params: Mapping[str, torch.Tensor], depth: int, dtype,
     both, in the order trunk_0..trunk_{D-1}, sigma, feature, views_0, rgb;
     with a semantic head, also :func:`pack_sem`. In bfloat16 also the
     tensor-core rows of the forward's trunk, feature and views_0 products
-    (``weights_p``, :func:`_tc_rows`; csrc/fused_nerf.cuh)."""
+    (``weights_p``, :func:`_tc_rows`; csrc/fused_nerf.cuh) and of the
+    backward's input products (``weights_ip``, :func:`_tc_in_rows`;
+    csrc/fused_nerf_bwd.cu)."""
     names = _layer_names(depth)
     lin = [params[f"{n}.weight"].detach() for n in names]
     ws = [w.t().to(dtype).reshape(-1) for w in lin]
     wts = [w.to(dtype).reshape(-1) for w in lin]
     bs = [params[f"{n}.bias"].detach().float().reshape(-1) for n in names]
     sem = pack_sem(params, dtype, device) if SEM_NAMES[0] in params else None
-    wp = p_off = None
+    wp = p_off = wip = None
     if dtype == torch.bfloat16:
         width = lin[0].shape[0]
         segs = [_tc_segments(n, w, width) for n, w in zip(names, lin)]
         tc = [_tc_rows(w.to(dtype), sg) if sg else w.new_empty(0, dtype=dtype)
               for w, sg in zip(lin, segs)]
         wp, p_off = torch.cat(tc).to(device), _offsets(tc)
+        wip = torch.cat([_tc_in_rows(w.to(dtype)) for w in lin]).to(device)
     return PackedParams(torch.cat(ws).to(device), torch.cat(bs).to(device),
                         _offsets(ws), _offsets(bs), dtype,
-                        torch.cat(wts).to(device), sem, wp, p_off)
+                        torch.cat(wts).to(device), sem, wp, p_off, wip)
 
 
 def unpack_grads(flat: torch.Tensor, params: Mapping[str, torch.Tensor],
@@ -615,14 +650,15 @@ def fused_nerf_fwd_acts_plain(params, pts_t, viewdirs_t, S: int, *,
     return raw, torch.cat([a.to(dtype).reshape(-1) for a in acts])
 
 
-def _segments(P: int, S: int, device):
-    """Segment of each point (a maximal run of one ray inside one kernel
-    tile) and the ray of each segment: the kernel sums the view-layer
+def _segments(P: int, S: int, device, start: int = 0):
+    """Segment of each of the points ``start .. start + P - 1`` (``start``
+    a multiple of the tile; a segment is a maximal run of one ray inside one
+    kernel tile) and the ray of each segment: the kernel sums the view-layer
     gradient of a ray over its points in one tile, then rounds."""
-    p = torch.arange(P, device=device)
-    start = (p % TILE == 0) | (p % S == 0)
-    seg = torch.cumsum(start.long(), 0) - 1
-    return seg, p[start] // S
+    p = torch.arange(start, start + P, device=device)
+    first = (p % TILE == 0) | (p % S == 0)
+    seg = torch.cumsum(first.long(), 0) - 1
+    return seg, p[first] // S
 
 
 def _bwd_from_acts(params, enc, encv, acts, g, S, depth, width, dtype, skips,
@@ -1078,7 +1114,10 @@ def _grid(device, n_tiles: int) -> int:
 
 def grad_reduce(part: torch.Tensor, n: int) -> torch.Tensor:
     """``part [G, stride]`` -> the float32 sum over G of its first ``n``
-    columns, by ``fused_nerf_grad_reduce`` in a fixed order."""
+    columns, by ``fused_nerf_grad_reduce`` in a fixed order (on the CPU,
+    the twin of the split backward, by ``torch.sum``)."""
+    if part.device.type == "cpu":
+        return part[:, :n].sum(0)
     out = torch.empty((n,), dtype=torch.float32, device=part.device)
     lib = _build.load(BWD_KERNEL, BWD_ARGTYPES)
     err = lib.fused_nerf_grad_reduce_launch(
@@ -1114,7 +1153,8 @@ def _bwd_launch(fn, mode, params, packed, pts_t, viewdirs_t, g, S, depth,
         None if acts is None else acts.data_ptr(),
         None if dfeat_ray is None else dfeat_ray.data_ptr(),
         packed.weights.data_ptr(), packed.weights_t.data_ptr(),
-        _tc_ptr(packed), packed.biases.data_ptr(),
+        _tc_ptr(packed), None if packed.weights_ip is None
+        else packed.weights_ip.data_ptr(), packed.biases.data_ptr(),
         None if scratch is None else scratch.data_ptr(), part.data_ptr(),
         stride, G, n_w, P, S, depth, width, multires, multires_views,
         sum(1 << s for s in live_skips(depth, skips)),
@@ -1193,7 +1233,10 @@ def fused_nerf_bwd_acts(params, pts_t, viewdirs_t, g, acts, S: int, *,
                         multires_views: int, dtype=torch.float32, skips=(),
                         packed: PackedParams | None = None
                         ) -> Dict[str, torch.Tensor]:
-    """Kernel 5: the backward from the activations kernel 4 saved."""
+    """Kernel 5: the backward from the activations kernel 4 saved. On the
+    card in bfloat16 it is the split backward (:func:`_bwd_split`: phases 1
+    and 2 a chunk, one reduction), and :func:`fused_nerf_bwd_chain` counts
+    its launches."""
     pts_t, viewdirs_t, g = _bwd_inputs(pts_t, viewdirs_t, g, S, dtype)
     _check_acts(acts, pts_t.shape[1], depth, width, dtype, pts_t.device)
     kw = dict(depth=depth, width=width, multires=multires,
@@ -1202,6 +1245,9 @@ def fused_nerf_bwd_acts(params, pts_t, viewdirs_t, g, acts, S: int, *,
         return fused_nerf_bwd_acts_plain(params, pts_t, viewdirs_t, g, acts,
                                          S, dtype=dtype, **kw)
     packed = _packed_for(params, depth, dtype, pts_t.device, packed)
+    if dtype == torch.bfloat16:
+        return _bwd_split(params, packed, pts_t, viewdirs_t, g,
+                          acts.contiguous(), S, dtype=dtype, **kw)
     return _bwd_launch(fused_nerf_bwd_acts, 2, params, packed, pts_t,
                        viewdirs_t, g, S, acts=acts.contiguous(), **kw)
 
@@ -1249,7 +1295,9 @@ def fused_nerf_bwd_acts_sem(params, pts_t, viewdirs_t, g, gsem, acts,
     """Kernel 8: gradients of every parameter (the semantic head's
     included) for the raw cotangent ``g [4, P]`` and the logit cotangent
     ``gsem [P // S, C]``, from what kernel 7 saved: :func:`sem_head_bwd`,
-    then kernel 5's body with the head's feature cotangent."""
+    then kernel 5's body with the head's feature cotangent (in bfloat16 on
+    the card, kernel 5's split backward, whose :func:`fused_nerf_bwd_chain`
+    counts its launches)."""
     pts_t, viewdirs_t, g = _bwd_inputs(pts_t, viewdirs_t, g, S, dtype)
     N = pts_t.shape[1] // S
     _check_acts(acts, pts_t.shape[1], depth, width, dtype, pts_t.device)
@@ -1268,14 +1316,382 @@ def fused_nerf_bwd_acts_sem(params, pts_t, viewdirs_t, g, gsem, acts,
                                              dtype=dtype, **kw)
     packed = _sem_packed_for(params, depth, dtype, pts_t.device, packed)
     flat, dfeat_ray = sem_head_bwd(gsem, sem_acts.contiguous(), packed.sem, S)
-    grads = _bwd_launch(fused_nerf_bwd_acts_sem, 2, params, packed, pts_t,
-                        viewdirs_t, g, S, acts=acts.contiguous(),
-                        dfeat_ray=dfeat_ray, **kw)
+    if dtype == torch.bfloat16:
+        grads = _bwd_split(params, packed, pts_t, viewdirs_t, g,
+                           acts.contiguous(), S, dtype=dtype,
+                           dfeat_ray=dfeat_ray, **kw)
+    else:
+        grads = _bwd_launch(fused_nerf_bwd_acts_sem, 2, params, packed, pts_t,
+                            viewdirs_t, g, S, acts=acts.contiguous(),
+                            dfeat_ray=dfeat_ray, **kw)
     grads.update(unpack_sem_grads(flat, width, gsem.shape[1]))
     return grads
 
 
 fused_nerf_bwd_acts_sem.launches = 0
+
+
+# ------------------- the split backward of kernels 5 and 8 (bf16, card)
+#
+# (The module note.) Composed on the CPU, the phases' twins give
+# :func:`_bwd_from_acts` up to the order of float32 sums.
+
+BWD_CHUNK = 1 << 18  # points a chunk of the split backward (4,096 tiles)
+
+
+def cot_numel(P: int, depth: int, width: int, multires: int) -> int:
+    """Elements of the cotangent buffer of ``P`` points (:func:`split_cot`)."""
+    return P * ((depth + 1) * width + width // 2 + _pad16(3 + 6 * multires))
+
+
+def split_cot(cot: torch.Tensor, P: int, depth: int, width: int,
+              multires: int):
+    """Views of a cotangent buffer of ``P`` points (phase 1's layout, that of
+    :func:`split_acts` plus the encoding): ``dh_0 .. dh_{D-1}`` and ``dfeat``
+    ``[P, W]``, ``dhv`` ``[P, W/2]``, then the point encoding ``[P, pad16(e_p)]``
+    (the columns past ``e_p`` zero)."""
+    n, ep16 = P * width, _pad16(3 + 6 * multires)
+    hv0 = (depth + 1) * n
+    return ([cot[l * n:(l + 1) * n].view(P, width) for l in range(depth + 1)]
+            + [cot[hv0:hv0 + P * (width // 2)].view(P, width // 2),
+               cot[hv0 + P * (width // 2):hv0 + P * (width // 2) + P * ep16]
+               .view(P, ep16)])
+
+
+def pack_grads(grads: Mapping[str, torch.Tensor], params, depth: int
+               ) -> torch.Tensor:
+    """:func:`unpack_grads` inverted: the gradients flat in the kernels'
+    layout (weights ``[in, out]`` in layer order, then biases), zero for a
+    tensor ``grads`` lacks."""
+    names = _layer_names(depth)
+
+    def get(k):
+        return grads[k].float() if k in grads else \
+            torch.zeros(params[k].shape, device=params[k].device)
+
+    return torch.cat([get(f"{n}.weight").t().reshape(-1) for n in names]
+                     + [get(f"{n}.bias").reshape(-1) for n in names])
+
+
+def fused_nerf_bwd_chain_plain(params, pts_t, viewdirs_t, g, acts, S: int,
+                               start: int, count: int, *, depth: int,
+                               width: int, multires: int, multires_views: int,
+                               dtype=torch.float32, skips=(), dfeat_ray=None):
+    """Phase 1's twin over the points ``[start, start + count)`` (``start`` a
+    multiple of the tile) of :func:`_bwd_from_acts`' arithmetic: the
+    cotangent buffer (:func:`split_cot`, in ``dtype``) and the small
+    gradients flat in the kernels' layout (:func:`pack_grads`; zero where
+    phase 2 adds)."""
+    ls = live_skips(depth, skips)
+    e_p = 3 + 6 * multires
+    sl = slice(start, start + count)
+
+    def rnd(x):
+        return x.to(dtype).float()
+
+    w, _ = _plain_weights(params, dtype)
+    enc, encv = _plain_encodings(pts_t[:, sl], viewdirs_t, multires,
+                                 multires_views, dtype)
+    arrays = split_acts(acts, pts_t.shape[1], depth, width)
+    hs = [a[sl].float() for a in arrays[:depth]]
+    hv = arrays[depth + 1][sl].float()
+    g = g[:, sl].float()
+    gb = rnd(g)
+    dhv = rnd(torch.where(hv > 0, gb[:3].T @ w("rgb"), 0.0))
+    seg, ray = _segments(count, S, g.device, start)
+    seg_sum = rnd(torch.zeros((ray.numel(), width // 2), device=g.device)
+                  .index_add_(0, seg, dhv))
+    small = {"rgb.weight": gb[:3] @ hv, "rgb.bias": g[:3].sum(1),
+             "sigma.bias": g[3:].sum(1),
+             "views_0.weight": torch.cat([
+                 torch.zeros((width // 2, width), device=g.device),
+                 seg_sum.T @ encv[ray]], dim=1),
+             "views_0.bias": dhv.sum(0)}
+    dfeat = dhv @ w("views_0")[:, :width]
+    if dfeat_ray is not None:
+        rays = torch.arange(start, start + count, device=g.device) // S
+        dfeat = dfeat + dfeat_ray.float()[rays]
+    dfeat = rnd(dfeat)
+    small["feature.bias"] = dfeat.sum(0)
+    small["sigma.weight"] = gb[3:] @ hs[-1]
+    dh = dfeat @ w("feature") + gb[3][:, None] * w("sigma")
+    dhs = [None] * depth
+    for l in range(depth - 1, -1, -1):
+        dh = rnd(torch.where(hs[l] > 0, dh, 0.0))
+        dhs[l] = dh
+        small[f"trunk_{l}.bias"] = dh.sum(0)
+        if l == 0:
+            break
+        wl = w(f"trunk_{l}")
+        dh = dh @ (wl[:, e_p:] if (l - 1) in ls else wl)
+    enc16 = torch.nn.functional.pad(enc, (0, _pad16(e_p) - e_p))
+    cot = torch.cat([x.to(dtype).reshape(-1)
+                     for x in dhs + [dfeat, dhv, enc16]])
+    return cot, pack_grads(small, params, depth)
+
+
+def wgrad_entries(acts, cot, P: int, start: int, count: int, depth: int,
+                  width: int, multires: int, skips, w_offsets):
+    """Phase 2's table for the points ``[start, start + count)``: per
+    product ``(a [count, lda], b [count, ldb], m_keep, out, ldo)``, adding
+    ``a[:, :m_keep]^T b`` at flat offset ``out`` with row stride ``ldo``:
+    the encoding's rows of trunk_0 and of each skip layer (``m_keep = e_p``
+    drops the encoding's padded columns), every trunk layer's rows of the
+    previous activation, the feature layer, and views_0's feature rows.
+    ``acts`` is kernel 4's buffer of ``P`` points, ``cot`` phase 1's of
+    ``count``; ``w_offsets`` the packed weights' offsets."""
+    e_p = 3 + 6 * multires
+    ls = live_skips(depth, skips)
+    hs = [a[start:start + count] for a in split_acts(acts, P, depth, width)]
+    c = split_cot(cot, count, depth, width, multires)
+    dh, dfeat, dhv, enc = c[:depth], c[depth], c[depth + 1], c[depth + 2]
+    wo = list(w_offsets)
+    out = [(enc, dh[0], e_p, wo[0], width)]
+    for l in range(1, depth):
+        skip = (l - 1) in ls
+        if skip:
+            out.append((enc, dh[l], e_p, wo[l], width))
+        out.append((hs[l - 1], dh[l], width, wo[l] + (e_p * width if skip
+                                                       else 0), width))
+    out.append((hs[depth - 1], dfeat, width, wo[depth + 1], width))
+    out.append((hs[depth], dhv, width, wo[depth + 2], width // 2))
+    return out
+
+
+def bwd_weight_grads_plain(entries, part: torch.Tensor) -> None:
+    """Phase 2's twin: each product of :func:`wgrad_entries` in float32,
+    added into row 0 of ``part`` (in place)."""
+    for a, b, m_keep, out, ldo in entries:
+        blk = part[0, out:out + m_keep * ldo].view(m_keep, ldo)
+        blk[:, :b.shape[1]] += a[:, :m_keep].float().T @ b.float()
+
+
+_WG_TILE, _WG_K = 128, 32  # kWgM = kWgN and kWgK in csrc/fused_nerf_bwd.cu
+
+
+def _wgrad_splits(entries, count: int, device) -> int:
+    """Splits of the points (blocks a product's output tile) that fill the
+    card about twice, at most one a stage of 32 points."""
+    tiles = sum(-(-m_keep // _WG_TILE) * -(-b.shape[1] // _WG_TILE)
+                for _, b, m_keep, _, _ in entries)
+    return max(1, min(-(-count // _WG_K), -(-2 * _grid(device, 1 << 30)
+                                           // tiles)))
+
+
+def bwd_weight_grads(entries, part: torch.Tensor, count: int) -> None:
+    """Phase 2 (``fused_nerf_wgrad_kernel``): the products of
+    :func:`wgrad_entries` over ``count`` points, each split of the points
+    added into its own row of ``part`` (in place; :func:`_wgrad_splits`
+    rows). CPU tensors run :func:`bwd_weight_grads_plain`."""
+    if part.device.type == "cpu":
+        return bwd_weight_grads_plain(entries, part)
+    splits = _wgrad_splits(entries, count, part.device)
+    if splits > part.shape[0]:
+        raise ValueError(f"phase 2 takes {splits} partial rows, got "
+                         f"{part.shape[0]}")
+    table = []
+    for a, b, m_keep, out, ldo in entries:
+        if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 \
+                or a.shape[0] != count or b.shape[0] != count \
+                or a.stride(1) != 1 or b.stride(1) != 1:
+            raise ValueError("phase 2 takes bfloat16 [count, C] rows")
+        table += [a.data_ptr(), b.data_ptr(), a.stride(0), b.stride(0),
+                  a.shape[1], b.shape[1], m_keep, out, ldo]
+    arr = (ctypes.c_longlong * len(table))(*table)
+    lib = _build.load(BWD_KERNEL, BWD_ARGTYPES)
+    err = lib.fused_nerf_wgrad_launch(
+        ctypes.addressof(arr), len(entries), count, part.data_ptr(),
+        part.shape[1], splits,
+        torch.cuda.current_stream(part.device).cuda_stream)
+    _build.check(lib, BWD_KERNEL, err)
+    bwd_weight_grads.launches += 1
+
+
+bwd_weight_grads.launches = 0
+
+
+def fused_nerf_bwd_chain(params, pts_t, viewdirs_t, g, acts, S: int,
+                         start: int, count: int, part: torch.Tensor, *,
+                         depth: int, width: int, multires: int,
+                         multires_views: int, dtype=torch.float32, skips=(),
+                         packed: PackedParams | None = None, dfeat_ray=None,
+                         cot: torch.Tensor | None = None) -> torch.Tensor:
+    """Phase 1 (``fused_nerf_bwd_acts_kernel`` in bfloat16) over the points
+    ``[start, start + count)``: adds the small gradients into ``part`` (in
+    place; one row a block) and returns the cotangent buffer
+    (:func:`split_cot`; written into ``cot`` if given). On the card it is
+    bfloat16 only (float32's backward is one kernel); CPU tensors run
+    :func:`fused_nerf_bwd_chain_plain`. Its input products run on the
+    tensor cores, except with ``dfeat_ray`` (kernel 8), whose chain keeps
+    its twin's float32 FMA order (csrc/fused_nerf_bwd.cu, ``backward_tile``'s
+    note). The launch of a call's first chunk (``start == 0``) also counts
+    as one of kernel 5 (:func:`fused_nerf_bwd_acts`), or of kernel 8's
+    trunk (:func:`fused_nerf_bwd_acts_sem`) with ``dfeat_ray``."""
+    kw = dict(depth=depth, width=width, multires=multires,
+              multires_views=multires_views, skips=skips)
+    if start % TILE or count < 1 or start + count > pts_t.shape[1]:
+        raise ValueError(f"bad chunk [{start}, {start + count})")
+    if pts_t.device.type == "cpu":
+        out, small = fused_nerf_bwd_chain_plain(
+            params, pts_t, viewdirs_t, g, acts, S, start, count, dtype=dtype,
+            dfeat_ray=dfeat_ray, **kw)
+        part[0, :small.numel()] += small
+        return out
+    if dtype != torch.bfloat16:
+        raise ValueError("the split backward is bfloat16 on the card")
+    P = pts_t.shape[1]
+    for x, dt, shape in ((pts_t, torch.float32, (3, P)),
+                         (viewdirs_t, torch.float32, (3, P // S)),
+                         (g, torch.float32, (4, P)), (acts, dtype, acts.shape),
+                         (part, torch.float32, part.shape)):
+        if x.dtype != dt or x.shape != shape or not x.is_contiguous() \
+                or x.device != pts_t.device:
+            raise ValueError(f"bad input {x.dtype} {tuple(x.shape)} on "
+                             f"{x.device}")
+    _check_acts(acts, P, depth, width, dtype, pts_t.device)
+    if dfeat_ray is not None and (dfeat_ray.dtype != dtype
+                                  or dfeat_ray.shape != (P // S, width)
+                                  or not dfeat_ray.is_contiguous()):
+        raise ValueError(f"bad dfeat_ray {tuple(dfeat_ray.shape)}")
+    packed = _packed_for(params, depth, dtype, pts_t.device, packed)
+    n = cot_numel(count, depth, width, multires)
+    if cot is None:
+        cot = torch.empty((n,), dtype=dtype, device=pts_t.device)
+    elif cot.dtype != dtype or cot.numel() < n or not cot.is_contiguous():
+        raise ValueError(f"bad cotangent buffer {cot.dtype} {cot.numel()}")
+    G = min(part.shape[0], _grid(pts_t.device, -(-count // TILE)))
+    lib = _build.load(BWD_KERNEL, BWD_ARGTYPES)
+    err = lib.fused_nerf_bwd_chain_launch(
+        pts_t.data_ptr(), viewdirs_t.data_ptr(), g.data_ptr(), acts.data_ptr(),
+        None if dfeat_ray is None else dfeat_ray.data_ptr(),
+        packed.weights.data_ptr(), packed.weights_t.data_ptr(),
+        packed.weights_ip.data_ptr(), packed.biases.data_ptr(),
+        cot.data_ptr(), part.data_ptr(),
+        part.shape[1], G, packed.weights.numel(), P, S, start,
+        count, depth, width, multires, multires_views,
+        sum(1 << k for k in live_skips(depth, skips)),
+        ctypes.addressof(packed.w_offsets), ctypes.addressof(packed.b_offsets),
+        torch.cuda.current_stream(pts_t.device).cuda_stream)
+    _build.check(lib, BWD_KERNEL, err)
+    fused_nerf_bwd_chain.launches += 1
+    if start == 0:
+        (fused_nerf_bwd_acts if dfeat_ray is None
+         else fused_nerf_bwd_acts_sem).launches += 1
+    return cot[:n]
+
+
+fused_nerf_bwd_chain.launches = 0
+
+
+def _bwd_split(params, packed, pts_t, viewdirs_t, g, acts, S, *, depth,
+               width, multires, multires_views, dtype, skips, dfeat_ray=None):
+    """Kernels 5 and 8's trunk as the split backward: phases 1 and 2 over
+    chunks of ``BWD_CHUNK`` points (a multiple of the tile), then
+    ``fused_nerf_grad_reduce``. On the CPU the phases' twins and one
+    partial row. Returns the gradients in the ``params`` mapping."""
+    chunk = BWD_CHUNK
+    if chunk % TILE:
+        raise ValueError(f"chunk {chunk} is not a multiple of {TILE}")
+    dev = pts_t.device
+    P = pts_t.shape[1]
+    kw = dict(depth=depth, width=width, multires=multires,
+              multires_views=multires_views, dtype=dtype, skips=skips)
+    n_w, n_b = packed.weights.numel(), packed.biases.numel()
+    stride = -(-(n_w + n_b) // 4) * 4
+    Pc = min(P, chunk)
+    cot = torch.empty((cot_numel(Pc, depth, width, multires),), dtype=dtype,
+                      device=dev)
+    rows = 1
+    if dev.type == "cuda":
+        ents = wgrad_entries(acts, cot, P, 0, Pc, depth, width, multires,
+                             skips, packed.w_offsets)
+        rows = max(_grid(dev, -(-Pc // TILE)), _wgrad_splits(ents, Pc, dev))
+    part = torch.zeros((rows, stride), dtype=torch.float32, device=dev)
+    for start in range(0, P, chunk):
+        count = min(chunk, P - start)
+        c = fused_nerf_bwd_chain(params, pts_t, viewdirs_t, g, acts, S, start,
+                                 count, part, packed=packed,
+                                 dfeat_ray=dfeat_ray, cot=cot, **kw)
+        bwd_weight_grads(wgrad_entries(acts, c, P, start, count, depth,
+                                       width, multires, skips,
+                                       packed.w_offsets), part, count)
+    return unpack_grads(grad_reduce(part, n_w + n_b), params, packed, depth)
+
+
+def bwd_product_witness(params, g, acts, cot, grads, S: int, *, depth: int,
+                        width: int, multires: int, skips=(), dfeat_ray=None):
+    """The bfloat16 split backward against a witness independent of any
+    float32 summation order, as :func:`bf16_product_witness` for the
+    forward. ``cot`` is phase 1's buffer for all P points (one chunk) and
+    ``grads`` the backward's gradients, from kernel 4's ``acts`` and the
+    cotangent ``g``. Per cotangent layer (dhv, dfeat, dh_{D-1} .. dh_0): the
+    share of ``cot`` that rounds otherwise than the layer recomputed with
+    float64 products from the kernel's own bfloat16 inputs (the next
+    layer's cotangent in ``cot``, the weights, ``g``, the gates in ``acts``),
+    and the same share for float32 products. Per large weight gradient
+    (:func:`wgrad_entries`' products, blocks as :func:`grad_blocks`): the
+    max abs error over the mean abs of float64 products of the same
+    bfloat16 operands, for ``grads`` and for float32 products."""
+    P = g.shape[1]
+    e_p = 3 + 6 * multires
+    ls = live_skips(depth, skips)
+    bf = torch.bfloat16
+    w, _ = _plain_weights(params, bf)
+    hs = [a.float() for a in split_acts(acts, P, depth, width)]
+    c = [x.float() for x in split_cot(cot, P, depth, width, multires)]
+    dh, dfeat, dhv, enc = c[:depth], c[depth], c[depth + 1], c[depth + 2]
+    gb = g.float().to(bf).float()
+    ray_rows = None if dfeat_ray is None else \
+        dfeat_ray.float()[torch.arange(P, device=g.device) // S]
+    # per layer: (input, the Linear weight [out, in] it multiplies, the term
+    # added in float32 or None, the ReLU gate or None, the kernel's output)
+    layers = [(gb[:3].T, w("rgb"), None, hs[depth + 1], dhv),
+              (dhv, w("views_0")[:, :width], ray_rows, None, dfeat)]
+    x = dfeat
+    for l in range(depth - 1, -1, -1):
+        if l == depth - 1:
+            extra = gb[3][:, None] * w("sigma")  # exact in float32 and 64
+            wl = w("feature")
+        else:
+            extra = None
+            wl = w(f"trunk_{l + 1}")
+            wl = wl[:, e_p:] if l in ls else wl
+        layers.append((x, wl, extra, hs[l], dh[l]))
+        x = dh[l]
+
+    def rounded(x, wl, extra, gate, dt):
+        z = x.to(dt) @ wl.to(dt)
+        if extra is not None:
+            z = z + extra.to(dt)
+        if gate is not None:
+            z = torch.where(gate > 0, z, 0.0)
+        return z.float().to(bf).float()
+
+    kernel, f32 = [], []
+    for x, wl, extra, gate, got in layers:
+        exact = rounded(x, wl, extra, gate, torch.float64)
+        kernel.append((got != exact).float().mean().item())
+        f32.append((rounded(x, wl, extra, gate, torch.float32) != exact)
+                   .float().mean().item())
+
+    blocks = grad_blocks(grads, depth, width, multires, skips)
+    ref = {"trunk_0.weight": (dh[0], enc[:, :e_p])}
+    for l in range(1, depth):
+        if (l - 1) in ls:
+            ref[f"trunk_{l}.weight[enc]"] = (dh[l], enc[:, :e_p])
+            ref[f"trunk_{l}.weight[trunk]"] = (dh[l], hs[l - 1])
+        else:
+            ref[f"trunk_{l}.weight"] = (dh[l], hs[l - 1])
+    ref["feature.weight"] = (dfeat, hs[depth - 1])
+    ref["views_0.weight[feat]"] = (dhv, hs[depth])
+    wk, w32 = {}, {}
+    for k, (d, a) in ref.items():
+        exact = d.double().T @ a.double()
+        scale = exact.abs().mean().item() + 1e-30
+        wk[k] = (blocks[k].double() - exact).abs().max().item() / scale
+        w32[k] = ((d.T @ a).double() - exact).abs().max().item() / scale
+    return {"kernel": kernel, "float32": f32, "wgrad_kernel": wk,
+            "wgrad_float32": w32}
 
 
 # ----------------------------------------------- culling glue (kernel 3)

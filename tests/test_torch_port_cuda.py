@@ -128,8 +128,9 @@ def test_bf16_tile_against_float64_witness(cuda, depth, S):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("depth,width,S,N", _MLP_SHAPES)
 def test_fused_bwd_kernels_match_plain(cuda, depth, width, S, N, dtype):
-    """Kernels 2 (dense), 3 (culled) and 5 (saved activations) against their
-    twins; kernel 3 equals kernel 2; kernel 2 is bit-identical run to run."""
+    """Kernels 2 (dense), 3 (culled) and 5 (saved activations; in bfloat16
+    the split backward, phases 1 and 2) against their twins; kernel 3 equals
+    kernel 2; kernels 2 and 5 are bit-identical run to run."""
     from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f
 
     params, pts, vd, g = _mlp_inputs(cuda, depth, width, S, N, depth * S)
@@ -137,13 +138,16 @@ def test_fused_bwd_kernels_match_plain(cuda, depth, width, S, N, dtype):
               skips=(4,))
     tol = _TOL[dtype]
     n0 = (f.fused_nerf_bwd.launches, f.fused_nerf_bwd_acts.launches,
-          f.fused_nerf_bwd_culled.launches, f.grad_reduce.launches)
+          f.fused_nerf_bwd_culled.launches, f.grad_reduce.launches,
+          f.fused_nerf_bwd_chain.launches, f.bwd_weight_grads.launches)
     dense = f.fused_nerf_bwd(params, pts, vd, g, S, **kw)
     again = f.fused_nerf_bwd(params, pts, vd, g, S, **kw)
     _, acts = f.fused_nerf_fwd_acts(params, pts, vd, S, **kw)
     from_acts = f.fused_nerf_bwd_acts(params, pts, vd, g, acts, S, **kw)
+    again5 = f.fused_nerf_bwd_acts(params, pts, vd, g, acts, S, **kw)
     torch.cuda.synchronize()
     assert all(torch.equal(dense[k], again[k]) for k in dense)
+    assert all(torch.equal(from_acts[k], again5[k]) for k in from_acts)
     ref = f.fused_nerf_bwd_plain(params, pts, vd, g, S, **kw)
     assert _grad_err(dense, ref, depth, width) <= tol
     assert _grad_err(from_acts, ref, depth, width) <= tol
@@ -158,9 +162,132 @@ def test_fused_bwd_kernels_match_plain(cuda, depth, width, S, N, dtype):
         assert _grad_err(culled, ref_c, depth, width) <= tol
         assert _grad_err(culled, dense, depth, width) <= _TOL_CULL[dtype]
         n_culled = 1
+    split = int(dtype == torch.bfloat16)  # one chunk: one launch of each phase
     assert (f.fused_nerf_bwd.launches, f.fused_nerf_bwd_acts.launches,
-            f.fused_nerf_bwd_culled.launches, f.grad_reduce.launches) == \
-        (n0[0] + 2, n0[1] + 1, n0[2] + n_culled, n0[3] + 3 + n_culled)
+            f.fused_nerf_bwd_culled.launches, f.grad_reduce.launches,
+            f.fused_nerf_bwd_chain.launches, f.bwd_weight_grads.launches) == \
+        (n0[0] + 2, n0[1] + 2, n0[2] + n_culled, n0[3] + 4 + n_culled,
+         n0[4] + 2 * split, n0[5] + 2 * split)
+
+
+@pytest.mark.parametrize("P,shapes", [
+    (4096, [(256, 256, 256, 256)]),                   # a trunk layer
+    (40000, [(64, 63, 256, 256), (256, 256, 128, 128)]),  # encoding rows; views
+    (1000, [(256, 256, 256, 256), (64, 63, 256, 256), (128, 128, 64, 64)]),
+    (77, [(128, 128, 128, 128)])])                    # ragged P, one stage
+def test_wgrad_kernel_matches_plain(cuda, P, shapes):
+    """Phase 2's GEMM (``fused_nerf_wgrad_kernel``) against its twin on one
+    table of products (m_op, m_keep, n, ldo): A^T B over P points of
+    bfloat16 operands, the encoding operand's padded column dropped (and
+    filled with garbage here), split over the points into several partial
+    rows. Both sum exact bfloat16 products in float32 in other orders:
+    within 1e-5 of the largest output."""
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f
+
+    gen = torch.Generator(device=cuda).manual_seed(P)
+    ents, out = [], 0
+    for m_op, m_keep, n, ldo in shapes:
+        a = torch.randn((P, m_op), device=cuda, generator=gen).to(torch.bfloat16)
+        b = torch.randn((P, n), device=cuda, generator=gen).to(torch.bfloat16)
+        ents.append((a, b, m_keep, out, ldo))
+        out += m_keep * ldo + 4
+    part = torch.zeros((264, out + 4), device=cuda)
+    n0 = f.bwd_weight_grads.launches
+    f.bwd_weight_grads(ents, part, P)
+    torch.cuda.synchronize()
+    assert f.bwd_weight_grads.launches == n0 + 1
+    rows = f._wgrad_splits(ents, P, part.device)
+    assert P < 1000 or rows > 1
+    assert not part[rows:].any()
+    ref = torch.zeros((1, out + 4), device=cuda)
+    f.bwd_weight_grads_plain(ents, ref)
+    got = part.sum(0)
+    assert (got - ref[0]).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    for a, b, m_keep, o, ldo in ents:  # nothing past m_keep rows, n columns
+        blk = got[o:o + m_keep * ldo].view(m_keep, ldo)
+        assert not blk[:, b.shape[1]:].any()
+
+
+@pytest.mark.parametrize("depth,S,N,sem", [(4, 64, 37, False), (8, 128, 20, True)])
+def test_split_backward_chunks_on_card(cuda, monkeypatch, depth, S, N, sem):
+    """Kernels 5 and 8 in bfloat16 over chunks of 1,024 points (the last
+    ragged): against their twins at _TOL, bit-identical run to run, and
+    within float32 rounding of the one-chunk run (only the order of the
+    partial sums moves)."""
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f
+
+    dtype = torch.bfloat16
+    kw = dict(depth=depth, width=256, multires=10, multires_views=4, dtype=dtype,
+              skips=(4,))
+    if sem:
+        params, pts, vd, g, gsem = _sem_inputs(cuda, depth, 256, S, N, 19, depth)
+        _, acts, _, sem_acts = f.fused_nerf_fwd_acts_sem(params, pts, vd, S, **kw)
+
+        def run():
+            return f.fused_nerf_bwd_acts_sem(params, pts, vd, g, gsem, acts, sem_acts,
+                                             S, **kw)
+        ref = f.fused_nerf_bwd_acts_sem_plain(params, pts, vd, g, gsem, acts,
+                                              sem_acts, S, **kw)
+    else:
+        params, pts, vd, g = _mlp_inputs(cuda, depth, 256, S, N, depth)
+        _, acts = f.fused_nerf_fwd_acts(params, pts, vd, S, **kw)
+
+        def run():
+            return f.fused_nerf_bwd_acts(params, pts, vd, g, acts, S, **kw)
+        ref = f.fused_nerf_bwd_acts_plain(params, pts, vd, g, acts, S, **kw)
+    whole = run()
+    monkeypatch.setattr(f, "BWD_CHUNK", 1024)
+    n0 = f.fused_nerf_bwd_chain.launches
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert f.fused_nerf_bwd_chain.launches == n0 + 2 * -(-N * S // 1024)
+    assert all(torch.equal(got[k], again[k]) for k in got)
+    assert _sem_grad_err(got, ref, depth, 256) <= _TOL[dtype]
+    for k in got:
+        assert (got[k] - whole[k]).abs().max().item() <= \
+            1e-5 * whole[k].abs().max().item(), k
+
+
+@pytest.mark.parametrize("depth,S,N", [(4, 64, 37), (8, 128, 20)])
+def test_sem_bwd_fma_chain_on_card(cuda, depth, S, N):
+    """Kernel 8 in bfloat16 keeps its chain's input products in the twin's
+    float32 FMA order, so it stays within the semantic kernels' limit of
+    the twin (chip_smoke.py SEM_TOL, 5e-4), bit-identical run to run."""
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f
+
+    kw = dict(depth=depth, width=256, multires=10, multires_views=4,
+              dtype=torch.bfloat16, skips=(4,))
+    params, pts, vd, g, gsem = _sem_inputs(cuda, depth, 256, S, N, 19, depth + S)
+    _, acts, _, sem_acts = f.fused_nerf_fwd_acts_sem(params, pts, vd, S, **kw)
+    args = (params, pts, vd, g, gsem, acts, sem_acts, S)
+    got, again = (f.fused_nerf_bwd_acts_sem(*args, **kw) for _ in range(2))
+    torch.cuda.synchronize()
+    ref = f.fused_nerf_bwd_acts_sem_plain(*args, **kw)
+    assert _sem_grad_err(got, ref, depth, 256) <= 5e-4
+    assert all(torch.equal(got[k], again[k]) for k in got)
+
+
+@pytest.mark.parametrize("depth,S", [(4, 64), (8, 128)])
+def test_bwd_witness_on_card(cuda, depth, S):
+    """The bfloat16 backward's accuracy, independent of its float32 twin: at
+    256 rays, summed over the layers, phase 1's cotangents round otherwise
+    than float64 products of their own inputs no more often than float32
+    products do (chip_smoke.py's WITNESS_RATIO); the weight gradients'
+    errors against float64 products are reported beside float32's."""
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f
+
+    params, pts, vd, g = _mlp_inputs(cuda, depth, 256, S, 256, depth * S + 1)
+    kw = dict(depth=depth, width=256, multires=10, multires_views=4, skips=(4,))
+    bf = torch.bfloat16
+    _, acts = f.fused_nerf_fwd_acts(params, pts, vd, S, dtype=bf, **kw)
+    grads = f.fused_nerf_bwd_acts(params, pts, vd, g, acts, S, dtype=bf, **kw)
+    part = torch.zeros((132, 10 ** 6), device=cuda)
+    cot = f.fused_nerf_bwd_chain(params, pts.contiguous(), vd.contiguous(), g, acts,
+                                 S, 0, 256 * S, part, dtype=bf, **kw)
+    wit = f.bwd_product_witness(params, g, acts, cot, grads, S, depth=depth,
+                                width=256, multires=10, skips=(4,))
+    assert sum(wit["kernel"]) <= sum(wit["float32"])
+    assert all(np.isfinite(v) for v in wit["wgrad_kernel"].values())
 
 
 @pytest.mark.parametrize("N,B,V", [(33088, 63, 64), (5, 17, 100), (1000, 2, 7)])
@@ -243,13 +370,14 @@ def test_train_step_launches_each_kernel_once(cuda, cull_eps):
     gen = torch.Generator(device=cuda).manual_seed(0)
     fns = (f.fused_nerf_fwd, f.fused_nerf_bwd, f.fused_nerf_bwd_culled,
            f.fused_nerf_fwd_acts, f.fused_nerf_bwd_acts, s.inverse_cdf,
-           f.grad_reduce)
+           f.grad_reduce, f.fused_nerf_bwd_chain, f.bwd_weight_grads)
     n0 = [fn.launches for fn in fns]
     m = step(state, *tables, gen)
     torch.cuda.synchronize()
     culled = cull_eps > 0
+    # Kernel 5 in bfloat16: 256 rays x 64 samples are one chunk of the split.
     assert [fn.launches - n for fn, n in zip(fns, n0)] == \
-        [1, int(not culled), int(culled), 1, 1, 1, 2]
+        [1, int(not culled), int(culled), 1, 1, 1, 2, 1, 1]
     assert all(torch.isfinite(v) for v in m.values())
 
 
@@ -346,14 +474,18 @@ def test_fused_sem_bwd_kernel_matches_plain(cuda, depth, width, S, N, C, dtype):
               skips=(4,))
     _, acts, _, sem_acts = f.fused_nerf_fwd_acts_sem(params, pts, vd, S, **kw)
     n0 = (f.fused_nerf_bwd_acts_sem.launches, f.sem_head_bwd.launches,
-          f.grad_reduce.launches)
+          f.grad_reduce.launches, f.fused_nerf_bwd_chain.launches,
+          f.bwd_weight_grads.launches)
     got = f.fused_nerf_bwd_acts_sem(params, pts, vd, g, gsem, acts, sem_acts, S, **kw)
     again = f.fused_nerf_bwd_acts_sem(params, pts, vd, g, gsem, acts, sem_acts, S, **kw)
     sem = f.pack_sem(params, dtype, cuda)
     flat, dfeat_ray = f.sem_head_bwd(gsem, sem_acts, sem, S)
     torch.cuda.synchronize()
+    split = 2 * int(dtype == torch.bfloat16)  # two calls of one chunk each
     assert (f.fused_nerf_bwd_acts_sem.launches, f.sem_head_bwd.launches,
-            f.grad_reduce.launches) == (n0[0] + 2, n0[1] + 3, n0[2] + 5)
+            f.grad_reduce.launches, f.fused_nerf_bwd_chain.launches,
+            f.bwd_weight_grads.launches) == \
+        (n0[0] + 2, n0[1] + 3, n0[2] + 5, n0[3] + split, n0[4] + split)
     assert set(got) == set(params)
     assert all(torch.equal(got[k], again[k]) for k in got)
     ref = f.fused_nerf_bwd_acts_sem_plain(params, pts, vd, g, gsem, acts, sem_acts, S,
@@ -403,12 +535,14 @@ def test_semantic_train_step_launches(cuda):
     fns = (f.fused_nerf_fwd, f.fused_nerf_bwd, f.fused_nerf_bwd_culled,
            f.fused_nerf_fwd_acts, f.fused_nerf_bwd_acts, f.fused_nerf_fwd_sem,
            f.fused_nerf_fwd_acts_sem, f.fused_nerf_bwd_acts_sem, f.sem_head,
-           f.sem_head_bwd, s.inverse_cdf, f.grad_reduce)
+           f.sem_head_bwd, s.inverse_cdf, f.grad_reduce, f.fused_nerf_bwd_chain,
+           f.bwd_weight_grads)
     n0 = [fn.launches for fn in fns]
     m = step(state, *tables, gen)
     torch.cuda.synchronize()
+    # Kernel 8's split backward: one chunk a pass.
     assert [fn.launches - n for fn, n in zip(fns, n0)] == \
-        [0, 0, 0, 0, 0, 0, 2, 2, 2, 2, 1, 4]
+        [0, 0, 0, 0, 0, 0, 2, 2, 2, 2, 1, 4, 2, 2]
     assert all(torch.isfinite(v) for v in m.values())
     assert {"semantic_loss", "semantic_loss0"} <= set(m)
 
@@ -665,8 +799,9 @@ def test_sigma_loss_and_cf_steps_launch(cuda, monkeypatch):
     state = init_train_state(cfg, models)
     gen = torch.Generator(device=cuda).manual_seed(0)
     fns = (fm.fused_packed_fwd, fm.fused_packed_bwd, f.fused_nerf_fwd_cf,
-           f.fused_nerf_fwd_acts, f.fused_nerf_bwd_acts, f.fused_nerf_bwd_culled)
-    for knob, want in (("0", (1, 1, 0, 1, 1, 1)), ("1", (1, 1, 1, 0, 0, 2))):
+           f.fused_nerf_fwd_acts, f.fused_nerf_bwd_acts, f.fused_nerf_bwd_culled,
+           f.fused_nerf_bwd_chain, f.bwd_weight_grads)
+    for knob, want in (("0", (1, 1, 0, 1, 1, 1, 1, 1)), ("1", (1, 1, 1, 0, 0, 2, 0, 0))):
         monkeypatch.setenv("DLNERF_CULL_FWD", knob)
         n0 = [fn.launches for fn in fns]
         metrics = step(state, *tabs, gen)
