@@ -11,7 +11,9 @@ which raises on failure:
    for ``sm_90a``, one nvcc each, in parallel; ``cuobjdump --dump-sass``
    shows tensor-core HMMA instructions in every bfloat16 instantiation of
    the forward tile (kernels 1, 4, 6, 7, 9 and the recompute of 2-3) and
-   none in the float32 ones;
+   none in the float32 ones, and integer tensor-core IMMA and no IDP4A in
+   every instantiation of the int8 tile (kernels 10, 11), HMMA in its
+   bfloat16 ones (the side products) and none in its float32 ones;
 3. each kernel against its plain PyTorch version on the card: the fused
    NeRF MLP forward at W=256 (coarse D=4, fine D=8 skip@4; float32 and
    bfloat16; S=64 and 128; 4,096 rays and the serving tiles of 32,768 and
@@ -83,7 +85,8 @@ which raises on failure:
    the losses and the final parameters;
 7. each kernel's time at the serving and training shapes beside its plain
    version's, its achieved TFLOP/s and its bound (kernel 10's bound: int8 operations at 1,979
-   TOPS plus bf16 FLOP at 989 TFLOP/s, or bytes at 3.35 TB/s); each phase of kernel 5's split
+   TOPS plus bf16 FLOP at 989 TFLOP/s, or bytes at 3.35 TB/s; beside it the bytes of weights
+   its tiles read through L2); each phase of kernel 5's split
    backward alone over the fine pass's chunks, and the device memory the split takes;
 8. (run within phase 3) the semantic kernels against their plain
    versions: kernels 6 (no-grad
@@ -215,8 +218,11 @@ SEM_CHUNK = 16384  # rays per serving tile: 2.10 M fine points, under the D=8 ca
 # value in one of the two (their float32 sums run in other orders), so the
 # max is loose; the mean and the share carry the check, since a wrong kernel
 # moves every element. Each about 3x the largest gap measured on an H100
-# (PERF.md): raw float32 1.03e-2, 6.2e-6, 1.2e-3; bfloat16 1.0e-2,
-# 1.6e-6, 2.5e-4; logits float32 3.9e-4, 1.2e-5; bfloat16 3.9e-3, 4.1e-5.
+# when the limits were set (PERF.md): raw float32 1.03e-2, 6.2e-6, 1.2e-3;
+# bfloat16 1.0e-2, 1.6e-6, 2.5e-4; logits float32 3.9e-4, 1.2e-5; bfloat16
+# 3.9e-3, 4.1e-5. Measured since the bfloat16 kernels form their side
+# products in their twins' 16-k runs: float32 as before; bfloat16 raw
+# 5.2e-7, 8.7e-8, 0, logits 0, 0.
 Q8_TOL = {"float32": (3e-2, 1.8e-5, 3.6e-3), "bfloat16": (3e-2, 4.7e-6, 7.4e-4)}
 Q8_LOGIT_TOL = {"float32": (1.2e-3, 3.5e-5), "bfloat16": (1.2e-2, 1.2e-4)}
 # int8 frame against the bf16 kernel frame: rgb mean abs gap (JAX's atol,
@@ -224,7 +230,9 @@ Q8_LOGIT_TOL = {"float32": (1.2e-3, 3.5e-5), "bfloat16": (1.2e-2, 1.2e-4)}
 INT8_RGB_MEAN = 0.03
 # int8 semantic frame against phase 10's bf16 frame, per map, mean abs gap
 # over the bf16 frame's mean abs: about 3x the gaps measured on an H100
-# (rgb 0.0198, depth 0.0281, acc 0.0194, semantic map 0.0264; PERF.md).
+# (rgb 0.0198, depth 0.0281, acc 0.0194, semantic map 0.0264, and since the
+# int8 products run on the tensor cores 0.0199, 0.0281, 0.0195, 0.0264;
+# PERF.md).
 # The maxima are not held: a ray whose last sample's density is near 0
 # flips between empty and opaque (its interval is 1e10), as in phase 4.
 INT8_SEM_FRAME_MEAN = {"rgb_map": 0.06, "depth_map": 0.085, "acc_map": 0.06,
@@ -358,7 +366,10 @@ def sass_tensor_core_check(_build, fmt):
     (``fused_nerf_bwd_acts_kernel``: kernel 5's) and in phase 2's
     ``fused_nerf_wgrad_kernel``; none in a float32 instantiation. Kernel 8's
     phase 1 keeps its input products on FMA, in its twin's order (the note
-    of ``backward_tile`` in csrc/fused_nerf_bwd.cu): its count is printed."""
+    of ``backward_tile`` in csrc/fused_nerf_bwd.cu): its count is printed.
+    Every instantiation of the int8 tile (``fused_nerf_q8_kernel``, kernels
+    10 and 11) shows IMMA and no IDP4A, HMMA in bfloat16 and none in
+    float32; the counts are printed."""
     import re
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -401,6 +412,23 @@ def sass_tensor_core_check(_build, fmt):
         if name == "fused_nerf_bwd_recompute_kernel" and typ == "bf16":
             check(n > fwd[width], f"HMMA in the recompute backward's tile (W={width}: "
                   f"{n} against the forward tile's {fwd[width]})")
+    # The int8 tile (kernels 10, 11): its W8A8 products on the integer tensor cores (IMMA),
+    # none on __dp4a (IDP4A); the bfloat16 side products on HMMA, the float32 ones on FMA.
+    sass = subprocess.run([tool, "--dump-sass", str(_build.library_path(fmt.Q8_KERNEL))],
+                          capture_output=True, text=True, check=True).stdout
+    q8 = []  # (type, W, IMMA, IDP4A, HMMA) per instantiation
+    for chunk in sass.split("Function : ")[1:]:
+        m = kernel.search(chunk.split()[0])
+        if m and m.group(1) == "fused_nerf_q8_kernel":
+            q8.append(({"f": "f32"}.get(m.group(2), "bf16"), m.group(3), chunk.count("IMMA"),
+                       chunk.count("IDP4A"), chunk.count("HMMA") + chunk.count("HGMMA")))
+    print("SASS: fused_nerf_q8_kernel (type, W, IMMA, IDP4A, HMMA) " + str(sorted(q8)))
+    check(sorted((k[0], k[1]) for k in q8) == [("bf16", "128"), ("bf16", "256"),
+                                               ("f32", "128"), ("f32", "256")],
+          "4 fused_nerf_q8_kernel instantiations in the SASS")
+    check(all(k[2] > 0 and k[3] == 0 for k in q8), "IMMA and no IDP4A in every int8 kernel")
+    check(all((k[4] > 0) == (k[0] == "bf16") for k in q8),
+          "HMMA in the bfloat16 int8 kernels and none in the float32 ones")
 
 
 def mlp_macs(depth, width, e_p, e_v, live_skips, S):
@@ -941,6 +969,18 @@ def q8_work(fmt, passes, semantic):
     return ops, flops, by
 
 
+def q8_tile_weight_bytes(depth, n_skips, Wd=256, e_p=63, e_v=27):
+    """Bytes of weights one 64-point tile of kernel 10 reads through L2
+    (bfloat16): the int8 layers, the bf16 first layer and skip rows (padded
+    to 64 encoding columns), the heads, the view layer's per-ray rows, the
+    biases and the column scales."""
+    WH, ep16 = Wd // 2, -(-e_p // 16) * 16
+    n_q8 = (depth - 1) * Wd * Wd + Wd * Wd + Wd * WH
+    side = ep16 * Wd * (1 + n_skips) + Wd + e_v * WH + WH * 3
+    n_b = depth * Wd + 1 + Wd + WH + 3
+    return n_q8 + 2 * side + 4 * n_b + 4 * -(-(depth + 1) // 8) * 8 * Wd
+
+
 def q8_times(fmt, dev, passes, semantic, card, label):
     """Kernel 10 (or 11) and its twin over ``passes`` (bf16, weights packed
     once, as on the serving path): (ms, plain ms, bound ms, bound by)."""
@@ -977,10 +1017,14 @@ def q8_times(fmt, dev, passes, semantic, card, label):
     t_bytes = by / PEAK_BYTES
     bound = max(t_ops, t_bytes) * 1e3
     by_ = "operations" if t_ops > t_bytes else "bytes"
+    l2 = [(-(-pts.shape[1] // fmt.TILE), q8_tile_weight_bytes(d, len(fmt.live_skips(d, (4,)))))
+          for _, pts, _, d in passes]
     print(f"{label} per frame (coarse + fine, bf16): {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, {ops / ms / 1e9:.1f} int8 TOPS + "
-          f"{flops / ms / 1e9:.1f} TFLOP/s, bound {bound:.3f} ms ({by_}) on "
-          f"{card}", flush=True)
+          f"{flops / ms / 1e9:.1f} TFLOP/s, bound {bound:.3f} ms ({by_}); weights "
+          f"read through L2 {sum(n * b for n, b in l2) / 1e9:.1f} GB "
+          f"({sum(n * b for n, b in l2) / ms / 1e9:.2f} TB/s; "
+          f"{', '.join(f'{b / 1e6:.3f}' for _, b in l2)} MB a tile) on {card}", flush=True)
     return ms, plain_ms, bound, by_
 
 

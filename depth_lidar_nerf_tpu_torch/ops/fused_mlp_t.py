@@ -122,9 +122,9 @@ BWD_ARGTYPES = {
 }
 Q8_KERNEL = "fused_nerf_q8"
 Q8_ARGTYPES = {
-    # (pts, vd, w, b, wq, sc, out, fpart, MR, P, S, depth, width, multires,
-    #  multires_views, skip_mask, bf16, w_off, b_off, q_off, stream)
-    "fused_nerf_q8_launch": [_PTR] * 8 + [_INT] * 9 + [_PTR] * 4,
+    # (pts, vd, w, wp, b, wq, sc, out, fpart, MR, P, S, depth, width, multires,
+    #  multires_views, skip_mask, bf16, w_off, b_off, p_off, q_off, stream)
+    "fused_nerf_q8_launch": [_PTR] * 9 + [_INT] * 9 + [_PTR] * 5,
 }
 _DTYPES = (torch.float32, torch.bfloat16)
 TILE = 64  # points per CUDA block tile (kTP in csrc/fused_nerf.cuh)
@@ -2207,12 +2207,19 @@ def qdot_plain(h: torch.Tensor, wq: torch.Tensor,
     operands are integers of at most 127 in magnitude and every partial sum
     is an integer below ``K * 127^2 < 2^24`` for ``K <= 1040`` (the kernels
     take ``K <= 256``)."""
+    q, m = quant_rows(h)
+    return (q @ wq.float()) * ((m * _INV127) * srow)
+
+
+def quant_rows(h: torch.Tensor):
+    """:func:`qdot_plain`'s activation quantization of ``h [T, K]``: (the
+    int8 values ``round(h r)`` as float32 ``[T, K]``, the row max-abs ``m``
+    ``[T, 1]``) with ``r = 127 / max(m, 1e-30)``."""
     hf = h.float()
     m = hf.abs().amax(1, keepdim=True)
     mc = torch.clamp_min(m, 1e-30)
     r = torch.full_like(mc, 127.0) / mc  # not 127.0 / mc: torch takes the reciprocal
-    acc = torch.round(hf * r) @ wq.float()
-    return acc * ((m * _INV127) * srow)
+    return torch.round(hf * r), m
 
 
 class PackedQ8(NamedTuple):
@@ -2266,8 +2273,11 @@ def _forward_q8_plain(params, pts_t, viewdirs_t, S, depth, width, multires,
     forward with :func:`qdot_plain` for trunk layers 1..D-1, the feature
     layer and the view layer's feature half; a trunk layer adds its bias,
     then a live skip's encoding product; the view layer adds the ray's term,
-    then its bias. Returns raw ``[4, P]`` and the feature activation ``[P,
-    W]`` (float32 holding ``dtype`` values)."""
+    then its bias. In bfloat16 the first layer's and the skip's encoding
+    products are :func:`_tc_mm`'s over the encoding zero-padded to a multiple
+    of 16 columns, as the kernel forms them on the tensor cores. Returns raw
+    ``[4, P]`` and the feature activation ``[P, W]`` (float32 holding
+    ``dtype`` values)."""
     ls = live_skips(depth, skips)
     e_p = 3 + 6 * multires
     q, sc = packed.q, packed.scales
@@ -2275,14 +2285,20 @@ def _forward_q8_plain(params, pts_t, viewdirs_t, S, depth, width, multires,
     def rnd(x):
         return x.to(dtype).float()
 
+    def pad(x):  # the encoding's columns up to a multiple of 16, zero
+        return torch.nn.functional.pad(x, (0, _pad16(e_p) - e_p))
+
+    def enc_mm(wi):  # enc @ wi.T, wi [W, e_p]
+        return _tc_mm(pad(enc), pad(wi)) if dtype == torch.bfloat16 else enc @ wi.T
+
     w, b = _plain_weights(params, dtype)
     enc, encv = _plain_encodings(pts_t, viewdirs_t, multires, multires_views,
                                  dtype)
-    h = rnd(torch.relu(enc @ w("trunk_0").T + b("trunk_0")))
+    h = rnd(torch.relu(enc_mm(w("trunk_0")) + b("trunk_0")))
     for i in range(1, depth):
         acc = qdot_plain(h, q[i - 1], sc[i - 1:i]) + b(f"trunk_{i}")
         if (i - 1) in ls:
-            acc = acc + enc @ w(f"trunk_{i}")[:, :e_p].T
+            acc = acc + enc_mm(w(f"trunk_{i}")[:, :e_p])
         h = rnd(torch.relu(acc))
     feat = rnd(qdot_plain(h, q[depth - 1], sc[depth - 1:depth])
                + b("feature"))
@@ -2353,13 +2369,13 @@ def _q8_launch(fn, packed: PackedQ8, pts_t, viewdirs_t, S, depth, width,
     lib = _build.load(Q8_KERNEL, Q8_ARGTYPES)
     err = lib.fused_nerf_q8_launch(
         pts_t.data_ptr(), viewdirs_t.data_ptr(), base.weights.data_ptr(),
-        base.biases.data_ptr(), packed.wq4.data_ptr(),
+        _tc_ptr(base), base.biases.data_ptr(), packed.wq4.data_ptr(),
         packed.scales.data_ptr(), out.data_ptr(),
         None if fpart is None else fpart.data_ptr(),
         0 if fpart is None else fpart.shape[1], P, S, depth, width, multires,
         multires_views, sum(1 << s for s in live_skips(depth, skips)),
-        int(base.dtype == torch.bfloat16), ctypes.addressof(base.w_offsets),
-        ctypes.addressof(base.b_offsets), ctypes.addressof(packed.q_offsets),
+        int(base.dtype == torch.bfloat16), *_offset_ptrs(base),
+        ctypes.addressof(packed.q_offsets),
         torch.cuda.current_stream(pts_t.device).cuda_stream)
     _build.check(lib, Q8_KERNEL, err)
     fn.launches += 1
