@@ -13,7 +13,9 @@ which raises on failure:
    the forward tile (kernels 1, 4, 6, 7, 9 and the recompute of 2-3) and
    none in the float32 ones, and integer tensor-core IMMA and no IDP4A in
    every instantiation of the int8 tile (kernels 10, 11), HMMA in its
-   bfloat16 ones (the side products) and none in its float32 ones;
+   bfloat16 ones (the side products) and none in its float32 ones, and HMMA
+   in the bfloat16 instantiations of kernel 12 and of kernel 13's chain and
+   none in the packed-lane kernels' float32 ones;
 3. each kernel against its plain PyTorch version on the card: the fused
    NeRF MLP forward at W=256 (coarse D=4, fine D=8 skip@4; float32 and
    bfloat16; S=64 and 128; 4,096 rays and the serving tiles of 32,768 and
@@ -36,7 +38,9 @@ which raises on failure:
    on three numbers (max over max, mean over mean, share of elements off by
    more than 1e-5 of the scale); then the packed-lane kernels 12 and 13 at
    W=256, D=4 and D=2, float32 and bfloat16, 8,192 rays x S=64 and 1,000
-   rays x S=8 (padded to 1,024), against their twins; then the
+   rays x S=8 (padded to 1,024), against their twins, and in bfloat16 at
+   8,192 x 64 kernel 12's tile and kernel 13's chain against their float64
+   witnesses and kernel 13's phase 2 against its twin; then the
    early-terminating forward, kernel 9, on an occluding field (16,384 and
    4,000 rays x 128 samples, scrambled key): live raw equal to kernel 1's
    bit for bit, the twin's skipped blocks, the skipped share, and the
@@ -68,17 +72,18 @@ which raises on failure:
    one step;
 5b. sigma-loss training: the same stack with ``sigma_loss`` (lambda 0.1):
    5 warm-up steps, 10 timed. Asserts finite losses, the exact launch counts
-   (kernels 12 and 13 once a step beside phase 5's, one more gradient
-   reduction), that the total and the sigma loss fall; prints ms/step and
-   rays/s beside phase 5's and profiles one step;
+   (kernels 12 and 13 once a step beside phase 5's, kernel 13's chain and
+   phase 2 once a 2^18-point chunk, one more gradient reduction), that the
+   total and the sigma loss fall; prints ms/step and rays/s beside phase
+   5's, the device memory of kernel 13's split, and profiles one step;
 5c. the early-terminating forward: phase 5's stack with
    ``DLNERF_CULL_FWD=1`` (patched into the environment for this phase
    only): kernels 1 and 9 once a step, kernel 3 twice, kernels 4 and 5
    never; ms/step beside phase 5's and the share of fine blocks skipped;
    then 5-step trajectories (4,096 rays, float32 and bfloat16): the
    sigma-loss stack, kernel path against plain path, and the cf step
-   against the dense kernel step; then kernels 9, 12 and 13 timed at the
-   steps' shapes;
+   against the dense kernel step; then kernels 9, 12 and 13 (and kernel
+   13's chain and phase 2 alone) timed at the steps' shapes;
 6. trajectory: 5 steps of the kernel path and of the plain path (plain
    modules and the sampling twin) from the same weights and generator seed,
    4,096 rays, float32 and bfloat16, perturbation and noise on; compares
@@ -357,7 +362,7 @@ def profile_step(fn, label):
         print(f"  {t:9.3f} ms  {name[:90]}")
 
 
-def sass_tensor_core_check(_build, fmt):
+def sass_tensor_core_check(_build, fmt, fm):
     """The bfloat16 products run on the tensor cores: ``cuobjdump
     --dump-sass`` of the built libraries shows HMMA (or HGMMA) in every
     bfloat16 instantiation of the forward kernels (1, 4, 6, 7, 9), of the
@@ -369,7 +374,9 @@ def sass_tensor_core_check(_build, fmt):
     of ``backward_tile`` in csrc/fused_nerf_bwd.cu): its count is printed.
     Every instantiation of the int8 tile (``fused_nerf_q8_kernel``, kernels
     10 and 11) shows IMMA and no IDP4A, HMMA in bfloat16 and none in
-    float32; the counts are printed."""
+    float32; the counts are printed. The packed-lane kernels
+    (csrc/fused_nerf_packed.cu): HMMA in the bfloat16 kernel 12 and kernel
+    13's chain, none in their float32 kernels."""
     import re
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -429,6 +436,28 @@ def sass_tensor_core_check(_build, fmt):
     check(all(k[2] > 0 and k[3] == 0 for k in q8), "IMMA and no IDP4A in every int8 kernel")
     check(all((k[4] > 0) == (k[0] == "bf16") for k in q8),
           "HMMA in the bfloat16 int8 kernels and none in the float32 ones")
+    # Kernels 12 and 13: fused_nerf_packed_fwd_kernel<T, W>, the float32
+    # fused_nerf_packed_bwd_kernel<float, W>, the bfloat16 chain
+    # fused_nerf_packed_chain_kernel<W>.
+    sass = subprocess.run([tool, "--dump-sass", str(_build.library_path(fm.KERNEL))],
+                          capture_output=True, text=True, check=True).stdout
+    packed = []  # (name, type, W, HMMA) per instantiation
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split()[0]
+        m = kernel.search(name)
+        if m and m.group(1).startswith("fused_nerf_packed_"):
+            packed.append((m.group(1), {"f": "f32"}.get(m.group(2), "bf16"),
+                           re.search(r"Li(\d+)E", name).group(1),
+                           chunk.count("HMMA") + chunk.count("HGMMA")))
+    print("SASS: packed-lane kernels (name, type, W, HMMA) " + str(sorted(packed)))
+    want = sorted((k, t, w) for k, t in (("fused_nerf_packed_fwd_kernel", "f32"),
+                                         ("fused_nerf_packed_fwd_kernel", "bf16"),
+                                         ("fused_nerf_packed_bwd_kernel", "f32"),
+                                         ("fused_nerf_packed_chain_kernel", "bf16"))
+                  for w in ("128", "256"))
+    check(sorted(k[:3] for k in packed) == want, "8 packed-lane instantiations in the SASS")
+    check(all((k[3] > 0) == (k[1] == "bf16") for k in packed),
+          "HMMA in the bfloat16 packed-lane kernels and none in the float32 ones")
 
 
 def mlp_macs(depth, width, e_p, e_v, live_skips, S):
@@ -1261,6 +1290,8 @@ def kernel_fns(fmt, sc):
             "fused_nerf_fwd_cf": fmt.fused_nerf_fwd_cf,
             "fused_nerf_packed_fwd": fm.fused_packed_fwd,
             "fused_nerf_packed_bwd": fm.fused_packed_bwd,
+            "fused_nerf_packed_chain": fm.fused_packed_chain,
+            "fused_nerf_packed_weight_grads": fm.packed_wgrad,
             sc.KERNEL: sc.inverse_cdf}
 
 
@@ -1623,30 +1654,59 @@ def packed_macs(depth, width, e_p=63, e_v=27):
             + (width + e_v) * (width // 2) + (width // 2) * 3)
 
 
+def packed_inputs(NeRFMLP, fm, dev, depth, n_rays, S):
+    """Phase 3's seeded inputs of kernels 12 and 13 at W=256: the
+    parameters, points ``[Nf, S, 3]`` and view directions ``[Nf, 3]`` of
+    ``n_rays`` rays padded as ``fused_nerf_apply_raw`` pads them (to
+    ``Nf``), and a cotangent ``[Nf S, 8]``."""
+    import numpy as np
+    import torch
+
+    g = torch.Generator().manual_seed(depth * 100 + S)
+    m = NeRFMLP(depth=depth, width=256, generator=g).to(dev)
+    with torch.no_grad():
+        m.sigma.bias += 0.5
+    params = {k: v.detach() for k, v in m.named_parameters()}
+    rng = np.random.default_rng(depth * 100 + S)
+    Nf = n_rays + (-n_rays) % (fm.TILE // S)
+    pts = torch.from_numpy(rng.uniform(-1, 1, (Nf, S, 3)).astype(np.float32)).to(dev)
+    vd = torch.nn.functional.normalize(torch.from_numpy(rng.normal(
+        size=(Nf, 3)).astype(np.float32)), dim=-1).to(dev)
+    gt = torch.randn((Nf * S, 8), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(S))
+    return params, pts, vd, gt
+
+
+def packed_gaps(fmt, fm, params, depth, got, ref, dws, ref_d):
+    """Kernel 12's raw against its twin's (max abs error over max abs) and
+    kernel 13's gradients per block (max abs error over mean abs, mean abs
+    error over mean abs, max abs error): PACKED_TOL's three numbers."""
+    e12 = rel_err(got, ref)
+    W = params["trunk_0.weight"].shape[0]
+    got_g, ref_g = (fmt.grad_blocks(fm.unpack_grads(d, params, depth, 63, 27), depth, W,
+                                    10, ()) for d in (dws, ref_d))
+    mx = max(((got_g[k] - ref_g[k]).abs().max()
+              / (ref_g[k].abs().mean() + 1e-12)).item() for k in ref_g)
+    mn = max(((got_g[k] - ref_g[k]).abs().mean()
+              / (ref_g[k].abs().mean() + 1e-12)).item() for k in ref_g)
+    return e12, mx, mn, max((got_g[k] - ref_g[k]).abs().max().item() for k in ref_g)
+
+
 def packed_kernel_checks(fm, fmt, NeRFMLP, dev, launch_fns):
     """Phase 3, kernels 12 and 13 against their twins at W=256, D=4 and 2,
     float32 and bfloat16, 8,192 rays x S=64 and 1,000 rays x S=8 (padded as
-    ``fused_nerf_apply_raw`` pads). Returns each kernel's largest max abs
+    ``fused_nerf_apply_raw`` pads), within PACKED_TOL; in bfloat16 at 8,192
+    x 64 also the witnesses and phase 2 (:func:`packed_split_checks`).
+    Returns each kernel's (and kernel 13's phases') largest max abs
     error."""
     import numpy as np
     import torch
 
-    err = {"fused_nerf_packed_fwd": 0.0, "fused_nerf_packed_bwd": 0.0}
+    err = {"fused_nerf_packed_fwd": 0.0, "fused_nerf_packed_bwd": 0.0,
+           "fused_nerf_packed_chain": 0.0, "fused_nerf_packed_weight_grads": 0.0}
     for depth in (4, 2):
         for n_rays, S in PACKED_SHAPES:
-            g = torch.Generator().manual_seed(depth * 100 + S)
-            m = NeRFMLP(depth=depth, width=256, generator=g).to(dev)
-            with torch.no_grad():
-                m.sigma.bias += 0.5
-            params = {k: v.detach() for k, v in m.named_parameters()}
-            rng = np.random.default_rng(depth * 100 + S)
-            Nf = n_rays + (-n_rays) % (fm.TILE // S)
-            pts = torch.from_numpy(rng.uniform(-1, 1, (Nf, S, 3)).astype(
-                np.float32)).to(dev)
-            vd = torch.nn.functional.normalize(torch.from_numpy(rng.normal(
-                size=(Nf, 3)).astype(np.float32)), dim=-1).to(dev)
-            gt = torch.randn((Nf * S, 8), device=dev, generator=torch.Generator(
-                device=dev).manual_seed(S))
+            params, pts, vd, gt = packed_inputs(NeRFMLP, fm, dev, depth, n_rays, S)
             for dtype in (torch.float32, torch.bfloat16):
                 name = str(dtype)[6:]
                 x = fm.pack_encoding(pts, vd, 10, 4, dtype)
@@ -1656,19 +1716,13 @@ def packed_kernel_checks(fm, fmt, NeRFMLP, dev, launch_fns):
                 dws = fm.fused_packed_bwd(ws, x, gt, **kw)
                 torch.cuda.synchronize()
                 n_before = [f.launches for f in launch_fns]
-                ref = fm.fused_packed_fwd_plain(ws, x, depth, dtype)
-                ref_d = fm.fused_packed_bwd_plain(ws, x, gt, depth, dtype)
+                ref = fm.fused_packed_fwd_plain(ws, x, depth, dtype, e_p=63, e_v=27)
+                ref_d = fm.fused_packed_bwd_plain(ws, x, gt, depth, dtype, e_p=63,
+                                                  e_v=27)
                 check([f.launches for f in launch_fns] == n_before,
                       "a plain version launched a kernel")
-                e12 = rel_err(out, ref)
-                got_g, ref_g = (fmt.grad_blocks(fm.unpack_grads(
-                    d, params, depth, 63, 27), depth, 256, 10, ())
-                    for d in (dws, ref_d))
-                mx = max(((got_g[k] - ref_g[k]).abs().max()
-                          / (ref_g[k].abs().mean() + 1e-12)).item() for k in ref_g)
-                mn = max(((got_g[k] - ref_g[k]).abs().mean()
-                          / (ref_g[k].abs().mean() + 1e-12)).item() for k in ref_g)
-                e13 = max((got_g[k] - ref_g[k]).abs().max().item() for k in ref_g)
+                e12, mx, mn, e13 = packed_gaps(fmt, fm, params, depth, out, ref, dws,
+                                               ref_d)
                 tol = PACKED_TOL[name]
                 print(f"kernels 12-13 D={depth} N={n_rays} S={S} {name}: fwd "
                       f"{e12[1]:.3g} (abs {e12[0]:.3g}), bwd max/mean {mx:.3g} "
@@ -1682,11 +1736,70 @@ def packed_kernel_checks(fm, fmt, NeRFMLP, dev, launch_fns):
                                                    e12[0])
                 err["fused_nerf_packed_bwd"] = max(err["fused_nerf_packed_bwd"],
                                                    e13)
-                del x, ws, out, dws, ref, ref_d, got_g, ref_g
+                del out, dws, ref, ref_d
+                if dtype == torch.bfloat16 and S == 64:
+                    for k, e in packed_split_checks(fm, fmt, ws, x, gt, depth,
+                                                    launch_fns).items():
+                        err[k] = max(err[k], e)
+                del x, ws
                 torch.cuda.empty_cache()
             del params, pts, vd, gt
             torch.cuda.empty_cache()
     return err
+
+
+def packed_split_checks(fm, fmt, ws, x, g, depth, launch_fns):
+    """Phase 3, kernel 13's split in bfloat16 on all of ``x``'s points in
+    one chunk: kernel 12's tile (the chain's recompute writes its
+    activations) and the chain's cotangents against their float64 witnesses
+    (``fm.packed_fwd_witness``, ``fm.packed_bwd_witness``: summed over the
+    layers, rounded otherwise no more often than by float32 products,
+    WITNESS_RATIO); phase 2 on the chain's buffers against its twin within
+    WGRAD_TOL of its output's max abs. Returns each phase's max abs error
+    (the chain's: its small gradients against its twin's)."""
+    import torch
+
+    P, W = x.shape[0], ws[0].shape[1]
+    kw = fm.kernel_weights(ws, depth, 63, 27)
+    stride = -(-kw.grad_numel // 4) * 4
+    part = torch.zeros((fmt._grid(x.device, 1 << 30), stride), device=x.device)
+    # hv, which no phase reads, only for the forward witness
+    hv = torch.empty((P * W // 2,), dtype=torch.bfloat16, device=x.device)
+    acts, cot = fm.fused_packed_chain(ws, x, g, 0, P, part, depth=depth, e_p=63,
+                                      e_v=27, dtype=torch.bfloat16, kw=kw, hv=hv)
+    ents = fm.packed_wgrad_entries(x, acts, cot, 0, P, depth, W, 63, 27,
+                                   fm.grad_offsets(ws))
+    wpart = torch.zeros((fmt._wgrad_splits(ents, P, x.device), stride), device=x.device)
+    fmt.bwd_weight_grads(ents, wpart, P, counter=fm.packed_wgrad)
+    torch.cuda.synchronize()
+    n_before = [f.launches for f in launch_fns]
+    _, _, small, _ = fm.fused_packed_chain_plain(ws, x, g, 0, P, depth=depth, e_p=63,
+                                                 e_v=27, dtype=torch.bfloat16)
+    wref = torch.zeros((1, stride), device=x.device)
+    fmt.bwd_weight_grads_plain(ents, wref)
+    check([f.launches for f in launch_fns] == n_before, "a plain version launched a kernel")
+    e1 = (part.sum(0)[:small.numel()] - small).abs().max().item()
+    e2_abs = (wpart.sum(0) - wref[0]).abs().max().item()
+    e2 = e2_abs / wref.abs().max().item()
+    fw = fm.packed_fwd_witness(ws, x, acts, hv, depth, 63, 27)
+    bw = fm.packed_bwd_witness(ws, g, acts, hv, cot, depth)
+    for label, wit in (("kernel 12's tile (h_0 .., feat, hv)", fw),
+                       ("kernel 13's chain (dhv, dfeat, dh_D-1 .. dh_0)", bw)):
+        sk, s32 = sum(wit["kernel"]), sum(wit["float32"])
+        print(f"{label} D={depth} P={P} bf16 against the float64 witness: share "
+              "rounded otherwise per layer kernel "
+              + " ".join(f"{v:.3g}" for v in wit["kernel"]) + "; float32 products "
+              + " ".join(f"{v:.3g}" for v in wit["float32"])
+              + f"; summed {sk:.4g} against {s32:.4g} ({sk / s32:.3f}x, limit "
+              f"{WITNESS_RATIO:g}x)", flush=True)
+        check(sk <= WITNESS_RATIO * s32, f"{label} against the float64 witness D={depth}")
+    print(f"kernel 13 phase 2 D={depth} P={P}: {e2:.3g} of its max (abs {e2_abs:.3g}; "
+          f"tolerance {WGRAD_TOL:g}), {wpart.shape[0]} splits; chain small gradients "
+          f"abs {e1:.3g}", flush=True)
+    check(e2 <= WGRAD_TOL, f"kernel 13 phase 2 vs plain D={depth}")
+    del acts, cot, hv, part, wpart, wref, ents
+    torch.cuda.empty_cache()
+    return {"fused_nerf_packed_chain": e1, "fused_nerf_packed_weight_grads": e2_abs}
 
 
 def cf_inputs(NeRFMLP, dev, n_rays, seed):
@@ -1902,9 +2015,13 @@ def sigma_and_cf_training(fm, fmt, sc, renderer, dev, card, plain_sampler,
     ms, launches, vals = run(step, state, tables,
                              torch.Generator(device=dev).manual_seed(0))
     n_chunks = -(-TRAIN_N_RAYS * 128 // fmt.BWD_CHUNK)  # kernel 5's split, fine pass
+    # kernel 13's split: the sigma loss's N_samples points on each depth ray
+    n_sig = -(-(TRAIN_N_RAYS // 2) * cfg.N_samples // fmt.BWD_CHUNK)
     want = {fmt.KERNEL: n, "fused_nerf_fwd_acts": n, "fused_nerf_bwd_culled": n,
             "fused_nerf_bwd_acts": n, sc.KERNEL: n, "fused_nerf_grad_reduce": 3 * n,
             "fused_nerf_packed_fwd": n, "fused_nerf_packed_bwd": n,
+            "fused_nerf_packed_chain": n_sig * n,
+            "fused_nerf_packed_weight_grads": n_sig * n,
             "fused_nerf_bwd_chain": n_chunks * n,
             "fused_nerf_bwd_weight_grads": n_chunks * n}
     print(f"sigma-loss training launches over {n} steps: {launches}", flush=True)
@@ -2030,22 +2147,81 @@ def sigma_and_cf_training(fm, fmt, sc, renderer, dev, card, plain_sampler,
     ws, x, g, kw = captured["packed"]
     kw = {k_: v for k_, v in kw.items() if k_ != "kw"}
     depth, W = kw["depth"], ws[0].shape[1]
-    kwt = fm.kernel_weights(ws, depth)
+    kwt = fm.kernel_weights(ws, depth, 63, 27)
     P = x.shape[0]
     n_w = sum(t.numel() for t in ws)
+    dt = kw["dtype"]
+    chunks = [(c, min(fmt.BWD_CHUNK, P - c)) for c in range(0, P, fmt.BWD_CHUNK)]
+    part = torch.zeros((2 * fmt._grid(dev, 1 << 30), -(-n_w // 4) * 4), device=dev)
+    g_at = fm.grad_offsets(ws)
     with torch.no_grad():
         t12 = (cuda_ms(lambda: fm.fused_packed_fwd(ws, x, kw=kwt, **kw), 10),
-               cuda_ms(lambda: fm.fused_packed_fwd_plain(ws, x, depth, kw["dtype"]), 3, 1))
+               cuda_ms(lambda: fm.fused_packed_fwd_plain(ws, x, depth, dt, e_p=63,
+                                                         e_v=27), 3, 1))
         t13 = (cuda_ms(lambda: fm.fused_packed_bwd(ws, x, g, kw=kwt, **kw), 5, 1),
-               cuda_ms(lambda: fm.fused_packed_bwd_plain(ws, x, g, depth, kw["dtype"]), 2, 1))
+               cuda_ms(lambda: fm.fused_packed_bwd_plain(ws, x, g, depth, dt, e_p=63,
+                                                         e_v=27), 2, 1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fm.fused_packed_bwd(ws, x, g, kw=kwt, **kw)
+        torch.cuda.synchronize()
+        buf_mem = sum(fm.chunk_numel(min(P, fmt.BWD_CHUNK), depth, W)) * 2
+        mem = {"peak_bytes": torch.cuda.max_memory_allocated() - base,
+               "activation_and_cotangent_buffers_bytes": buf_mem}
+        print(f"split backward, kernel 13 (the sigma-loss term): {P} points in chunks of "
+              f"{fmt.BWD_CHUNK}; extra device memory {mem['peak_bytes'] / 2**30:.3f} GiB "
+              f"at peak, of which the chunk's activations and cotangents "
+              f"{buf_mem / 2**30:.3f} GiB", flush=True)
+        out["sigma_training"]["split_backward_memory"] = mem
+        # kernel 13's phases alone over the pass's chunks, phase 2 on phase 1's buffers
+        bufs = [fm.fused_packed_chain(ws, x, g, c, n_, part, kw=kwt, **kw)
+                for c, n_ in chunks]
+        ents = [fm.packed_wgrad_entries(x, a, c_, c, n_, depth, W, 63, 27, g_at)
+                for (a, c_), (c, n_) in zip(bufs, chunks)]
+        times_13 = {
+            "fused_nerf_packed_chain": (
+                cuda_ms(lambda: [fm.fused_packed_chain(ws, x, g, c, n_, part, kw=kwt,
+                                                       acts=a, cot=c_, **kw)
+                                 for (a, c_), (c, n_) in zip(bufs, chunks)], 5, 1),
+                cuda_ms(lambda: [fm.fused_packed_chain_plain(ws, x, g, c, n_, depth=depth,
+                                                             e_p=63, e_v=27, dtype=dt)
+                                 for c, n_ in chunks], 2, 1)),
+            "fused_nerf_packed_weight_grads": (
+                cuda_ms(lambda: [fmt.bwd_weight_grads(e, part, n_, counter=fm.packed_wgrad)
+                                 for e, (_, n_) in zip(ents, chunks)], 5, 1),
+                cuda_ms(lambda: [fmt.bwd_weight_grads_plain(e, part[:1]) for e in ents],
+                        2, 1))}
+        del bufs, ents, part
+        torch.cuda.empty_cache()
     macs = packed_macs(depth, W)
     # Kernel 13: the forward recomputed, a weight-gradient product per weight
     # and an input-gradient product per weight past the first layer.
     bwd_m = macs + 2 * macs - 63 * W - 27 * (W // 2)
+    # Its phase 2: the large weight gradients (W1's e_p rows, the trunk, the
+    # feature columns, the view layer's feature and view rows); phase 1 the rest.
+    wg_m = 63 * W + (depth - 1) * W * W + W * W + W * (W // 2) + 27 * (W // 2)
+    # Phase 1's buffers: the activations h_0 .. h_{D-1}, feat and the
+    # cotangents (those layers' and dhv's), bfloat16.
+    acts_bytes, cot_bytes = (2 * m for m in fm.chunk_numel(P, depth, W))
+    x_lanes = fmt._pad16(63 + 27)  # the packed lanes 0 .. 95 that both phases read
+    # The chain's small gradients: every bias, d(WR)'s rgb columns, d(WFS)'s sigma column.
+    n_small = (depth + 1) * W + W // 2 + 4 + 3 * (W // 2) + W
     work = {"fused_nerf_packed_fwd": (2 * macs * P, P * 128 * 2 + P * 8 * 4 + n_w * 2),
             "fused_nerf_packed_bwd": (2 * bwd_m * P, P * 128 * 2 + P * 8 * 4 + n_w * 2
-                                      + n_w * 4)}
-    for k_, t_ in (("fused_nerf_packed_fwd", t12), ("fused_nerf_packed_bwd", t13)):
+                                      + n_w * 4),
+            # reads x's lanes, g and the weights; writes the activations,
+            # the cotangents and the small gradients
+            "fused_nerf_packed_chain": (2 * (bwd_m - wg_m) * P,
+                                        P * x_lanes * 2 + P * 8 * 4 + n_w * 2 + acts_bytes
+                                        + cot_bytes + n_small * 4),
+            # reads the activations, the cotangents and x's lanes 0 .. 63
+            # and 48 .. 95; writes the large gradients (wg_m entries)
+            "fused_nerf_packed_weight_grads": (2 * wg_m * P,
+                                               acts_bytes + cot_bytes + P * x_lanes * 2
+                                               + wg_m * 4)}
+    for k_, t_ in (("fused_nerf_packed_fwd", t12), ("fused_nerf_packed_bwd", t13),
+                   *times_13.items()):
         fl, by = work[k_]
         t_ops, t_bytes = fl / PEAK_FLOPS["bfloat16"], by / PEAK_BYTES
         times[k_] = (t_[0], t_[1], max(t_ops, t_bytes) * 1e3,
@@ -2268,7 +2444,7 @@ def main() -> int:
                 fn = line.split("'")[1][:60]
             elif "registers" in line or "spill" in line or "error" in line:
                 print(f"  {name} {fn}: {line.strip()}")
-    sass_tensor_core_check(_build, fmt)
+    sass_tensor_core_check(_build, fmt, fm)
 
     # ---- 3. kernels against their plain versions ----------------------------
     # Kernel 1 at 4,096 rays and at the serving path's own tiles of a
@@ -2752,7 +2928,10 @@ def main() -> int:
     for k, source, where in (
             ("fused_nerf_fwd_cf", "fused_nerf_fwd.cu", "fused_mlp_t.py:1233"),
             ("fused_nerf_packed_fwd", "fused_nerf_packed.cu", "fused_mlp.py:108"),
-            ("fused_nerf_packed_bwd", "fused_nerf_packed.cu", "fused_mlp.py:115")):
+            ("fused_nerf_packed_bwd", "fused_nerf_packed.cu", "fused_mlp.py:115"),
+            # the two phases of kernel 13 in bfloat16
+            ("fused_nerf_packed_chain", "fused_nerf_packed.cu", "fused_mlp.py:115"),
+            ("fused_nerf_packed_weight_grads", "fused_nerf_bwd.cu", "fused_mlp.py:115")):
         ms_, plain_, bound_, by_ = s5["times"][k]
         kernels.append({
             "name": k, "route": "cuda", "source": src + source,
@@ -2761,7 +2940,8 @@ def main() -> int:
             "plain_ms": plain_, "bound_ms": bound_, "bound_by": by_,
             "library_ms": None})
     parts = {"fused_nerf_sem_head", "fused_nerf_sem_head_bwd",  # parts of rows 6-8
-             "fused_nerf_bwd_chain", "fused_nerf_bwd_weight_grads"}  # of rows 5, 8
+             "fused_nerf_bwd_chain", "fused_nerf_bwd_weight_grads",  # of rows 5, 8
+             "fused_nerf_packed_chain", "fused_nerf_packed_weight_grads"}  # of row 13
     check(len({k["name"] for k in kernels} - parts) == 14,
           "every TPU kernel has its counterpart")
     for k in kernels:

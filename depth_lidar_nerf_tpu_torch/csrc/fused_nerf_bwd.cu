@@ -72,18 +72,6 @@ namespace {
 
 using namespace fnerf;
 
-// dst[p][c] = src[c][p] for p < n_valid, c < C (C even): a [C][kLD] shared array of bfloat16
-// values to device memory as [point][C] rows.
-__device__ __forceinline__ void write_rows(__nv_bfloat16* __restrict__ dst,
-                                           const float* __restrict__ src, int C, int n_valid) {
-  const int C2 = C / 2;
-  for (int idx = threadIdx.x; idx < n_valid * C2; idx += kThreads) {
-    const int p = idx / C2, c = 2 * (idx % C2);
-    *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)p * C + c) =
-        __floats2bfloat162_rn(src[c * kLD + p], src[(c + 1) * kLD + p]);
-  }
-}
-
 // mac (fused_nerf.cuh) for bfloat16 weights, with the rows of w staged through shared memory
 // `stage` (kStageRows x 32 NJ bfloat16) a chunk of rows at a time instead of read per k, the
 // next chunk's loads in flight in registers during the current chunk's products, and rows k and
@@ -155,77 +143,6 @@ __device__ __forceinline__ T* cot_rows(T* cot, int l, int D, int W, int ep16, si
   const size_t base = (size_t)min(l, D + 1) * cstride * W;
   return cot + base + (l == D + 2 ? cstride * (W / 2) + crow0 * ep16
                                   : crow0 * (l == D + 1 ? W / 2 : W));
-}
-
-// ---- the backward tile's input products on the tensor cores ----
-
-// acc[mt][nt] += sum_k in[k][16 mt + row] * w[(n0 + 8 nt + col) * ldk + k] for k < K
-// (K % 16 == 0): a backward input product dX = dY W^T on the tensor cores, in tc_mac's fragment
-// layout and k-step order (each k-step's 16 products summed from zero, then added in float32).
-// `in` is the gradient [K][kLD] in shared memory (bfloat16 values, so the A fragments convert
-// exactly); B is `wi`, the [in, out] weights with each run of 16 k of a row permuted as the
-// forward's `wp` (pack_params' weights_ip): row n holds input n's ldk = out weights, and lane t
-// of a quad reads its four, k = 2t, 2t + 1, 2t + 8, 2t + 9, as one 8-byte word, one k-step
-// ahead of the MMAs that use them. (Read as two 4-byte words from the natural [in, out]
-// rows, kernel 5's chain takes ~7% longer on the H100: scripts/torch_bwd_b_layout.py.)
-template <int NT>
-__device__ __forceinline__ void tc_mac_in(float (&acc)[kMT][NT][4], const float* __restrict__ in,
-                                          int K, const __nv_bfloat16* __restrict__ w, int ldk,
-                                          int n0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const uint2* bp = reinterpret_cast<const uint2*>(w + (size_t)(n0 + g) * ldk) + t;
-  const float* ap = in + 2 * t * kLD + g;
-  uint2 b[NT];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) b[nt] = __ldg(bp + (size_t)nt * 2 * ldk);
-#pragma unroll 1
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    const int kn = k0 + 16 < K ? k0 + 16 : k0;
-    uint2 bn[NT];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) bn[nt] = __ldg(bp + (size_t)nt * 2 * ldk + kn / 4);
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-      const float* a = ap + k0 * kLD + 16 * mt;
-      const uint32_t af[4] = {bf16x2(a[0], a[kLD]), bf16x2(a[8], a[kLD + 8]),
-                              bf16x2(a[8 * kLD], a[9 * kLD]),
-                              bf16x2(a[8 * kLD + 8], a[9 * kLD + 8])};
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], af, b[nt]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) b[nt] = bn[nt];
-  }
-}
-
-// store_masked for tc_mac_in's fragment layout (lane (gq, t) holds points 16 mt + gq + 8 h of
-// columns n0 + 8 nt + 2t, + 1): where gate > 0 (or everywhere without a gate) the accumulator
-// rounded to bfloat16, else 0, transposed into `out` ([N][kLD]); with `g`, also the tile's
-// valid rows to device memory as [point][N].
-template <int NT, int N>
-__device__ __forceinline__ void tc_store_masked(const float (&acc)[kMT][NT][4],
-                                                const float* __restrict__ gate,
-                                                float* __restrict__ out,
-                                                __nv_bfloat16* __restrict__ g, int n_valid,
-                                                int n0, int lane) {
-  const int gq = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = 16 * mt + gq + 8 * h, c = n0 + 8 * nt + 2 * t;
-        const bool on0 = gate == nullptr || gate[c * kLD + p] > 0.f;
-        const bool on1 = gate == nullptr || gate[(c + 1) * kLD + p] > 0.f;
-        const float v0 = on0 ? rnd<__nv_bfloat16>(acc[mt][nt][2 * h]) : 0.f;
-        const float v1 = on1 ? rnd<__nv_bfloat16>(acc[mt][nt][2 * h + 1]) : 0.f;
-        out[c * kLD + p] = v0;
-        out[(c + 1) * kLD + p] = v1;
-        if (g && p < n_valid)
-          *reinterpret_cast<__nv_bfloat162*>(g + (size_t)p * N + c) =
-              __floats2bfloat162_rn(v0, v1);
-      }
 }
 
 // ---- the backward tile's input products by route ----

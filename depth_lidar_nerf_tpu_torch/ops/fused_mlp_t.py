@@ -1478,11 +1478,14 @@ def _wgrad_splits(entries, count: int, device) -> int:
                                            // tiles)))
 
 
-def bwd_weight_grads(entries, part: torch.Tensor, count: int) -> None:
+def bwd_weight_grads(entries, part: torch.Tensor, count: int, *,
+                     counter=None) -> None:
     """Phase 2 (``fused_nerf_wgrad_kernel``): the products of
     :func:`wgrad_entries` over ``count`` points, each split of the points
     added into its own row of ``part`` (in place; :func:`_wgrad_splits`
-    rows). CPU tensors run :func:`bwd_weight_grads_plain`."""
+    rows). The launch adds one to ``counter.launches`` (by default this
+    function's; the packed-lane kernel 13 passes its own). CPU tensors run
+    :func:`bwd_weight_grads_plain`."""
     if part.device.type == "cpu":
         return bwd_weight_grads_plain(entries, part)
     splits = _wgrad_splits(entries, count, part.device)
@@ -1504,7 +1507,7 @@ def bwd_weight_grads(entries, part: torch.Tensor, count: int) -> None:
         part.shape[1], splits,
         torch.cuda.current_stream(part.device).cuda_stream)
     _build.check(lib, BWD_KERNEL, err)
-    bwd_weight_grads.launches += 1
+    (bwd_weight_grads if counter is None else counter).launches += 1
 
 
 bwd_weight_grads.launches = 0

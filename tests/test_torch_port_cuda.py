@@ -721,14 +721,106 @@ def test_packed_kernels_match_plain(cuda, depth, width, S, N, dtype):
     dws = fm.fused_packed_bwd(ws, x, gt, depth=depth, e_p=63, e_v=27, dtype=dtype)
     torch.cuda.synchronize()
     assert (fm.fused_packed_fwd.launches, fm.fused_packed_bwd.launches) == (n12 + 1, n13 + 1)
-    ref = fm.fused_packed_fwd_plain(ws, x, depth, dtype)
+    ref = fm.fused_packed_fwd_plain(ws, x, depth, dtype, e_p=63, e_v=27)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
     unpack = lambda d: fm.unpack_grads(d, params, depth, 63, 27)  # noqa: E731
-    got_g, ref_g = unpack(dws), unpack(fm.fused_packed_bwd_plain(ws, x, gt, depth, dtype))
+    got_g, ref_g = unpack(dws), unpack(fm.fused_packed_bwd_plain(ws, x, gt, depth, dtype,
+                                                                 e_p=63, e_v=27))
     err = max(((got_g[k] - ref_g[k]).abs().max() / (ref_g[k].abs().mean() + 1e-12)).item()
               for k in ref_g)
     assert err <= (2e-4 if dtype == torch.float32 else 2e-2), err
+
+
+@pytest.mark.parametrize("depth", [4, 2])
+@pytest.mark.parametrize("shape", [(8192, 64), (1000, 8)])
+def test_packed_bf16_kernels_match_layout_twins(cuda, depth, shape):
+    """Kernels 12 and 13 in bfloat16 (the tensor-core tile and the split
+    backward) against their layout twins, which form each product in the
+    kernels' 16-k runs, within chip_smoke.py's PACKED_TOL, on its phase-3
+    inputs (``chip_smoke.packed_inputs``: its PACKED_SHAPES)."""
+    import chip_smoke as cs
+    from depth_lidar_nerf_tpu_torch.models.nerf_mlp import NeRFMLP
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp as fm
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as fmt
+
+    bf = torch.bfloat16
+    params, pts, vd, gt = cs.packed_inputs(NeRFMLP, fm, cuda, depth, *shape)
+    x = fm.pack_encoding(pts, vd, 10, 4, bf)
+    ws = fm.pack_params(params, depth, 63, 27, bf, cuda)
+    kw = dict(depth=depth, e_p=63, e_v=27, dtype=bf)
+    got, dws = fm.fused_packed_fwd(ws, x, **kw), fm.fused_packed_bwd(ws, x, gt, **kw)
+    torch.cuda.synchronize()
+    twin = fm.fused_packed_fwd_plain(ws, x, depth, bf, e_p=63, e_v=27)
+    twin_d = fm.fused_packed_bwd_plain(ws, x, gt, depth, bf, e_p=63, e_v=27)
+    e12, mx, mn, _ = cs.packed_gaps(fmt, fm, params, depth, got, twin, dws, twin_d)
+    tol = cs.PACKED_TOL["bfloat16"]
+    assert e12[1] <= tol[0] and mx <= tol[1] and mn <= tol[2], (e12, mx, mn)
+
+
+@pytest.mark.parametrize("depth,width", [(4, 256), (1, 128)])
+def test_packed_split_on_card(cuda, monkeypatch, depth, width):
+    """Kernel 13's bfloat16 split: over chunks of 4,096 points (a ragged
+    last one) it launches the chain and phase 2 once a chunk and counts one
+    launch of kernel 13, and its gradients stay within PACKED_TOL's max over
+    mean of the one-chunk call's; kernel 12's activations (from the chain's recompute)
+    and the chain's cotangents round otherwise than float64 products of
+    their own inputs no more often than float32 products do
+    (WITNESS_RATIO); phase 2 on the chain's buffers is within WGRAD_TOL of
+    its twin. Of PACKED_TOL only the max over mean is held here, not the
+    mean over mean: at these 300 x 64 rays the sigma bias's gradient, one
+    float32 sum of the cotangent's column 3, nearly cancels, and its mean
+    over mean read 7.44e-6 (above PACKED_TOL's 3e-6) in both types, the
+    earlier float32 FMA kernel included; the smoke's PACKED_SHAPES hold all
+    three numbers."""
+    import chip_smoke as cs
+    from depth_lidar_nerf_tpu_torch.models.nerf_mlp import NeRFMLP
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp as fm
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as fmt
+
+    bf = torch.bfloat16
+    m = NeRFMLP(depth=depth, width=width, generator=torch.Generator().manual_seed(depth))
+    params = {k: v.detach().to(cuda) for k, v in m.named_parameters()}
+    rng = np.random.default_rng(width)
+    N, S = 300, 64
+    pts = torch.from_numpy(rng.uniform(-1, 1, (N, S, 3)).astype(np.float32)).to(cuda)
+    vd = torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(size=(N, 3)).astype(np.float32)), dim=-1).to(cuda)
+    x = fm.pack_encoding(pts, vd, 10, 4, bf)
+    ws = fm.pack_params(params, depth, 63, 27, bf, cuda)
+    g = torch.from_numpy(rng.normal(size=(N * S, 8)).astype(np.float32)).to(cuda)
+    kw = dict(depth=depth, e_p=63, e_v=27, dtype=bf)
+    whole = fm.fused_packed_bwd(ws, x, g, **kw)
+    monkeypatch.setattr(fmt, "BWD_CHUNK", 4096)
+    fns = (fm.fused_packed_bwd, fm.fused_packed_chain, fm.packed_wgrad,
+           fmt.bwd_weight_grads, fmt.grad_reduce)
+    n0 = [f.launches for f in fns]
+    chunked = fm.fused_packed_bwd(ws, x, g, **kw)
+    torch.cuda.synchronize()
+    n_chunks = -(-N * S // 4096)
+    assert [f.launches - n for f, n in zip(fns, n0)] == [1, n_chunks, n_chunks, 0, 1]
+    # per gradient block, max abs error over mean abs (PACKED_TOL's second)
+    got, ref = (fmt.grad_blocks(fm.unpack_grads(d, params, depth, 63, 27), depth, width,
+                                10, ()) for d in (chunked, whole))
+    mx = max(((got[k] - ref[k]).abs().max() / (ref[k].abs().mean() + 1e-12)).item()
+             for k in ref)
+    assert mx <= cs.PACKED_TOL["bfloat16"][1], mx
+
+    P = N * S
+    kwt = fm.kernel_weights(ws, depth, 63, 27)
+    part = torch.zeros((132, -(-kwt.grad_numel // 4) * 4), device=cuda)
+    hv = torch.empty((P * width // 2,), dtype=bf, device=cuda)
+    acts, cot = fm.fused_packed_chain(ws, x, g, 0, P, part, kw=kwt, hv=hv, **kw)
+    for wit in (fm.packed_fwd_witness(ws, x, acts, hv, depth, 63, 27),
+                fm.packed_bwd_witness(ws, g, acts, hv, cot, depth)):
+        assert sum(wit["kernel"]) <= cs.WITNESS_RATIO * sum(wit["float32"]), wit
+    ents = fm.packed_wgrad_entries(x, acts, cot, 0, P, depth, width, 63, 27,
+                                   fm.grad_offsets(ws))
+    wpart = torch.zeros((fmt._wgrad_splits(ents, P, cuda), part.shape[1]), device=cuda)
+    fmt.bwd_weight_grads(ents, wpart, P, counter=fm.packed_wgrad)
+    wref = torch.zeros((1, part.shape[1]), device=cuda)
+    fmt.bwd_weight_grads_plain(ents, wref)
+    assert (wpart.sum(0) - wref[0]).abs().max() <= cs.WGRAD_TOL * wref.abs().max()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -802,8 +894,12 @@ def test_sigma_loss_and_cf_steps_launch(cuda, monkeypatch):
     gen = torch.Generator(device=cuda).manual_seed(0)
     fns = (fm.fused_packed_fwd, fm.fused_packed_bwd, f.fused_nerf_fwd_cf,
            f.fused_nerf_fwd_acts, f.fused_nerf_bwd_acts, f.fused_nerf_bwd_culled,
-           f.fused_nerf_bwd_chain, f.bwd_weight_grads)
-    for knob, want in (("0", (1, 1, 0, 1, 1, 1, 1, 1)), ("1", (1, 1, 1, 0, 0, 2, 0, 0))):
+           f.fused_nerf_bwd_chain, f.bwd_weight_grads, fm.fused_packed_chain,
+           fm.packed_wgrad)
+    # phase 2 once for kernel 5's fine pass, and once for kernel 13's chunk
+    # in its own count
+    for knob, want in (("0", (1, 1, 0, 1, 1, 1, 1, 1, 1, 1)),
+                       ("1", (1, 1, 1, 0, 0, 2, 0, 0, 1, 1))):
         monkeypatch.setenv("DLNERF_CULL_FWD", knob)
         n0 = [fn.launches for fn in fns]
         metrics = step(state, *tabs, gen)
