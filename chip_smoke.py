@@ -19,8 +19,11 @@ which raises on failure:
 3. each kernel against its plain PyTorch version on the card: the fused
    NeRF MLP forward at W=256 (coarse D=4, fine D=8 skip@4; float32 and
    bfloat16; S=64 and 128; 4,096 rays and the serving tiles of 32,768 and
-   320 rays) and inverse-CDF sampling at N=33,088, B=63, V=64
-   (deterministic and random draws); then the training kernels (the
+   320 rays) and inverse-CDF sampling at the main path's tiles (32,768,
+   320 and 16,384 rays, B=63, V=64; deterministic and random draws;
+   contiguous and in the renderer's strided layout; draws u = 1 where the
+   sequential CDF ends above 1.0), equal to its twin to the last bit; then
+   the training kernels (the
    activation-saving forward, the dense, culled and saved-activation
    backwards) at W=256, D=4 and D=8 skip@4, float32 and bfloat16, 4,096 and
    16,384 rays x S=64 and 128, on cotangents with per-ray zero suffixes
@@ -91,7 +94,10 @@ which raises on failure:
 7. each kernel's time at the serving and training shapes beside its plain
    version's, its achieved TFLOP/s and its bound (kernel 10's bound: int8 operations at 1,979
    TOPS plus bf16 FLOP at 989 TFLOP/s, or bytes at 3.35 TB/s; beside it the bytes of weights
-   its tiles read through L2); each phase of kernel 5's split
+   its tiles read through L2); kernel 14 per frame (det) and per step
+   (random draws) in the renderer's layout: its device time by
+   torch.profiler, the host time a wrapper call and the CUDA-events time
+   over back-to-back calls; each phase of kernel 5's split
    backward alone over the fine pass's chunks, and the device memory the split takes;
 8. (run within phase 3) the semantic kernels against their plain
    versions: kernels 6 (no-grad
@@ -298,6 +304,16 @@ SIGMA_GRAD_TOL = (6e-5, 5e-6)
 # order), and the bf16 loss gap.
 CF_TRAJ_TOL = {"float32": 1e-5, "bfloat16": 3e-3}
 SIGMA_STEPS = (5, 10)  # warm-up, timed
+# Kernel 14's cases (phase 3, tests/test_torch_port_cuda.py and
+# scripts/torch_sample_pdf_parity.py): rays, bins and draws a ray. The
+# kernel equals its twin bit for bit in each (the same float32 operations in
+# the same order), so phase 3 holds it to max abs err 0.
+SAMPLE_PDF_NS = (1, 31, 33, 320, 16384, 33088)
+SAMPLE_PDF_BS = (2, 9, 63, 64, 129)
+SAMPLE_PDF_VS = (1, 40, 64, 128)
+# Kernel 14's timing rotates over input sets of this many bytes in all, twice
+# the H100's 50 MB L2, so that each launch reads its inputs from device memory.
+L2_FLUSH_BYTES = 100e6
 
 
 def check(cond, msg):
@@ -327,6 +343,154 @@ def cuda_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def sequential_cdf_np(w):
+    """Kernel 14's CDF of weights ``[n, B-1]`` in numpy float32 (``[n, B]``,
+    0 first): the 1e-5 floor, then the total and the prefix sum added in
+    order (``np.cumsum`` accumulates in sequence), each term divided by the
+    total on its own."""
+    import numpy as np
+
+    w = w.astype(np.float32) + np.float32(1e-5)
+    total = np.cumsum(w, axis=1, dtype=np.float32)[:, -1:]
+    cdf = np.cumsum(w / total, axis=1, dtype=np.float32)
+    return np.concatenate([np.zeros_like(cdf[:, :1]), cdf], axis=1)
+
+
+def sample_pdf_inputs(dev, N, B, V, det, layout="contiguous", seed=0,
+                      u_one=False):
+    """Seeded inputs of kernel 14 on ``dev``: bins ``[N, B]`` sorted, weights
+    ``[N, B-1]`` (cubed uniforms; ray 0 all zero, a uniform pdf; ray 1 half
+    zero, a flat CDF stretch for the denominator guard), draws ``u [N, V]``
+    (``det``: ``linspace(0, 1)`` as ``pdf_uniforms`` makes it, else uniform).
+
+    ``layout="renderer"`` hands them over as the renderer does: the weights
+    as the slice ``[:, 1:-1]`` of an ``[N, B+1]`` tensor (row stride B + 1)
+    and, with ``det``, u as the ``expand`` of one row (row stride 0). With
+    ``u_one`` (B > 2) every ray's last weight is 0, so its last bin holds the
+    floor alone and the denominator guard fires there; its rows are drawn
+    until the sequential float32 CDF ends above 1.0, and its last draw is
+    1.0: that draw lands a whole bin below where a CDF rounded to 1.0 or
+    less puts it, so a kernel that sums in another order moves it."""
+    import numpy as np
+    import torch
+
+    if u_one and B <= 2:
+        raise ValueError("u_one needs B > 2: at B = 2 the CDF ends at 1.0")
+    rng = np.random.default_rng(seed)
+    bins = np.sort(rng.random((N, B), dtype=np.float32), axis=-1)
+    if u_one:
+        rows, n = [], 0
+        while n < N:
+            c = rng.random((4 * N, B + 1), dtype=np.float32) ** 3
+            c[:, -2] = 0.0
+            c = c[sequential_cdf_np(c[:, 1:-1])[:, -1] > 1.0]
+            rows.append(c)
+            n += len(c)
+        w = np.concatenate(rows)[:N]
+    else:
+        w = rng.random((N, B + 1), dtype=np.float32) ** 3
+        w[0] = 0.0
+        w[min(1, N - 1), 1:1 + B // 2] = 0.0
+    weights = torch.from_numpy(w).to(dev)[:, 1:-1]
+    if det:
+        u = torch.linspace(0.0, 1.0, V, dtype=torch.float32,
+                           device=dev).expand(N, V)
+    else:
+        u = torch.from_numpy(rng.random((N, V), dtype=np.float32)).to(dev)
+        if u_one:
+            u[:, -1] = 1.0
+    if layout != "renderer":
+        weights, u = weights.contiguous(), u.contiguous()
+    return torch.from_numpy(bins).to(dev), weights, u
+
+
+def sample_pdf_sets(dev, tiles, det, B=63, V=64):
+    """Input sets of kernel 14 in the renderer's layout, one ``(bins,
+    weights, u)`` a tile of ``tiles``, enough sets to hold L2_FLUSH_BYTES."""
+    one = sum(n * (2 * B + 1 + (0 if det else V) + V) * 4 for n in tiles)
+    return [[sample_pdf_inputs(dev, n, B, V, det, "renderer", seed=97 * k + i)
+             for i, n in enumerate(tiles)]
+            for k in range(max(2, -(-int(L2_FLUSH_BYTES) // one)))]
+
+
+def sample_pdf_bound_ms(calls):
+    """Kernel 14's byte bound over ``calls``, ``(bins, weights, u)`` each: the
+    elements each call's inputs hold read once (a row stride of 0, det's
+    expanded draws, is one row read once) and its ``[N, V]`` output written
+    once, over the card's memory rate."""
+    def held(t):
+        return (t.shape[-1] if t.stride(0) == 0 else t.numel()) * t.element_size()
+
+    bytes_ = sum(held(b) + held(w) + held(u) + u.numel() * 4 for b, w, u in calls)
+    return bytes_ / PEAK_BYTES * 1e3
+
+
+def sample_pdf_times(sc, sets, reps=50, host_calls=1000):
+    """Kernel 14's times over one frame or step (a set of ``sets``: one
+    wrapper call a tile), the sets rotated:
+    - ``device_ms``: ``sample_pdf_kernel``'s self device time a frame, by
+      torch.profiler over ``reps`` frames (``device_all_ms``: every kernel's,
+      copies of the inputs included). A profiler session after another in
+      one process may record no device events; after two such sessions the
+      time is taken by CUDA events around each wrapper call instead, the
+      stream held busy meanwhile so that the host path is not timed, and
+      both keys hold that time (``device_by`` says which);
+    - ``host_us_per_call``: a host clock around ``host_calls`` wrapper calls,
+      stopped before the one synchronisation at the end;
+    - ``events_ms``: CUDA events around ``reps`` back-to-back frames;
+    - ``plain_ms``: the twin's frame, by events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    turn = [0]
+
+    def frame():
+        for bins, weights, u in sets[turn[0] % len(sets)]:
+            sc.inverse_cdf(bins, weights, u)
+        turn[0] += 1
+
+    def plain():
+        for bins, weights, u in sets[0]:
+            sc.inverse_cdf_plain(bins, weights, u)
+
+    events_ms = cuda_ms(frame, reps)
+    plain_ms = cuda_ms(plain, reps=5, warmup=1)
+    frames = max(1, host_calls // len(sets[0]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        frame()
+    host_us = (time.perf_counter() - t0) * 1e6 / (frames * len(sets[0]))
+    torch.cuda.synchronize()
+    times = {"events_ms": events_ms, "host_us_per_call": host_us,
+             "plain_ms": plain_ms}
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                frame()
+            torch.cuda.synchronize()
+        by_name = device_times(prof)
+        kern = sum(t for t, name in by_name if "sample_pdf_kernel" in name)
+        if kern > 0:
+            return {"device_ms": kern / reps, "device_by": "profiler",
+                    "device_all_ms": sum(t for t, _ in by_name) / reps, **times}
+    pairs = []
+    for k in range(reps):
+        for bins, weights, u in sets[k % len(sets)]:
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            torch.cuda._sleep(1_000_000)  # ~0.5 ms: the launch is queued before start
+            start.record()
+            sc.inverse_cdf(bins, weights, u)
+            end.record()
+            pairs.append((start, end))
+    torch.cuda.synchronize()
+    ms = sum(s.elapsed_time(e) for s, e in pairs) / reps
+    check(ms > 0, "events time sample_pdf_kernel's launches")
+    return {"device_ms": ms, "device_by": "events", "device_all_ms": ms, **times}
 
 
 def device_times(prof):
@@ -2482,22 +2646,30 @@ def main() -> int:
                 del pts, vd
     torch.cuda.empty_cache()
 
+    # Kernel 14 at the main path's tiles (serving 32,768 and 320 rays, the
+    # step's 16,384; B = 63, V = 64), contiguous and as the renderer hands
+    # its inputs over (the weights a slice with row stride 64, det's u an
+    # expand with row stride 0), and with draws u = 1 where the sequential
+    # CDF ends above 1.0. The plain version repeats the kernel's float32
+    # operations in its order, so the two must agree to the last bit.
     N, B, V = H * W, 63, 64
-    g = torch.Generator(device=dev).manual_seed(1)
-    bins = torch.sort(torch.rand((N, B), device=dev, generator=g), -1).values
-    wts = torch.rand((N, B - 1), device=dev, generator=g) ** 3
-    for det in (True, False):
-        u = pdf_uniforms(N, V, det=det, generator=g, device=dev)
+    cases = [(n, det, layout, False) for n in (32768, H * W - 32768, TRAIN_N_RAYS)
+             for det in (True, False) for layout in ("contiguous", "renderer")]
+    cases += [(32768, det, "renderer", True) for det in (True, False)]
+    for n, det, layout, u_one in cases:
+        bins, wts, u = sample_pdf_inputs(dev, n, B, V, det, layout,
+                                         seed=n + det, u_one=u_one)
         got = sc.inverse_cdf(bins, wts, u)
         torch.cuda.synchronize()
         ref = sc.inverse_cdf_plain(bins, wts, u)
         e = (got - ref).abs().max().item()
-        # The plain version repeats the kernel's float32 operations in its
-        # order, so the two should agree to the last bit.
-        print(f"kernel sample_pdf N={N} B={B} V={V} det={det}: "
-              f"max abs err {e:.3g}, tolerance 1e-6")
-        check(np.isfinite(e) and e <= 1e-6, f"sample_pdf det={det}")
+        print(f"kernel sample_pdf N={n} B={B} V={V} det={det} {layout}"
+              f"{' u=1 at cdf[B-1] > 1' if u_one else ''}: max abs err {e:.3g}, "
+              f"tolerance 0 (equal to the last bit)")
+        check(torch.equal(got, ref), f"sample_pdf N={n} det={det} {layout} "
+              f"u_one={u_one}")
         err[sc.KERNEL] = max(err[sc.KERNEL], e)
+    del bins, wts, u, got, ref
 
     train_fns = {"fused_nerf_fwd_acts": fmt.fused_nerf_fwd_acts,
                  "fused_nerf_bwd": fmt.fused_nerf_bwd,
@@ -2645,6 +2817,7 @@ def main() -> int:
     print(f"phase 4b done at {time.time() - T_START:.0f} s", flush=True)
 
     # ---- 5. kernel times at the serving shapes ----------------------------
+    g = torch.Generator(device=dev).manual_seed(1)
     ro = torch.randn((N, 3), device=dev, generator=g)
     vd = torch.nn.functional.normalize(torch.randn((N, 3), device=dev,
                                                    generator=g), dim=-1)
@@ -2689,13 +2862,25 @@ def main() -> int:
           f"plain {mlp_plain_ms:.3f} ms, {flops / mlp_ms / 1e9:.1f} TFLOP/s, "
           f"bound {mlp_bound:.3f} ms ({mlp_by}) on {card}")
 
-    u = pdf_uniforms(N, V, det=False, generator=g, device=dev)
-    sp_ms = cuda_ms(lambda: sc.inverse_cdf(bins, wts, u), reps=50)
-    sp_plain_ms = cuda_ms(lambda: sc.inverse_cdf_plain(bins, wts, u), reps=20)
-    sp_bytes = (N * B + N * (B - 1) + 2 * N * V) * 4
-    sp_bound = sp_bytes / PEAK_BYTES * 1e3
-    print(f"sample_pdf per frame: {sp_ms:.4f} ms, plain {sp_plain_ms:.4f} ms, "
-          f"bound {sp_bound:.4f} ms (bytes) on {card}")
+    # Kernel 14: a frame's two tiles with det draws, and a step's 16,384 rays
+    # with random draws, both in the renderer's layout.
+    sp_bound = {}
+    sp = {}
+    for label, tiles, det in (("frame", (32768, N - 32768), True),
+                              ("step", (TRAIN_N_RAYS,), False)):
+        n = sum(tiles)
+        sets = sample_pdf_sets(dev, tiles, det)
+        sp_bound[label] = sample_pdf_bound_ms(sets[0])
+        sp[label] = sample_pdf_times(sc, sets)
+        del sets
+        t_ = sp[label]
+        print(f"sample_pdf per {label} ({n} rays): device {t_['device_ms']:.5f} ms "
+              f"(by {t_['device_by']}) "
+              f"({100 * sp_bound[label] / t_['device_ms']:.1f}% of the bound; "
+              f"every kernel {t_['device_all_ms']:.5f}), events "
+              f"{t_['events_ms']:.5f} ms, host {t_['host_us_per_call']:.2f} us a "
+              f"call, plain {t_['plain_ms']:.4f} ms, bound {sp_bound[label]:.6f} "
+              f"ms (bytes) on {card}")
     q8_rgb_times = q8_times(fmt, dev, work, False, card, "fused_nerf_fwd_q8")
     del work, models
     torch.cuda.empty_cache()
@@ -2889,8 +3074,11 @@ def main() -> int:
         {"name": sc.KERNEL, "route": "cuda", "source": src + "sample_pdf.cu",
          "replaces": "depth_lidar_nerf_tpu/ops/sampling_pallas.py:41",
          "launches": main_launches[sc.KERNEL], "max_abs_err": err[sc.KERNEL],
-         "ms": sp_ms, "plain_ms": sp_plain_ms, "bound_ms": sp_bound,
-         "bound_by": "bytes", "library_ms": None},
+         "ms": sp["frame"]["device_ms"], "plain_ms": sp["frame"]["plain_ms"],
+         "bound_ms": sp_bound["frame"], "bound_by": "bytes", "library_ms": None,
+         "ms_by": sp["frame"]["device_by"], "events_ms": sp["frame"]["events_ms"],
+         "host_us_per_call": sp["frame"]["host_us_per_call"],
+         "step": {**sp["step"], "bound_ms": sp_bound["step"]}},
     ]
     for k, source, line in (("fused_nerf_bwd", "fused_nerf_bwd.cu", 316),
                             ("fused_nerf_bwd_culled", "fused_nerf_bwd.cu", 334),

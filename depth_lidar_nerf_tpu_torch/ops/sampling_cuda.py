@@ -9,6 +9,11 @@ itself is deterministic and a test can give both versions the same ``u``.
 :func:`inverse_cdf` runs the kernel for CUDA tensors and the plain PyTorch
 version :func:`inverse_cdf_plain` for CPU tensors; it never falls back from
 one to the other. ``inverse_cdf.launches`` counts kernel launches.
+
+The kernel reads each input where it lies: rows at any stride (the
+renderer's ``weights[..., 1:-1]`` slice, the ``expand``ed draws of ``det``
+with stride 0), each row unit-stride, float32. :func:`inverse_cdf` refuses
+anything else on either device rather than copying it.
 """
 
 from __future__ import annotations
@@ -21,8 +26,10 @@ from depth_lidar_nerf_tpu_torch.ops import _build
 from depth_lidar_nerf_tpu_torch.ops.sampling import pdf_uniforms
 
 KERNEL = "sample_pdf"
-# sample_pdf_launch(bins, weights, u, out, N, B, V, stream)
-ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# sample_pdf_launch(bins, bins row stride, weights, weights row stride,
+#                   u, u row stride, out, N, B, V, stream)
+ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong] * 3 + [ctypes.c_void_p] \
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def inverse_cdf_plain(bins: torch.Tensor, weights: torch.Tensor,
@@ -59,10 +66,13 @@ def _launch(bins, weights, u):
     N, B = bins.shape
     V = u.shape[1]
     out = torch.empty((N, V), dtype=torch.float32, device=bins.device)
+    if N == 0 or V == 0:
+        return out
     lib = _build.load(KERNEL, ARGTYPES)
     err = lib.sample_pdf_launch(
-        bins.data_ptr(), weights.data_ptr(), u.data_ptr(), out.data_ptr(),
-        N, B, V, torch.cuda.current_stream(bins.device).cuda_stream)
+        bins.data_ptr(), bins.stride(0), weights.data_ptr(), weights.stride(0),
+        u.data_ptr(), u.stride(0), out.data_ptr(), N, B, V,
+        torch.cuda.current_stream(bins.device).cuda_stream)
     _build.check(lib, KERNEL, err)
     inverse_cdf.launches += 1
     return out
@@ -71,7 +81,7 @@ def _launch(bins, weights, u):
 def inverse_cdf(bins: torch.Tensor, weights: torch.Tensor,
                 u: torch.Tensor) -> torch.Tensor:
     """Samples ``[N, V]`` from ``bins [N, B]``, ``weights [N, B-1]`` and
-    draws ``u [N, V]`` (float32)."""
+    draws ``u [N, V]``: float32, each row unit-stride, rows at any stride."""
     N, B = bins.shape
     if weights.shape != (N, B - 1) or u.dim() != 2 or u.shape[0] != N:
         raise ValueError(f"bad shapes bins {tuple(bins.shape)} weights "
@@ -79,12 +89,17 @@ def inverse_cdf(bins: torch.Tensor, weights: torch.Tensor,
     devs = {bins.device, weights.device, u.device}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
+    for name, t in (("bins", bins), ("weights", weights), ("u", u)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} is {t.dtype}; the kernel takes float32")
+        if t.shape[1] > 1 and t.stride(1) != 1:
+            raise ValueError(f"{name} has stride {t.stride(1)} along its last "
+                             f"dimension; the kernel reads unit-stride rows")
     if bins.device.type == "cpu":
         return inverse_cdf_plain(bins, weights, u)
     if bins.device.type != "cuda":
         raise ValueError(f"unsupported device {bins.device}")
-    return _launch(bins.float().contiguous(), weights.float().contiguous(),
-                   u.float().contiguous())
+    return _launch(bins, weights, u)
 
 
 inverse_cdf.launches = 0

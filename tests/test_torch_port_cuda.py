@@ -290,22 +290,103 @@ def test_bwd_witness_on_card(cuda, depth, S):
     assert all(np.isfinite(v) for v in wit["wgrad_kernel"].values())
 
 
-@pytest.mark.parametrize("N,B,V", [(33088, 63, 64), (5, 17, 100), (1000, 2, 7)])
-def test_inverse_cdf_kernel_matches_plain(cuda, N, B, V):
+@pytest.mark.parametrize("B", [2, 9, 63, 64, 129])
+@pytest.mark.parametrize("N", [1, 31, 33, 320, 16384, 33088])
+def test_inverse_cdf_kernel_matches_plain(cuda, N, B):
+    """Kernel 14 equals its twin bit for bit (the same float32 operations
+    in the same order) at every V of ``chip_smoke.SAMPLE_PDF_VS``, with
+    deterministic and random draws, on contiguous inputs and on the
+    renderer's (the weights a slice with row stride B + 1, det's u an
+    ``expand`` with row stride 0); one launch a call."""
+    import chip_smoke as cs
     from depth_lidar_nerf_tpu_torch.ops import sampling_cuda as s
 
-    g = torch.Generator(device=cuda).manual_seed(N)
-    bins = torch.sort(torch.rand((N, B), device=cuda, generator=g), -1).values
-    w = torch.rand((N, B - 1), device=cuda, generator=g) ** 4
-    w[0] = 0.0
-    u = torch.rand((N, V), device=cuda, generator=g)
-    n0 = s.inverse_cdf.launches
+    for V in cs.SAMPLE_PDF_VS:
+        for det in (True, False):
+            for layout in ("contiguous", "renderer"):
+                bins, w, u = cs.sample_pdf_inputs(cuda, N, B, V, det, layout,
+                                                  seed=N + B + V)
+                n0 = s.inverse_cdf.launches
+                got = s.inverse_cdf(bins, w, u)
+                torch.cuda.synchronize()
+                assert s.inverse_cdf.launches == n0 + 1
+                ref = s.inverse_cdf_plain(bins, w, u)
+                assert torch.equal(got, ref), (
+                    V, det, layout, (got - ref).abs().max().item())
+
+
+@pytest.mark.parametrize("det", [True, False])
+@pytest.mark.parametrize("B", [9, 63, 129])
+def test_inverse_cdf_u_one_above_one(cuda, B, det):
+    """Draws u = 1 on rays whose sequential float32 CDF ends above 1.0 and
+    whose last bin holds the 1e-5 floor alone: the reference puts the
+    sample a whole bin below ``bins[B-1]``. The kernel equals its twin
+    there bit for bit."""
+    import chip_smoke as cs
+    from depth_lidar_nerf_tpu_torch.ops import sampling_cuda as s
+
+    bins, w, u = cs.sample_pdf_inputs(cuda, 4096, B, 64, det, "renderer",
+                                      seed=B, u_one=True)
+    assert (cs.sequential_cdf_np(w.cpu().numpy())[:, -1] > 1.0).all()
     got = s.inverse_cdf(bins, w, u)
-    torch.cuda.synchronize()
-    assert s.inverse_cdf.launches == n0 + 1
     ref = s.inverse_cdf_plain(bins, w, u)
-    # Same float32 operations in the same order: equal to the last bit.
-    assert (got - ref).abs().max().item() <= 1e-6
+    assert torch.equal(got, ref)
+    if B == 63:  # the last bin's mass ~1e-7 < 1e-5: the guard fires
+        last = (bins[:, -1] - got[:, -1]) / (bins[:, -1] - bins[:, -2])
+        assert (last > 0.99).all()
+
+
+def test_inverse_cdf_refuses_what_the_kernel_does_not_take(cuda):
+    """A last dimension with a stride other than 1, a dtype other than
+    float32 and inputs on several devices raise; nothing launches."""
+    import chip_smoke as cs
+    from depth_lidar_nerf_tpu_torch.ops import sampling_cuda as s
+
+    bins, w, u = cs.sample_pdf_inputs(cuda, 64, 9, 16, False)
+    n0 = s.inverse_cdf.launches
+    with pytest.raises(ValueError, match="stride"):
+        s.inverse_cdf(bins, w, u.t().contiguous().t())
+    with pytest.raises(ValueError, match="stride"):
+        s.inverse_cdf(bins.t().contiguous().t(), w, u)
+    with pytest.raises(ValueError, match="float32"):
+        s.inverse_cdf(bins.double(), w, u)
+    with pytest.raises(ValueError, match="float32"):
+        s.inverse_cdf(bins, w.half(), u)
+    with pytest.raises(ValueError, match="several devices"):
+        s.inverse_cdf(bins, w.cpu(), u)
+    assert s.inverse_cdf.launches == n0
+
+
+@pytest.mark.parametrize("det", [True, False])
+def test_sample_pdf_reads_renderer_inputs_without_copies(cuda, det):
+    """One ``sample_pdf_cuda`` call on the renderer's strided inputs (the
+    coarse weights' slice ``[..., 1:-1]``; with ``det`` the draws an
+    ``expand``) under torch.profiler: ``sample_pdf_kernel`` launched once,
+    no copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from depth_lidar_nerf_tpu_torch.ops import sampling_cuda as s
+
+    bins, w, _ = cs.sample_pdf_inputs(cuda, 32768, 63, 64, det, "renderer")
+    assert w.stride() == (64, 1)
+
+    def call():
+        return s.sample_pdf_cuda(bins, w, 64, det=det,
+                                 generator=torch.Generator(device=cuda).manual_seed(0))
+
+    call()  # the build
+    torch.cuda.synchronize()
+    n0 = s.inverse_cdf.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    assert s.inverse_cdf.launches == n0 + 1
+    events = prof.key_averages()
+    assert sum(e.count for e in events if "sample_pdf_kernel" in e.key) == 1
+    copies = [e.key for e in events
+              if "copy_" in e.key or "contiguous" in e.key or "copy_kernel" in e.key]
+    assert not copies, copies
 
 
 @pytest.mark.parametrize("flag", [False, True])
