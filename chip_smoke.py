@@ -131,7 +131,27 @@ which raises on failure:
    memory of kernel 8's split), then a 5-step
    trajectory of the semantic stack, kernel path against plain path (4,096
    rays, float32 and bfloat16);
-12. one ``{"kernels": [...]}`` JSON line with every kernel.
+12. the driver: ``train()`` from a scene on disk that the port's
+   ``make_scene`` writes (8 views of 94 x 352, focal 88, 8,000 LiDAR points
+   each, view 7 held out), ``configs/synthetic_smoke.txt`` at the
+   ``two_mlp`` stack (coarse and fine D=4 / W=256, 64 + 64 samples, 16,384
+   rays half LiDAR depth, multires 10/4, bfloat16, the default ``cull_eps``
+   and ``lrate``, no semantic loss): run A to step 150 with a checkpoint,
+   run B resumed from it to 300 (it must say so), run C from scratch to
+   300. Asserts the launch counts of kernels 1, 3, 4, 5 (and its phases)
+   and 14 over run C's steps 51-150 and that no other MLP kernel ran, B's
+   parameters against C's within ``TRAJ_TOL``'s update limit (and says
+   whether they are bit-identical), the [TRAIN] PSNR up by at least 2 dB;
+   prints the held-out [TEST] line at 300, ms/step and rays/s over the
+   window beside phase 5's bare step, the loop's costs (metric fetches,
+   checkpoint saves in ms and MiB, the held-out eval) and each run's wall
+   seconds. Then ``python -m depth_lidar_nerf_tpu_torch.train ...
+   --render_only --render_test`` in a subprocess writes the held-out view's
+   PNG, NPZ and depth PNG, whose rgb must equal an in-process
+   ``render_image`` of the restored checkpoint bit for bit; and with
+   ``--render_int8`` kernel 10 serves it (the subprocess prints its
+   counters);
+13. one ``{"kernels": [...]}`` JSON line with every kernel.
 
 It prints ``phase N done at T s`` as it goes; a whole run should stay well
 within the 1,200 s limit on an H100, the build included (PERF.md). The last line is ``{"ok": true,
@@ -2549,6 +2569,299 @@ def trajectories(label, tol, dev, fns, renderer, plain_sampler, semantic,
               f"{label} {d}")
     return gaps
 
+# Phase 12, the driver: the two_mlp stack trained from a scene on disk.
+DRIVER_VIEWS, DRIVER_HOLDOUT, DRIVER_DEPTH_POINTS = 8, 7, 8000
+DRIVER_STEPS = (150, 300)  # run A stops and saves at 150; B and C end at 300
+DRIVER_PRINT = 25  # i_print: the first [TRAIN] line at step 25
+DRIVER_WINDOW = (50, 150)  # run C's steps 51-150: timed, launches counted
+DRIVER_PSNR_GAIN = 2.0  # dB, JAX's test_train_rgb_only_psnr_climbs
+# Run the CLI as ``python -m`` does, then print the launch counters.
+CLI_COUNTING = (
+    "import json, runpy, sys\n"
+    "runpy.run_module('depth_lidar_nerf_tpu_torch.train', run_name='__main__',"
+    " alter_sys=True)\n"
+    "from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f\n"
+    "from depth_lidar_nerf_tpu_torch.ops import sampling_cuda as s\n"
+    "print('launches ' + json.dumps({'fused_nerf_fwd_q8': "
+    "f.fused_nerf_fwd_q8.launches, 'fused_nerf_fwd': f.fused_nerf_fwd.launches,"
+    " s.KERNEL: s.inverse_cdf.launches}))\n")
+
+
+class _Tee:
+    """Copies what a run prints to the smoke's own stdout and keeps it."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def driver_phase(fmt, sc, dev, card, ms_step_5, fns):
+    """Phase 12: ``train()`` on a scene that the port's ``make_scene`` writes
+    to disk (8 views of 94 x 352, focal 88, 8,000 LiDAR points each, view 7
+    held out), ``configs/synthetic_smoke.txt`` at the ``two_mlp`` stack
+    (coarse and fine D=4 / W=256, 64 + 64 samples, 16,384 rays half LiDAR
+    depth, multires 10/4, bfloat16, the default ``cull_eps`` and ``lrate``,
+    no semantic loss). Run A trains to step 150 and saves; run B resumes it
+    to 300 and must say so; run C goes from scratch to 300, timed over its
+    steps 51-150 with the kernels' launches counted there. B's final
+    parameters against C's by ``TRAJ_TOL``'s update limit; the [TRAIN] PSNR
+    up by ``DRIVER_PSNR_GAIN``; the held-out [TEST] line at 300. Then the
+    CLI serves the held-out view (``--render_only --render_test``) in a
+    subprocess, whose rgb must equal an in-process ``render_image`` of the
+    restored checkpoint bit for bit, and again with ``--render_int8``
+    (kernel 10). Returns the numbers for the JSON line and the window's
+    launch counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.data.synthetic import make_scene
+    from depth_lidar_nerf_tpu_torch.render.renderer import render_image
+    from depth_lidar_nerf_tpu_torch.train import checkpoint
+    from depth_lidar_nerf_tpu_torch.train.config import (eval_render_config,
+                                                         parse_args,
+                                                         render_config_from)
+    from depth_lidar_nerf_tpu_torch.train.loop import (load_scene, step_seed,
+                                                       train)
+    from depth_lidar_nerf_tpu_torch.train.state import (build_models,
+                                                        init_train_state)
+    from depth_lidar_nerf_tpu_torch.train.step import make_train_step
+    from depth_lidar_nerf_tpu_torch.train.tables import (build_depth_table,
+                                                         build_rgb_table)
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_driver_")
+    root = tmp.name
+    t0 = time.time()
+    make_scene(os.path.join(root, "scene"), n_images=DRIVER_VIEWS, H=H, W=W,
+               focal=FOCAL, n_depth_points=DRIVER_DEPTH_POINTS, backdrop=True)
+    print(f"driver: scene of {DRIVER_VIEWS} views {H}x{W} written in "
+          f"{time.time() - t0:.2f} s", flush=True)
+
+    def argv(expname, n_iters):
+        return ["--config", os.path.join(HERE, "configs", "synthetic_smoke.txt"),
+                "--datadir", os.path.join(root, "scene"),
+                "--basedir", os.path.join(root, "logs"), "--expname", expname,
+                "--netdepth", "4", "--netwidth", "256", "--netdepth_fine", "4",
+                "--netwidth_fine", "256", "--N_samples", "64",
+                "--N_importance", "64", "--N_rand", str(TRAIN_N_RAYS),
+                "--multires", "10", "--multires_views", "4",
+                "--compute_dtype", "bfloat16", "--lrate", "5e-4",
+                "--cull_eps", "1e-4", "--semantic_loss", "False",
+                "--test_scene", str(DRIVER_HOLDOUT), "--N_iters", str(n_iters),
+                "--i_print", str(DRIVER_PRINT),
+                "--i_weights", str(DRIVER_STEPS[0]),
+                "--i_testset", str(DRIVER_STEPS[1]), "--i_img", "0",
+                "--i_video", "0"]
+
+    cfg_a = parse_args(argv("resumed", DRIVER_STEPS[0]))
+    check(cfg_a.colmap_depth and cfg_a.depth_loss and cfg_a.use_viewdirs
+          and cfg_a.no_ndc and cfg_a.should_seed and not cfg_a.semantic_loss
+          and cfg_a.lrate == 5e-4 and cfg_a.cull_eps == 1e-4,
+          "driver config")
+
+    def run(cfg, hook=None):
+        tee = _Tee(sys.stdout)
+        t = time.time()
+        with contextlib.redirect_stdout(tee):
+            state = train(cfg, metrics_hook=hook)
+        torch.cuda.synchronize()
+        return state, time.time() - t, tee.text()
+
+    state_a, wall_a, _ = run(cfg_a)
+    check(state_a.step == DRIVER_STEPS[0], "run A's step")
+    del state_a
+    state_b, wall_b, out_b = run(cfg_a.replace(N_iters=DRIVER_STEPS[1]))
+    check(f"resumed from checkpoint at step {DRIVER_STEPS[0]}" in out_b,
+          "run B resumes from run A's checkpoint")
+    check(state_b.step == DRIVER_STEPS[1], "run B's step")
+    params_b = {f"{net}.{k}": v.detach().clone()
+                for net, m in (("coarse", state_b.models.coarse),
+                               ("fine", state_b.models.fine))
+                for k, v in m.state_dict().items()}
+    test_b = [l for l in out_b.splitlines() if l.startswith("[TEST]")]
+    del state_b
+    torch.cuda.empty_cache()
+
+    psnrs, window = {}, {}
+
+    def hook(i, m):
+        psnrs[i] = m["psnr"]
+        if i == DRIVER_WINDOW[0]:
+            torch.cuda.synchronize()
+            for fn in fns.values():
+                fn.launches = 0
+            window["t0"] = time.time()
+        elif i == DRIVER_WINDOW[1]:
+            torch.cuda.synchronize()
+            window["t1"] = time.time()
+            window["launches"] = {k: fn.launches for k, fn in fns.items()}
+
+    cfg_c = cfg_a.replace(expname="fresh", N_iters=DRIVER_STEPS[1])
+    state_c, wall_c, out_c = run(cfg_c, hook)
+    check(state_c.step == DRIVER_STEPS[1], "run C's step")
+    n_win = DRIVER_WINDOW[1] - DRIVER_WINDOW[0]
+    ms_step = (window["t1"] - window["t0"]) * 1e3 / n_win
+    launches = window["launches"]
+    rcfg = render_config_from(cfg_c, 0, 0.0, 1.0)
+    n_chunks = -(-TRAIN_N_RAYS * (rcfg.N_samples + rcfg.N_importance)
+                 // fmt.BWD_CHUNK)
+    want = {k: 0 for k in fns}
+    want.update({fmt.KERNEL: n_win, "fused_nerf_fwd_acts": n_win,
+                 "fused_nerf_bwd_culled": n_win, "fused_nerf_bwd_acts": n_win,
+                 sc.KERNEL: n_win, "fused_nerf_grad_reduce": 2 * n_win,
+                 "fused_nerf_bwd_chain": n_win * n_chunks,
+                 "fused_nerf_bwd_weight_grads": n_win * n_chunks})
+    print(f"driver run C launches over steps {DRIVER_WINDOW[0] + 1}-"
+          f"{DRIVER_WINDOW[1]}: {launches}", flush=True)
+    check(launches == want, f"driver launch counts, want {want}")
+
+    # B against C: the same trajectory from one seed, one resumed at 150.
+    init = build_models(cfg_c, rcfg, device=dev, seed=cfg_c.seed)
+    p0 = {f"{net}.{k}": v.detach() for net, m in (("coarse", init.coarse),
+                                                  ("fine", init.fine))
+          for k, v in m.state_dict().items()}
+    params_c = {f"{net}.{k}": v.detach()
+                for net, m in (("coarse", state_c.models.coarse),
+                               ("fine", state_c.models.fine))
+                for k, v in m.state_dict().items()}
+    identical = all(torch.equal(params_b[k], params_c[k]) for k in params_c)
+    gap = max((torch.linalg.norm(params_b[k] - params_c[k])
+               / torch.linalg.norm(params_c[k] - p0[k])).item()
+              for k in params_c)
+    print(f"driver resumed run B vs uninterrupted run C at step "
+          f"{DRIVER_STEPS[1]}: max update gap {gap:.3g} (tolerance "
+          f"{TRAJ_TOL['bfloat16'][1]:g}), bit-identical {identical}")
+    check(gap <= TRAJ_TOL["bfloat16"][1], "resumed run vs uninterrupted run")
+
+    # Where the window's time goes: run C's state and the driver's scene in
+    # a bare step, timed by CUDA events as phase 5 times its step, then the
+    # same steps with the loop's per-step seeding on the host clock, and one
+    # step profiled.
+    del params_b, params_c, p0
+    scene = load_scene(cfg_c)
+    rcfg_s = render_config_from(cfg_c, 0, scene.near, scene.far)
+    tabs = (build_rgb_table(scene.images, scene.poses, scene.i_train,
+                            *scene.hwf, rcfg_s, device=dev),
+            build_depth_table(scene.depth_gts, scene.poses, scene.i_train,
+                              *scene.hwf, rcfg_s, device=dev))
+    bare = make_train_step(cfg_c, rcfg_s, state_c.models, scene.hwf)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bare_ms = cuda_ms(lambda: bare(state_c, *tabs, gen), reps=20, warmup=3)
+
+    def seeded():
+        for i in range(20):
+            gen.manual_seed(step_seed(cfg_c.seed, i))
+            bare(state_c, *tabs, gen)
+
+    torch.cuda.synchronize()
+    t = time.time()
+    seeded()
+    torch.cuda.synchronize()
+    seeded_ms = (time.time() - t) * 1e3 / 20
+    print(f"driver scene, run C's state: bare step {bare_ms:.1f} ms (CUDA "
+          f"events, as phase 5), seeded as the loop seeds {seeded_ms:.1f} ms "
+          f"(host clock) on {card}")
+    profile_step(lambda: bare(state_c, *tabs, gen), "driver-scene step")
+    del bare, tabs
+
+    steps_seen = sorted(psnrs)
+    first, last = psnrs[steps_seen[0]], psnrs[steps_seen[-1]]
+    test_c = [l for l in out_c.splitlines() if l.startswith("[TEST]")]
+    print(f"driver [TRAIN] psnr step {steps_seen[0]} {first:.2f} dB, step "
+          f"{steps_seen[-1]} {last:.2f} dB; held-out view {DRIVER_HOLDOUT}: "
+          f"{test_c} (run B: {test_b})")
+    check(last >= first + DRIVER_PSNR_GAIN, "driver PSNR climbs by 2 dB")
+    check(len(test_c) == 1 and len(test_b) == 1, "held-out [TEST] lines")
+    costs = state_c.loop_costs
+    print(f"driver two_mlp: {ms_step:.1f} ms/step, "
+          f"{TRAIN_N_RAYS * 1e3 / ms_step:,.0f} rays/s over steps "
+          f"{DRIVER_WINDOW[0] + 1}-{DRIVER_WINDOW[1]} of run C (phase 5's bare "
+          f"step: {ms_step_5:.1f} ms) on {card}")
+    print(f"driver loop costs (run C): metric fetch "
+          f"{1e3 * np.mean(costs['fetch_s']):.2f} ms x {len(costs['fetch_s'])}"
+          f" (max {1e3 * np.max(costs['fetch_s']):.2f}); checkpoint save "
+          f"{1e3 * np.mean(costs['save_s']):.1f} ms x {len(costs['save_s'])}, "
+          f"{costs['save_bytes'][-1] / 2 ** 20:.2f} MiB each; held-out eval "
+          f"{1e3 * np.mean(costs['test_s']):.1f} ms; wall s: run A {wall_a:.1f}, "
+          f"run B {wall_b:.1f}, run C {wall_c:.1f}", flush=True)
+    del state_c, init
+    torch.cuda.empty_cache()
+
+    # Serving through the CLI, then the same frame in process.
+    expdir = os.path.join(root, "logs", "fresh")
+    outdir = os.path.join(expdir, f"renderonly_test_{DRIVER_STEPS[1]:06d}")
+    cli = argv("fresh", DRIVER_STEPS[1]) + ["--render_only", "--render_test"]
+    t = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "depth_lidar_nerf_tpu_torch.train", *cli],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    wall_cli = time.time() - t
+    print(f"driver CLI --render_only --render_test: exit {proc.returncode} in "
+          f"{wall_cli:.1f} s; {proc.stdout.strip().splitlines()[-1:]}")
+    check(proc.returncode == 0, f"CLI render_only: {proc.stderr[-2000:]}")
+    files = sorted(os.listdir(outdir))
+    check({"000.png", "000.npz", "000_depth.png"} <= set(files),
+          f"CLI render_only outputs {files}")
+    served = np.load(os.path.join(outdir, "000.npz"))["rgb"]
+    scene = load_scene(cfg_c)
+    rcfg = render_config_from(cfg_c, 0, scene.near, scene.far)
+    models = build_models(cfg_c, rcfg, device=dev)
+    state = checkpoint.restore(
+        checkpoint.load_file(checkpoint.path_of(
+            checkpoint.ckpt_dir(cfg_c.basedir, cfg_c.expname), DRIVER_STEPS[1])),
+        init_train_state(cfg_c, models), checkpoint.topology(cfg_c, 0))
+    frame = render_image(models.coarse, models.fine, H, W, FOCAL,
+                         scene.poses[DRIVER_HOLDOUT],
+                         eval_render_config(cfg_c, rcfg), device=dev)
+    rgb = frame["rgb_map"].float().cpu().numpy()
+    cli_equal = bool(np.array_equal(rgb, served))
+    print(f"driver CLI frame vs in-process render_image of checkpoint "
+          f"{state.step}: bit-identical {cli_equal} (max abs diff "
+          f"{np.abs(rgb - served).max():.3g})")
+    check(cli_equal, "CLI frame equals the in-process frame bit for bit")
+
+    t = time.time()
+    proc = subprocess.run([sys.executable, "-c", CLI_COUNTING, *cli,
+                           "--render_int8"], cwd=HERE, capture_output=True,
+                          text=True, timeout=600)
+    wall_int8 = time.time() - t
+    check(proc.returncode == 0, f"CLI render_only int8: {proc.stderr[-2000:]}")
+    counts = json.loads([l for l in proc.stdout.splitlines()
+                         if l.startswith("launches ")][-1][len("launches "):])
+    served8 = np.load(os.path.join(outdir, "000.npz"))["rgb"]
+    n_tiles = -(-H * W // rcfg.render_tile(fused=True))
+    print(f"driver CLI --render_int8: exit 0 in {wall_int8:.1f} s, launches "
+          f"{counts}; rgb mean abs gap to the bf16 frame "
+          f"{np.abs(served8 - served).mean():.3g}")
+    check(counts["fused_nerf_fwd_q8"] == 2 * n_tiles
+          and counts["fused_nerf_fwd"] == 0, "kernel 10 served the int8 frame")
+    tmp.cleanup()
+    return {"ms_per_step": ms_step, "rays_per_s": TRAIN_N_RAYS * 1e3 / ms_step,
+            "bare_step_ms_phase5": ms_step_5,
+            "bare_step_ms_driver_scene": bare_ms,
+            "seeded_step_ms_driver_scene": seeded_ms,
+            "window_launches": launches,
+            "psnr_first": first, "psnr_last": last, "test_line": test_c[0],
+            "resume_update_gap": gap, "resume_bit_identical": identical,
+            "fetch_ms": [1e3 * x for x in costs["fetch_s"]],
+            "save_ms": [1e3 * x for x in costs["save_s"]],
+            "save_bytes": costs["save_bytes"],
+            "test_ms": [1e3 * x for x in costs["test_s"]],
+            "wall_s": {"A": wall_a, "B": wall_b, "C": wall_c,
+                       "cli": wall_cli, "cli_int8": wall_int8},
+            "cli_frame_bit_identical": cli_equal,
+            "cli_int8_launches": counts, "card": card}, launches
+
 
 def main() -> int:
     import torch
@@ -3060,10 +3373,15 @@ def main() -> int:
     # ---- 9-11. the semantic stack ----------------------------------------------
     sem = semantic_phases(fmt, sc, renderer, dev, card, plain_sampler)
 
+    # ---- 12. the driver: train, resume and serve a scene from disk -------------
+    driver, driver_launches = driver_phase(fmt, sc, dev, card, ms_step,
+                                           kernel_fns(fmt, sc))
+    print(f"phase 12 done at {time.time() - T_START:.0f} s", flush=True)
+
     src = "depth_lidar_nerf_tpu_torch/csrc/"
     main_launches = {k: launches.get(k, 0) + train_launches.get(k, 0)
                      + int8_launches[k] + sem["launches"][k]
-                     + s5["launches"].get(k, 0)
+                     + s5["launches"].get(k, 0) + driver_launches.get(k, 0)
                      for k in sem["launches"]}
     kernels = [
         {"name": fmt.KERNEL, "route": "cuda", "source": src + "fused_nerf_fwd.cu",
@@ -3147,6 +3465,7 @@ def main() -> int:
         **s5["cf_training"], "trajectory_cf_vs_dense": s5["cf_trajectory"],
         "kernel_checks_blocks_skipped": cf_skipped, "cf_glue_ms": s5["cf_glue_ms"],
         "card": card}}))
+    print(json.dumps({"driver": driver}))
     print(f"total {time.time() - T_START:.0f} s")
     print(json.dumps({"training": {
         "ms_per_step": ms_step, "rays_per_s": TRAIN_N_RAYS * 1e3 / ms_step,

@@ -6,7 +6,8 @@ a few cameras with sparse "LiDAR" depth annotations. :func:`draw_scene`
 returns the scene as numpy arrays, so a run can train on it without reading
 or writing a file; :func:`make_scene` writes the same scene as an LLFF
 directory (images, ``poses_bounds.npy``, ``depth_gt.npy``,
-``segmentation_gt.npy``), and imports PIL only there.
+``segmentation_gt.npy``), its PNGs through the port's own writer
+(:func:`utils.images.write_png`), so no imaging library is needed.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import os
 from typing import List, NamedTuple
 
 import numpy as np
+
+from depth_lidar_nerf_tpu_torch.utils.images import write_png
 
 
 def _look_at(eye, target, up=(0, 1, 0)):
@@ -161,16 +164,14 @@ def make_scene(basedir: str, n_images: int = 4, H: int = 40, W: int = 52,
                backdrop: bool = False, num_classes: int | None = None,
                hard: bool = False):
     """Write :func:`draw_scene`'s scene to ``basedir`` as an LLFF scene."""
-    from PIL import Image as PILImage
-
     sc = draw_scene(n_images, H, W, focal, n_depth_points, seed, backdrop,
                     num_classes, hard)
     os.makedirs(os.path.join(basedir, "images"), exist_ok=True)
     hwf = np.array([[H], [W], [focal]], np.float64)
     rows = []
     for vi, (img, c2w) in enumerate(zip(sc.images, sc.poses)):
-        PILImage.fromarray((img * 255).astype(np.uint8)).save(
-            os.path.join(basedir, "images", f"im_{vi:03d}.png"))
+        write_png(os.path.join(basedir, "images", f"im_{vi:03d}.png"),
+                  (img * 255).astype(np.uint8))
         llff = np.concatenate([c2w[:, 0:1], -c2w[:, 1:2], -c2w[:, 2:3],
                                c2w[:, 3:]], axis=1)
         rows.append(np.concatenate([llff, hwf], axis=1))

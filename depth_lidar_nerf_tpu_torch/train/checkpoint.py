@@ -1,0 +1,139 @@
+"""Checkpoint save and auto-resume (port of ``train/checkpoint.py``).
+
+Role of the reference's ``.tar`` checkpoints + latest-file discovery
+(``run_nerf.py:449-477, 1872-1883``): the whole train state is saved every
+``i_weights`` iterations and the newest checkpoint of the experiment is
+restored on start-up. Where the JAX package saves through orbax, the port
+writes one ``torch.save`` file a step, ``<basedir>/<expname>/checkpoints/
+<step>.pt``, holding:
+
+- ``step``, the ``TrainState`` step;
+- ``models``: each MLP's ``state_dict`` (``fine`` is None without a fine
+  pass);
+- ``optimizer``: the ``OptaxAdam`` ``state_dict`` (the Adam moments) and
+  ``optimizer_count``, its step count, which ``state_dict()`` does not carry
+  and the learning-rate schedule and bias corrections read;
+- ``topology``: the config fields that shape the models, checked on load.
+
+A file is written to a temporary name and moved into place with
+``os.replace``, so a crash leaves no partial checkpoint; the newest
+``KEEP`` (5, orbax's ``max_to_keep``) are kept; "latest" is the highest step,
+and a save at or below it is skipped, as orbax's ``should_save`` skips it.
+Files are read with ``torch.load(..., weights_only=True)``.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from depth_lidar_nerf_tpu_torch.train.config import TrainConfig
+from depth_lidar_nerf_tpu_torch.train.state import TrainState, invalidate_packs
+
+FORMAT = "depth_lidar_nerf_tpu_torch.checkpoint.v1"
+KEEP = 5
+_NAME = re.compile(r"^(\d+)\.pt$")
+
+
+def ckpt_dir(basedir: str, expname: str) -> str:
+    return os.path.abspath(os.path.join(basedir, expname, "checkpoints"))
+
+
+def topology(cfg: TrainConfig, num_semantic_classes: int) -> Dict:
+    """The config fields that decide the models' parameter shapes."""
+    return {
+        "netdepth": cfg.netdepth, "netwidth": cfg.netwidth,
+        "netdepth_fine": cfg.netdepth_fine if cfg.N_importance > 0 else None,
+        "netwidth_fine": cfg.netwidth_fine if cfg.N_importance > 0 else None,
+        "use_viewdirs": cfg.use_viewdirs,
+        "multires": cfg.multires if cfg.i_embed != -1 else 0,
+        "multires_views": (cfg.multires_views
+                           if cfg.i_embed != -1 and cfg.use_viewdirs else 0),
+        "num_semantic_classes": num_semantic_classes,
+    }
+
+
+def steps(directory: str):
+    """Steps of the checkpoints in ``directory``, ascending."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(m.group(1)) for m in map(_NAME.match,
+                                               os.listdir(directory)) if m)
+
+
+def latest_step(directory: str) -> Optional[int]:
+    found = steps(directory)
+    return found[-1] if found else None
+
+
+def path_of(directory: str, step: int) -> str:
+    return os.path.join(directory, f"{step}.pt")
+
+
+def save_state(directory: str, state: TrainState, step: int, topo: Dict,
+               keep: int = KEEP) -> Optional[Tuple[str, int]]:
+    """Write ``state`` as ``<directory>/<step>.pt`` and drop all but the
+    newest ``keep``; returns the path and its size in bytes, or None when
+    ``step`` is not above the latest checkpoint's (nothing written). The
+    file holds ``state.step``, which equals ``step`` except where JAX's
+    final save labels a state by ``N_iters``."""
+    last = latest_step(directory)
+    if last is not None and step <= last:
+        return None
+    os.makedirs(directory, exist_ok=True)
+    payload = {
+        "format": FORMAT,
+        "step": int(state.step),
+        "topology": topo,
+        "models": {"coarse": state.models.coarse.state_dict(),
+                   "fine": (None if state.models.fine is None
+                            else state.models.fine.state_dict())},
+        "optimizer": state.optimizer.state_dict(),
+        "optimizer_count": int(state.optimizer.count),
+    }
+    path = path_of(directory, step)
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    for old in steps(directory)[:-keep]:
+        os.remove(path_of(directory, old))
+    return path, os.path.getsize(path)
+
+
+def load_file(path: str) -> Dict:
+    """A checkpoint file's contents on the CPU. ``weights_only=True``: a
+    file that needs arbitrary unpickling is refused, never retried."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def restore(ckpt: Dict, state: TrainState, topo: Dict,
+            source: str = "checkpoint") -> TrainState:
+    """Load a checkpoint (the dict of :func:`load_file`) into ``state``: the
+    models, the optimizer's moments and count, the step."""
+    if ckpt.get("format") != FORMAT:
+        raise ValueError(
+            f"{source} is neither a checkpoint of this package (format "
+            f"{FORMAT!r}) nor a reference .tar (network_fn_state_dict)")
+    saved = ckpt["topology"]
+    diff = {k: (saved.get(k), v) for k, v in topo.items() if saved.get(k) != v}
+    if diff:
+        raise ValueError(
+            f"{source} was trained with another model topology "
+            + ", ".join(f"{k}={a} (this run: {b})" for k, (a, b) in diff.items())
+            + " — check the netdepth/netwidth/multires/use_viewdirs flags "
+            "match the checkpoint's training config")
+    models = state.models
+    if (models.fine is None) != (ckpt["models"]["fine"] is None):
+        raise ValueError(f"{source}: the fine MLP is present in only one of "
+                         "the checkpoint and this run (N_importance)")
+    models.coarse.load_state_dict(ckpt["models"]["coarse"])
+    if models.fine is not None:
+        models.fine.load_state_dict(ckpt["models"]["fine"])
+    state.optimizer.load_state_dict(ckpt["optimizer"])
+    state.optimizer.count = int(ckpt["optimizer_count"])
+    state.step = int(ckpt["step"])
+    invalidate_packs(models)
+    return state

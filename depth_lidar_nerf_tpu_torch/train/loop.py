@@ -1,33 +1,567 @@
-"""Render a pose list (port of ``render_path``, ``train/loop.py:168``).
+"""Training driver (port of ``train/loop.py``): the equivalent of the
+reference's ``train()`` (``run_nerf.py:885-2025``).
 
-The rest of the JAX training loop (data loading, checkpoints, the
-``--render_only`` CLI, training) is not ported yet; image and video writing
-comes with it.
+:func:`train` loads a scene from disk (:func:`load_scene`), builds the models
+and the device-resident ray tables, restores the newest checkpoint (or
+``--ft_path``, including a reference ``.tar``), then either serves frames
+(``--render_only``) or runs the step loop with the JAX driver's events:
+``[TRAIN]`` lines every ``i_print`` steps from one device-to-host copy of the
+stacked scalar metrics, a checkpoint every ``i_weights``, held-out views
+every ``i_testset``, a held-out frame every ``i_img`` (with a summary
+writer) and the spiral every ``i_video``.
+
+Randomness: step ``i`` draws from a ``torch.Generator`` on the tables' device
+seeded with :func:`step_seed` ``(seed, i)``, where ``seed`` is ``cfg.seed``
+under ``should_seed`` and 0 otherwise, as JAX folds ``i`` into its key; so a
+resumed run continues the stream of an uninterrupted one. The host draws
+(the ``i_img`` view) come from ``np.random.default_rng``, as in JAX.
+
+JAX batches several steps into one dispatch (``steps_per_dispatch``,
+``cycle_dispatch``) with the same trajectory; the port accepts both flags
+and runs one step an iteration (ROADMAP Queue 1, item 8).
 """
 
 from __future__ import annotations
 
-import numpy as np
+import contextlib
+import os
+import shutil
+import time
+from typing import Optional
 
+import numpy as np
+import torch
+
+from depth_lidar_nerf_tpu_torch.data.depth import load_lidar_depth
+from depth_lidar_nerf_tpu_torch.data.llff import load_llff_data
+from depth_lidar_nerf_tpu_torch.data.semantic import load_semantic_data
 from depth_lidar_nerf_tpu_torch.device import resolve_device
+from depth_lidar_nerf_tpu_torch.evaluation.metrics import psnr as psnr_np
+from depth_lidar_nerf_tpu_torch.evaluation.metrics import ssim_np
 from depth_lidar_nerf_tpu_torch.render.renderer import RenderConfig, render_image
-from depth_lidar_nerf_tpu_torch.train.state import Models
+from depth_lidar_nerf_tpu_torch.train import checkpoint, losses
+from depth_lidar_nerf_tpu_torch.train.config import (_UNPORTED_SERVING,
+                                                     TrainConfig, dump_args,
+                                                     eval_render_config,
+                                                     render_config_from)
+from depth_lidar_nerf_tpu_torch.train.state import (Models, build_models,
+                                                    init_train_state,
+                                                    make_optimizer)
+from depth_lidar_nerf_tpu_torch.train.step import _UNPORTED, make_train_step
+from depth_lidar_nerf_tpu_torch.train.tables import (build_depth_table,
+                                                     build_rgb_table)
+from depth_lidar_nerf_tpu_torch.train.torch_import import \
+    import_reference_checkpoint
+from depth_lidar_nerf_tpu_torch.utils.images import write_png
+from depth_lidar_nerf_tpu_torch.utils.visualization import depth_to_colormap
+
+
+class Scene:
+    """Loaded dataset bundle."""
+
+    def __init__(self, images, poses, bds, render_poses, hwf, i_train, i_test,
+                 depth_gts=None, segmentation=None, num_semantic_classes=0,
+                 near=0.0, far=1.0):
+        self.images = images
+        self.poses = poses
+        self.bds = bds
+        self.render_poses = render_poses
+        self.hwf = hwf
+        self.i_train = i_train
+        self.i_test = i_test
+        self.depth_gts = depth_gts
+        self.segmentation = segmentation
+        self.num_semantic_classes = num_semantic_classes
+        self.near = near
+        self.far = far
+
+
+def load_scene(cfg: TrainConfig) -> Scene:
+    """Dataset dispatch + train/test split (run_nerf.py:905-982)."""
+    if cfg.dataset_type == "llff":
+        images, poses, bds, render_poses, i_test = load_llff_data(
+            cfg.datadir, cfg.factor, recenter=True, bd_factor=0.75,
+            spherify=cfg.spherify,
+        )
+        hwf = poses[0, :3, -1]
+        H, W = int(hwf[0]), int(hwf[1])
+
+        depth_gts = None
+        if cfg.colmap_depth:
+            depth_gts = load_lidar_depth(
+                cfg.datadir, factor=cfg.factor, bd_factor=0.75,
+                ndc_depth=not cfg.no_ndc,
+            )
+        segmentation = None
+        num_sem = 0
+        if cfg.semantic_loss:
+            segmentation, num_sem = load_semantic_data(cfg.datadir, H=H, W=W)
+
+        i_test = [i_test]
+        if cfg.llffhold > 0:
+            i_test = list(np.arange(images.shape[0])[:: cfg.llffhold])
+        if cfg.test_scene is not None:
+            i_test = list(cfg.test_scene)
+        if i_test and i_test[0] < 0:
+            i_test = []
+        if cfg.train_scene is None:
+            i_train = np.array(
+                [i for i in range(images.shape[0]) if i not in i_test])
+        else:
+            i_train = np.array([i for i in cfg.train_scene if i not in i_test])
+
+        if cfg.no_ndc:
+            near, far = float(bds.min() * 0.9), float(bds.max() * 1.0)
+        else:
+            near, far = 0.0, 1.0
+
+        return Scene(images, poses[:, :3, :4], bds, render_poses,
+                     (H, W, float(hwf[2])), i_train, np.array(i_test, int),
+                     depth_gts, segmentation, num_sem, near, far)
+
+    if cfg.dataset_type == "dtu":
+        from depth_lidar_nerf_tpu_torch.data.dtu import load_dtu_data
+
+        images, poses, hwf = load_dtu_data(cfg.datadir)
+        i_test = list(cfg.test_scene) if cfg.test_scene is not None else []
+        if cfg.train_scene is None:
+            i_train = np.array(
+                [i for i in range(images.shape[0]) if i not in i_test])
+        else:
+            i_train = np.array([i for i in cfg.train_scene if i not in i_test])
+        return Scene(images, poses[:, :3, :4], None, poses, tuple(hwf), i_train,
+                     np.array(i_test, int), near=0.1, far=5.0)
+
+    raise ValueError(f"unknown dataset_type {cfg.dataset_type!r}")
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.float().cpu().numpy()
+
+
+def _save_image_outputs(out, savedir, idx):
+    """``NNN.png`` (rgb), ``NNN.npz`` (rgb, disp, acc, depth) and
+    ``NNN_depth.png`` (jet depth) of one rendered frame (host arrays)."""
+    write_png(os.path.join(savedir, f"{idx:03d}.png"),
+              losses.to8b(out["rgb_map"]))
+    np.savez(os.path.join(savedir, f"{idx:03d}.npz"), rgb=out["rgb_map"],
+             disp=out["disp_map"], acc=out["acc_map"], depth=out["depth_map"])
+    write_png(os.path.join(savedir, f"{idx:03d}_depth.png"),
+              depth_to_colormap(out["depth_map"]))
 
 
 def render_path(models: Models, render_poses, hwf, cfg_render: RenderConfig,
-                render_factor: int = 0, device=None):
+                render_factor: int = 0, device=None,
+                savedir: Optional[str] = None):
     """Render every pose (``run_nerf.py:268-359``); returns numpy stacks
     ``rgbs [F, H, W, 3]`` and ``disps [F, H, W]``. ``cfg_render`` is the
     eval config, ``train.config.eval_render_config(cfg, rcfg)``, which
-    carries the serving modes (int8, fine-only, coarse-downsampled)."""
+    carries the serving modes (int8, fine-only, coarse-downsampled). With
+    ``savedir``, each frame's PNG, NPZ and depth PNG are written there."""
     device = resolve_device(device)
     H, W, focal = hwf
     if render_factor:
         H, W, focal = H // render_factor, W // render_factor, focal / render_factor
     rgbs, disps = [], []
-    for c2w in render_poses:
+    for i, c2w in enumerate(render_poses):
         out = render_image(models.coarse, models.fine, int(H), int(W), focal,
                            np.asarray(c2w)[:3, :4], cfg_render, device=device)
-        rgbs.append(out["rgb_map"].float().cpu().numpy())
-        disps.append(out["disp_map"].float().cpu().numpy())
+        maps = {k: _host(out[k]) for k in ("rgb_map", "disp_map")}
+        rgbs.append(maps["rgb_map"])
+        disps.append(maps["disp_map"])
+        if savedir is not None:
+            maps.update({k: _host(out[k]) for k in ("acc_map", "depth_map")})
+            _save_image_outputs(maps, savedir, i)
     return np.stack(rgbs), np.stack(disps)
+
+
+def _write_videos(outdir, prefix, rgbs, disps):
+    """mp4s through imageio, else GIFs through PIL, else a printed skip (JAX
+    ``_write_videos``)."""
+    try:
+        import imageio.v2 as imageio
+
+        imageio.mimwrite(os.path.join(outdir, prefix + "rgb.mp4"),
+                         losses.to8b(rgbs), fps=30, quality=8)
+        disps = np.nan_to_num(disps)
+        imageio.mimwrite(
+            os.path.join(outdir, prefix + "disp.mp4"),
+            losses.to8b(disps / (np.percentile(disps, 95) + 1e-8)), fps=30,
+            quality=8)
+    except Exception:
+        # No imageio or no mp4 codec in this environment: animated GIFs.
+        try:
+            from PIL import Image
+
+            for name, stack in (("rgb", losses.to8b(rgbs)),
+                                ("disp", losses.to8b(
+                                    np.nan_to_num(disps)
+                                    / (np.percentile(np.nan_to_num(disps), 95)
+                                       + 1e-8)))):
+                frames = [Image.fromarray(f if f.ndim == 3 else
+                                          np.stack([f] * 3, -1))
+                          for f in stack]
+                frames[0].save(os.path.join(outdir, prefix + name + ".gif"),
+                               save_all=True, append_images=frames[1:],
+                               duration=33, loop=0)
+        except Exception as e:
+            print("video write skipped:", e)
+
+
+def _validate_flags(cfg: TrainConfig) -> None:
+    """Reject / warn on flags that would otherwise silently no-op (JAX
+    ``_validate_flags``, with its messages)."""
+    if cfg.depth_with_rgb:
+        raise ValueError(
+            "--depth_with_rgb is unsupported: the reference's own branch is "
+            "broken (run_nerf.py:1466 keeps the concatenated-batch depth, so "
+            "the depth MSE at :1503-1524 compares a [N_rgb+N_depth] render "
+            "against an [N_depth] target and the RGB MSE at :1500 compares "
+            "mismatched shapes too). Use the default separate depth-ray "
+            "stream (depth_rays_prop).")
+    if cfg.feature_loss and cfg.feature_loss_type not in ("vgg", "lpips"):
+        # run_nerf.py:1245-1246 exits with the same message.
+        raise ValueError("FEATURE LOSS TYPE CAN BE vgg OR lpips")
+    if (cfg.feature_loss and cfg.feature_loss_type == "lpips"
+            and cfg.lpips_backbone not in ("alex", "vgg", "squeeze")):
+        raise ValueError(
+            f"lpips_backbone={cfg.lpips_backbone!r} is not implemented; the "
+            "Flax LPIPS ships 'alex' (the reference default, "
+            "run_nerf.py:1242), 'vgg' (VGG16), and 'squeeze' "
+            "(SqueezeNet1.1).")
+    if (cfg.feature_loss and cfg.feature_loss_type == "lpips"
+            and min(cfg.nH, cfg.nW) < 31):
+        raise ValueError(
+            f"LPIPS(alex) needs patches >= 31 px per side (the conv/pool "
+            f"tap chain collapses below that); got nH={cfg.nH} nW={cfg.nW}. "
+            "The torch lpips package fails on such patches too.")
+    if cfg.render_grid > 0 and cfg.N_importance <= 0:
+        raise ValueError(
+            "--render_grid replaces the COARSE pass with a sigma-grid "
+            "lookup and renders the image with the fine pass; with "
+            "N_importance=0 there is no fine pass and every frame would be "
+            "black. Use a fine pass (N_importance > 0) or drop "
+            "--render_grid.")
+    if cfg.render_grid > 0 and not cfg.render_only:
+        print("[config] WARNING: --render_grid only applies to "
+              "--render_only serving; training-time eval renders "
+              "(i_img/i_testset/i_video) keep the full coarse MLP pass.")
+    if (cfg.render_grid_fine_only or cfg.render_grid_samples) \
+            and cfg.render_grid <= 0:
+        raise ValueError(
+            "--render_grid_fine_only / --render_grid_samples refine the "
+            "baked-grid serving mode and need --render_grid R to be set.")
+    if cfg.render_fine_only and cfg.N_importance <= 0:
+        raise ValueError(
+            "--render_fine_only renders the image with the fine pass over "
+            "the importance samples; with N_importance=0 there is no fine "
+            "pass. Use N_importance > 0 or drop --render_fine_only.")
+    if cfg.grid_train:
+        if cfg.N_importance <= 0:
+            raise ValueError(
+                "--grid_train replaces the COARSE pass with a baked-grid "
+                "lookup; with N_importance=0 there is no fine pass to train. "
+                "Use N_importance > 0 or drop --grid_train.")
+        if cfg.alpha_model_path or cfg.no_coarse:
+            raise ValueError(
+                "--grid_train is incompatible with the frozen-alpha paths "
+                "(--alpha_model_path / --no_coarse): both already replace "
+                "the coarse field with something fixed.")
+        if cfg.grid_train_res <= 1 or cfg.grid_rebake_every <= 0:
+            raise ValueError(
+                "--grid_train needs grid_train_res > 1 and "
+                "grid_rebake_every > 0.")
+    if ((cfg.grid_train_fine_only or cfg.grid_train_samples
+         or cfg.patch_render_samples) and not cfg.grid_train):
+        raise ValueError(
+            "--grid_train_fine_only / --grid_train_samples / "
+            "--patch_render_samples refine --grid_train and need it to "
+            "be set.")
+    defaults = TrainConfig()
+    for name in ("testskip", "shape", "half_res"):
+        if getattr(cfg, name) != getattr(defaults, name):
+            print(f"[config] WARNING: --{name} is vestigial (it only fed the "
+                  "blender/deepvoxels loaders the reference dropped); it has "
+                  "no effect.")
+
+
+def _refuse_unported(cfg: TrainConfig) -> None:
+    """Raise ``NotImplementedError`` for every flag whose path the port does
+    not run yet (ROADMAP Queue 1), before anything is written."""
+    unported = [n for n in _UNPORTED + _UNPORTED_SERVING + (
+        "alpha_model_path", "no_coarse", "dist_coordinator") if getattr(cfg, n)]
+    if cfg.mesh_shape and int(np.prod(cfg.mesh_shape)) > 1:
+        unported.append("mesh_shape")
+    if unported:
+        raise NotImplementedError(
+            f"not ported to PyTorch yet: {unported} (ROADMAP Queue 1)")
+
+
+def dispatch_k_max(cfg: TrainConfig) -> int:
+    """JAX ``dispatch_k_max``: the steps JAX would batch into one dispatch."""
+    k_auto = min(32, max(1, 16384 // max(1, cfg.N_rand)))
+    return cfg.steps_per_dispatch if cfg.steps_per_dispatch > 0 else k_auto
+
+
+def step_seed(seed: int, i: int) -> int:
+    """The seed of step ``i``'s generator: the first 64-bit word that numpy's
+    ``SeedSequence([seed, i])`` generates, a fixed function of both."""
+    return int(np.random.SeedSequence([seed, i]).generate_state(1, np.uint64)[0])
+
+
+def _summary_writer(expname: str):
+    """tensorboardX's writer, else torch's, else None (JAX
+    ``loop.py:866-872``)."""
+    for mod in ("tensorboardX", "torch.utils.tensorboard"):
+        try:
+            module = __import__(mod, fromlist=["SummaryWriter"])
+            return module.SummaryWriter(os.path.join("runs", expname))
+        except Exception:
+            continue
+    return None
+
+
+def train(cfg: TrainConfig, metrics_hook=None, device=None):
+    """Run the training loop on ``device`` (``cuda`` unless given) and return
+    the :class:`~train.state.TrainState`. ``metrics_hook(i, metrics_dict)``,
+    when given, receives the host-fetched scalar metrics at every
+    ``i_print`` boundary (the values printed and logged). With ``debug``
+    or ``debug_nans``, autograd's anomaly detection is on for the run."""
+    device = resolve_device(device)
+    _validate_flags(cfg)
+    _refuse_unported(cfg)
+    with torch.autograd.set_detect_anomaly(bool(cfg.debug_nans or cfg.debug)):
+        return _train(cfg, metrics_hook, device)
+
+
+def _train(cfg: TrainConfig, metrics_hook, device: torch.device):
+    scene = load_scene(cfg)
+    H, W, focal = scene.hwf
+    rcfg = render_config_from(cfg, scene.num_semantic_classes, scene.near,
+                              scene.far)
+    # Eval renders (i_img/i_testset/i_video/render_only) take the serving
+    # modes; training keeps rcfg.
+    rcfg_r = eval_render_config(cfg, rcfg)
+
+    expdir = os.path.join(cfg.basedir, cfg.expname)
+    os.makedirs(expdir, exist_ok=True)
+    with open(os.path.join(expdir, "args.txt"), "w") as f:
+        f.write(dump_args(cfg))
+    if cfg.config:
+        shutil.copyfile(cfg.config, os.path.join(expdir, "config.txt"))
+
+    seed = cfg.seed if cfg.should_seed else 0
+    host_rng = np.random.default_rng(cfg.seed if cfg.should_seed else None)
+
+    models = build_models(cfg, rcfg, device=device, seed=seed)
+    state = init_train_state(cfg, models)
+    topo = checkpoint.topology(cfg, rcfg.num_semantic_classes)
+    ckdir = checkpoint.ckpt_dir(cfg.basedir, cfg.expname)
+    state.loop_costs = {"fetch_s": [], "save_s": [], "save_bytes": [],
+                        "test_s": []}
+
+    start = 0
+    if cfg.ft_path:
+        # Pin a specific checkpoint (run_nerf.py:449-450) instead of the
+        # latest of the experiment: a file of this package or a reference
+        # .tar (which also carries a JAX run: export_reference_checkpoint).
+        if os.path.isdir(cfg.ft_path):
+            raise ValueError(
+                f"--ft_path {cfg.ft_path} is a directory (an orbax checkpoint "
+                "of the JAX package?); the port reads files: write one with "
+                "JAX depth_lidar_nerf_tpu.train.torch_import."
+                "export_reference_checkpoint(state, 'run.tar') and pass "
+                "--ft_path run.tar")
+        ckpt = checkpoint.load_file(cfg.ft_path)
+        if "network_fn_state_dict" in ckpt:
+            state = import_reference_checkpoint(
+                ckpt, state, load_optimizer=not cfg.no_reload_optimizer,
+                source=cfg.ft_path)
+        else:
+            state = checkpoint.restore(ckpt, state, topo, source=cfg.ft_path)
+        start = int(state.step)
+        print(f"loaded --ft_path checkpoint {cfg.ft_path} (step {start})")
+    elif not cfg.no_reload:
+        last = checkpoint.latest_step(ckdir)
+        if last is not None:
+            state = checkpoint.restore(
+                checkpoint.load_file(checkpoint.path_of(ckdir, last)), state,
+                topo, source=checkpoint.path_of(ckdir, last))
+            start = int(state.step)
+            print(f"resumed from checkpoint at step {start}")
+    if start > 0 and cfg.no_reload_optimizer:
+        # run_nerf.py:462: keep the freshly initialized optimizer state.
+        state.optimizer = make_optimizer(
+            cfg, [p for m in models if m is not None for p in m.parameters()])
+        print("--no_reload_optimizer: optimizer state reset")
+
+    # ---------------- render-only short-circuit (run_nerf.py:1030-1114) ----
+    if cfg.render_only:
+        if cfg.render_test_ray:
+            # Depth-ray 3D visualization (run_nerf.py:1048-1101): export the
+            # first train view's depth-supervised rays + frusta as PLY.
+            from depth_lidar_nerf_tpu_torch.ops.rays import rays_by_coord
+            from depth_lidar_nerf_tpu_torch.utils.camera_viz import (
+                export_camera_frustums, export_depth_rays)
+
+            savedir = os.path.join(expdir, f"renderonly_rays_{start:06d}")
+            os.makedirs(savedir, exist_ok=True)
+            idx = int(scene.i_train[0])
+            d = scene.depth_gts[idx]
+            ro, rd = rays_by_coord(
+                H, W, focal, torch.as_tensor(scene.poses[idx], dtype=torch.float32),
+                torch.as_tensor(d["coord"], dtype=torch.float32))
+            export_depth_rays(ro.numpy(), rd.numpy(), np.asarray(d["depth"]),
+                              os.path.join(savedir, "depth_rays.ply"))
+            export_camera_frustums(scene.poses,
+                                   os.path.join(savedir, "cameras.ply"))
+            print("wrote ray visualization to", savedir)
+            return state
+        if cfg.render_test:
+            poses = scene.poses[scene.i_test]
+            tag = "test"
+        elif cfg.render_train:
+            poses = scene.poses[scene.i_train]
+            tag = "train"
+        elif cfg.render_mypath:
+            # run_nerf.py:995: spiral around test pose index 3 (the last
+            # available test pose when there are fewer than 4).
+            from depth_lidar_nerf_tpu_torch.data.poses import generate_render_path
+
+            pool = scene.poses[scene.i_test] if len(scene.i_test) else \
+                scene.poses
+            k = min(3, len(pool) - 1)
+            poses = generate_render_path(pool[k:k + 1], scene.hwf[2],
+                                         sc=1.0)[:, :3, :4]
+            tag = "mypath"
+        else:
+            poses = np.asarray(scene.render_poses)[:, :3, :4]
+            tag = "path"
+        savedir = os.path.join(expdir, f"renderonly_{tag}_{start:06d}")
+        os.makedirs(savedir, exist_ok=True)
+        rgbs, disps = render_path(models, poses, scene.hwf, rcfg_r,
+                                  cfg.render_factor, device, savedir)
+        _write_videos(savedir, "", rgbs, disps)
+        print("Done rendering", savedir)
+        return state
+
+    # ------------------------------ tables --------------------------------
+    rgb_table = build_rgb_table(scene.images, scene.poses, scene.i_train,
+                                H, W, focal, rcfg, scene.segmentation,
+                                device=device)
+    depth_table = None
+    if cfg.colmap_depth:
+        depth_table = build_depth_table(scene.depth_gts, scene.poses,
+                                        scene.i_train, H, W, focal, rcfg,
+                                        device=device)
+    step_fn = make_train_step(cfg, rcfg, models, scene.hwf)
+    k_max = dispatch_k_max(cfg)
+    if k_max > 1:
+        print(f"[config] the JAX driver batches up to {k_max} steps into one "
+              "dispatch (steps_per_dispatch, cycle_dispatch; same trajectory); "
+              "the port runs one step an iteration")
+
+    print(f"TRAIN views: {list(scene.i_train)}  TEST views: {list(scene.i_test)}")
+    writer = _summary_writer(cfg.expname)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    try:
+        with (torch.profiler.profile(activities=acts) if cfg.profile_dir
+              else contextlib.nullcontext()) as prof:
+            _loop(cfg, metrics_hook, device, scene, models, state, step_fn,
+                  rgb_table, depth_table, rcfg_r, seed, host_rng, writer,
+                  expdir, ckdir, topo, start)
+    finally:
+        if writer:
+            writer.close()
+    if cfg.profile_dir:
+        os.makedirs(cfg.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(cfg.profile_dir, "trace.json"))
+    _save(ckdir, state, cfg.N_iters, topo)
+    return state
+
+
+def _save(ckdir, state, step, topo):
+    """Checkpoint ``state`` as ``step``, its cost in ``state.loop_costs``."""
+    ts = time.time()
+    saved = checkpoint.save_state(ckdir, state, step, topo)
+    if saved is not None:
+        state.loop_costs["save_s"].append(time.time() - ts)
+        state.loop_costs["save_bytes"].append(saved[1])
+
+
+def _loop(cfg: TrainConfig, metrics_hook, device, scene: Scene, models,
+          state, step_fn, rgb_table, depth_table, rcfg_r, seed, host_rng,
+          writer, expdir, ckdir, topo, start):
+    """Steps ``start + 1 .. N_iters`` with their events."""
+    H, W, focal = scene.hwf
+    costs = state.loop_costs
+    gen = torch.Generator(device=rgb_table.origins.device)
+    t0 = time.time()
+    rays_done = 0
+    for i in range(start + 1, cfg.N_iters + 1):
+        gen.manual_seed(step_seed(seed, i))
+        metrics = step_fn(state, rgb_table, depth_table, gen)
+        rays_done += cfg.N_rand
+
+        if cfg.i_print > 0 and i % cfg.i_print == 0:
+            # ONE device->host copy for all scalar metrics.
+            tf = time.time()
+            names = list(metrics)
+            packed = torch.stack([metrics[k].to(device, torch.float32)
+                                  for k in names]).cpu().numpy()
+            m = {k: float(x) for k, x in zip(names, packed)}
+            costs["fetch_s"].append(time.time() - tf)
+            dt = time.time() - t0
+            rps = rays_done / dt if dt > 0 else 0.0
+            print(f"[TRAIN] iter {i} loss {m['loss']:.5f} psnr {m['psnr']:.2f} "
+                  f"rays/s {rps:,.0f}")
+            if metrics_hook is not None:
+                metrics_hook(i, m)
+            if writer:
+                for k, v in m.items():
+                    writer.add_scalar(f"Train/{k}", v, i)
+                writer.add_scalar("Train/rays_per_sec", rps, i)
+            t0 = time.time()
+            rays_done = 0
+
+        if cfg.i_weights > 0 and i % cfg.i_weights == 0:
+            _save(ckdir, state, i, topo)
+
+        if cfg.i_testset > 0 and i % cfg.i_testset == 0 and len(scene.i_test) > 0:
+            tt = time.time()
+            testdir = os.path.join(expdir, f"testset_{i:06d}")
+            os.makedirs(testdir, exist_ok=True)
+            rgbs, _ = render_path(models, scene.poses[scene.i_test], scene.hwf,
+                                  rcfg_r, device=device, savedir=testdir)
+            gts = scene.images[scene.i_test]
+            t_psnr = float(np.mean([psnr_np(r, g) for r, g in zip(rgbs, gts)]))
+            t_ssim = float(np.mean([ssim_np(r, g) for r, g in zip(rgbs, gts)]))
+            # LPIPS comes with the perceptual models (ROADMAP Queue 1); JAX
+            # prints this line without it when its LPIPS is unavailable.
+            print(f"[TEST] iter {i} psnr {t_psnr:.2f} ssim {t_ssim:.4f}")
+            costs["test_s"].append(time.time() - tt)
+            if writer:
+                writer.add_scalar("Test/psnr", t_psnr, i)
+                writer.add_scalar("Test/ssim", t_ssim, i)
+
+        if (cfg.i_img > 0 and i % cfg.i_img == 0 and writer
+                and len(scene.i_test) > 0):
+            # Validation-view image logging (run_nerf.py:1995-2014).
+            img_i = int(host_rng.choice(scene.i_test))
+            out = render_image(models.coarse, models.fine, H, W, focal,
+                               scene.poses[img_i], rcfg_r, device=device)
+            rgb = _host(out["rgb_map"])
+            writer.add_image("Images/rgb_holdout", losses.to8b(rgb), i,
+                             dataformats="HWC")
+            writer.add_image("Images/depth_holdout",
+                             depth_to_colormap(_host(out["depth_map"])), i,
+                             dataformats="HWC")
+            writer.add_scalar("Val/psnr_holdout",
+                              psnr_np(rgb, scene.images[img_i]), i)
+
+        if cfg.i_video > 0 and i % cfg.i_video == 0:
+            rgbs, disps = render_path(models, scene.render_poses, scene.hwf,
+                                      rcfg_r, device=device)
+            _write_videos(expdir, f"{cfg.expname}_spiral_{i:06d}_", rgbs, disps)

@@ -185,6 +185,14 @@ class Models(NamedTuple):
     fine: Optional[nn.Module]
 
 
+def invalidate_packs(models: Models) -> None:
+    """Forget every ``FusedMLP``'s packed weights (after an optimizer step
+    or a load), so that no pack of earlier weights survives."""
+    for m in models:
+        if hasattr(m, "invalidate_pack"):
+            m.invalidate_pack()
+
+
 def build_models(cfg: TrainConfig, rcfg: RenderConfig, device=None,
                  seed: int | None = None) -> Models:
     """Coarse and fine MLPs on ``device`` (``cuda`` unless given), weights
@@ -276,6 +284,10 @@ class TrainState:
     models: Models
     optimizer: OptaxAdam
     step: int = 0
+    # What the driver's host-side events cost in the last ``train.loop.train``
+    # call: seconds of each metric fetch, checkpoint save and held-out
+    # evaluation, and each checkpoint's size in bytes (lists by event).
+    loop_costs: dict = dataclasses.field(default_factory=dict)
 
 
 def lr_schedule(cfg: TrainConfig):

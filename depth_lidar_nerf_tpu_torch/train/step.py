@@ -31,7 +31,8 @@ from depth_lidar_nerf_tpu_torch.render.renderer import (RenderConfig, Rays,
                                                         render_rays)
 from depth_lidar_nerf_tpu_torch.train import losses
 from depth_lidar_nerf_tpu_torch.train.config import TrainConfig
-from depth_lidar_nerf_tpu_torch.train.state import Models, TrainState
+from depth_lidar_nerf_tpu_torch.train.state import (Models, TrainState,
+                                                    invalidate_packs)
 from depth_lidar_nerf_tpu_torch.train.tables import (DepthRayTable,
                                                      RgbRayTable, gather_rays)
 
@@ -157,9 +158,7 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()
-        for m in models:
-            if hasattr(m, "invalidate_pack"):
-                m.invalidate_pack()
+        invalidate_packs(models)
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}
 
