@@ -22,7 +22,9 @@ which raises on failure:
    320 rays) and inverse-CDF sampling at the main path's tiles (32,768,
    320 and 16,384 rays, B=63, V=64; deterministic and random draws;
    contiguous and in the renderer's strided layout; draws u = 1 where the
-   sequential CDF ends above 1.0), equal to its twin to the last bit; then
+   sequential CDF ends above 1.0; and the grid step's case: 16,384 rays,
+   B=127 bins of one row expanded to every ray (row stride 0), weights
+   widened from bfloat16 rows), equal to its twin to the last bit; then
    the training kernels (the
    activation-saving forward, the dense, culled and saved-activation
    backwards) at W=256, D=4 and D=8 skip@4, float32 and bfloat16, 4,096 and
@@ -151,7 +153,31 @@ which raises on failure:
    ``render_image`` of the restored checkpoint bit for bit; and with
    ``--render_int8`` kernel 10 serves it (the subprocess prints its
    counters);
-13. one ``{"kernels": [...]}`` JSON line with every kernel.
+13. grid training and baked-density-grid serving at ``bench.py``'s grid
+   headline (the ``two_mlp`` stack with ``grid_train_fine_only``,
+   ``grid_train_samples`` 128 and ``grid_train_res`` 128). 13a, on phase
+   5's scene: 5 two-MLP steps; the bakes (the ray CDF over both tables at
+   S=128 through kernel 1, the 128^3 grid through the plain module) with
+   their ms and MiB; one grid step's launches (kernels 4, 5 and 5's phases
+   once a pass, kernel 14 once at B=127 with stride-0 bins, no kernel 1 or
+   3); 25 grid steps with a falling loss, ms/step and rays/s beside phase
+   5's, one profiled; a 5-step trajectory, kernel path against plain path,
+   on one baked table (``GRID_TRAJ_TOL``). 13b, on phase 4's field: the grid
+   bake's ms, 3 frames each of ``render_grid`` 128, ``render_grid_fine_only``
+   with ``render_grid_samples`` 128, and that with ``render_int8`` (kernel
+   10), with launch counts (no coarse MLP kernel), ms/frame beside phase
+   4's and frame 0's rgb gap to phase 4's frame; frame 0 of the first two
+   against the plain path at phase 4's limits, the int8 one against the
+   bf16 kernel frame at phase 4b's. 13c, the driver on phase 12's scene
+   with ``--grid_train --grid_train_after 100 --grid_rebake_every 50
+   --grid_train_fine_only --grid_train_samples 128``: runs A (to 150), B
+   (resumed to 300) and C (to 300); the rebakes at JAX's cadence with
+   their times; run C's steps 151-250 timed, their launches asserted; the
+   [TRAIN] PSNR up by 2 dB; the [TEST] frame at 300 through the grid; B
+   within ``TRAJ_TOL``'s update limit of C (bit-identity reported); the
+   CLI's ``--render_only --render_test`` bakes its own grid, and its rgb
+   equals an in-process grid render of the checkpoint bit for bit;
+14. one ``{"kernels": [...]}`` JSON line with every kernel.
 
 It prints ``phase N done at T s`` as it goes; a whole run should stay well
 within the 1,200 s limit on an H100, the build included (PERF.md). The last line is ``{"ok": true,
@@ -202,6 +228,14 @@ CULL_TOL = {"float32": 5e-5, "bfloat16": 6e-2}
 # and 5.6e-2, where plain bfloat16 against plain float32 differ by 9.7e-4
 # and 8.2e-2).
 TRAJ_TOL = {"float32": (6e-6, 1e-2), "bfloat16": (3e-3, 0.15)}
+# The grid step's trajectory (phase 13a): TRAJ_TOL, but for the bfloat16
+# update gap (None): the grid stack's own bfloat16 rounding, the gap between
+# its plain path in bfloat16 and in float32 in the same run. On two baked
+# tables that floor read 0.137 and 0.222 on an H100, against kernel gaps of
+# 0.033 and 0.197 (PERF.md, section 6): TRAJ_TOL's 0.15 lies within the
+# stack's bfloat16 noise. Float32 carries the check's power.
+GRID_TRAJ_TOL = {"float32": TRAJ_TOL["float32"],
+                 "bfloat16": (TRAJ_TOL["bfloat16"][0], None)}
 TRAIN_N_RAYS, TRAJ_N_RAYS = 16384, 4096
 SEM_CLASSES = 19  # bench.py's ref_default_semantic_two_mlp scene
 # Semantic kernels against their plain versions, as TRAIN_TOL: per gradient
@@ -331,6 +365,8 @@ SIGMA_STEPS = (5, 10)  # warm-up, timed
 SAMPLE_PDF_NS = (1, 31, 33, 320, 16384, 33088)
 SAMPLE_PDF_BS = (2, 9, 63, 64, 129)
 SAMPLE_PDF_VS = (1, 40, 64, 128)
+# The grid step's bins: the midpoints of a 128-entry bake grid.
+GRID_B = 127
 # Kernel 14's timing rotates over input sets of this many bytes in all, twice
 # the H100's 50 MB L2, so that each launch reads its inputs from device memory.
 L2_FLUSH_BYTES = 100e6
@@ -387,7 +423,10 @@ def sample_pdf_inputs(dev, N, B, V, det, layout="contiguous", seed=0,
 
     ``layout="renderer"`` hands them over as the renderer does: the weights
     as the slice ``[:, 1:-1]`` of an ``[N, B+1]`` tensor (row stride B + 1)
-    and, with ``det``, u as the ``expand`` of one row (row stride 0). With
+    and, with ``det``, u as the ``expand`` of one row (row stride 0).
+    ``layout="grid"`` as the grid step does: that, with the ``[N, B+1]``
+    rows rounded to bfloat16 and widened back (the baked table's rows), and
+    one row of bins expanded to every ray (row stride 0). With
     ``u_one`` (B > 2) every ray's last weight is 0, so its last bin holds the
     floor alone and the denominator guard fires there; its rows are drawn
     until the sequential float32 CDF ends above 1.0, and its last draw is
@@ -396,34 +435,44 @@ def sample_pdf_inputs(dev, N, B, V, det, layout="contiguous", seed=0,
     import numpy as np
     import torch
 
+    from depth_lidar_nerf_tpu_torch.ops.sampling import unit_linspace
+
     if u_one and B <= 2:
         raise ValueError("u_one needs B > 2: at B = 2 the CDF ends at 1.0")
     rng = np.random.default_rng(seed)
     bins = np.sort(rng.random((N, B), dtype=np.float32), axis=-1)
+
+    def rows_of(a):  # the grid step's weights are widened bfloat16 rows
+        if layout != "grid":
+            return a
+        return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
     if u_one:
         rows, n = [], 0
         while n < N:
-            c = rng.random((4 * N, B + 1), dtype=np.float32) ** 3
+            c = rows_of(rng.random((4 * N, B + 1), dtype=np.float32) ** 3)
             c[:, -2] = 0.0
             c = c[sequential_cdf_np(c[:, 1:-1])[:, -1] > 1.0]
             rows.append(c)
             n += len(c)
         w = np.concatenate(rows)[:N]
     else:
-        w = rng.random((N, B + 1), dtype=np.float32) ** 3
+        w = rows_of(rng.random((N, B + 1), dtype=np.float32) ** 3)
         w[0] = 0.0
         w[min(1, N - 1), 1:1 + B // 2] = 0.0
     weights = torch.from_numpy(w).to(dev)[:, 1:-1]
     if det:
-        u = torch.linspace(0.0, 1.0, V, dtype=torch.float32,
-                           device=dev).expand(N, V)
+        u = unit_linspace(V, dev).expand(N, V)
     else:
         u = torch.from_numpy(rng.random((N, V), dtype=np.float32)).to(dev)
         if u_one:
             u[:, -1] = 1.0
-    if layout != "renderer":
+    if layout == "contiguous":
         weights, u = weights.contiguous(), u.contiguous()
-    return torch.from_numpy(bins).to(dev), weights, u
+    bins = torch.from_numpy(bins).to(dev)
+    if layout == "grid":
+        bins = bins[0].expand(N, B)
+    return bins, weights, u
 
 
 def sample_pdf_sets(dev, tiles, det, B=63, V=64):
@@ -544,6 +593,8 @@ def profile_step(fn, label):
           f"({100 * dev_ms / wall_ms:.1f}%), idle {wall_ms - dev_ms:.1f} ms")
     for t, name in by_name[:10]:
         print(f"  {t:9.3f} ms  {name[:90]}")
+    return {"wall_ms": wall_ms, "device_ms": dev_ms,
+            "busy": dev_ms / wall_ms, "idle_ms": wall_ms - dev_ms}
 
 
 def sass_tensor_core_check(_build, fmt, fm):
@@ -2504,16 +2555,19 @@ def path_models(cfg, rcfg, models, dtype, plain, dev):
 
 
 def trajectories(label, tol, dev, fns, renderer, plain_sampler, semantic,
-                 sigma_loss=False):
+                 sigma_loss=False, grid=None):
     """5 steps of the kernel path and of the plain path (plain modules and
     the sampling twin, which must launch no kernel) of a :func:`bench_stack`
     from the same weights and generator seed, TRAJ_N_RAYS rays, float32 and
-    bfloat16, perturbation and noise on. Prints and checks against ``tol``
-    (max relative loss gap over the steps; max over parameters of the
-    relative L2 gap of their 5-step updates) and returns the gaps."""
+    bfloat16, perturbation and noise on. With ``grid = (fields, cdf)``, grid
+    steps of the stack with ``fields`` set, all four runs fed the one baked
+    ray CDF ``cdf``. Prints and checks against ``tol`` (max relative loss
+    gap over the steps; max over parameters of the relative L2 gap of their
+    5-step updates) and returns the gaps."""
     import numpy as np
     import torch
 
+    from depth_lidar_nerf_tpu_torch.train import step as step_mod
     from depth_lidar_nerf_tpu_torch.train.state import (FusedMLP,
                                                         init_train_state)
     from depth_lidar_nerf_tpu_torch.train.step import make_train_step
@@ -2527,16 +2581,24 @@ def trajectories(label, tol, dev, fns, renderer, plain_sampler, semantic,
                                                    sigma_loss=sigma_loss)
             check(isinstance(mj.coarse, FusedMLP) != plain, "trajectory models")
             st = init_train_state(cfg, mj)
-            stp = make_train_step(cfg, rcfg, mj, scn.hwf)
+            kw = {}
+            if grid is not None:
+                cfg = cfg.replace(**grid[0])
+                kw["aux"] = grid[1]
+            stp = make_train_step(cfg, rcfg, mj, scn.hwf,
+                                  grid_mode=grid is not None)
             gen = torch.Generator(device=dev).manual_seed(7)
             nets = (("coarse", mj.coarse), ("fine", mj.fine))
             init = {f"{net}.{n}": p.detach().clone()
                     for net, m in nets for n, p in m.named_parameters()}
             n_before = [fn.launches for fn in fns]
-            ctx = (mock.patch.object(renderer, "sample_pdf_cuda", plain_sampler)
-                   if plain else contextlib.nullcontext())
-            with ctx:
-                ls = [stp(st, *tabs, gen)["loss"].item() for _ in range(5)]
+            with contextlib.ExitStack() as ctx:
+                if plain:
+                    for mod in (renderer, step_mod):
+                        ctx.enter_context(mock.patch.object(
+                            mod, "sample_pdf_cuda", plain_sampler))
+                ls = [stp(st, *tabs, gen, **kw)["loss"].item()
+                      for _ in range(5)]
             torch.cuda.synchronize()
             if plain:
                 check([fn.launches for fn in fns] == n_before,
@@ -2549,12 +2611,21 @@ def trajectories(label, tol, dev, fns, renderer, plain_sampler, semantic,
 
     def gap(a, b):
         (la, pa), (lb, pb) = traj[a], traj[b]
+        # A parameter that never had a gradient (the coarse MLP under grid
+        # steps) has zero Adam moments: it must not move on either path.
+        still = {k for k in pb if not pb[k].any()}
+        check(all(not pa[k].any() for k in still),
+              f"{label}: parameters without a gradient stay put")
         return (float(np.max(np.abs(la - lb) / np.abs(lb))),
                 max((torch.linalg.norm(pa[k] - pb[k])
-                     / torch.linalg.norm(pb[k])).item() for k in pb))
+                     / torch.linalg.norm(pb[k])).item()
+                    for k in pb if k not in still))
 
     gaps = {d: gap((d, False), (d, True)) for d in ("float32", "bfloat16")}
     gaps["plain_bf16_vs_f32"] = gap(("bfloat16", True), ("float32", True))
+    # An update limit of None is the plain path's bfloat16-vs-float32 gap.
+    tol = {d: (t[0], gaps["plain_bf16_vs_f32"][1] if t[1] is None else t[1])
+           for d, t in tol.items()}
     for d in ("float32", "bfloat16"):
         print(f"{label} {d}, 5 steps of {TRAJ_N_RAYS} rays, kernel vs plain: "
               f"max loss gap {gaps[d][0]:.3g}, max update gap {gaps[d][1]:.3g} "
@@ -2564,6 +2635,12 @@ def trajectories(label, tol, dev, fns, renderer, plain_sampler, semantic,
     print(f"{label} for scale, plain bfloat16 vs plain float32: max loss gap "
           f"{gaps['plain_bf16_vs_f32'][0]:.3g}, max update gap "
           f"{gaps['plain_bf16_vs_f32'][1]:.3g}", flush=True)
+    (_, pk), (_, pp) = traj["bfloat16", False], traj["bfloat16", True]
+    worst = sorted(((torch.linalg.norm(pk[k] - pp[k])
+                     / torch.linalg.norm(pp[k])).item(), k, pp[k].numel())
+                   for k in pp if pp[k].any())[-3:]
+    print(f"{label} bfloat16 largest update gaps (gap, parameter, elements): "
+          f"{worst[::-1]}", flush=True)
     for d in ("float32", "bfloat16"):
         check(gaps[d][0] <= tol[d][0] and gaps[d][1] <= tol[d][1],
               f"{label} {d}")
@@ -2604,6 +2681,70 @@ class _Tee:
         return "".join(self.parts)
 
 
+def driver_argv(root, expname, n_iters, extra=()):
+    """The driver's command line (phases 12 and 13c): the scene written
+    under ``root``, ``configs/synthetic_smoke.txt`` at the ``two_mlp``
+    stack, then ``extra``."""
+    return ["--config", os.path.join(HERE, "configs", "synthetic_smoke.txt"),
+            "--datadir", os.path.join(root, "scene"),
+            "--basedir", os.path.join(root, "logs"), "--expname", expname,
+            "--netdepth", "4", "--netwidth", "256", "--netdepth_fine", "4",
+            "--netwidth_fine", "256", "--N_samples", "64",
+            "--N_importance", "64", "--N_rand", str(TRAIN_N_RAYS),
+            "--multires", "10", "--multires_views", "4",
+            "--compute_dtype", "bfloat16", "--lrate", "5e-4",
+            "--cull_eps", "1e-4", "--semantic_loss", "False",
+            "--test_scene", str(DRIVER_HOLDOUT), "--N_iters", str(n_iters),
+            "--i_print", str(DRIVER_PRINT),
+            "--i_weights", str(DRIVER_STEPS[0]),
+            "--i_testset", str(DRIVER_STEPS[1]), "--i_img", "0",
+            "--i_video", "0", *extra]
+
+
+def driver_run(cfg, hook=None):
+    """``train(cfg)`` with what it prints kept: (state, wall s, text)."""
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.train.loop import train
+
+    tee = _Tee(sys.stdout)
+    t = time.time()
+    with contextlib.redirect_stdout(tee):
+        state = train(cfg, metrics_hook=hook)
+    torch.cuda.synchronize()
+    return state, time.time() - t, tee.text()
+
+
+def net_params(models, clone=False):
+    """Both MLPs' tensors by ``net.name``."""
+    return {f"{net}.{k}": v.detach().clone() if clone else v.detach()
+            for net, m in (("coarse", models.coarse), ("fine", models.fine))
+            for k, v in m.state_dict().items()}
+
+
+def resume_check(label, params_b, state_c, cfg_c, rcfg, dev):
+    """Run B (resumed) against run C (uninterrupted) at the last step: the
+    max over tensors of the relative L2 gap of their updates from the seeded
+    initial weights, held to ``TRAJ_TOL``'s bf16 update limit, and whether
+    they are bit-identical."""
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.train.state import build_models
+
+    p0 = net_params(build_models(cfg_c, rcfg, device=dev, seed=cfg_c.seed))
+    params_c = net_params(state_c.models)
+    identical = all(torch.equal(params_b[k], params_c[k]) for k in params_c)
+    gap = max((torch.linalg.norm(params_b[k] - params_c[k])
+               / torch.linalg.norm(params_c[k] - p0[k])).item()
+              for k in params_c)
+    print(f"{label} resumed run B vs uninterrupted run C at step "
+          f"{DRIVER_STEPS[1]}: max update gap {gap:.3g} (tolerance "
+          f"{TRAJ_TOL['bfloat16'][1]:g}), bit-identical {identical}")
+    check(gap <= TRAJ_TOL["bfloat16"][1], f"{label}: resumed run vs "
+          "uninterrupted run")
+    return gap, identical
+
+
 def driver_phase(fmt, sc, dev, card, ms_step_5, fns):
     """Phase 12: ``train()`` on a scene that the port's ``make_scene`` writes
     to disk (8 views of 94 x 352, focal 88, 8,000 LiDAR points each, view 7
@@ -2631,8 +2772,7 @@ def driver_phase(fmt, sc, dev, card, ms_step_5, fns):
     from depth_lidar_nerf_tpu_torch.train.config import (eval_render_config,
                                                          parse_args,
                                                          render_config_from)
-    from depth_lidar_nerf_tpu_torch.train.loop import (load_scene, step_seed,
-                                                       train)
+    from depth_lidar_nerf_tpu_torch.train.loop import load_scene, step_seed
     from depth_lidar_nerf_tpu_torch.train.state import (build_models,
                                                         init_train_state)
     from depth_lidar_nerf_tpu_torch.train.step import make_train_step
@@ -2648,34 +2788,14 @@ def driver_phase(fmt, sc, dev, card, ms_step_5, fns):
           f"{time.time() - t0:.2f} s", flush=True)
 
     def argv(expname, n_iters):
-        return ["--config", os.path.join(HERE, "configs", "synthetic_smoke.txt"),
-                "--datadir", os.path.join(root, "scene"),
-                "--basedir", os.path.join(root, "logs"), "--expname", expname,
-                "--netdepth", "4", "--netwidth", "256", "--netdepth_fine", "4",
-                "--netwidth_fine", "256", "--N_samples", "64",
-                "--N_importance", "64", "--N_rand", str(TRAIN_N_RAYS),
-                "--multires", "10", "--multires_views", "4",
-                "--compute_dtype", "bfloat16", "--lrate", "5e-4",
-                "--cull_eps", "1e-4", "--semantic_loss", "False",
-                "--test_scene", str(DRIVER_HOLDOUT), "--N_iters", str(n_iters),
-                "--i_print", str(DRIVER_PRINT),
-                "--i_weights", str(DRIVER_STEPS[0]),
-                "--i_testset", str(DRIVER_STEPS[1]), "--i_img", "0",
-                "--i_video", "0"]
+        return driver_argv(root, expname, n_iters)
 
     cfg_a = parse_args(argv("resumed", DRIVER_STEPS[0]))
     check(cfg_a.colmap_depth and cfg_a.depth_loss and cfg_a.use_viewdirs
           and cfg_a.no_ndc and cfg_a.should_seed and not cfg_a.semantic_loss
           and cfg_a.lrate == 5e-4 and cfg_a.cull_eps == 1e-4,
           "driver config")
-
-    def run(cfg, hook=None):
-        tee = _Tee(sys.stdout)
-        t = time.time()
-        with contextlib.redirect_stdout(tee):
-            state = train(cfg, metrics_hook=hook)
-        torch.cuda.synchronize()
-        return state, time.time() - t, tee.text()
+    run = driver_run
 
     state_a, wall_a, _ = run(cfg_a)
     check(state_a.step == DRIVER_STEPS[0], "run A's step")
@@ -2684,10 +2804,7 @@ def driver_phase(fmt, sc, dev, card, ms_step_5, fns):
     check(f"resumed from checkpoint at step {DRIVER_STEPS[0]}" in out_b,
           "run B resumes from run A's checkpoint")
     check(state_b.step == DRIVER_STEPS[1], "run B's step")
-    params_b = {f"{net}.{k}": v.detach().clone()
-                for net, m in (("coarse", state_b.models.coarse),
-                               ("fine", state_b.models.fine))
-                for k, v in m.state_dict().items()}
+    params_b = net_params(state_b.models, clone=True)
     test_b = [l for l in out_b.splitlines() if l.startswith("[TEST]")]
     del state_b
     torch.cuda.empty_cache()
@@ -2726,28 +2843,14 @@ def driver_phase(fmt, sc, dev, card, ms_step_5, fns):
     check(launches == want, f"driver launch counts, want {want}")
 
     # B against C: the same trajectory from one seed, one resumed at 150.
-    init = build_models(cfg_c, rcfg, device=dev, seed=cfg_c.seed)
-    p0 = {f"{net}.{k}": v.detach() for net, m in (("coarse", init.coarse),
-                                                  ("fine", init.fine))
-          for k, v in m.state_dict().items()}
-    params_c = {f"{net}.{k}": v.detach()
-                for net, m in (("coarse", state_c.models.coarse),
-                               ("fine", state_c.models.fine))
-                for k, v in m.state_dict().items()}
-    identical = all(torch.equal(params_b[k], params_c[k]) for k in params_c)
-    gap = max((torch.linalg.norm(params_b[k] - params_c[k])
-               / torch.linalg.norm(params_c[k] - p0[k])).item()
-              for k in params_c)
-    print(f"driver resumed run B vs uninterrupted run C at step "
-          f"{DRIVER_STEPS[1]}: max update gap {gap:.3g} (tolerance "
-          f"{TRAJ_TOL['bfloat16'][1]:g}), bit-identical {identical}")
-    check(gap <= TRAJ_TOL["bfloat16"][1], "resumed run vs uninterrupted run")
+    gap, identical = resume_check("driver", params_b, state_c, cfg_c, rcfg,
+                                  dev)
 
     # Where the window's time goes: run C's state and the driver's scene in
     # a bare step, timed by CUDA events as phase 5 times its step, then the
     # same steps with the loop's per-step seeding on the host clock, and one
     # step profiled.
-    del params_b, params_c, p0
+    del params_b
     scene = load_scene(cfg_c)
     rcfg_s = render_config_from(cfg_c, 0, scene.near, scene.far)
     tabs = (build_rgb_table(scene.images, scene.poses, scene.i_train,
@@ -2794,7 +2897,7 @@ def driver_phase(fmt, sc, dev, card, ms_step_5, fns):
           f"{costs['save_bytes'][-1] / 2 ** 20:.2f} MiB each; held-out eval "
           f"{1e3 * np.mean(costs['test_s']):.1f} ms; wall s: run A {wall_a:.1f}, "
           f"run B {wall_b:.1f}, run C {wall_c:.1f}", flush=True)
-    del state_c, init
+    del state_c
     torch.cuda.empty_cache()
 
     # Serving through the CLI, then the same frame in process.
@@ -2863,6 +2966,531 @@ def driver_phase(fmt, sc, dev, card, ms_step_5, fns):
             "cli_int8_launches": counts, "card": card}, launches
 
 
+# Phase 13, grid training and serving: bench.py's grid headline
+# (bench.py:103-129): the two_mlp stack with grid_train_fine_only,
+# grid_train_samples 128 and grid_train_res 128.
+GRID_FIELDS = dict(grid_train=True, grid_train_fine_only=True,
+                   grid_train_samples=128, grid_train_res=128)
+GRID_WARM = 5  # two-MLP steps before the bake (13a)
+GRID_STEPS = (5, 20)  # grid steps: warm-up, timed (13a)
+BAKE_CHUNK = 1 << 14  # rays a kernel-1 launch of the ray-CDF bake
+# 13c: the driver's grid run, and its window of grid steps (two rebakes).
+GRID_DRIVER_FLAGS = ("--grid_train", "True", "--grid_train_after", "100",
+                     "--grid_rebake_every", "50", "--grid_train_fine_only",
+                     "True", "--grid_train_samples", "128")
+GRID_DRIVER_WINDOW = (150, 250)
+GRID_REBAKES = {"A": [101], "B": [151, 201, 251], "C": [101, 151, 201, 251]}
+
+
+def serving_field(cfg, rcfg, dev):
+    """Phase 4's served field: ``build_models`` from the config's seed with
+    the density head scaled and offset and the colour head scaled, so that
+    density and colour vary across the frame with no empty ray (where the
+    reference's disparity is 0/0)."""
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.train.state import build_models
+
+    models = build_models(cfg, rcfg, device=dev)
+    with torch.no_grad():
+        for m in models:
+            m.sigma.weight *= SIGMA_SCALE
+            m.sigma.bias += SIGMA_OFFSET
+            m.rgb.weight *= RGB_SCALE
+    return models
+
+
+def _counter(fns):
+    """(zero, counts) over the launch counters of ``fns``."""
+    def zero():
+        for fn in fns.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in fns.items()}
+    return zero, counts
+
+
+def bake_launches(tables):
+    """Kernel 1's launches in one ray-CDF bake: a launch a chunk of a
+    table's rays."""
+    return sum(-(-t.origins.shape[0] // BAKE_CHUNK) for t in tables
+               if t is not None)
+
+
+def grid_step_phase(fmt, sc, renderer, dev, card, plain_sampler, fns, all_fns,
+                    ms_step_5):
+    """Phase 13a: the grid step of ``bench.py``'s headline stack on phase 5's
+    in-memory scene. 5 two-MLP steps, then the bakes (the ray CDF over both
+    tables at S = 128: kernel 1 a chunk of 16,384 rays; the 128^3 grid:
+    the plain module), one grid step whose launches are asserted (kernels
+    4 and 5 and 5's phases once a pass, kernel 14 once at B = 127 with
+    stride-0 bins, no kernel 1 or 3), 25 more (5 untimed) with a falling
+    loss, one profiled; then a 5-step trajectory, kernel path against
+    plain path, on one baked table. Returns the numbers and the launches."""
+    import numpy as np
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.ops.ray_cdf import bake_ray_cdf
+    from depth_lidar_nerf_tpu_torch.train.loop import (bake_grid,
+                                                       grid_bounds_for_poses)
+    from depth_lidar_nerf_tpu_torch.train.state import init_train_state
+    from depth_lidar_nerf_tpu_torch.train.step import make_train_step
+
+    zero, counts = _counter(fns)
+    launches = dict.fromkeys(fns, 0)
+
+    def add(got):
+        for k in fns:
+            launches[k] += got[k]
+
+    cfg, rcfg, tm, tables, scene = bench_stack(dev, TRAIN_N_RAYS, "bfloat16")
+    cfg = cfg.replace(**GRID_FIELDS)
+    state = init_train_state(cfg, tm)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step = make_train_step(cfg, rcfg, tm, scene.hwf)
+    for _ in range(GRID_WARM):
+        step(state, *tables, gen)
+    gstep = make_train_step(cfg, rcfg, tm, scene.hwf, grid_mode=True)
+    torch.cuda.synchronize()
+
+    zero()
+    t0 = time.time()
+    cdf = bake_ray_cdf(tm, rcfg, *tables, cfg.grid_train_samples)
+    torch.cuda.synchronize()
+    cdf_ms = (time.time() - t0) * 1e3
+    got = counts()
+    want = dict.fromkeys(fns, 0)
+    want[fmt.KERNEL] = bake_launches(tables)
+    check(got == want, f"ray-CDF bake launches {got}, want {want}")
+    add(got)
+    S = cfg.grid_train_samples
+    check(cdf.w_rgb.shape == (tables[0].origins.shape[0], S)
+          and cdf.w_depth.shape == (tables[1].origins.shape[0], S)
+          and cdf.w_rgb.dtype == torch.bfloat16 and cdf.z.shape == (S,),
+          "ray CDF shapes")
+    check(bool(torch.isfinite(cdf.w_rgb.float()).all()), "finite ray CDF")
+    cdf_mib = (cdf.w_rgb.numel() + cdf.w_depth.numel()) * 2 / 2 ** 20
+    lo, hi = grid_bounds_for_poses(rcfg, scene.poses, scene.hwf)
+    grid_ms = []  # the first bake of the process, then a rebake
+    for _ in range(2):
+        t0 = time.time()
+        grid3 = bake_grid(rcfg, tm, lo, hi, cfg.grid_train_res, verbose=False)
+        torch.cuda.synchronize()
+        grid_ms.append((time.time() - t0) * 1e3)
+    check(counts() == want, "the 3-D bake runs the plain module (no kernel)")
+    check(bool(torch.isfinite(grid3[0]).all()), "finite density grid")
+    grid_mib = grid3[0].numel() * 4 / 2 ** 20
+    print(f"grid bakes ({card}): ray CDF of {tables[0].origins.shape[0]} rgb + "
+          f"{tables[1].origins.shape[0]} depth rays at S={S} in {cdf_ms:.1f} ms "
+          f"({want[fmt.KERNEL]} kernel-1 launches), {cdf_mib:.2f} MiB bf16; "
+          f"{cfg.grid_train_res}^3 grid in {grid_ms[0]:.1f} ms (the process's "
+          f"first), {grid_ms[1]:.1f} ms (again), {grid_mib:.2f} MiB", flush=True)
+    del grid3
+
+    # One grid step: its launches, and kernel 14's inputs as it takes them.
+    seen = []
+    orig_launch = sc._launch
+
+    def spy(bins, weights, u):
+        seen.append((tuple(bins.shape), bins.stride(0), weights.stride(0),
+                     tuple(u.shape)))
+        return orig_launch(bins, weights, u)
+
+    zero()
+    with mock.patch.object(sc, "_launch", spy):
+        gstep(state, *tables, gen, aux=cdf)
+    torch.cuda.synchronize()
+    one = counts()
+    n_chunks = -(-TRAIN_N_RAYS * cfg.N_importance // fmt.BWD_CHUNK)
+    want = dict.fromkeys(fns, 0)
+    want.update({"fused_nerf_fwd_acts": 1, "fused_nerf_bwd_acts": 1,
+                 "fused_nerf_bwd_chain": n_chunks,
+                 "fused_nerf_bwd_weight_grads": n_chunks,
+                 "fused_nerf_grad_reduce": 1, sc.KERNEL: 1})
+    print(f"grid step launches: {one}; kernel 14 took (bins shape, bins row "
+          f"stride, weights row stride, u shape) {seen}", flush=True)
+    check(one == want, f"grid step launch counts, want {want}")
+    check(seen == [((TRAIN_N_RAYS, GRID_B), 0, GRID_B + 1,
+                    (TRAIN_N_RAYS, cfg.N_importance))],
+          "kernel 14 at B = 127 with stride-0 bins")
+    add(one)
+
+    zero()
+    warm, timed = GRID_STEPS
+    metrics = [gstep(state, *tables, gen, aux=cdf) for _ in range(warm)]
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+    ev0.record()
+    metrics += [gstep(state, *tables, gen, aux=cdf) for _ in range(timed)]
+    ev1.record()
+    torch.cuda.synchronize()
+    ms = ev0.elapsed_time(ev1) / timed
+    got = counts()
+    check(got == {k: v * (warm + timed) for k, v in want.items()},
+          f"launch counts of {warm + timed} grid steps {got}")
+    add(got)
+    vals = [{k: v.item() for k, v in m.items()} for m in metrics]
+    check(all(np.isfinite(v) for m in vals for v in m.values()), "finite metrics")
+    check(not {"img_loss0", "psnr0"} & set(vals[0]), "no coarse loss terms")
+    losses = [m["loss"] for m in vals]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[15:25]))
+    print("grid step loss per step: " + " ".join(f"{x:.4f}" for x in losses))
+    print(f"grid step psnr step 1 {vals[0]['psnr']:.2f} dB, step 25 "
+          f"{vals[-1]['psnr']:.2f} dB; mean loss steps 1-10 {first:.5f}, "
+          f"steps 16-25 {last:.5f}")
+    check(last < first, "grid step loss falls (mean of steps 16-25 below 1-10)")
+    print(f"grid step steady: {ms:.1f} ms/step, {TRAIN_N_RAYS * 1e3 / ms:,.0f} "
+          f"rays/s; two_mlp (phase 5) {ms_step_5:.1f} ms/step, "
+          f"{TRAIN_N_RAYS * 1e3 / ms_step_5:,.0f} rays/s; grid / two_mlp "
+          f"{ms / ms_step_5:.3f} on {card}", flush=True)
+    prof = profile_step(lambda: gstep(state, *tables, gen, aux=cdf), "grid step")
+    del state, step, gstep, tm
+    torch.cuda.empty_cache()
+
+    traj = trajectories("grid trajectory", GRID_TRAJ_TOL, dev, all_fns,
+                        renderer, plain_sampler, semantic=False,
+                        grid=(GRID_FIELDS, cdf))
+    del cdf, tables
+    torch.cuda.empty_cache()
+    return {"ms_per_step": ms, "rays_per_s": TRAIN_N_RAYS * 1e3 / ms,
+            "two_mlp_ms_per_step_phase5": ms_step_5, "losses": losses,
+            "bake_cdf_ms": cdf_ms, "bake_cdf_mib": cdf_mib,
+            "bake_grid_ms": grid_ms, "bake_grid_mib": grid_mib,
+            "one_step_launches": one, "profile": prof,
+            "trajectory_kernel_vs_plain": traj, "card": card}, launches
+
+
+def grid_serving_phase(fmt, sc, renderer, dev, card, cfg, rcfg, poses,
+                       ms_frame, rgb0, plain_sampler, fns):
+    """Phase 13b: grid serving of phase 4's field at 94 x 352. The 128^3
+    grid baked from the fine model over the served poses' frusta; 3 frames
+    each of ``render_grid 128`` (the union), ``render_grid_fine_only`` with
+    ``render_grid_samples 128``, and the same with ``render_int8``
+    (kernel 10): launch counts (no coarse MLP launch; kernel 1 or 10 and
+    kernel 14 once a tile), ms/frame beside phase 4's, the rgb mean abs gap
+    of frame 0 to phase 4's two-MLP frame; then frame 0 of the first two
+    modes on phase 4's comparison field through the kernels and through the
+    plain path (one grid per dtype, baked from the kernel path's model) at
+    phase 4's frame limits, and the int8 frame against the bf16 kernel
+    frame at phase 4b's."""
+    import numpy as np
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.render.renderer import (pick_render_tile,
+                                                            render_image)
+    from depth_lidar_nerf_tpu_torch.train.loop import (bake_grid,
+                                                       grid_bounds_for_poses,
+                                                       render_path)
+    from depth_lidar_nerf_tpu_torch.train.state import Models
+
+    zero, counts = _counter(fns)
+    launches = dict.fromkeys(fns, 0)
+    models = serving_field(cfg, rcfg, dev)
+    lo, hi = grid_bounds_for_poses(rcfg, poses, (H, W, FOCAL))
+    zero()
+    t0 = time.time()
+    grid3 = bake_grid(rcfg, models, lo, hi, GRID_FIELDS["grid_train_res"],
+                      verbose=False)
+    torch.cuda.synchronize()
+    bake_ms = (time.time() - t0) * 1e3
+    check(counts() == dict.fromkeys(fns, 0), "the 3-D bake launches no kernel")
+    print(f"grid serving: {GRID_FIELDS['grid_train_res']}^3 grid of the D=8 fine "
+          f"model baked in {bake_ms:.1f} ms (bounds {np.round(lo, 3)} .. "
+          f"{np.round(hi, 3)}) on {card}", flush=True)
+    R = GRID_FIELDS["grid_train_res"]
+    fine_only = dict(render_grid=R, render_grid_fine_only=True,
+                     render_grid_samples=128)
+    modes = {"grid": dict(render_grid=R), "grid_fine_only": fine_only,
+             "grid_fine_only_int8": dict(fine_only, render_int8=True)}
+    out = {"bake_ms": bake_ms, "modes": {}, "card": card,
+           "two_mlp_ms_per_frame_phase4": ms_frame}
+    for name, kw in modes.items():
+        mcfg = dataclasses.replace(rcfg, **kw)
+        tile = pick_render_tile(models.coarse, models.fine, mcfg, H * W, grid3)
+        n_tiles = -(-H * W // tile)
+        zero()
+        rgbs, disps = render_path(models, poses, (H, W, FOCAL), mcfg,
+                                  device=dev, density_grid=grid3)
+        torch.cuda.synchronize()
+        got = counts()
+        want = dict.fromkeys(fns, 0)
+        kern = "fused_nerf_fwd_q8" if mcfg.render_int8 else fmt.KERNEL
+        want.update({kern: n_tiles * N_FRAMES, sc.KERNEL: n_tiles * N_FRAMES})
+        check(got == want, f"{name} launch counts {got}, want {want}")
+        # A ray whose fine samples all see zero density is empty: its
+        # disparity is 0/0, as the reference's.
+        empty = float(1.0 - np.isfinite(disps).mean())
+        check(rgbs.shape == (N_FRAMES, H, W, 3) and np.isfinite(rgbs).all()
+              and empty <= SEM_EMPTY_MAX, f"finite {name} frames "
+              f"(empty rays {empty:.4f})")
+        for k in fns:
+            launches[k] += got[k]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        render_path(models, poses, (H, W, FOCAL), mcfg, device=dev,
+                    density_grid=grid3)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3 / N_FRAMES
+        gap4 = float(np.abs(rgbs[0] - rgb0).mean())
+        print(f"{name}: {ms:.1f} ms/frame, {H * W * 1e3 / ms:,.0f} rays/s "
+              f"(phase 4's two-MLP frame {ms_frame:.1f}), launches {got}, "
+              f"tiles/frame {n_tiles}, empty rays {empty:.4f}; frame 0 rgb "
+              f"mean abs gap to phase 4's frame {gap4:.4g} on {card}",
+              flush=True)
+        out["modes"][name] = {"ms_per_frame": ms,
+                              "rays_per_s": H * W * 1e3 / ms,
+                              "launches": got, "rgb_gap_to_phase4": gap4,
+                              "empty_rays": empty}
+    out["profile"] = profile_step(
+        lambda: render_image(models.coarse, models.fine, H, W, FOCAL, poses[1],
+                             dataclasses.replace(rcfg, **fine_only),
+                             device=dev, density_grid=grid3),
+        "grid fine-only frame")
+    del grid3
+
+    # Frame 0 on the comparison field, kernel path against plain path.
+    with torch.no_grad():
+        for m in models:
+            m.sigma.bias += COMPARE_OFFSET - SIGMA_OFFSET
+    dtypes = ("float32", "bfloat16")
+    kms = {d: path_models(cfg, rcfg, models, d, False, dev) for d in dtypes}
+    grids = {d: bake_grid(rcfg, Models(*kms[d]), lo, hi, R, verbose=False)
+             for d in dtypes}
+    out["kernel_vs_plain"] = {}
+    frames = {}
+    for name in ("grid", "grid_fine_only"):
+        mcfg = dataclasses.replace(rcfg, **modes[name])
+        for d in dtypes:
+            frames[name, "kernel", d] = render_image(
+                *kms[d], H, W, FOCAL, poses[0], mcfg, device=dev,
+                density_grid=grids[d])
+        n_before = counts()
+        with mock.patch.object(renderer, "sample_pdf_cuda", plain_sampler):
+            for d in dtypes:
+                frames[name, "plain", d] = render_image(
+                    *path_models(cfg, rcfg, models, d, True, dev), H, W, FOCAL,
+                    poses[0], mcfg, device=dev, density_grid=grids[d])
+        check(counts() == n_before, f"the plain {name} render launched a kernel")
+        res = {}
+        for key in ("rgb_map", "depth_map", "acc_map"):
+            e = {}
+            for d in dtypes:
+                diff = (frames[name, "kernel", d][key].float()
+                        - frames[name, "plain", d][key].float()).abs()
+                e[d] = (diff.max().item(), diff.mean().item())
+            print(f"{name} frame 0 {key}, kernel vs plain: float32 max abs "
+                  f"{e['float32'][0]:.3g} mean {e['float32'][1]:.3g} (tolerance "
+                  f"max {F32_TOL_MAX:g}, mean {F32_TOL_MEAN:g}); bfloat16 mean "
+                  f"{e['bfloat16'][1]:.3g} (tolerance {BF16_TOL_MEAN:g})")
+            check(e["float32"][0] <= F32_TOL_MAX
+                  and e["float32"][1] <= F32_TOL_MEAN,
+                  f"{name} frame 0 {key} kernel vs plain, float32")
+            check(e["bfloat16"][1] <= BF16_TOL_MEAN,
+                  f"{name} frame 0 {key} kernel vs plain, bfloat16")
+            res[key] = e
+        out["kernel_vs_plain"][name] = res
+    q8 = render_image(*kms["bfloat16"], H, W, FOCAL, poses[0],
+                      dataclasses.replace(rcfg, **modes["grid_fine_only_int8"]),
+                      device=dev, density_grid=grids["bfloat16"])
+    gap8 = (q8["rgb_map"].float()
+            - frames["grid_fine_only", "kernel", "bfloat16"]["rgb_map"].float()
+            ).abs().mean().item()
+    print(f"grid_fine_only_int8 frame 0 against the bf16 kernel frame: rgb "
+          f"mean abs {gap8:.4g} (limit {INT8_RGB_MEAN})", flush=True)
+    check(gap8 <= INT8_RGB_MEAN, "grid int8 rgb within JAX's atol")
+    out["int8_rgb_gap_to_bf16"] = gap8
+    del frames, grids, kms, models, q8
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def grid_driver_phase(fmt, sc, renderer, dev, card, fns):
+    """Phase 13c: the driver's grid run on phase 12's disk scene, with
+    ``--grid_train --grid_train_after 100 --grid_rebake_every 50
+    --grid_train_fine_only --grid_train_samples 128`` (``DLNERF_LOG_REBAKE=1``
+    for the phase): run A to 150 with a checkpoint, run B resumed to 300,
+    run C from scratch to 300. The rebakes at JAX's cadence with their
+    times; run C's steps 151-250 timed and their launches counted (100 grid
+    steps, two rebakes); the [TRAIN] PSNR up by ``DRIVER_PSNR_GAIN`` from
+    step 25; the [TEST] frame at 300 through the grid; B against C by
+    ``TRAJ_TOL``'s update limit, bit-identity reported; then the CLI's
+    ``--render_only --render_test`` of C's checkpoint bakes a grid itself,
+    and its rgb equals an in-process grid render of the restored
+    checkpoint bit for bit. Returns the numbers and the window's
+    launches."""
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.data.synthetic import make_scene
+    from depth_lidar_nerf_tpu_torch.render.renderer import render_image
+    from depth_lidar_nerf_tpu_torch.train import checkpoint
+    from depth_lidar_nerf_tpu_torch.train.config import (eval_render_config,
+                                                         parse_args,
+                                                         render_config_from)
+    from depth_lidar_nerf_tpu_torch.train.loop import (_bake_render_grid,
+                                                       load_scene)
+    from depth_lidar_nerf_tpu_torch.train.state import (build_models,
+                                                        init_train_state)
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_grid_driver_")
+    root = tmp.name
+    make_scene(os.path.join(root, "scene"), n_images=DRIVER_VIEWS, H=H, W=W,
+               focal=FOCAL, n_depth_points=DRIVER_DEPTH_POINTS, backdrop=True)
+
+    def argv(expname, n_iters):
+        return driver_argv(root, expname, n_iters, GRID_DRIVER_FLAGS)
+
+    cfg_a = parse_args(argv("resumed", DRIVER_STEPS[0]))
+    check(cfg_a.grid_train and cfg_a.grid_train_after == 100
+          and cfg_a.grid_rebake_every == 50 and cfg_a.grid_train_fine_only
+          and cfg_a.grid_train_samples == 128 and cfg_a.grid_train_res == 128,
+          "grid driver config")
+
+    def rebakes(text):
+        return [(int(i), float(a), float(b)) for i, a, b in re.findall(
+            r"\[grid\] rebake@(\d+): cdf ([\d.]+)s, grid3 ([\d.]+)s", text)]
+
+    psnrs, window, grid_calls = {}, {}, []
+
+    def hook(i, m):
+        psnrs[i] = m["psnr"]
+        if i == GRID_DRIVER_WINDOW[0]:
+            torch.cuda.synchronize()
+            for fn in fns.values():
+                fn.launches = 0
+            window["t0"] = time.time()
+        elif i == GRID_DRIVER_WINDOW[1]:
+            torch.cuda.synchronize()
+            window["t1"] = time.time()
+            window["launches"] = {k: fn.launches for k, fn in fns.items()}
+
+    orig_grid = renderer._composite_from_grid
+
+    def counting_grid(*a, **k):
+        grid_calls.append(1)
+        return orig_grid(*a, **k)
+
+    with mock.patch.dict(os.environ, {"DLNERF_LOG_REBAKE": "1"}):
+        state_a, wall_a, out_a = driver_run(cfg_a)
+        check(state_a.step == DRIVER_STEPS[0], "grid run A's step")
+        del state_a
+        state_b, wall_b, out_b = driver_run(cfg_a.replace(N_iters=DRIVER_STEPS[1]))
+        check(f"resumed from checkpoint at step {DRIVER_STEPS[0]}" in out_b,
+              "grid run B resumes from run A's checkpoint")
+        params_b = net_params(state_b.models, clone=True)
+        del state_b
+        torch.cuda.empty_cache()
+        cfg_c = cfg_a.replace(expname="fresh", N_iters=DRIVER_STEPS[1])
+        with mock.patch.object(renderer, "_composite_from_grid", counting_grid):
+            state_c, wall_c, out_c = driver_run(cfg_c, hook)
+    check(state_c.step == DRIVER_STEPS[1], "grid run C's step")
+    bakes = {"A": rebakes(out_a), "B": rebakes(out_b), "C": rebakes(out_c)}
+    for run, want_steps in GRID_REBAKES.items():
+        check([b[0] for b in bakes[run]] == want_steps,
+              f"run {run} rebakes at {bakes[run]}, want steps {want_steps}")
+    print("grid driver rebakes (step, ray CDF s, 128^3 grid s): "
+          + "; ".join(f"run {k} {v}" for k, v in bakes.items()), flush=True)
+
+    n_win = GRID_DRIVER_WINDOW[1] - GRID_DRIVER_WINDOW[0]
+    ms_step = (window["t1"] - window["t0"]) * 1e3 / n_win
+    scene = load_scene(cfg_c)
+    rcfg = render_config_from(cfg_c, 0, scene.near, scene.far)
+    n_train = len(scene.i_train)
+    m_rgb, m_dep = n_train * H * W, n_train * DRIVER_DEPTH_POINTS
+    n_bake = -(-m_rgb // BAKE_CHUNK) + -(-m_dep // BAKE_CHUNK)
+    n_win_bakes = sum(GRID_DRIVER_WINDOW[0] < b <= GRID_DRIVER_WINDOW[1]
+                      for b in GRID_REBAKES["C"])
+    n_chunks = -(-TRAIN_N_RAYS * cfg_c.N_importance // fmt.BWD_CHUNK)
+    want = dict.fromkeys(fns, 0)
+    want.update({fmt.KERNEL: n_win_bakes * n_bake,
+                 "fused_nerf_fwd_acts": n_win, "fused_nerf_bwd_acts": n_win,
+                 sc.KERNEL: n_win, "fused_nerf_grad_reduce": n_win,
+                 "fused_nerf_bwd_chain": n_win * n_chunks,
+                 "fused_nerf_bwd_weight_grads": n_win * n_chunks})
+    launches = window["launches"]
+    print(f"grid driver run C launches over steps {GRID_DRIVER_WINDOW[0] + 1}-"
+          f"{GRID_DRIVER_WINDOW[1]}: {launches}", flush=True)
+    check(launches == want, f"grid driver launch counts, want {want}")
+    n_test_tiles = -(-H * W // rcfg.render_tile(fused=True))
+    check(len(grid_calls) == n_test_tiles,
+          f"the [TEST] frame at 300 went through the grid ({len(grid_calls)} "
+          f"grid passes, want {n_test_tiles})")
+
+    gap, identical = resume_check("grid driver", params_b, state_c, cfg_c,
+                                  rcfg, dev)
+    steps_seen = sorted(psnrs)
+    first, last = psnrs[steps_seen[0]], psnrs[steps_seen[-1]]
+    test_c = [l for l in out_c.splitlines() if l.startswith("[TEST]")]
+    test_b = [l for l in out_b.splitlines() if l.startswith("[TEST]")]
+    print(f"grid driver [TRAIN] psnr step {steps_seen[0]} {first:.2f} dB, step "
+          f"{steps_seen[-1]} {last:.2f} dB; held-out view {DRIVER_HOLDOUT} "
+          f"through the grid: {test_c} (run B: {test_b})")
+    check(last >= first + DRIVER_PSNR_GAIN, "grid driver PSNR climbs by 2 dB")
+    check(len(test_c) == 1 and len(test_b) == 1, "grid held-out [TEST] lines")
+    print(f"grid driver: {ms_step:.1f} ms/step, {TRAIN_N_RAYS * 1e3 / ms_step:,.0f}"
+          f" rays/s over steps {GRID_DRIVER_WINDOW[0] + 1}-"
+          f"{GRID_DRIVER_WINDOW[1]} of run C ({n_win_bakes} rebakes included); "
+          f"wall s: run A {wall_a:.1f}, run B {wall_b:.1f}, run C {wall_c:.1f} "
+          f"on {card}", flush=True)
+    del state_c, params_b
+    torch.cuda.empty_cache()
+
+    # The CLI bakes the grid itself and serves through it.
+    expdir = os.path.join(root, "logs", "fresh")
+    outdir = os.path.join(expdir, f"renderonly_test_{DRIVER_STEPS[1]:06d}")
+    cli = argv("fresh", DRIVER_STEPS[1]) + ["--render_only", "--render_test"]
+    t = time.time()
+    proc = subprocess.run([sys.executable, "-c", CLI_COUNTING, *cli], cwd=HERE,
+                          capture_output=True, text=True, timeout=600)
+    wall_cli = time.time() - t
+    check(proc.returncode == 0, f"grid CLI render_only: {proc.stderr[-2000:]}")
+    check(f"baked {cfg_c.grid_train_res}^3 density grid" in proc.stdout,
+          "the CLI baked a grid for the grid-trained checkpoint")
+    counts = json.loads([l for l in proc.stdout.splitlines()
+                         if l.startswith("launches ")][-1][len("launches "):])
+    served = np.load(os.path.join(outdir, "000.npz"))["rgb"]
+    models = build_models(cfg_c, rcfg, device=dev)
+    state = checkpoint.restore(
+        checkpoint.load_file(checkpoint.path_of(
+            checkpoint.ckpt_dir(cfg_c.basedir, cfg_c.expname), DRIVER_STEPS[1])),
+        init_train_state(cfg_c, models), checkpoint.topology(cfg_c, 0))
+    eff = cfg_c.replace(render_grid=cfg_c.grid_train_res,
+                        render_grid_fine_only=cfg_c.grid_train_fine_only,
+                        render_grid_samples=cfg_c.grid_train_samples)
+    grid3, rcfg_ro = _bake_render_grid(eff, eval_render_config(cfg_c, rcfg),
+                                       models, scene.poses[scene.i_test],
+                                       scene.hwf)
+    frame = render_image(models.coarse, models.fine, H, W, FOCAL,
+                         scene.poses[DRIVER_HOLDOUT], rcfg_ro, device=dev,
+                         density_grid=grid3)
+    rgb = frame["rgb_map"].float().cpu().numpy()
+    cli_equal = bool(np.array_equal(rgb, served))
+    print(f"grid driver CLI --render_only --render_test: exit 0 in "
+          f"{wall_cli:.1f} s, launches {counts}; frame vs in-process grid "
+          f"render of checkpoint {state.step}: bit-identical {cli_equal} (max "
+          f"abs diff {np.abs(rgb - served).max():.3g})", flush=True)
+    check(counts["fused_nerf_fwd"] == n_test_tiles
+          and counts[sc.KERNEL] == n_test_tiles
+          and counts["fused_nerf_fwd_q8"] == 0,
+          "the CLI's grid frame: kernels 1 and 14 once a tile")
+    check(cli_equal, "grid CLI frame equals the in-process frame bit for bit")
+    del models, state, grid3, frame
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    return {"ms_per_step": ms_step, "rays_per_s": TRAIN_N_RAYS * 1e3 / ms_step,
+            "window": list(GRID_DRIVER_WINDOW), "window_rebakes": n_win_bakes,
+            "window_launches": launches, "rebakes": bakes,
+            "psnr_first": first, "psnr_last": last, "test_line": test_c[0],
+            "resume_update_gap": gap, "resume_bit_identical": identical,
+            "wall_s": {"A": wall_a, "B": wall_b, "C": wall_c, "cli": wall_cli},
+            "cli_launches": counts, "cli_frame_bit_identical": cli_equal,
+            "card": card}, launches
+
+
 def main() -> int:
     import torch
 
@@ -2893,8 +3521,7 @@ def main() -> int:
     from depth_lidar_nerf_tpu_torch.train.config import (parse_args,
                                                          render_config_from)
     from depth_lidar_nerf_tpu_torch.train.loop import render_path
-    from depth_lidar_nerf_tpu_torch.train.state import (build_models,
-                                                        init_train_state)
+    from depth_lidar_nerf_tpu_torch.train.state import init_train_state
     from depth_lidar_nerf_tpu_torch.train.step import make_train_step
 
     dev = torch.device("cuda")
@@ -2982,6 +3609,26 @@ def main() -> int:
         check(torch.equal(got, ref), f"sample_pdf N={n} det={det} {layout} "
               f"u_one={u_one}")
         err[sc.KERNEL] = max(err[sc.KERNEL], e)
+    # The grid step's shape (phase 13): B = 127 bins of the 128-entry bake
+    # grid, one row expanded to every ray (row stride 0), the weights
+    # widened from the table's bfloat16 rows, 64 draws.
+    for det, u_one in ((True, False), (False, False), (True, True),
+                       (False, True)):
+        bins, wts, u = sample_pdf_inputs(dev, TRAIN_N_RAYS, GRID_B, V, det,
+                                         "grid", seed=127 + det + 2 * u_one,
+                                         u_one=u_one)
+        check(bins.stride(0) == 0 and wts.stride(0) == GRID_B + 1,
+              "the grid step's strides")
+        got = sc.inverse_cdf(bins, wts, u)
+        torch.cuda.synchronize()
+        ref = sc.inverse_cdf_plain(bins, wts, u)
+        e = (got - ref).abs().max().item()
+        print(f"kernel sample_pdf N={TRAIN_N_RAYS} B={GRID_B} V={V} det={det} "
+              f"grid (bins row stride 0, widened bf16 rows)"
+              f"{' u=1 at cdf[B-1] > 1' if u_one else ''}: max abs err "
+              f"{e:.3g}, tolerance 0 (equal to the last bit)")
+        check(torch.equal(got, ref), f"sample_pdf grid det={det} u_one={u_one}")
+        err[sc.KERNEL] = max(err[sc.KERNEL], e)
     del bins, wts, u, got, ref
 
     train_fns = {"fused_nerf_fwd_acts": fmt.fused_nerf_fwd_acts,
@@ -3016,15 +3663,7 @@ def main() -> int:
     check(rcfg.ndc and cfg.netdepth == 4 and cfg.netdepth_fine == 8
           and cfg.netwidth == cfg.netwidth_fine == 256
           and rcfg.N_samples == rcfg.N_importance == 64, "rgb_only topology")
-    models = build_models(cfg, rcfg, device=dev)
-    with torch.no_grad():
-        # Scaled heads and a density offset make the seeded field vary in
-        # density and colour across the frame, with no empty ray (where the
-        # reference's disparity is 0/0).
-        for m in models:
-            m.sigma.weight *= SIGMA_SCALE
-            m.sigma.bias += SIGMA_OFFSET
-            m.rgb.weight *= RGB_SCALE
+    models = serving_field(cfg, rcfg, dev)
     check(models.coarse.supports_rays_path(rcfg)
           and models.fine.supports_rays_path(rcfg), "fused path covers rgb_only")
     base = np.stack([np.concatenate([np.eye(3), [[0.05 * k], [0.02 * k], [0.0]]],
@@ -3048,6 +3687,7 @@ def main() -> int:
     check(np.isfinite(rgbs).all() and np.isfinite(disps).all(), "finite outputs")
     check(launches[fmt.KERNEL] == 2 * n_tiles * N_FRAMES, "MLP launch count")
     check(launches[sc.KERNEL] == n_tiles * N_FRAMES, "sampling launch count")
+    rgb0_phase4 = rgbs[0].copy()  # phase 13b's grid frames are held to it
 
     torch.cuda.synchronize()
     t0 = time.time()
@@ -3378,10 +4018,26 @@ def main() -> int:
                                            kernel_fns(fmt, sc))
     print(f"phase 12 done at {time.time() - T_START:.0f} s", flush=True)
 
+    # ---- 13. grid training and baked-density-grid serving -----------------------
+    grid_step, grid_step_launches = grid_step_phase(
+        fmt, sc, renderer, dev, card, plain_sampler, kernel_fns(fmt, sc),
+        all_fns, ms_step)
+    print(f"phase 13a done at {time.time() - T_START:.0f} s", flush=True)
+    grid_serving, grid_serving_launches = grid_serving_phase(
+        fmt, sc, renderer, dev, card, cfg, rcfg, poses, ms_frame, rgb0_phase4,
+        plain_sampler, kernel_fns(fmt, sc))
+    print(f"phase 13b done at {time.time() - T_START:.0f} s", flush=True)
+    grid_driver, grid_driver_launches = grid_driver_phase(
+        fmt, sc, renderer, dev, card, kernel_fns(fmt, sc))
+    print(f"phase 13c done at {time.time() - T_START:.0f} s", flush=True)
+
+    # ---- 14. the kernels line ------------------------------------------------------
     src = "depth_lidar_nerf_tpu_torch/csrc/"
     main_launches = {k: launches.get(k, 0) + train_launches.get(k, 0)
                      + int8_launches[k] + sem["launches"][k]
                      + s5["launches"].get(k, 0) + driver_launches.get(k, 0)
+                     + grid_step_launches[k] + grid_serving_launches[k]
+                     + grid_driver_launches[k]
                      for k in sem["launches"]}
     kernels = [
         {"name": fmt.KERNEL, "route": "cuda", "source": src + "fused_nerf_fwd.cu",
@@ -3466,6 +4122,8 @@ def main() -> int:
         "kernel_checks_blocks_skipped": cf_skipped, "cf_glue_ms": s5["cf_glue_ms"],
         "card": card}}))
     print(json.dumps({"driver": driver}))
+    print(json.dumps({"grid": {"step": grid_step, "serving": grid_serving,
+                               "driver": grid_driver}}))
     print(f"total {time.time() - T_START:.0f} s")
     print(json.dumps({"training": {
         "ms_per_step": ms_step, "rays_per_s": TRAIN_N_RAYS * 1e3 / ms_step,

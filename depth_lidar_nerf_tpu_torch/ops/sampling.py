@@ -16,18 +16,48 @@ from __future__ import annotations
 import torch
 
 
+def unit_linspace(n: int, device=None) -> torch.Tensor:
+    """``jnp.linspace(0, 1, n, float32)`` bit for bit: entry ``i`` is
+    ``i * float32(1 / (n - 1))`` (XLA folds JAX's ``iota / (n - 1)`` into
+    that product) and the last entry is 1. ``torch.linspace`` rounds
+    otherwise in the last bit of some entries (30 of 64 at ``n = 64``)."""
+    t = torch.arange(n, dtype=torch.float32, device=device)
+    if n > 1:
+        # Python scalars (the factor is rounded to float32 for the product)
+        # and ``fill_``: a tensor made from a host value, or an item set
+        # from one, is copied to the card from pageable memory, and such a
+        # copy waits for the work queued before it.
+        t = t * (1.0 / (n - 1))
+        t[-1:].fill_(1.0)
+    return t
+
+
+def _mul_add(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c``. On the CPU rounded once, as a fused multiply-add (the
+    float32 product is exact in float64): XLA's CPU code fuses it so, and
+    there the port is held to the JAX package bit for bit. On the card the
+    product and the sum are rounded apart, as the formula reads."""
+    if a.device.type == "cpu":
+        return (a.double() * b.double() + c.double()).float()
+    return a * b + c
+
+
 def stratified_z_vals(near: torch.Tensor, far: torch.Tensor, N_samples: int,
                       *, lindisp: bool = False, perturb: bool = True,
                       generator: torch.Generator | None = None) -> torch.Tensor:
     """Coarse sample depths ``[N_rays, N_samples]`` from ``near``/``far``
     ``[N_rays, 1]``; with ``perturb``, stratified jitter inside the bin
-    midpoints (``run_nerf.py:571-593``)."""
-    t_vals = torch.linspace(0.0, 1.0, N_samples, dtype=torch.float32,
-                            device=near.device)
+    midpoints (``run_nerf.py:571-593``).
+
+    The JAX package runs this under ``jit``, where XLA's CPU code fuses
+    ``near (1 - t) + far t`` into ``fma(far, t, near (1 - t))``; on the
+    CPU the port does too (:func:`_mul_add`), and its depths equal JAX's
+    bit for bit."""
+    t_vals = unit_linspace(N_samples, near.device)
     if not lindisp:
-        z_vals = near * (1.0 - t_vals) + far * t_vals
+        z_vals = _mul_add(far, t_vals, near * (1.0 - t_vals))
     else:
-        z_vals = 1.0 / (1.0 / near * (1.0 - t_vals) + 1.0 / far * t_vals)
+        z_vals = 1.0 / _mul_add(1.0 / far, t_vals, 1.0 / near * (1.0 - t_vals))
     z_vals = z_vals.expand(near.shape[:-1] + (N_samples,))
 
     if perturb:
@@ -52,10 +82,9 @@ def searchsorted_right(sorted_seq: torch.Tensor, values: torch.Tensor) -> torch.
 def pdf_uniforms(n_rays: int, N_samples: int, *, det: bool,
                  generator: torch.Generator | None, device) -> torch.Tensor:
     """The ``[n_rays, N_samples]`` draws ``u`` that invert the CDF:
-    ``linspace(0, 1)`` for ``det``, else uniform from ``generator``."""
+    :func:`unit_linspace` for ``det``, else uniform from ``generator``."""
     if det:
-        return torch.linspace(0.0, 1.0, N_samples, dtype=torch.float32,
-                              device=device).expand(n_rays, N_samples)
+        return unit_linspace(N_samples, device).expand(n_rays, N_samples)
     if generator is None:
         raise ValueError("det=False requires a generator")
     return torch.rand((n_rays, N_samples), dtype=torch.float32, device=device,

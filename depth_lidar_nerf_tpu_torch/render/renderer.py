@@ -3,12 +3,14 @@ training step's differentiated render).
 
 ``render_image`` -> ``render_rays_tiled`` -> ``render_rays`` ->
 ``_composite_from_z``, as in the JAX package, and the serving modes that
-compose with it: int8 (``render_int8``), fine-only (``render_fine_only``) and
-coarse-downsampled frames (``render_image_coarse_downsampled``). Where JAX
+compose with it: int8 (``render_int8``), fine-only (``render_fine_only``),
+coarse-downsampled frames (``render_image_coarse_downsampled``) and the
+baked density grid (``render_grid``; ``ops/density_grid.py``). Where JAX
 compiles the tile loop into one ``lax.map``, the port runs a Python loop over
 ray tiles: PyTorch is eager, and each tile's work is a few large kernel
 launches. The modules own their weights, so the JAX functions' ``params``
-argument is gone.
+argument is gone; the baked grid, which JAX carries in
+``params["density_grid"]``, is the ``density_grid`` argument here.
 
 Ray parametrization parity (``run_nerf.py:112-194``): rays carry origin,
 direction, near, far and the unit *pre-NDC* view direction.
@@ -27,23 +29,20 @@ from depth_lidar_nerf_tpu_torch.ops.compositing import (RayOutputs,
                                                         composit_dists,
                                                         raw2outputs,
                                                         raw2outputs_t)
+from depth_lidar_nerf_tpu_torch.ops.density_grid import trilinear_sigma
 from depth_lidar_nerf_tpu_torch.ops.embedding import positional_encoding
 from depth_lidar_nerf_tpu_torch.ops.fused_mlp_t import supports_rays_shape
 from depth_lidar_nerf_tpu_torch.ops.rays import (camera_rays, ndc_rays,
                                                  rays_by_coord)
 from depth_lidar_nerf_tpu_torch.ops.sampling import (sample_pdf,
-                                                     stratified_z_vals)
+                                                     stratified_z_vals,
+                                                     unit_linspace)
 from depth_lidar_nerf_tpu_torch.ops.sampling_cuda import sample_pdf_cuda
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Static rendering hyperparameters (config_parser flags, run_nerf.py:693-747).
-
-    The JAX ``RenderConfig``'s baked-density-grid serving (``render_grid``
-    and its two refinements) is not ported yet: its fields are absent, and
-    ``train.config.render_config_from`` refuses configs that ask for it.
-    """
+    """Static rendering hyperparameters (config_parser flags, run_nerf.py:693-747)."""
 
     N_samples: int = 64
     N_importance: int = 64
@@ -81,6 +80,15 @@ class RenderConfig:
     render_int8: bool = False
     render_fine_only: bool = False
     render_coarse_downsample: int = 0
+    # Baked-density-grid serving, given a ``density_grid`` (eval renders
+    # only): ``render_grid`` R > 0 replaces the coarse MLP pass by a
+    # trilinear lookup of the R^3 sigma grid; ``render_grid_fine_only``: the
+    # fine pass evaluates only the grid-placed samples;
+    # ``render_grid_samples``: the grid CDF's stratified count (0 =
+    # N_samples).
+    render_grid: int = 0
+    render_grid_fine_only: bool = False
+    render_grid_samples: int = 0
 
     def render_tile(self, fused: bool = False) -> int:
         """Rays per tile. The fused kernel keeps every activation in shared
@@ -237,33 +245,63 @@ def _composite_from_z(model, rays: Rays, z_vals, cfg: RenderConfig,
         num_semantic_classes=cfg.num_semantic_classes, cull_eps=cfg.cull_eps)
 
 
+def _composite_from_grid(grid3, rays: Rays, z_vals,
+                         cfg: RenderConfig) -> RayOutputs:
+    """The coarse pass of grid serving (JAX ``_composite_from_grid``): raw
+    sigma by trilinear lookup of the baked grid ``grid3 = (grid, lo, hi)``
+    at the samples, composited by the standard math so that its weights
+    place the fine samples as a coarse MLP pass would. Its RGB is a
+    constant raw -20 (black): the fine pass paints the image. No noise."""
+    grid, lo, hi = grid3
+    pts = (rays.origins[..., None, :]
+           + rays.directions[..., None, :] * z_vals[..., :, None])
+    sigma = trilinear_sigma(grid, lo, hi, pts)  # [N, S] raw
+    raw_t = torch.cat([torch.full((3,) + sigma.shape, -20.0,
+                                  dtype=torch.float32, device=sigma.device),
+                       sigma[None]], dim=0)
+    return raw2outputs_t(raw_t, z_vals, rays.directions,
+                         white_bkgd=cfg.white_bkgd, cull_eps=cfg.cull_eps)
+
+
+def _serving_grid(cfg: RenderConfig, density_grid):
+    """The grid a render uses: JAX's rule, ``render_grid > 0`` and a fine
+    pass to paint the image."""
+    if cfg.render_grid > 0 and cfg.N_importance > 0:
+        return density_grid
+    return None
+
+
 def fused_eval_ready(model, fine_model, cfg: RenderConfig,
-                     tile: int | None = None) -> bool:
+                     tile: int | None = None, density_grid=None) -> bool:
     """True when every pass of a ``tile``-ray render (``chunk`` rays by
     default) takes the fused kernels, so ``netchunk`` need not shrink the
     ray tile. A semantic pass is checked at the tile's point count (none
     with ``render_int8``); with ``render_fine_only`` the fine pass has
-    ``N_importance`` samples."""
+    ``N_importance`` samples. Grid serving runs no coarse MLP, so only its
+    fine pass gates the tile (and with ``render_grid_fine_only`` it has
+    ``N_importance`` samples)."""
     if tile is None:
         tile = cfg.render_tile(fused=True)
+    grid = _serving_grid(cfg, density_grid) is not None
 
     def pass_ok(m, S):
         if cfg.num_semantic_classes > 0:
             return _semantic_ok(m, cfg, tile, S)
         return _fused_ok(m, cfg, S)
 
-    if not pass_ok(model, cfg.N_samples):
+    if not grid and not pass_ok(model, cfg.N_samples):
         return False
     if cfg.N_importance > 0:
         fm = fine_model if fine_model is not None else model
-        return pass_ok(fm, cfg.N_importance if cfg.render_fine_only
+        fine_only = cfg.render_fine_only or (grid and cfg.render_grid_fine_only)
+        return pass_ok(fm, cfg.N_importance if fine_only
                        else cfg.N_samples + cfg.N_importance)
     return True
 
 
 def render_rays(model, fine_model, rays: Rays, cfg: RenderConfig,
-                generator: torch.Generator | None = None
-                ) -> Dict[str, torch.Tensor]:
+                generator: torch.Generator | None = None,
+                density_grid=None) -> Dict[str, torch.Tensor]:
     """Coarse + hierarchical-fine volumetric rendering of a ray batch.
 
     Returns the reference's result dictionary (``run_nerf.py:648-663``): the
@@ -278,13 +316,26 @@ def render_rays(model, fine_model, rays: Rays, cfg: RenderConfig,
     ``DLNERF_CULL_FWD=1`` the fine pass takes the early-terminating forward
     (kernel 9), sorted by the coarse pass's termination estimate. With ``render_fine_only`` the fine
     pass evaluates only the sorted importance samples.
+
+    ``density_grid = (grid, lo, hi)`` (``ops.density_grid.
+    bake_density_grid``) with ``render_grid > 0`` and a fine pass replaces
+    the coarse MLP pass by :func:`_composite_from_grid` on
+    ``render_grid_samples`` (or ``N_samples``) stratified depths; with
+    ``render_grid_fine_only`` the fine pass evaluates only the importance
+    samples. A semantic fine pass then gets zero ``sem_preds0``.
     """
-    z_vals = stratified_z_vals(rays.near, rays.far, cfg.N_samples,
+    grid = _serving_grid(cfg, density_grid)
+    n_strat = (cfg.render_grid_samples or cfg.N_samples) if grid is not None \
+        else cfg.N_samples
+    z_vals = stratified_z_vals(rays.near, rays.far, n_strat,
                                lindisp=cfg.lindisp, perturb=cfg.perturb,
                                generator=generator)
-    coarse = _composite_from_z(
-        model, rays, z_vals, cfg, generator,
-        save_acts=os.environ.get("DLNERF_ACTS_COARSE", "0") == "1")
+    if grid is not None:
+        coarse = _composite_from_grid(grid, rays, z_vals, cfg)
+    else:
+        coarse = _composite_from_z(
+            model, rays, z_vals, cfg, generator,
+            save_acts=os.environ.get("DLNERF_ACTS_COARSE", "0") == "1")
     ret = {"rgb_map": coarse.rgb, "disp_map": coarse.disp,
            "acc_map": coarse.acc, "depth_map": coarse.depth,
            "weights": coarse.weights}
@@ -300,7 +351,8 @@ def render_rays(model, fine_model, rays: Rays, cfg: RenderConfig,
         z_samples = sampler(z_mid.detach(), coarse.weights[..., 1:-1].detach(),
                             cfg.N_importance, det=not cfg.perturb,
                             generator=generator)
-        if cfg.render_fine_only:
+        if cfg.render_fine_only or (grid is not None
+                                    and cfg.render_grid_fine_only):
             z_all = torch.sort(z_samples, dim=-1).values
         else:
             z_all = torch.sort(torch.cat([z_vals, z_samples], dim=-1),
@@ -322,47 +374,54 @@ def render_rays(model, fine_model, rays: Rays, cfg: RenderConfig,
             "z_std": torch.std(z_samples, dim=-1, correction=0),
         })
         if fine.semantic is not None:
-            ret["sem_preds0"] = coarse.semantic
+            # The grid's coarse pass has no semantic head: a zero stand-in.
+            ret["sem_preds0"] = (coarse.semantic if coarse.semantic is not None
+                                 else torch.zeros_like(fine.semantic))
             ret["sem_preds"] = fine.semantic
     return ret
 
 
-def pick_render_tile(model, fine_model, cfg: RenderConfig, n: int) -> int:
+def pick_render_tile(model, fine_model, cfg: RenderConfig, n: int,
+                     density_grid=None) -> int:
     """Ray-tile policy of :func:`render_rays_tiled`: ``chunk`` rays when
     every pass is fused, else the ``netchunk``-honouring tile."""
     fused_tile = min(cfg.render_tile(fused=True), max(n, 1))
-    if fused_eval_ready(model, fine_model, cfg, fused_tile):
+    if fused_eval_ready(model, fine_model, cfg, fused_tile, density_grid):
         return fused_tile
     return cfg.render_tile()
 
 
 def render_rays_tiled(model, fine_model, rays: Rays, cfg: RenderConfig,
                       generator: torch.Generator | None = None,
-                      tile: int | None = None) -> Dict[str, torch.Tensor]:
+                      tile: int | None = None,
+                      density_grid=None) -> Dict[str, torch.Tensor]:
     """Render a large ray batch in tiles of ``tile`` rays (``chunk`` by
     default); the last tile is ragged. Per-ray results do not depend on the
     tiling when ``generator`` is None."""
     n = rays.origins.shape[0]
     if tile is None:
-        tile = pick_render_tile(model, fine_model, cfg, n)
+        tile = pick_render_tile(model, fine_model, cfg, n, density_grid)
     tile = max(1, min(tile, n))
     outs = []
     for s in range(0, n, tile):
         sub = Rays(*(None if x is None else x[s:s + tile] for x in rays))
-        outs.append(render_rays(model, fine_model, sub, cfg, generator))
+        outs.append(render_rays(model, fine_model, sub, cfg, generator,
+                                density_grid))
     return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
 
 @torch.no_grad()
 def render_image(model, fine_model, H: int, W: int, focal, c2w,
                  cfg: RenderConfig, tile: int | None = None,
-                 device=None) -> Dict[str, torch.Tensor]:
+                 device=None, density_grid=None) -> Dict[str, torch.Tensor]:
     """Render a full image pose on ``device`` (``cuda`` unless given):
     ``render(..., c2w=...)`` plus chunking (``run_nerf.py:138-189``). With
-    ``render_coarse_downsample`` k > 1, a fine pass and k dividing H and W,
-    the frame is :func:`render_image_coarse_downsampled`'s."""
+    ``render_coarse_downsample`` k > 1, a fine pass, k dividing H and W and
+    no ``density_grid``, the frame is
+    :func:`render_image_coarse_downsampled`'s."""
     k = cfg.render_coarse_downsample
-    if k > 1 and cfg.N_importance > 0 and H % k == 0 and W % k == 0:
+    if (k > 1 and cfg.N_importance > 0 and H % k == 0 and W % k == 0
+            and density_grid is None):
         return render_image_coarse_downsampled(model, fine_model, H, W, focal,
                                                c2w, cfg, tile, device)
     device = resolve_device(device)
@@ -370,7 +429,8 @@ def render_image(model, fine_model, H: int, W: int, focal, c2w,
     rays_o, rays_d = camera_rays(H, W, focal, c2w)
     rays = make_rays(rays_o, rays_d, cfg, H, W, focal)
     out = render_rays_tiled(model, fine_model, rays, cfg.eval_mode(),
-                            generator=None, tile=tile)
+                            generator=None, tile=tile,
+                            density_grid=density_grid)
     return {k: v.reshape((H, W) + v.shape[1:]) for k, v in out.items()}
 
 
@@ -462,8 +522,7 @@ def sample_sigma(model, rays: Rays, z_vals, cfg: RenderConfig):
 def render_test_ray(model, rays: Rays, cfg: RenderConfig):
     """Uniform near -> far probe along given rays (JAX ``render_test_ray``,
     ``run_nerf.py:361-386``): (rgb, sigma, z_vals, depth)."""
-    t = torch.linspace(0.0, 1.0, cfg.N_samples, dtype=torch.float32,
-                       device=rays.near.device)
+    t = unit_linspace(cfg.N_samples, rays.near.device)
     z_vals = rays.near * (1.0 - t) + rays.far * t
     rgb, sigma, outs = sample_sigma(model, rays, z_vals, cfg)
     return rgb, sigma, z_vals, outs.depth

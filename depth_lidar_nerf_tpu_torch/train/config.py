@@ -353,28 +353,16 @@ def parse_args(argv: Optional[List[str]] = None) -> TrainConfig:
     return TrainConfig(**values)
 
 
-_UNPORTED_SERVING = ("render_grid", "render_grid_fine_only",
-                     "render_grid_samples")
-
-
-def _refuse_unported_serving(cfg: TrainConfig):
-    unported = [name for name in _UNPORTED_SERVING if getattr(cfg, name)]
-    if unported:
-        raise NotImplementedError(
-            f"serving modes not ported to PyTorch yet: {unported}")
-
-
 def render_config_from(cfg: TrainConfig, num_semantic_classes: int,
                        near: float, far: float):
     """Derive the static RenderConfig (create_nerf/render_kwargs assembly,
     run_nerf.py:481-507): the one training renders with. The serving modes
     ``render_int8``, ``render_fine_only`` and ``render_coarse_downsample``
     are left off it, as in JAX; :func:`eval_render_config` sets them on the
-    eval renders' copy. Serving modes the port does not implement yet (the
-    density grid) raise rather than being silently ignored."""
+    eval renders' copy. The grid fields are left off both: the driver sets
+    them where it bakes a grid (``train.loop._bake_render_grid``)."""
     from depth_lidar_nerf_tpu_torch.render.renderer import RenderConfig
 
-    _refuse_unported_serving(cfg)
     use_ndc = cfg.dataset_type == "llff" and not cfg.no_ndc
     return RenderConfig(
         N_samples=cfg.N_samples,
@@ -403,7 +391,6 @@ def eval_render_config(cfg: TrainConfig, rcfg):
     ``rcfg`` with ``render_int8``, ``render_fine_only`` and
     ``render_coarse_downsample`` (when above 1) taken from ``cfg``. Training
     keeps ``rcfg``: the int8 kernels have no backward."""
-    _refuse_unported_serving(cfg)
     if cfg.render_fine_only and cfg.N_importance <= 0:
         raise ValueError(
             "--render_fine_only renders the image with the fine pass over "

@@ -10,6 +10,15 @@ stacked scalar metrics, a checkpoint every ``i_weights``, held-out views
 every ``i_testset``, a held-out frame every ``i_img`` (with a summary
 writer) and the spiral every ``i_video``.
 
+Grid training (``--grid_train``): past ``grid_train_after`` the steps are
+grid steps (``train/step.py``), fed by a ray CDF baked along every table
+ray (``ops/ray_cdf.py``) and rebaked every ``grid_rebake_every`` steps
+beside a 3-D sigma grid (``ops/density_grid.py``) through which the eval
+renders then go, since the coarse MLP no longer trains. ``--render_only``
+with ``--render_grid R``, or of a grid-trained run, bakes a grid and serves
+through it. JAX keeps no grid in a checkpoint: a resumed run rebakes at its
+first grid step.
+
 Randomness: step ``i`` draws from a ``torch.Generator`` on the tables' device
 seeded with :func:`step_seed` ``(seed, i)``, where ``seed`` is ``cfg.seed``
 under ``should_seed`` and 0 otherwise, as JAX folds ``i`` into its key; so a
@@ -24,6 +33,7 @@ and runs one step an iteration (ROADMAP Queue 1, item 8).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import shutil
 import time
@@ -38,10 +48,15 @@ from depth_lidar_nerf_tpu_torch.data.semantic import load_semantic_data
 from depth_lidar_nerf_tpu_torch.device import resolve_device
 from depth_lidar_nerf_tpu_torch.evaluation.metrics import psnr as psnr_np
 from depth_lidar_nerf_tpu_torch.evaluation.metrics import ssim_np
-from depth_lidar_nerf_tpu_torch.render.renderer import RenderConfig, render_image
+from depth_lidar_nerf_tpu_torch.ops.density_grid import (bake_density_grid,
+                                                         frustum_bounds)
+from depth_lidar_nerf_tpu_torch.ops.ray_cdf import bake_ray_cdf
+from depth_lidar_nerf_tpu_torch.ops.rays import rays_by_coord
+from depth_lidar_nerf_tpu_torch.render.renderer import (RenderConfig,
+                                                        make_rays,
+                                                        render_image)
 from depth_lidar_nerf_tpu_torch.train import checkpoint, losses
-from depth_lidar_nerf_tpu_torch.train.config import (_UNPORTED_SERVING,
-                                                     TrainConfig, dump_args,
+from depth_lidar_nerf_tpu_torch.train.config import (TrainConfig, dump_args,
                                                      eval_render_config,
                                                      render_config_from)
 from depth_lidar_nerf_tpu_torch.train.state import (Models, build_models,
@@ -152,12 +167,13 @@ def _save_image_outputs(out, savedir, idx):
 
 def render_path(models: Models, render_poses, hwf, cfg_render: RenderConfig,
                 render_factor: int = 0, device=None,
-                savedir: Optional[str] = None):
+                savedir: Optional[str] = None, density_grid=None):
     """Render every pose (``run_nerf.py:268-359``); returns numpy stacks
     ``rgbs [F, H, W, 3]`` and ``disps [F, H, W]``. ``cfg_render`` is the
     eval config, ``train.config.eval_render_config(cfg, rcfg)``, which
-    carries the serving modes (int8, fine-only, coarse-downsampled). With
-    ``savedir``, each frame's PNG, NPZ and depth PNG are written there."""
+    carries the serving modes (int8, fine-only, coarse-downsampled), and
+    with a baked ``density_grid`` the grid fields. With ``savedir``, each
+    frame's PNG, NPZ and depth PNG are written there."""
     device = resolve_device(device)
     H, W, focal = hwf
     if render_factor:
@@ -165,7 +181,8 @@ def render_path(models: Models, render_poses, hwf, cfg_render: RenderConfig,
     rgbs, disps = [], []
     for i, c2w in enumerate(render_poses):
         out = render_image(models.coarse, models.fine, int(H), int(W), focal,
-                           np.asarray(c2w)[:3, :4], cfg_render, device=device)
+                           np.asarray(c2w)[:3, :4], cfg_render, device=device,
+                           density_grid=density_grid)
         maps = {k: _host(out[k]) for k in ("rgb_map", "disp_map")}
         rgbs.append(maps["rgb_map"])
         disps.append(maps["disp_map"])
@@ -173,6 +190,57 @@ def render_path(models: Models, render_poses, hwf, cfg_render: RenderConfig,
             maps.update({k: _host(out[k]) for k in ("acc_map", "depth_map")})
             _save_image_outputs(maps, savedir, i)
     return np.stack(rgbs), np.stack(disps)
+
+
+def grid_bounds_for_poses(rcfg: RenderConfig, poses, hwf,
+                          render_factor: int = 0):
+    """Bounds of a density-grid bake (JAX ``grid_bounds_for_poses``): the
+    corner and centre rays of every pose, in the (possibly NDC-warped)
+    space the renderer samples in, through ``frustum_bounds``."""
+    H, W, focal = hwf
+    if render_factor:
+        H, W, focal = H // render_factor, W // render_factor, focal / render_factor
+    H, W = int(H), int(W)
+    coords = torch.tensor([(0, 0), (W - 1, 0), (0, H - 1), (W - 1, H - 1),
+                           (W // 2, H // 2)], dtype=torch.float32)  # (x, y)
+    ro_all, rd_all = [], []
+    for c2w in np.asarray(poses):
+        ro, rd = rays_by_coord(H, W, focal,
+                               torch.as_tensor(c2w[:3, :4], dtype=torch.float32),
+                               coords)
+        ro_all.append(ro)
+        rd_all.append(rd)
+    rays = make_rays(torch.cat(ro_all), torch.cat(rd_all), rcfg, H, W, focal)
+    return frustum_bounds(rays.origins.numpy(), rays.directions.numpy(),
+                          rcfg.near, rcfg.far)
+
+
+def bake_grid(rcfg: RenderConfig, models: Models, lo, hi, resolution: int,
+              verbose: bool = True):
+    """Bake the fine model's raw sigma (the coarse one's without a fine
+    pass) to ``(grid, lo, hi)`` (JAX ``bake_grid``); shared by
+    ``--render_grid`` serving and ``--grid_train``."""
+    model = models.fine if models.fine is not None else models.coarse
+    t0 = time.time()
+    grid3 = bake_density_grid(model, rcfg, lo, hi, resolution)
+    if grid3[0].device.type == "cuda":
+        torch.cuda.synchronize(grid3[0].device)
+    if verbose:
+        print(f"baked {resolution}^3 density grid in {time.time() - t0:.1f}s"
+              f" (bounds {np.round(np.asarray(lo), 2)}"
+              f" .. {np.round(np.asarray(hi), 2)})")
+    return grid3
+
+
+def _bake_render_grid(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
+                      render_poses, hwf):
+    """The ``--render_grid`` serving bake (JAX ``_bake_render_grid``):
+    ``(grid3, rcfg with the grid fields)``, bounds from the poses served."""
+    lo, hi = grid_bounds_for_poses(rcfg, render_poses, hwf, cfg.render_factor)
+    return bake_grid(rcfg, models, lo, hi, cfg.render_grid), \
+        dataclasses.replace(rcfg, render_grid=cfg.render_grid,
+                            render_grid_fine_only=cfg.render_grid_fine_only,
+                            render_grid_samples=cfg.render_grid_samples)
 
 
 def _write_videos(outdir, prefix, rgbs, disps):
@@ -288,7 +356,7 @@ def _validate_flags(cfg: TrainConfig) -> None:
 def _refuse_unported(cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for every flag whose path the port does
     not run yet (ROADMAP Queue 1), before anything is written."""
-    unported = [n for n in _UNPORTED + _UNPORTED_SERVING + (
+    unported = [n for n in _UNPORTED + (
         "alpha_model_path", "no_coarse", "dist_coordinator") if getattr(cfg, n)]
     if cfg.mesh_shape and int(np.prod(cfg.mesh_shape)) > 1:
         unported.append("mesh_shape")
@@ -439,8 +507,18 @@ def _train(cfg: TrainConfig, metrics_hook, device: torch.device):
             tag = "path"
         savedir = os.path.join(expdir, f"renderonly_{tag}_{start:06d}")
         os.makedirs(savedir, exist_ok=True)
-        rgbs, disps = render_path(models, poses, scene.hwf, rcfg_r,
-                                  cfg.render_factor, device, savedir)
+        grid3, rcfg_ro = None, rcfg_r
+        if cfg.render_grid > 0 or cfg.grid_train:
+            # A grid-trained checkpoint's coarse MLP stopped training at
+            # grid_train_after: it is served through a baked grid.
+            eff = cfg if cfg.render_grid > 0 else cfg.replace(
+                render_grid=cfg.grid_train_res,
+                render_grid_fine_only=cfg.grid_train_fine_only,
+                render_grid_samples=cfg.grid_train_samples)
+            grid3, rcfg_ro = _bake_render_grid(eff, rcfg_r, models, poses,
+                                               scene.hwf)
+        rgbs, disps = render_path(models, poses, scene.hwf, rcfg_ro,
+                                  cfg.render_factor, device, savedir, grid3)
         _write_videos(savedir, "", rgbs, disps)
         print("Done rendering", savedir)
         return state
@@ -455,6 +533,8 @@ def _train(cfg: TrainConfig, metrics_hook, device: torch.device):
                                         scene.i_train, H, W, focal, rcfg,
                                         device=device)
     step_fn = make_train_step(cfg, rcfg, models, scene.hwf)
+    grid_step_fn = make_train_step(cfg, rcfg, models, scene.hwf,
+                                   grid_mode=True) if cfg.grid_train else None
     k_max = dispatch_k_max(cfg)
     if k_max > 1:
         print(f"[config] the JAX driver batches up to {k_max} steps into one "
@@ -469,9 +549,9 @@ def _train(cfg: TrainConfig, metrics_hook, device: torch.device):
     try:
         with (torch.profiler.profile(activities=acts) if cfg.profile_dir
               else contextlib.nullcontext()) as prof:
-            _loop(cfg, metrics_hook, device, scene, models, state, step_fn,
-                  rgb_table, depth_table, rcfg_r, seed, host_rng, writer,
-                  expdir, ckdir, topo, start)
+            _loop(cfg, metrics_hook, device, scene, models, state,
+                  (step_fn, grid_step_fn), rgb_table, depth_table, rcfg,
+                  rcfg_r, seed, host_rng, writer, expdir, ckdir, topo, start)
     finally:
         if writer:
             writer.close()
@@ -491,18 +571,76 @@ def _save(ckdir, state, step, topo):
         state.loop_costs["save_bytes"].append(saved[1])
 
 
+class _Grid:
+    """Grid training's baked state (JAX ``train/loop.py:811-860``): the ray
+    CDF of the steps and the 3-D grid of the eval renders, rebaked together
+    from the live fine model when first needed and then every
+    ``grid_rebake_every`` steps."""
+
+    def __init__(self, cfg: TrainConfig, rcfg: RenderConfig, rcfg_r, scene,
+                 models, rgb_table, depth_table):
+        self.cfg, self.rcfg, self.models = cfg, rcfg, models
+        self.tables = (rgb_table, depth_table)
+        poses = [scene.poses]
+        if scene.render_poses is not None and len(scene.render_poses):
+            poses.append(np.asarray(scene.render_poses)[:, :3, :4])
+        self.bounds = grid_bounds_for_poses(rcfg, np.concatenate(poses),
+                                            scene.hwf)
+        # JAX sets only the resolution on the eval config here.
+        self.rcfg_eval = dataclasses.replace(rcfg_r,
+                                             render_grid=cfg.grid_train_res)
+        self.cdf = self.grid3 = None
+        self.last = -1
+
+    def due(self, i: int) -> bool:
+        return self.cdf is None or i - self.last >= self.cfg.grid_rebake_every
+
+    def rebake(self, i: int):
+        cfg = self.cfg
+        t0 = time.time()
+        self.cdf = bake_ray_cdf(self.models, self.rcfg, *self.tables,
+                                cfg.grid_train_samples or cfg.N_samples)
+        dev = self.cdf.w_rgb.device
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t1 = time.time()
+        self.grid3 = bake_grid(self.rcfg, self.models, *self.bounds,
+                               cfg.grid_train_res, verbose=self.last < 0)
+        if os.environ.get("DLNERF_LOG_REBAKE", "0") == "1":
+            print(f"[grid] rebake@{i}: cdf {t1 - t0:.2f}s, "
+                  f"grid3 {time.time() - t1:.2f}s")
+        self.last = i
+
+
 def _loop(cfg: TrainConfig, metrics_hook, device, scene: Scene, models,
-          state, step_fn, rgb_table, depth_table, rcfg_r, seed, host_rng,
-          writer, expdir, ckdir, topo, start):
+          state, step_fns, rgb_table, depth_table, rcfg, rcfg_r, seed,
+          host_rng, writer, expdir, ckdir, topo, start):
     """Steps ``start + 1 .. N_iters`` with their events."""
     H, W, focal = scene.hwf
     costs = state.loop_costs
+    step_fn, grid_step_fn = step_fns
+    grid = _Grid(cfg, rcfg, rcfg_r, scene, models, rgb_table,
+                 depth_table) if cfg.grid_train else None
+
+    def eval_view():
+        """(density_grid, rcfg) of eval renders: through the grid once one
+        is baked, since the coarse MLP no longer trains."""
+        if grid is None or grid.grid3 is None:
+            return None, rcfg_r
+        return grid.grid3, grid.rcfg_eval
+
     gen = torch.Generator(device=rgb_table.origins.device)
     t0 = time.time()
     rays_done = 0
     for i in range(start + 1, cfg.N_iters + 1):
         gen.manual_seed(step_seed(seed, i))
-        metrics = step_fn(state, rgb_table, depth_table, gen)
+        if grid is not None and i > cfg.grid_train_after:
+            if grid.due(i):
+                grid.rebake(i)
+            metrics = grid_step_fn(state, rgb_table, depth_table, gen,
+                                   aux=grid.cdf)
+        else:
+            metrics = step_fn(state, rgb_table, depth_table, gen)
         rays_done += cfg.N_rand
 
         if cfg.i_print > 0 and i % cfg.i_print == 0:
@@ -533,8 +671,10 @@ def _loop(cfg: TrainConfig, metrics_hook, device, scene: Scene, models,
             tt = time.time()
             testdir = os.path.join(expdir, f"testset_{i:06d}")
             os.makedirs(testdir, exist_ok=True)
+            grid3, rcfg_e = eval_view()
             rgbs, _ = render_path(models, scene.poses[scene.i_test], scene.hwf,
-                                  rcfg_r, device=device, savedir=testdir)
+                                  rcfg_e, device=device, savedir=testdir,
+                                  density_grid=grid3)
             gts = scene.images[scene.i_test]
             t_psnr = float(np.mean([psnr_np(r, g) for r, g in zip(rgbs, gts)]))
             t_ssim = float(np.mean([ssim_np(r, g) for r, g in zip(rgbs, gts)]))
@@ -550,8 +690,10 @@ def _loop(cfg: TrainConfig, metrics_hook, device, scene: Scene, models,
                 and len(scene.i_test) > 0):
             # Validation-view image logging (run_nerf.py:1995-2014).
             img_i = int(host_rng.choice(scene.i_test))
+            grid3, rcfg_e = eval_view()
             out = render_image(models.coarse, models.fine, H, W, focal,
-                               scene.poses[img_i], rcfg_r, device=device)
+                               scene.poses[img_i], rcfg_e, device=device,
+                               density_grid=grid3)
             rgb = _host(out["rgb_map"])
             writer.add_image("Images/rgb_holdout", losses.to8b(rgb), i,
                              dataformats="HWC")
@@ -562,6 +704,8 @@ def _loop(cfg: TrainConfig, metrics_hook, device, scene: Scene, models,
                               psnr_np(rgb, scene.images[img_i]), i)
 
         if cfg.i_video > 0 and i % cfg.i_video == 0:
+            grid3, rcfg_e = eval_view()
             rgbs, disps = render_path(models, scene.render_poses, scene.hwf,
-                                      rcfg_r, device=device)
+                                      rcfg_e, device=device,
+                                      density_grid=grid3)
             _write_videos(expdir, f"{cfg.expname}_spiral_{i:06d}_", rgbs, disps)

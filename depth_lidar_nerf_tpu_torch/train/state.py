@@ -239,7 +239,13 @@ class OptaxAdam(torch.optim.Optimizer):
     count ``t``, ``eps`` outside the square root, and the update scaled by
     ``-schedule(count)`` read at the count before the step. (torch's
     ``Adam`` rounds differently: ``lerp`` moments and
-    ``sqrt(v) / sqrt(1 - b2^t)``; a few ulps apart after a few steps.)"""
+    ``sqrt(v) / sqrt(1 - b2^t)``; a few ulps apart after a few steps.)
+
+    optax updates every parameter: a parameter without a gradient in a step
+    (the coarse MLP of a grid step) takes a zero gradient, so its moments
+    decay and it still moves by its first moment. One that has never had a
+    gradient has zero moments and an update of exactly 0, so it is left
+    without state."""
 
     def __init__(self, params, schedule, b1=0.9, b2=0.999, eps=1e-8):
         super().__init__(params, dict(b1=b1, b2=b2, eps=eps))
@@ -260,13 +266,13 @@ class OptaxAdam(torch.optim.Optimizer):
                                 1.0 - _pow(b2, self.count), step_size])
             on = {}
             for p in group["params"]:
-                if p.grad is None:
+                if p.grad is None and not self.state.get(p):
                     continue
+                st = self.state[p]
                 if p.device not in on:
                     on[p.device] = scal.to(p.device).unbind()
                 bc1, bc2, lr = on[p.device]
-                g = p.grad
-                st = self.state[p]
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
                 if not st:
                     st["exp_avg"] = torch.zeros_like(p)
                     st["exp_avg_sq"] = torch.zeros_like(p)

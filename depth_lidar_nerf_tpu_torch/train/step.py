@@ -12,9 +12,14 @@ early-terminating forward; with a semantic head, the semantic
 saved-activation pair for both passes), the sigma loss's raw query runs the
 packed-lane pair (kernels 12 and 13), and sampling runs its kernel.
 
+Grid training (``grid_mode``, JAX ``--grid_train`` past
+``grid_train_after``): the coarse pass becomes a row gather of weights
+baked along every table ray (``ops/ray_cdf.py``) and an inverse CDF; no
+coarse MLP runs, and the coarse loss terms go.
+
 The JAX step compiles into one XLA program; here each step is eager PyTorch
 around the kernels. Step variants that the port does not run yet (patch
-losses, GAN, grid training, single-image batching, K-step dispatch) raise
+losses, GAN, single-image batching, K-step dispatch) raise
 ``NotImplementedError``.
 """
 
@@ -25,8 +30,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from depth_lidar_nerf_tpu_torch.ops.sampling import stratified_z_vals
+from depth_lidar_nerf_tpu_torch.ops.ray_cdf import RayCDF
+from depth_lidar_nerf_tpu_torch.ops.sampling import (sample_pdf,
+                                                     stratified_z_vals)
+from depth_lidar_nerf_tpu_torch.ops.sampling_cuda import sample_pdf_cuda
 from depth_lidar_nerf_tpu_torch.render.renderer import (RenderConfig, Rays,
+                                                        _composite_from_z,
                                                         query_network,
                                                         render_rays)
 from depth_lidar_nerf_tpu_torch.train import losses
@@ -37,7 +46,7 @@ from depth_lidar_nerf_tpu_torch.train.tables import (DepthRayTable,
                                                      RgbRayTable, gather_rays)
 
 _UNPORTED = ("no_batching", "feature_loss", "gan_loss",
-             "depth_inverse_loss", "grid_train", "patch_ng_int8")
+             "depth_inverse_loss", "patch_ng_int8")
 
 
 def _sigma_loss_term(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
@@ -64,11 +73,57 @@ def _sigma_loss_term(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
     return torch.mean(losses.sigma_loss_from_sigma(torch.relu(sigma_raw)))
 
 
+def _cdf_render(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
+                rays: Rays, w: torch.Tensor, z_grid: torch.Tensor,
+                generator: torch.Generator | None) -> Dict[str, torch.Tensor]:
+    """The grid step's render (JAX ``_cdf_render``): the fine pass only, its
+    importance samples drawn from the rays' baked weight rows ``w [N, S]``
+    (bfloat16, widened to float32) over the bins ``0.5 (z[1:] + z[:-1])``
+    of the bake grid, shared by every ray (row stride 0). On the card the
+    inverse CDF runs kernel 14; on the CPU JAX's ``sample_pdf``. With
+    ``grid_train_fine_only`` the fine pass evaluates the sorted samples,
+    else their union with ``N_samples`` stratified depths. ``generator``
+    draws the stratified jitter (union only), the importance draws, then
+    the fine pass's sigma noise."""
+    n = w.shape[0]
+    w32 = w.float()
+    z_mid = 0.5 * (z_grid[1:] + z_grid[:-1])
+    bins = z_mid.expand(n, z_mid.shape[0])
+    z_vals = None
+    if not cfg.grid_train_fine_only:
+        z_vals = stratified_z_vals(rays.near, rays.far, cfg.N_samples,
+                                   lindisp=rcfg.lindisp, perturb=rcfg.perturb,
+                                   generator=generator)
+    sampler = sample_pdf_cuda if w32.device.type == "cuda" else sample_pdf
+    z_samples = sampler(bins, w32[:, 1:-1], cfg.N_importance,
+                        det=not rcfg.perturb, generator=generator).detach()
+    if z_vals is None:
+        z_all = torch.sort(z_samples, dim=-1).values
+    else:
+        z_all = torch.sort(torch.cat([z_vals, z_samples], dim=-1),
+                           dim=-1).values
+    # The early-terminating forward's sort key, as render_rays' from the
+    # coarse pass: the baked weights' termination depth, unterminated last.
+    fine_key = None
+    if rcfg.cull_eps > 0.0:
+        acc = w32.sum(-1)
+        depth_est = (w32 * z_grid).sum(-1) / torch.clamp(acc, min=1e-6)
+        fine_key = depth_est + (1.0 - acc) * 1e6
+    fm = models.fine if models.fine is not None else models.coarse
+    fine = _composite_from_z(fm, rays, z_all, rcfg, generator, save_acts=True,
+                             fwd_sort_key=fine_key)
+    out = {"rgb_map": fine.rgb, "disp_map": fine.disp, "acc_map": fine.acc,
+           "depth_map": fine.depth, "weights": fine.weights}
+    if fine.semantic is not None:
+        out["sem_preds"] = fine.semantic
+    return out
+
+
 def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
-                    hwf):
+                    hwf, grid_mode: bool = False):
     """The step function of the base variant (JAX ``make_train_step`` with
-    no patch, GAN or grid term and ``k_steps=1``), with or without the
-    sigma and the semantic terms::
+    no patch or GAN term and ``k_steps=1``), with or without the sigma and
+    the semantic terms, and with ``grid_mode`` the grid step::
 
         metrics = step(state, rgb_table, depth_table, generator)
 
@@ -83,6 +138,11 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
     for the device. With ``sigma_loss`` they also hold ``sigma_loss``; with
     ``semantic_loss``, ``semantic_loss`` and, with a coarse pass,
     ``semantic_loss0``.
+
+    The grid step takes ``aux=``, the :class:`~ops.ray_cdf.RayCDF` that the
+    driver baked: the rays' weight rows are gathered with their indices
+    and :func:`_cdf_render` renders them, drawing after the ray indices.
+    Its metrics lack ``img_loss0``, ``psnr0`` and ``semantic_loss0``.
     """
     unported = [n for n in _UNPORTED if getattr(cfg, n)]
     if unported:
@@ -90,10 +150,12 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
             f"training step variants not ported to PyTorch yet: {unported}")
     if cfg.semantic_loss and not rcfg.num_semantic_classes:
         raise ValueError("semantic_loss needs num_semantic_classes > 0")
+    if grid_mode and cfg.N_importance <= 0:
+        raise ValueError("grid_train needs a fine pass (N_importance > 0)")
     del hwf  # only the patch and single-image variants need the frame size
     n_depth = int(cfg.N_rand * cfg.depth_rays_prop) if cfg.colmap_depth else 0
     n_rgb = cfg.N_rand - n_depth
-    coarse_on = cfg.N_importance > 0
+    coarse_on = cfg.N_importance > 0 and not grid_mode
 
     def draw(n, table, generator, given):
         dev = table.origins.device
@@ -105,7 +167,10 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
     def step(state: TrainState, rgb_table: RgbRayTable,
              depth_table: Optional[DepthRayTable],
              generator: torch.Generator | None = None, idx=None,
-             idx_d=None) -> Dict[str, torch.Tensor]:
+             idx_d=None, aux: Optional[RayCDF] = None
+             ) -> Dict[str, torch.Tensor]:
+        if grid_mode and aux is None:
+            raise ValueError("a grid step needs the baked RayCDF (aux)")
         metrics = {}
         idx = draw(n_rgb, rgb_table, generator, idx)
         rays = gather_rays(rgb_table, idx, rcfg)
@@ -119,7 +184,15 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
             rays = Rays(*(None if a is None else torch.cat([a, b])
                           for a, b in zip(rays, rays_depth)))
 
-        out = render_rays(models.coarse, models.fine, rays, rcfg, generator)
+        if grid_mode:
+            w_all = aux.w_rgb[idx]
+            if n_depth > 0:
+                w_all = torch.cat([w_all, aux.w_depth[idx_d]])
+            out = _cdf_render(cfg, rcfg, models, rays, w_all, aux.z,
+                              generator)
+        else:
+            out = render_rays(models.coarse, models.fine, rays, rcfg,
+                              generator)
         img_loss = losses.img2mse(out["rgb_map"][:n_rgb], target_s)
         metrics["img_loss"] = img_loss
         metrics["psnr"] = losses.mse2psnr(img_loss)

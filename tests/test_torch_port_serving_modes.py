@@ -308,8 +308,9 @@ def test_render_path_reaches_the_downsampled_renderer(monkeypatch):
 def test_render_config_flags_match_jax():
     """``render_config_from`` leaves the three serving flags off the training
     config, as JAX's does; ``eval_render_config`` sets them (JAX
-    ``train/loop.py:588-598``); the grid modes and the int8 patch leg still
-    raise; fine-only serving needs a fine pass."""
+    ``train/loop.py:588-598``); the grid flags reach neither, as in JAX
+    (the driver sets them where it bakes a grid); the int8 patch leg still
+    raises; fine-only serving needs a fine pass."""
     from depth_lidar_nerf_tpu.train import config as jcfg
     from depth_lidar_nerf_tpu_torch.render.renderer import RenderConfig
     from depth_lidar_nerf_tpu_torch.train import config as tcfg
@@ -332,12 +333,14 @@ def test_render_config_flags_match_jax():
     assert tcfg.eval_render_config(tcfg.TrainConfig(), tr) == tr
     assert tcfg.eval_render_config(
         tcfg.TrainConfig(render_coarse_downsample=1), tr) == tr
-    for bad in (dict(render_grid=64), dict(render_grid_fine_only=True),
-                dict(render_grid_samples=128)):
-        with pytest.raises(NotImplementedError, match=next(iter(bad))):
-            tcfg.render_config_from(tcfg.TrainConfig(**bad), 0, 2.0, 6.0)
-        with pytest.raises(NotImplementedError, match=next(iter(bad))):
-            tcfg.eval_render_config(tcfg.TrainConfig(**bad), RenderConfig())
+    for grid in (dict(render_grid=64), dict(render_grid_fine_only=True),
+                 dict(render_grid_samples=128)):
+        jg = jcfg.render_config_from(jcfg.TrainConfig(**grid), 0, 2.0, 6.0)
+        tg = tcfg.render_config_from(tcfg.TrainConfig(**grid), 0, 2.0, 6.0)
+        for k in grid:
+            assert getattr(tg, k) == getattr(jg, k) == getattr(RenderConfig(), k)
+        assert tcfg.eval_render_config(tcfg.TrainConfig(**grid),
+                                       RenderConfig()) == RenderConfig()
     with pytest.raises(ValueError, match="render_fine_only"):
         tcfg.eval_render_config(
             tcfg.TrainConfig(render_fine_only=True, N_importance=0), tr)

@@ -73,7 +73,7 @@ def test_packed_weights_follow_an_optimizer_step():
 
 
 @pytest.mark.parametrize("flag", ["depth_inverse_loss", "gan_loss",
-                                  "feature_loss", "grid_train", "no_batching"])
+                                  "feature_loss", "no_batching"])
 def test_step_refuses_unported_variants(flag):
     from depth_lidar_nerf_tpu_torch.train.config import (TrainConfig,
                                                          render_config_from)
