@@ -177,7 +177,31 @@ which raises on failure:
    within ``TRAJ_TOL``'s update limit of C (bit-identity reported); the
    CLI's ``--render_only --render_test`` bakes its own grid, and its rgb
    equals an in-process grid render of the checkpoint bit for bit;
-14. one ``{"kernels": [...]}`` JSON line with every kernel.
+14. the patch-loss iteration. 14a: ``configs/kitti360_full.txt``'s loss
+   stack (LiDAR depth, inverse-depth smoothness and the VGG19 content loss
+   at conv1_2..conv5_4 every 10th iteration, the semantic loss; coarse D=4
+   and fine D=8 skip@4 at W=256 with a 19-class head, bfloat16) and patch
+   (94 x 352, 32 x 64 rays with gradients) on phase 9's scene: the base
+   step's and the patch step's ms, the 10-iteration period (9 base + 1
+   patch) per iteration, the grad leg's forward + backward, the no-grad
+   leg and VGG19's forward + backward alone, peak device memory, launches
+   per leg (the no-grad leg: kernel 6 on both passes of each tile and
+   kernel 14; the grad leg: kernels 7 and 8), one profiled patch
+   iteration; the patch iterations' total, feature and smoothness losses
+   fall over 30 periods of the schedule (300 iterations); the VGG loss of one crop on the card (float32 and TF32)
+   against float64 on the CPU; one patch step kernel path against plain
+   path (float32 and bfloat16, ``TRAJ_TOL``). 14b: one LPIPS (alex) patch
+   step against the plain path; ``patch_ng_int8``: the no-grad leg runs
+   kernel 11 and not 1 or 6, and its crop is within 0.03 mean abs of the
+   bfloat16 one. 14c: the grid patch step (phase 13's grid fields,
+   ``patch_render_samples`` 32; no coarse kernel): ms, launches, kernel
+   path against plain path. 14d: the driver on
+   ``configs/flagship_synthetic.txt`` cut to 300 iterations on the scene
+   ``scripts/flagship_quality.py`` writes (20 views, seed 1): runs A (150),
+   B (resumed to 300) and C (300); the [TRAIN] PSNR up by 2 dB from
+   iteration 25; the [TEST] line carries LPIPS; B within ``TRAJ_TOL``'s
+   update limit of C; the metric keys where the patch iterations fall;
+15. one ``{"kernels": [...]}`` JSON line with every kernel.
 
 It prints ``phase N done at T s`` as it goes; a whole run should stay well
 within the 1,200 s limit on an H100, the build included (PERF.md). The last line is ``{"ok": true,
@@ -1323,7 +1347,7 @@ def int8_serving_phase(fmt, sc, renderer, dev, card, cfg, rcfg, models, poses,
     out = {"card": card}
     launches = dict.fromkeys(fns, 0)
     with torch.no_grad():
-        for m in models:
+        for m in models.nerfs():
             m.sigma.bias += SIGMA_OFFSET - COMPARE_OFFSET  # phase 4's serving field
     ecfg = eval_render_config(cfg.replace(render_int8=True), rcfg)
     check(ecfg.render_int8 and not rcfg.render_int8,
@@ -1359,7 +1383,7 @@ def int8_serving_phase(fmt, sc, renderer, dev, card, cfg, rcfg, models, poses,
 
     # Quality: frame 0 on phase 4's comparison field, int8 against bf16.
     with torch.no_grad():
-        for m in models:
+        for m in models.nerfs():
             m.sigma.bias += COMPARE_OFFSET - SIGMA_OFFSET
     fb = render_image(models.coarse, models.fine, H, W, FOCAL, poses[0], rcfg,
                       device=dev)
@@ -1382,7 +1406,7 @@ def int8_serving_phase(fmt, sc, renderer, dev, card, cfg, rcfg, models, poses,
     out.update(psnr_vs_bf16=p, gaps_vs_bf16=gaps)
     del fb, fq
     with torch.no_grad():
-        for m in models:
+        for m in models.nerfs():
             m.sigma.bias += SIGMA_OFFSET - COMPARE_OFFSET
 
     # The modes that compose with int8, one frame each on the serving field.
@@ -1549,7 +1573,7 @@ def semantic_phases(fmt, sc, renderer, dev, card, plain_sampler):
     cfg, rcfg, sm, tables, scene = bench_stack(dev, TRAIN_N_RAYS, "bfloat16",
                                                semantic=True)
     seeded = [{k: v.detach().clone() for k, v in m.state_dict().items()}
-              for m in sm]
+              for m in sm.nerfs()]
     state = init_train_state(cfg, sm)
     step = make_train_step(cfg, rcfg, sm, scene.hwf)
     print(f"semantic training: ref_default_semantic_two_mlp stack built in "
@@ -1620,7 +1644,7 @@ def semantic_phases(fmt, sc, renderer, dev, card, plain_sampler):
     # ---- 10. semantic serving ----------------------------------------------
     # The seeded stack: its density reaches nearly every ray of the frame,
     # where the 25 steps above leave three quarters of the rays empty.
-    for m, sd in zip(sm, seeded):
+    for m, sd in zip(sm.nerfs(), seeded):
         m.load_state_dict(sd)
     rv = dataclasses.replace(rcfg, chunk=SEM_CHUNK)
     S_c, S_f = rv.N_samples, rv.N_samples + rv.N_importance
@@ -2531,7 +2555,8 @@ def bench_stack(dev, n_rand, dtype, fused=True, semantic=False,
     rcfg = render_config_from(cfg, sc.num_classes if semantic else 0, sc.near,
                               sc.far)
     models = build_models(cfg, rcfg, device=dev if fused else "cpu")
-    models = type(models)(*(m.to(dev) for m in models))
+    models = models._replace(coarse=models.coarse.to(dev),
+                             fine=models.fine.to(dev))
     it = range(4)
     tables = (build_rgb_table(sc.images, sc.poses, it, *sc.hwf, rcfg,
                               segmentation=sc.segmentation if semantic else None,
@@ -2734,12 +2759,14 @@ def resume_check(label, params_b, state_c, cfg_c, rcfg, dev):
     p0 = net_params(build_models(cfg_c, rcfg, device=dev, seed=cfg_c.seed))
     params_c = net_params(state_c.models)
     identical = all(torch.equal(params_b[k], params_c[k]) for k in params_c)
-    gap = max((torch.linalg.norm(params_b[k] - params_c[k])
-               / torch.linalg.norm(params_c[k] - p0[k])).item()
-              for k in params_c)
+    per = sorted(((torch.linalg.norm(params_b[k] - params_c[k])
+                   / torch.linalg.norm(params_c[k] - p0[k])).item(), k)
+                 for k in params_c)
+    gap = per[-1][0]
     print(f"{label} resumed run B vs uninterrupted run C at step "
           f"{DRIVER_STEPS[1]}: max update gap {gap:.3g} (tolerance "
-          f"{TRAJ_TOL['bfloat16'][1]:g}), bit-identical {identical}")
+          f"{TRAJ_TOL['bfloat16'][1]:g}), bit-identical {identical}; "
+          f"largest gaps {per[-3:][::-1]}")
     check(gap <= TRAJ_TOL["bfloat16"][1], f"{label}: resumed run vs "
           "uninterrupted run")
     return gap, identical
@@ -2993,7 +3020,7 @@ def serving_field(cfg, rcfg, dev):
 
     models = build_models(cfg, rcfg, device=dev)
     with torch.no_grad():
-        for m in models:
+        for m in models.nerfs():
             m.sigma.weight *= SIGMA_SCALE
             m.sigma.bias += SIGMA_OFFSET
             m.rgb.weight *= RGB_SCALE
@@ -3251,7 +3278,7 @@ def grid_serving_phase(fmt, sc, renderer, dev, card, cfg, rcfg, poses,
 
     # Frame 0 on the comparison field, kernel path against plain path.
     with torch.no_grad():
-        for m in models:
+        for m in models.nerfs():
             m.sigma.bias += COMPARE_OFFSET - SIGMA_OFFSET
     dtypes = ("float32", "bfloat16")
     kms = {d: path_models(cfg, rcfg, models, d, False, dev) for d in dtypes}
@@ -3491,6 +3518,553 @@ def grid_driver_phase(fmt, sc, renderer, dev, card, fns):
             "card": card}, launches
 
 
+# Phase 14, the patch-loss iteration: configs/kitti360_full.txt's loss stack
+# (LiDAR depth, inverse-depth smoothness every 10th iteration, the VGG19
+# content loss at conv1_2..conv5_4 with weights 0.1, 0.1, 1, 1, 1 (l1), the
+# semantic loss) and its patch (94 x 352, 32 x 64 rays with gradients), at
+# bfloat16, on phase 9's in-memory scene (19 classes).
+KITTI_CONFIG = os.path.join(HERE, "configs", "kitti360_full.txt")
+PATCH_STEPS = (2, 5)  # patch iterations: warm-up, timed
+PATCH_FALL = 30  # periods (9 base + 1 patch) whose patch losses must fall
+# The no-grad leg's int8 crop against its bfloat16 crop: mean abs rgb gap
+# (phase 4b's limit, JAX's tests/test_fused_q8.py:133).
+PATCH_INT8_GAP = 0.03
+# 14d: the driver on configs/flagship_synthetic.txt, cut to 300 iterations.
+FLAGSHIP_CONFIG = os.path.join(HERE, "configs", "flagship_synthetic.txt")
+FLAGSHIP_VIEWS = 20
+
+
+def kitti_stack(dev, root, dtype="bfloat16", **over):
+    """``configs/kitti360_full.txt`` on phase 9's scene (4 views of 94 x 352,
+    8,000 LiDAR points each, 19 classes) with ``no_ndc`` (the synthetic
+    scene is not forward-facing), ``dtype`` and ``over``, the perceptual
+    weights looked for under ``root`` (none there: the seed-0 init):
+    (cfg, rcfg, models, tables, scene, patch source)."""
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.data.synthetic import draw_scene
+    from depth_lidar_nerf_tpu_torch.train.config import (parse_args,
+                                                         render_config_from)
+    from depth_lidar_nerf_tpu_torch.train.state import build_models
+    from depth_lidar_nerf_tpu_torch.train.step import PatchSource
+    from depth_lidar_nerf_tpu_torch.train.tables import (build_depth_table,
+                                                         build_rgb_table)
+
+    sc = draw_scene(n_images=4, H=H, W=W, focal=FOCAL, n_depth_points=8000,
+                    backdrop=True, num_classes=SEM_CLASSES)
+    cfg = parse_args(["--config", KITTI_CONFIG, "--no_ndc", "True",
+                      "--compute_dtype", dtype, "--datadir", root]
+                     ).replace(**over)
+    rcfg = render_config_from(cfg, sc.num_classes, sc.near, sc.far)
+    models = build_models(cfg, rcfg, device=dev)
+    it = range(4)
+    tables = (build_rgb_table(sc.images, sc.poses, it, *sc.hwf, rcfg,
+                              segmentation=sc.segmentation, device=dev),
+              build_depth_table(sc.depth_gts, sc.poses, it, *sc.hwf, rcfg,
+                                device=dev))
+    src = PatchSource(torch.as_tensor(sc.images, dtype=torch.float32,
+                                      device=dev),
+                      torch.as_tensor(sc.poses, dtype=torch.float32,
+                                      device=dev))
+    return cfg, rcfg, models, tables, sc, src
+
+
+def patch_kernel_vs_plain(label, stack, fns, renderer, plain_sampler, dtypes,
+                          grid=None, **over):
+    """One patch step (feature + smoothness) of the kernel path and of the
+    plain path (plain modules, the sampling twin; no kernel may launch) on
+    ``stack`` (:func:`kitti_stack`'s config, render config, tables, scene,
+    patch source and perceptual models) with ``over``, per dtype, with
+    ``perturb`` and sigma noise off, so that the two paths' tilings of the
+    no-grad leg draw nothing. Both start from one state: the seeded weights
+    after the 9 base iterations that precede a patch iteration in the
+    schedule (run on the kernel path), with their Adam moments, since from
+    fresh moments Adam moves every parameter by about the learning rate
+    whatever its gradient's size, so that float32 noise in a near-zero
+    gradient flips whole updates. Then one patch step each from one
+    generator seed (one crop, one set of rays). ``grid = (fields, cdf)``:
+    the grid variant on one baked ray CDF. The relative loss gap and the max
+    over parameters of the relative L2 gap of their updates, held to
+    ``TRAJ_TOL``."""
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.train import step as step_mod
+    from depth_lidar_nerf_tpu_torch.train.state import (FusedMLP,
+                                                        build_models,
+                                                        build_perceptual,
+                                                        init_train_state)
+    from depth_lidar_nerf_tpu_torch.train.step import make_train_step
+
+    cfg0, rcfg0, tabs, scn, src, percept = stack
+    dev = tabs[0].origins.device
+    cfg0 = cfg0.replace(perturb=0.0, raw_noise_std=0.0, **over)
+    if over:
+        percept = build_perceptual(cfg0, dev)
+    rcfg = dataclasses.replace(rcfg0, perturb=False, raw_noise_std=0.0)
+    kw = {} if grid is None else {"aux": grid[1]}
+    gaps = {}
+    for dtype in dtypes:
+        cfg = cfg0.replace(compute_dtype=dtype)
+        paths = {}
+        for plain in (False, True):
+            mlps = build_models(cfg.replace(feature_loss=False,
+                                            use_fused_mlp=not plain), rcfg,
+                                device="cpu" if plain else dev)
+            m = mlps._replace(coarse=mlps.coarse.to(dev),
+                              fine=mlps.fine.to(dev), vgg=percept[0],
+                              lpips=percept[1])
+            check(isinstance(m.coarse, FusedMLP) != plain, f"{label} models")
+            paths[plain] = (m, init_train_state(cfg, m))
+        (mk, sk), (mp, sp) = paths[False], paths[True]
+        gen = torch.Generator(device=dev).manual_seed(5)
+        base = make_train_step(cfg, rcfg, mk, scn.hwf)
+        for _ in range(9):
+            base(sk, *tabs, gen)
+        with torch.no_grad():  # the plain path takes the kernel path's state
+            for pk, pp in zip(sk.optimizer.param_groups[0]["params"],
+                              sp.optimizer.param_groups[0]["params"]):
+                pp.copy_(pk)
+                sp.optimizer.state[pp] = {k: v.clone() for k, v in
+                                          sk.optimizer.state[pk].items()}
+        sp.optimizer.count, sp.step = sk.optimizer.count, sk.step
+        if grid is not None:
+            cfg = cfg.replace(**grid[0])
+        runs = {}
+        for plain, (m, st) in paths.items():
+            stp = make_train_step(cfg, rcfg, m, scn.hwf,
+                                  grid_mode=grid is not None,
+                                  feature_on=True, smooth_on=True)
+            init = net_params(m, clone=True)
+            gen = torch.Generator(device=dev).manual_seed(6)
+            n_before = [fn.launches for fn in fns.values()]
+            with contextlib.ExitStack() as ctx:
+                if plain:
+                    for mod in (renderer, step_mod):
+                        ctx.enter_context(mock.patch.object(
+                            mod, "sample_pdf_cuda", plain_sampler))
+                loss = stp(st, *tabs, gen, patch=src, **kw)["loss"].item()
+            torch.cuda.synchronize()
+            if plain:
+                check([fn.launches for fn in fns.values()] == n_before,
+                      f"the plain {label} path launched a kernel")
+            runs[plain] = (loss, {k: v - init[k]
+                                  for k, v in net_params(m).items()})
+        del paths, mk, mp, sk, sp, st, stp, m, base
+        torch.cuda.empty_cache()
+        (lk, uk), (lp, up) = runs[False], runs[True]
+        moved = [k for k in up if up[k].any()]
+        per = sorted(((torch.linalg.norm(uk[k] - up[k])
+                       / torch.linalg.norm(up[k])).item(), k) for k in moved)
+        gaps[dtype] = (abs(lk - lp) / abs(lp), per[-1][0])
+        tol = TRAJ_TOL[dtype]
+        print(f"{label} {dtype}, one patch step after 9 base steps, kernel vs "
+              f"plain: loss {lk:.6f} vs {lp:.6f}, gap {gaps[dtype][0]:.3g}; "
+              f"max update gap {gaps[dtype][1]:.3g} (tolerance {tol[0]:g}, "
+              f"{tol[1]:g}); largest update gaps {per[-3:][::-1]}", flush=True)
+        check(gaps[dtype][0] <= tol[0] and gaps[dtype][1] <= tol[1],
+              f"{label} {dtype}")
+    return gaps
+
+
+def patch_phase(fmt, sc, renderer, dev, card, plain_sampler, fns, ms_step_5):
+    """Phases 14a-14c (see the module note). Returns the numbers for the
+    JSON line and each kernel's launches on these paths."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.models.vgg import vgg_normalize
+    from depth_lidar_nerf_tpu_torch.ops.ray_cdf import bake_ray_cdf
+    from depth_lidar_nerf_tpu_torch.ops.rays import patch_ray_dirs
+    from depth_lidar_nerf_tpu_torch.render.renderer import (make_rays,
+                                                            pick_render_tile,
+                                                            render_rays,
+                                                            render_rays_tiled)
+    from depth_lidar_nerf_tpu_torch.train import losses as L
+    from depth_lidar_nerf_tpu_torch.train.state import init_train_state
+    from depth_lidar_nerf_tpu_torch.train.step import (NG_FUSED_CAP,
+                                                       NG_PLAIN_CAP, _clip01,
+                                                       _take, make_train_step,
+                                                       sample_patch)
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_patch_")
+    root = tmp.name
+    zero, counts = _counter(fns)
+    launches = dict.fromkeys(fns, 0)
+
+    def add(got):
+        for k in fns:
+            launches[k] += got[k]
+
+    out = {"card": card}
+    # ---- 14a. the KITTI patch iteration ----------------------------------
+    t0 = time.time()
+    cfg, rcfg, models, tabs, scn, src = kitti_stack(dev, root)
+    check(cfg.feature_loss and cfg.depth_inverse_loss and cfg.semantic_loss
+          and cfg.vgg_layers == ["conv1_2", "conv2_2", "conv3_4", "conv4_4",
+                                 "conv5_4"]
+          and cfg.vgg_layer_weights == [0.1, 0.1, 1.0, 1.0, 1.0]
+          and cfg.vgg_loss_type == "l1" and (cfg.nH, cfg.nW, cfg.gradH,
+                                             cfg.gradW) == (94, 352, 32, 64)
+          and cfg.feature_loss_every_n == cfg.depth_inverse_loss_every_n == 10,
+          "the KITTI loss stack")
+    nH, nW, n_grad = cfg.nH, cfg.nW, cfg.gradH * cfg.gradW
+    state = init_train_state(cfg, models)
+    base = make_train_step(cfg, rcfg, models, scn.hwf)
+    patch = make_train_step(cfg, rcfg, models, scn.hwf, feature_on=True,
+                            smooth_on=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    print(f"patch iteration: kitti360_full stack built in {time.time() - t0:.1f}"
+          f" s (N_rand {cfg.N_rand}, patch {nH}x{nW}, {n_grad} rays with "
+          f"gradients, VGG19 to {cfg.vgg_layers[-1]}, seed-0 weights)",
+          flush=True)
+
+    def run_base():
+        return base(state, *tabs, gen)
+
+    def run_patch():
+        return patch(state, *tabs, gen, patch=src)
+
+    zero()
+    run_base()
+    torch.cuda.synchronize()
+    base_counts = counts()
+    add(base_counts)
+    zero()
+    run_patch()
+    torch.cuda.synchronize()
+    patch_counts = counts()
+    add(patch_counts)
+    peak = {}
+    for name, fn in (("base", run_base), ("patch", run_patch)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() / 2 ** 20
+    zero()
+    base_ms = cuda_ms(run_base, reps=10, warmup=1)
+    patch_ms = cuda_ms(run_patch, reps=PATCH_STEPS[1], warmup=PATCH_STEPS[0])
+
+    def period():  # the config's every_n = 10: 9 base iterations, 1 patch
+        for _ in range(9):
+            run_base()
+        run_patch()
+
+    period_ms = cuda_ms(period, reps=2, warmup=0) / 10
+    add(counts())
+
+    # Each part alone, on one drawn crop: the legs as the step runs them.
+    pb = sample_patch(src, nH, nW, gen)
+    ro, rd = patch_ray_dirs(H, W, FOCAL, pb.c2w, pb.start_h, pb.start_w, nH, nW)
+    prays = make_rays(ro, rd, rcfg, H, W, FOCAL)
+    g_rays, ng_rays = _take(prays, pb.perm[:n_grad]), _take(prays, pb.perm[n_grad:])
+    n_ng = ng_rays.origins.shape[0]
+
+    def ng_leg(rc):
+        tile = pick_render_tile(models.coarse, models.fine, rc, n_ng,
+                                fused_cap=NG_FUSED_CAP, flax_cap=NG_PLAIN_CAP)
+        with torch.no_grad():
+            return render_rays_tiled(models.coarse, models.fine, ng_rays, rc,
+                                     gen, tile=tile), tile
+
+    def grad_leg():
+        o = render_rays(models.coarse, models.fine, g_rays, rcfg, gen)
+        (o["rgb_map"].sum() + o["rgb0"].sum() + o["depth_map"].sum()
+         + o["depth_map0"].sum()).backward()
+        state.optimizer.zero_grad(set_to_none=True)
+
+    vgg = models.vgg
+    img = torch.rand((2, nH, nW, 3), device=dev, generator=gen,
+                     requires_grad=True)
+
+    def vgg_part():
+        with torch.no_grad():
+            fg = vgg(vgg_normalize(pb.gt_patch[None]))
+        f = vgg(vgg_normalize(img))
+        L.vgg_feature_distance({k: v[0:1] for k, v in f.items()}, fg,
+                               cfg.vgg_layers, cfg.vgg_layer_weights,
+                               "l1").backward()
+
+    leg_counts = {}
+    for name, fn in (("ng_leg", lambda: ng_leg(rcfg)), ("grad_leg", grad_leg)):
+        zero()
+        fn()
+        torch.cuda.synchronize()
+        leg_counts[name] = counts()
+    n_tiles = -(-n_ng // ng_leg(rcfg)[1])
+    zero()
+    parts = {"grad_leg_fwd_bwd": cuda_ms(grad_leg, reps=5, warmup=1),
+             "ng_leg": cuda_ms(lambda: ng_leg(rcfg), reps=5, warmup=1),
+             "vgg_fwd_bwd": cuda_ms(vgg_part, reps=5, warmup=1)}
+    zero()
+    print(f"patch iteration launches: base step {base_counts}; patch step "
+          f"{patch_counts}; the no-grad leg alone ({n_ng} rays, {n_tiles} "
+          f"tiles) {leg_counts['ng_leg']}; the grad leg alone ({n_grad} rays) "
+          f"{leg_counts['grad_leg']}", flush=True)
+    ng, gl = leg_counts["ng_leg"], leg_counts["grad_leg"]
+    check(ng["fused_nerf_fwd_sem"] == 2 * n_tiles
+          and ng["fused_nerf_sem_head"] == 2 * n_tiles
+          and ng[sc.KERNEL] == n_tiles
+          and sum(ng.values()) == 5 * n_tiles,
+          "the no-grad leg runs kernel 6 (both passes a tile) and kernel 14")
+    check(gl["fused_nerf_fwd_acts_sem"] == 2 and gl["fused_nerf_bwd_acts_sem"] == 2
+          and gl[sc.KERNEL] == 1 and gl["fused_nerf_fwd_sem"] == 0
+          and gl[fmt.KERNEL] == 0 and gl["fused_nerf_fwd_acts"] == 0,
+          "the grad leg runs kernels 7 and 8 on both passes")
+    check(patch_counts == {k: base_counts[k] + ng[k] + gl[k] for k in fns},
+          "a patch step launches the base step's kernels and both legs'")
+    print(f"patch iteration ({card}): base step {base_ms:.2f} ms, feature + "
+          f"smoothness patch step {patch_ms:.2f} ms; period of 10 (9 base + 1 "
+          f"patch) {period_ms:.2f} ms/iteration; parts: grad leg forward + "
+          f"backward {parts['grad_leg_fwd_bwd']:.2f} ms, no-grad leg "
+          f"{parts['ng_leg']:.2f} ms, VGG19 forward + backward "
+          f"{parts['vgg_fwd_bwd']:.2f} ms; peak device memory base "
+          f"{peak['base']:.0f} MiB, patch {peak['patch']:.0f} MiB", flush=True)
+    prof = profile_step(run_patch, "KITTI patch iteration")
+
+    # Losses over 30 patch iterations of the schedule (30 periods of 9 base
+    # iterations and 1 patch iteration): the field has to learn the image
+    # before a perceptual distance to it can fall.
+    zero()
+    metrics = []
+    for _ in range(PATCH_FALL):
+        for _ in range(9):
+            run_base()
+        metrics.append(run_patch())
+    add(counts())
+    vals = [{k: v.item() for k, v in m.items()} for m in metrics]
+    check(all(np.isfinite(v) for m in vals for v in m.values()),
+          "finite patch metrics")
+    falls = {}
+    for key in ("loss", "feature_loss", "inv_loss"):
+        seq = [m[key] for m in vals]
+        falls[key] = (float(np.mean(seq[:10])), float(np.mean(seq[-10:])))
+        print(f"patch iteration {key}: " + " ".join(f"{x:.5f}" for x in seq)
+              + f"; mean of the first 10 {falls[key][0]:.5f}, last 10 "
+              f"{falls[key][1]:.5f}", flush=True)
+        check(falls[key][1] < falls[key][0], f"patch iteration {key} falls")
+    print(f"patch iteration metric keys: {sorted(vals[0])}")
+
+    # VGG precision: the card's feature loss (float32, then TF32 convolutions)
+    # against float64 on the CPU, on one rendered crop and its ground truth.
+    with torch.no_grad():
+        crop = torch.rand((1, nH, nW, 3), device=dev, generator=gen)
+        gt = pb.gt_patch[None]
+
+        def feat_loss(model, a, b):
+            fa, fb = model(vgg_normalize(a)), model(vgg_normalize(b))
+            return L.vgg_feature_distance(fa, fb, cfg.vgg_layers,
+                                          cfg.vgg_layer_weights, "l1").item()
+
+        vgg_prec = {}
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            vgg_prec["tf32" if tf32 else "float32"] = feat_loss(vgg, crop, gt)
+        torch.backends.cudnn.allow_tf32 = False
+        v64 = type(vgg)(taps=vgg.taps).double()
+        v64.load_state_dict(vgg.state_dict())
+        vgg_prec["float64_cpu"] = feat_loss(v64, crop.double().cpu(),
+                                            gt.double().cpu())
+        del v64
+    rel = {k: abs(v - vgg_prec["float64_cpu"]) / vgg_prec["float64_cpu"]
+           for k, v in vgg_prec.items() if k != "float64_cpu"}
+    print(f"VGG feature loss on one crop: card float32 {vgg_prec['float32']:.8f}"
+          f" (rel. gap {rel['float32']:.3g}), card TF32 {vgg_prec['tf32']:.8f}"
+          f" (rel. gap {rel['tf32']:.3g}), CPU float64 "
+          f"{vgg_prec['float64_cpu']:.8f} on {card}", flush=True)
+    out["kitti"] = {"base_ms": base_ms, "patch_ms": patch_ms,
+                    "period_ms_per_iteration": period_ms, "parts_ms": parts,
+                    "peak_mib": peak, "profile": prof,
+                    "launches": {"base": base_counts, "patch": patch_counts,
+                                 **leg_counts}, "ng_tiles": n_tiles,
+                    "falls": falls, "vgg_precision": vgg_prec,
+                    "vgg_rel_gap_to_f64": rel, "base_ms_phase5": ms_step_5}
+    stack = (cfg, rcfg, tabs, scn, src, (models.vgg, models.lpips))
+    out["kitti"]["kernel_vs_plain"] = patch_kernel_vs_plain(
+        "KITTI patch step", stack, fns, renderer, plain_sampler,
+        ("float32", "bfloat16"))
+    print(f"phase 14a done at {time.time() - T_START:.0f} s", flush=True)
+
+    # ---- 14b. LPIPS, and the int8 no-grad leg -------------------------------
+    out["lpips_kernel_vs_plain"] = patch_kernel_vs_plain(
+        "LPIPS (alex) patch step", stack, fns, renderer, plain_sampler,
+        ("float32",), feature_loss_type="lpips")
+    cfg8 = cfg.replace(patch_ng_int8=True)
+    patch8 = make_train_step(cfg8, rcfg, models, scn.hwf, feature_on=True,
+                             smooth_on=True)
+    zero()
+    patch8(state, *tabs, gen, patch=src)
+    torch.cuda.synchronize()
+    c8 = counts()
+    add(c8)
+    rcfg8 = dataclasses.replace(rcfg, render_int8=True)
+    n_tiles8 = -(-n_ng // ng_leg(rcfg8)[1])
+    print(f"patch_ng_int8 step launches: {c8} ({n_tiles8} no-grad tiles)",
+          flush=True)
+    check(c8["fused_nerf_fwd_q8_sem"] == 2 * n_tiles8
+          and c8["fused_nerf_fwd_sem"] == 0 and c8[fmt.KERNEL] == 0
+          and c8["fused_nerf_fwd_q8"] == 0,
+          "the int8 no-grad leg runs kernel 11, not kernel 1 or 6")
+    ms8 = cuda_ms(lambda: patch8(state, *tabs, gen, patch=src), reps=3,
+                  warmup=1)
+    gaps8 = {}
+    for key in ("rgb_map", "rgb0"):
+        gen.manual_seed(11)
+        a = _clip01(ng_leg(rcfg)[0][key])
+        gen.manual_seed(11)
+        b = _clip01(ng_leg(rcfg8)[0][key])
+        gaps8[key] = (a - b).abs().mean().item()
+    print(f"patch_ng_int8 ({card}): patch step {ms8:.2f} ms (bf16 "
+          f"{patch_ms:.2f} ms); the no-grad leg's crop, int8 against bf16, "
+          f"mean abs rgb gap fine {gaps8['rgb_map']:.4g}, coarse "
+          f"{gaps8['rgb0']:.4g} (limit {PATCH_INT8_GAP})", flush=True)
+    check(max(gaps8.values()) <= PATCH_INT8_GAP, "int8 no-grad crop")
+    out["int8"] = {"patch_ms": ms8, "launches": c8, "crop_gap": gaps8}
+    zero()
+    print(f"phase 14b done at {time.time() - T_START:.0f} s", flush=True)
+
+    # ---- 14c. the grid patch iteration ------------------------------------
+    gfields = dict(GRID_FIELDS, patch_render_samples=32)
+    cfg_g = cfg.replace(**gfields)
+    zero()
+    cdf = bake_ray_cdf(models, rcfg, *tabs, cfg_g.grid_train_samples)
+    gpatch = make_train_step(cfg_g, rcfg, models, scn.hwf, grid_mode=True,
+                             feature_on=True, smooth_on=True)
+    gpatch(state, *tabs, gen, patch=src, aux=cdf)
+    torch.cuda.synchronize()
+    add(counts())
+    zero()
+    gpatch(state, *tabs, gen, patch=src, aux=cdf)
+    torch.cuda.synchronize()
+    cg = counts()
+    add(cg)
+    print(f"grid patch step launches: {cg}", flush=True)
+    check(cg["fused_nerf_fwd_sem"] == 1 and cg["fused_nerf_fwd_acts_sem"] == 2
+          and cg["fused_nerf_bwd_acts_sem"] == 2 and cg[sc.KERNEL] == 3
+          and cg["fused_nerf_bwd"] == cg["fused_nerf_bwd_culled"] == 0
+          and cg[fmt.KERNEL] == 0,
+          "the grid patch step: the fine pass only, kernels 6-8 and 14")
+    gms = cuda_ms(lambda: gpatch(state, *tabs, gen, patch=src, aux=cdf),
+                  reps=5, warmup=1)
+    add(counts())
+    print(f"grid patch step ({card}): {gms:.2f} ms (two-MLP patch step "
+          f"{patch_ms:.2f} ms)", flush=True)
+    out["grid"] = {"patch_ms": gms, "launches": cg}
+    del state, base, patch, patch8, gpatch, models
+    torch.cuda.empty_cache()
+    out["grid"]["kernel_vs_plain"] = patch_kernel_vs_plain(
+        "grid patch step", stack, fns, renderer, plain_sampler,
+        ("float32",), grid=(gfields, cdf))
+    del cdf, stack, tabs, src
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    print(f"phase 14c done at {time.time() - T_START:.0f} s", flush=True)
+    return out, launches
+
+
+def flagship_driver_phase(fmt, sc, dev, card, fns):
+    """Phase 14d: ``train()`` on ``configs/flagship_synthetic.txt`` cut to 300
+    iterations (30 patch iterations), on the scene that
+    ``scripts/flagship_quality.py`` writes (20 views of 94 x 352, focal 88,
+    8,000 LiDAR points each, seed 1, a backdrop; view 10 held out), written
+    by the port's ``make_scene``: run A to 150 with a checkpoint, run B
+    resumed to 300 (``no_reload_optimizer`` off, so that it resumes the
+    optimizer too), run C from scratch to 300, its launches counted. The
+    [TRAIN] PSNR up by ``DRIVER_PSNR_GAIN`` from iteration 25 to 300; the
+    [TEST] line carries LPIPS; B within ``TRAJ_TOL``'s update limit of C;
+    the metric keys at each print where JAX's ``variant_key`` puts the
+    patch iterations."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.data.synthetic import make_scene
+    from depth_lidar_nerf_tpu_torch.train.config import (parse_args,
+                                                         render_config_from)
+    from depth_lidar_nerf_tpu_torch.train.step import build_step_fns
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_flagship_")
+    root = tmp.name
+    make_scene(os.path.join(root, "scene"), n_images=FLAGSHIP_VIEWS, H=H, W=W,
+               focal=FOCAL, n_depth_points=DRIVER_DEPTH_POINTS, seed=1,
+               backdrop=True)
+
+    def argv(expname, n_iters):
+        return ["--config", FLAGSHIP_CONFIG,
+                "--datadir", os.path.join(root, "scene"),
+                "--basedir", os.path.join(root, "logs"), "--expname", expname,
+                "--N_iters", str(n_iters), "--i_print", str(DRIVER_PRINT),
+                "--i_weights", str(DRIVER_STEPS[0]),
+                "--i_testset", str(DRIVER_STEPS[1]),
+                "--no_reload_optimizer", "False"]
+
+    cfg_a = parse_args(argv("resumed", DRIVER_STEPS[0]))
+    check(cfg_a.feature_loss and cfg_a.depth_inverse_loss
+          and cfg_a.semantic_loss and cfg_a.compute_dtype == "bfloat16"
+          and (cfg_a.nH, cfg_a.nW) == (H, W), "flagship config")
+    state_a, wall_a, _ = driver_run(cfg_a)
+    check(state_a.step == DRIVER_STEPS[0], "flagship run A's step")
+    del state_a
+    state_b, wall_b, out_b = driver_run(cfg_a.replace(N_iters=DRIVER_STEPS[1]))
+    check(f"resumed from checkpoint at step {DRIVER_STEPS[0]}" in out_b,
+          "flagship run B resumes")
+    params_b = net_params(state_b.models, clone=True)
+    del state_b
+    torch.cuda.empty_cache()
+
+    seen = {}
+    zero, counts = _counter(fns)
+    cfg_c = cfg_a.replace(expname="fresh", N_iters=DRIVER_STEPS[1])
+    zero()
+    state_c, wall_c, out_c = driver_run(cfg_c,
+                                        lambda i, m: seen.setdefault(i, m))
+    launches = counts()
+    zero()
+    check(state_c.step == DRIVER_STEPS[1], "flagship run C's step")
+    rcfg = render_config_from(cfg_c, 4, 0.0, 1.0)
+    plan = build_step_fns(cfg_c, rcfg, None, (H, W, FOCAL))
+    keys = {i: sorted(m) for i, m in seen.items()}
+    for i, m in seen.items():
+        f, _, s, _, _ = plan.variant_key(i)
+        check(("feature_loss" in m) == f and ("inv_loss" in m) == s,
+              f"flagship metrics at iteration {i}")
+    n_patch = sum(any(plan.variant_key(i)[:3])
+                  for i in range(1, DRIVER_STEPS[1] + 1))
+    print(f"flagship driver: {n_patch} patch iterations of "
+          f"{DRIVER_STEPS[1]}; metric keys by [TRAIN] iteration: {keys}")
+    print(f"flagship driver run C launches: {launches}", flush=True)
+    check(launches["fused_nerf_fwd_sem"] > 0
+          and launches["fused_nerf_fwd_acts_sem"] > 0
+          and launches["fused_nerf_bwd_acts_sem"] > 0
+          and launches[sc.KERNEL] > 0 and launches[fmt.KERNEL] == 0,
+          "the flagship run ran the semantic kernels and kernel 14")
+    gap, identical = resume_check("flagship", params_b, state_c, cfg_c, rcfg,
+                                  dev)
+    first, last = seen[DRIVER_PRINT]["psnr"], seen[DRIVER_STEPS[1]]["psnr"]
+    test_c = [l for l in out_c.splitlines() if l.startswith("[TEST]")]
+    print(f"flagship [TRAIN] psnr iteration {DRIVER_PRINT} {first:.2f} dB, "
+          f"{DRIVER_STEPS[1]} {last:.2f} dB; {test_c}; wall s: run A "
+          f"{wall_a:.1f}, B {wall_b:.1f}, C {wall_c:.1f} on {card}",
+          flush=True)
+    check(last >= first + DRIVER_PSNR_GAIN, "flagship PSNR climbs by 2 dB")
+    check(len(test_c) == 1 and " lpips " in test_c[0],
+          "the flagship [TEST] line carries LPIPS")
+    costs = state_c.loop_costs
+    del state_c
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    return {"psnr_first": first, "psnr_last": last, "test_line": test_c[0],
+            "resume_update_gap": gap, "resume_bit_identical": identical,
+            "metric_keys": keys, "patch_iterations": n_patch,
+            "launches": launches,
+            "test_ms": [1e3 * x for x in costs["test_s"]],
+            "wall_s": {"A": wall_a, "B": wall_b, "C": wall_c},
+            "card": card}, launches
+
+
 def main() -> int:
     import torch
 
@@ -3704,7 +4278,7 @@ def main() -> int:
     # opacity spreads across the frame (it leaves a few rays empty, where the
     # reference's disparity is 0/0).
     with torch.no_grad():
-        for m in models:
+        for m in models.nerfs():
             m.sigma.bias += COMPARE_OFFSET - SIGMA_OFFSET
     # Frame 0 through the kernels and through the plain versions, in float32
     # and in bfloat16, with the same weights. The plain path is plain NeRFMLP
@@ -4031,13 +4605,22 @@ def main() -> int:
         fmt, sc, renderer, dev, card, kernel_fns(fmt, sc))
     print(f"phase 13c done at {time.time() - T_START:.0f} s", flush=True)
 
-    # ---- 14. the kernels line ------------------------------------------------------
+    # ---- 14. the patch-loss iteration and the flagship driver -------------------
+    patch_out, patch_launches = patch_phase(fmt, sc, renderer, dev, card,
+                                            plain_sampler, kernel_fns(fmt, sc),
+                                            ms_step)
+    flagship, flagship_launches = flagship_driver_phase(fmt, sc, dev, card,
+                                                        kernel_fns(fmt, sc))
+    print(f"phase 14d done at {time.time() - T_START:.0f} s", flush=True)
+
+    # ---- 15. the kernels line ------------------------------------------------------
     src = "depth_lidar_nerf_tpu_torch/csrc/"
     main_launches = {k: launches.get(k, 0) + train_launches.get(k, 0)
                      + int8_launches[k] + sem["launches"][k]
                      + s5["launches"].get(k, 0) + driver_launches.get(k, 0)
                      + grid_step_launches[k] + grid_serving_launches[k]
-                     + grid_driver_launches[k]
+                     + grid_driver_launches[k] + patch_launches[k]
+                     + flagship_launches[k]
                      for k in sem["launches"]}
     kernels = [
         {"name": fmt.KERNEL, "route": "cuda", "source": src + "fused_nerf_fwd.cu",
@@ -4124,6 +4707,7 @@ def main() -> int:
     print(json.dumps({"driver": driver}))
     print(json.dumps({"grid": {"step": grid_step, "serving": grid_serving,
                                "driver": grid_driver}}))
+    print(json.dumps({"patch": {**patch_out, "flagship_driver": flagship}}))
     print(f"total {time.time() - T_START:.0f} s")
     print(json.dumps({"training": {
         "ms_per_step": ms_step, "rays_per_s": TRAIN_N_RAYS * 1e3 / ms_step,

@@ -2,8 +2,7 @@
 port's copy of the first part of ``evaluation/metrics.py``).
 
 Parity targets: ``eval_utils.py:15-118`` of the reference (numpy
-fspecial-Gauss SSIM, PSNR). LPIPS comes with the perceptual models (ROADMAP
-Queue 1, items 4 and 6).
+fspecial-Gauss SSIM, PSNR). LPIPS is ``models/lpips.py``.
 """
 
 from __future__ import annotations

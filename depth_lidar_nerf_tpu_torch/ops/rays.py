@@ -55,6 +55,30 @@ def rays_by_coord(H: int, W: int, focal, c2w: torch.Tensor,
     return rays_o, rays_d
 
 
+def patch_ray_dirs(H: int, W: int, focal, c2w: torch.Tensor, start_h, start_w,
+                   nH: int, nW: int):
+    """Rays ``rays_o, rays_d [nH, nW, 3]`` through the ``nH x nW`` pixel crop
+    whose top-left pixel is (``start_h``, ``start_w``), in scan-line order
+    (JAX ``patch_ray_dirs``; the reference crops on the host,
+    ``run_nerf_helpers.py:430-494``). ``start_h``/``start_w`` may be 0-d
+    tensors on ``c2w``'s device, so that a crop drawn on the card is used
+    without a copy to the host. The rotation is plain float32, as JAX's
+    ``Precision.HIGHEST``."""
+    c2w = c2w.to(torch.float32)
+    jj, ii = torch.meshgrid(
+        torch.arange(nH, dtype=torch.float32, device=c2w.device),
+        torch.arange(nW, dtype=torch.float32, device=c2w.device),
+        indexing="ij")
+    i = ii + start_w  # column / x
+    j = jj + start_h  # row / y
+    dirs = torch.stack(
+        [(i - W * 0.5) / focal, -(j - H * 0.5) / focal, -torch.ones_like(i)],
+        dim=-1)
+    rays_d = _rotate(dirs, c2w)
+    rays_o = c2w[:3, -1].expand(rays_d.shape)
+    return rays_o, rays_d
+
+
 def ndc_rays(H: int, W: int, focal, near, rays_o, rays_d):
     """Warp rays to normalized device coordinates (forward-facing scenes).
 

@@ -382,13 +382,20 @@ def render_rays(model, fine_model, rays: Rays, cfg: RenderConfig,
 
 
 def pick_render_tile(model, fine_model, cfg: RenderConfig, n: int,
-                     density_grid=None) -> int:
-    """Ray-tile policy of :func:`render_rays_tiled`: ``chunk`` rays when
-    every pass is fused, else the ``netchunk``-honouring tile."""
+                     density_grid=None, fused_cap: int | None = None,
+                     flax_cap: int | None = None) -> int:
+    """Ray-tile policy of :func:`render_rays_tiled` (JAX
+    ``pick_render_tile``): ``chunk`` rays (at most ``n``, and at most
+    ``fused_cap``) when every pass of a tile that size is fused, else the
+    ``netchunk``-honouring tile, at most ``flax_cap``. The training step's
+    no-grad patch leg passes the caps."""
     fused_tile = min(cfg.render_tile(fused=True), max(n, 1))
+    if fused_cap is not None:
+        fused_tile = min(fused_tile, fused_cap)
     if fused_eval_ready(model, fine_model, cfg, fused_tile, density_grid):
         return fused_tile
-    return cfg.render_tile()
+    tile = cfg.render_tile()
+    return tile if flax_cap is None else min(tile, flax_cap)
 
 
 def render_rays_tiled(model, fine_model, rays: Rays, cfg: RenderConfig,

@@ -10,6 +10,13 @@ stacked scalar metrics, a checkpoint every ``i_weights``, held-out views
 every ``i_testset``, a held-out frame every ``i_img`` (with a summary
 writer) and the spiral every ``i_video``.
 
+Patch losses (``feature_loss``, ``depth_inverse_loss``): every iteration
+runs the step variant that :func:`train.step.build_step_fns` picks for it,
+and a patch iteration draws its crop on the device from the training images
+(:class:`train.step.PatchSource`). The held-out ``[TEST]`` line carries the
+views' mean LPIPS (AlexNet; weights from ``$LPIPS_TORCH_WEIGHTS`` if set,
+else seed 0), as JAX's.
+
 Grid training (``--grid_train``): past ``grid_train_after`` the steps are
 grid steps (``train/step.py``), fed by a ray CDF baked along every table
 ray (``ops/ray_cdf.py``) and rebaked every ``grid_rebake_every`` steps
@@ -48,6 +55,7 @@ from depth_lidar_nerf_tpu_torch.data.semantic import load_semantic_data
 from depth_lidar_nerf_tpu_torch.device import resolve_device
 from depth_lidar_nerf_tpu_torch.evaluation.metrics import psnr as psnr_np
 from depth_lidar_nerf_tpu_torch.evaluation.metrics import ssim_np
+from depth_lidar_nerf_tpu_torch.models.lpips import init_lpips
 from depth_lidar_nerf_tpu_torch.ops.density_grid import (bake_density_grid,
                                                          frustum_bounds)
 from depth_lidar_nerf_tpu_torch.ops.ray_cdf import bake_ray_cdf
@@ -62,7 +70,8 @@ from depth_lidar_nerf_tpu_torch.train.config import (TrainConfig, dump_args,
 from depth_lidar_nerf_tpu_torch.train.state import (Models, build_models,
                                                     init_train_state,
                                                     make_optimizer)
-from depth_lidar_nerf_tpu_torch.train.step import _UNPORTED, make_train_step
+from depth_lidar_nerf_tpu_torch.train.step import (_UNPORTED, PatchBatch,
+                                                   PatchSource, build_step_fns)
 from depth_lidar_nerf_tpu_torch.train.tables import (build_depth_table,
                                                      build_rgb_table)
 from depth_lidar_nerf_tpu_torch.train.torch_import import \
@@ -152,6 +161,47 @@ def load_scene(cfg: TrainConfig) -> Scene:
 
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.float().cpu().numpy()
+
+
+def _make_patch_batch(cfg: TrainConfig, scene: Scene, host_rng,
+                      device=None) -> PatchBatch:
+    """A patch iteration's randomness drawn on the host (JAX
+    ``_make_patch_batch``, ``run_nerf.py:1557-1568``): a training image, the
+    crop's origin and the permutation of its pixels, on ``device`` (the
+    card unless given). The driver draws on the device instead
+    (:func:`train.step.sample_patch`)."""
+    device = resolve_device(device)
+    H, W, _ = scene.hwf
+    if cfg.nH > H or cfg.nW > W:
+        raise ValueError(f"patch {cfg.nH}x{cfg.nW} larger than image {H}x{W}")
+    img_i = int(host_rng.choice(scene.i_train))
+    start_h = int(host_rng.integers(0, H - cfg.nH + 1))
+    start_w = int(host_rng.integers(0, W - cfg.nW + 1))
+    perm = host_rng.permutation(cfg.nH * cfg.nW)
+    gt = scene.images[img_i][start_h:start_h + cfg.nH,
+                             start_w:start_w + cfg.nW]
+    # The image's position in i_train, the rgb table's order (grid steps).
+    img_pos = int(np.flatnonzero(np.asarray(scene.i_train) == img_i)[0])
+
+    def dev(x, dtype):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    return PatchBatch(dev(scene.poses[img_i], torch.float32),
+                      dev(gt, torch.float32), dev(start_h, torch.long),
+                      dev(start_w, torch.long), dev(perm, torch.long),
+                      dev(img_pos, torch.long))
+
+
+def _test_lpips(model, rgbs, gts, device) -> float:
+    """The held-out views' mean LPIPS (JAX ``_test_lpips``,
+    ``run_nerf.py:1316,1934``) through ``model``, an :func:`init_lpips`."""
+    vals = []
+    with torch.no_grad():
+        for r, g in zip(rgbs, gts):
+            a, b = (torch.as_tensor(np.asarray(x, np.float32),
+                                    device=device)[None] for x in (r, g))
+            vals.append(model(a, b)[0])
+    return float(torch.stack(vals).mean())
 
 
 def _save_image_outputs(out, savedir, idx):
@@ -460,7 +510,7 @@ def _train(cfg: TrainConfig, metrics_hook, device: torch.device):
     if start > 0 and cfg.no_reload_optimizer:
         # run_nerf.py:462: keep the freshly initialized optimizer state.
         state.optimizer = make_optimizer(
-            cfg, [p for m in models if m is not None for p in m.parameters()])
+            cfg, [p for m in models.nerfs() for p in m.parameters()])
         print("--no_reload_optimizer: optimizer state reset")
 
     # ---------------- render-only short-circuit (run_nerf.py:1030-1114) ----
@@ -532,9 +582,23 @@ def _train(cfg: TrainConfig, metrics_hook, device: torch.device):
         depth_table = build_depth_table(scene.depth_gts, scene.poses,
                                         scene.i_train, H, W, focal, rcfg,
                                         device=device)
-    step_fn = make_train_step(cfg, rcfg, models, scene.hwf)
-    grid_step_fn = make_train_step(cfg, rcfg, models, scene.hwf,
-                                   grid_mode=True) if cfg.grid_train else None
+    plan = build_step_fns(cfg, rcfg, models, scene.hwf)
+    patch_source = None
+    if cfg.feature_loss or cfg.depth_inverse_loss:
+        patch_source = PatchSource(
+            torch.as_tensor(scene.images[scene.i_train], dtype=torch.float32,
+                            device=device),
+            torch.as_tensor(scene.poses[scene.i_train], dtype=torch.float32,
+                            device=device))
+    test_lpips = None
+    if cfg.i_testset > 0 and len(scene.i_test) > 0 and min(H, W) >= 31:
+        # Built and run once before the loop (JAX warms its jit here).
+        # AlexNet's taps vanish below 31 px a side; JAX's LPIPS then fails
+        # and its [TEST] line goes without it, as the port's.
+        test_lpips = init_lpips(
+            weights_path=os.environ.get("LPIPS_TORCH_WEIGHTS"), device=device)
+        zero = np.zeros((H, W, 3), np.float32)
+        _test_lpips(test_lpips, [zero], [zero], device)
     k_max = dispatch_k_max(cfg)
     if k_max > 1:
         print(f"[config] the JAX driver batches up to {k_max} steps into one "
@@ -550,8 +614,9 @@ def _train(cfg: TrainConfig, metrics_hook, device: torch.device):
         with (torch.profiler.profile(activities=acts) if cfg.profile_dir
               else contextlib.nullcontext()) as prof:
             _loop(cfg, metrics_hook, device, scene, models, state,
-                  (step_fn, grid_step_fn), rgb_table, depth_table, rcfg,
-                  rcfg_r, seed, host_rng, writer, expdir, ckdir, topo, start)
+                  (plan, patch_source, test_lpips), rgb_table, depth_table,
+                  rcfg, rcfg_r, seed, host_rng, writer, expdir, ckdir, topo,
+                  start)
     finally:
         if writer:
             writer.close()
@@ -618,7 +683,7 @@ def _loop(cfg: TrainConfig, metrics_hook, device, scene: Scene, models,
     """Steps ``start + 1 .. N_iters`` with their events."""
     H, W, focal = scene.hwf
     costs = state.loop_costs
-    step_fn, grid_step_fn = step_fns
+    plan, patch_source, test_lpips = step_fns
     grid = _Grid(cfg, rcfg, rcfg_r, scene, models, rgb_table,
                  depth_table) if cfg.grid_train else None
 
@@ -634,19 +699,21 @@ def _loop(cfg: TrainConfig, metrics_hook, device, scene: Scene, models,
     rays_done = 0
     for i in range(start + 1, cfg.N_iters + 1):
         gen.manual_seed(step_seed(seed, i))
-        if grid is not None and i > cfg.grid_train_after:
-            if grid.due(i):
-                grid.rebake(i)
-            metrics = grid_step_fn(state, rgb_table, depth_table, gen,
-                                   aux=grid.cdf)
-        else:
-            metrics = step_fn(state, rgb_table, depth_table, gen)
+        grid_on = plan.variant_key(i)[4]
+        if grid_on and grid.due(i):
+            grid.rebake(i)
+        step_fn, needs_patch = plan.select(i)
+        metrics = step_fn(state, rgb_table, depth_table, gen,
+                          aux=grid.cdf if grid_on else None,
+                          patch=patch_source if needs_patch else None)
         rays_done += cfg.N_rand
 
         if cfg.i_print > 0 and i % cfg.i_print == 0:
             # ONE device->host copy for all scalar metrics.
             tf = time.time()
-            names = list(metrics)
+            # Maps (the LPIPS spatial map) go to the writer as images.
+            maps = {k: _host(v) for k, v in metrics.items() if v.dim() >= 2}
+            names = [k for k, v in metrics.items() if v.dim() < 2]
             packed = torch.stack([metrics[k].to(device, torch.float32)
                                   for k in names]).cpu().numpy()
             m = {k: float(x) for k, x in zip(names, packed)}
@@ -661,6 +728,9 @@ def _loop(cfg: TrainConfig, metrics_hook, device, scene: Scene, models,
                 for k, v in m.items():
                     writer.add_scalar(f"Train/{k}", v, i)
                 writer.add_scalar("Train/rays_per_sec", rps, i)
+                for k, v in maps.items():
+                    # e.g. the LPIPS spatial map (run_nerf.py:1716-1719).
+                    writer.add_image(f"Images/{k}", v, i, dataformats="HW")
             t0 = time.time()
             rays_done = 0
 
@@ -678,13 +748,16 @@ def _loop(cfg: TrainConfig, metrics_hook, device, scene: Scene, models,
             gts = scene.images[scene.i_test]
             t_psnr = float(np.mean([psnr_np(r, g) for r, g in zip(rgbs, gts)]))
             t_ssim = float(np.mean([ssim_np(r, g) for r, g in zip(rgbs, gts)]))
-            # LPIPS comes with the perceptual models (ROADMAP Queue 1); JAX
-            # prints this line without it when its LPIPS is unavailable.
-            print(f"[TEST] iter {i} psnr {t_psnr:.2f} ssim {t_ssim:.4f}")
+            t_lpips = (None if test_lpips is None
+                       else _test_lpips(test_lpips, rgbs, gts, device))
+            print(f"[TEST] iter {i} psnr {t_psnr:.2f} ssim {t_ssim:.4f}"
+                  + (f" lpips {t_lpips:.4f}" if t_lpips is not None else ""))
             costs["test_s"].append(time.time() - tt)
             if writer:
                 writer.add_scalar("Test/psnr", t_psnr, i)
                 writer.add_scalar("Test/ssim", t_ssim, i)
+                if t_lpips is not None:
+                    writer.add_scalar("Test/lpips", t_lpips, i)
 
         if (cfg.i_img > 0 and i % cfg.i_img == 0 and writer
                 and len(scene.i_test) > 0):

@@ -9,10 +9,14 @@ Parity targets (the reference train loop):
   ``run_nerf.py:1531-1536``;
 - semantic cross-entropy on the ray-summed logits (``F.cross_entropy``, as
   the JAX ``semantic_cross_entropy``);
-- the DS-NeRF sigma loss's per-ray term (``loss.py:15-44``).
+- the DS-NeRF sigma loss's per-ray term (``loss.py:15-44``);
+- the image-aware inverse-depth smoothness of a rendered patch
+  (``loss.py:55-133``);
+- the VGG feature distance (``run_nerf.py:1692-1700``);
+- SSIM, the train-time metric (``loss.py:143-212``).
 
-The smoothness, VGG, GAN and SSIM terms come with the slices that port
-their step variants.
+Images are NHWC, as in the JAX package. The GAN terms come with the slice
+that ports the GAN step.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def img2mse(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -72,3 +77,79 @@ def semantic_cross_entropy(logits: torch.Tensor,
     """Mean over rays of ``-log_softmax(logits)`` at the integer label."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -torch.mean(torch.gather(logp, -1, labels.long()[..., None]))
+
+
+# --------------------------------------------------------------- smoothness
+
+def _grad_x(img: torch.Tensor) -> torch.Tensor:  # [B, H, W, C]
+    return img[:, :, :-1, :] - img[:, :, 1:, :]
+
+
+def _grad_y(img: torch.Tensor) -> torch.Tensor:
+    return img[:, :-1, :, :] - img[:, 1:, :, :]
+
+
+def inverse_depth_smoothness_loss(depth: torch.Tensor,
+                                  image: torch.Tensor) -> torch.Tensor:
+    """Image-aware smoothness of a rendered patch: ``depth [B, H, W, 1]``,
+    ``image [B, H, W, 3]``; ``|dx d| e^{-mean|dx I|} + |dy d| e^{-mean|dy
+    I|}``, each averaged over the patch."""
+    wx = torch.exp(-torch.mean(torch.abs(_grad_x(image)), -1, keepdim=True))
+    wy = torch.exp(-torch.mean(torch.abs(_grad_y(image)), -1, keepdim=True))
+    return (torch.mean(torch.abs(_grad_x(depth) * wx))
+            + torch.mean(torch.abs(_grad_y(depth) * wy)))
+
+
+# --------------------------------------------------------------------- SSIM
+
+def _gaussian_window(window_size: int, sigma: float) -> np.ndarray:
+    g = np.exp(-((np.arange(window_size) - window_size // 2) ** 2)
+               / (2 * sigma**2))
+    g = g / g.sum()
+    return np.outer(g, g).astype(np.float32)
+
+
+def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
+         size_average: bool = True) -> torch.Tensor:
+    """Gaussian-window SSIM of NHWC images (or one HWC pair): a grouped
+    ``window_size``-square sigma-1.5 window with SAME padding, C1 = 0.01^2,
+    C2 = 0.03^2. The mean, or with ``size_average=False`` one per image."""
+    if img1.dim() == 3:
+        img1, img2 = img1[None], img2[None]
+    a, b = img1.permute(0, 3, 1, 2), img2.permute(0, 3, 1, 2)
+    channels = a.shape[1]
+    w = torch.from_numpy(_gaussian_window(window_size, 1.5)).to(a.device,
+                                                                a.dtype)
+    kernel = w.expand(channels, 1, window_size, window_size)
+
+    def filt(x):
+        return F.conv2d(x, kernel, padding=window_size // 2, groups=channels)
+
+    mu1, mu2 = filt(a), filt(b)
+    mu1_sq, mu2_sq, mu1_mu2 = mu1**2, mu2**2, mu1 * mu2
+    sigma1_sq = filt(a * a) - mu1_sq
+    sigma2_sq = filt(b * b) - mu2_sq
+    sigma12 = filt(a * b) - mu1_mu2
+    C1, C2 = 0.01**2, 0.03**2
+    ssim_map = ((2 * mu1_mu2 + C1) * (2 * sigma12 + C2)) / (
+        (mu1_sq + mu2_sq + C1) * (sigma1_sq + sigma2_sq + C2))
+    if size_average:
+        return torch.mean(ssim_map)
+    return torch.mean(ssim_map, dim=(1, 2, 3))
+
+
+# --------------------------------------------------------------- VGG feature
+
+def vgg_feature_distance(feats_a, feats_b, layer_names, layer_weights,
+                         loss_type: str = "l2"):
+    """Weighted per-layer L1 or L2 distance between two dicts of VGG taps."""
+    total = 0.0
+    for name, w in zip(layer_names, layer_weights):
+        d = feats_a[name] - feats_b[name]
+        if loss_type == "l1":
+            total = total + torch.mean(torch.abs(d)) * w
+        elif loss_type == "l2":
+            total = total + torch.mean(d**2) * w
+        else:
+            raise ValueError(f"vgg_loss_type must be l1 or l2, got {loss_type}")
+    return total

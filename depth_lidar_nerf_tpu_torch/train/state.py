@@ -2,8 +2,9 @@
 
 Builds the coarse and fine NeRF MLPs of ``create_nerf`` (``run_nerf.py:389-517``)
 as ``nn.Module``s on one device, with weights drawn from a seeded
-``torch.Generator``. :class:`FusedMLP` dispatches covered topologies to the
-fused kernels. The optimizer is Adam with the reference's continuous
+``torch.Generator``, and the frozen perceptual model of the feature loss
+(VGG19 or LPIPS), whose weights are read from disk where a file is found.
+:class:`FusedMLP` dispatches covered topologies to the fused kernels. The optimizer is Adam with the reference's continuous
 exponential LR decay ``lrate * 0.1^(step / (lrate_decay * 1000))``
 (``run_nerf.py:1843-1847``), as the JAX package's optax schedule: the rate
 of a step is read at the step count before the update.
@@ -19,7 +20,10 @@ import torch
 from torch import nn
 
 from depth_lidar_nerf_tpu_torch.device import resolve_device
+from depth_lidar_nerf_tpu_torch.models.lpips import init_lpips
 from depth_lidar_nerf_tpu_torch.models.nerf_mlp import NeRFMLP
+from depth_lidar_nerf_tpu_torch.models.vgg import (VGG19Features,
+                                                   load_torch_vgg19)
 from depth_lidar_nerf_tpu_torch.ops import fused_mlp, fused_mlp_t
 from depth_lidar_nerf_tpu_torch.ops.embedding import embedding_dim
 from depth_lidar_nerf_tpu_torch.render.renderer import RenderConfig
@@ -181,22 +185,76 @@ class FusedMLP(NeRFMLP):
 
 
 class Models(NamedTuple):
+    """The trained NeRF MLPs and the frozen perceptual model of the feature
+    loss (``vgg`` with ``feature_loss_type = vgg``, ``lpips`` with
+    ``lpips``; None otherwise)."""
+
     coarse: nn.Module
     fine: Optional[nn.Module]
+    vgg: Optional[nn.Module] = None
+    lpips: Optional[nn.Module] = None
+
+    def nerfs(self):
+        """The trained MLPs: the coarse one, and the fine one if any."""
+        return [m for m in (self.coarse, self.fine) if m is not None]
 
 
 def invalidate_packs(models: Models) -> None:
     """Forget every ``FusedMLP``'s packed weights (after an optimizer step
     or a load), so that no pack of earlier weights survives."""
-    for m in models:
+    for m in models.nerfs():
         if hasattr(m, "invalidate_pack"):
             m.invalidate_pack()
+
+
+def _weight_file(env: str, path: str) -> Optional[str]:
+    """``$env`` if it names a file, else ``path`` if it exists, else None
+    (JAX ``init_vgg_params``' search order)."""
+    for cand in (os.environ.get(env), path):
+        if cand and os.path.exists(cand):
+            return cand
+    return None
+
+
+def build_perceptual(cfg: TrainConfig, device):
+    """The feature loss's frozen model (JAX ``build_models`` +
+    ``init_vgg_params``): ``(vgg, lpips)``, one of them or neither built.
+
+    VGG19 (``feature_loss_type = vgg``) up to the deepest of ``vgg_layers``
+    (``conv1_2``, ``conv2_2`` when none are given), with torchvision's
+    weights from ``$VGG19_TORCH_WEIGHTS``, else ``<datadir>/vgg19.pth``;
+    LPIPS (``lpips``, ``lpips_backbone``, ``lpips_spatial``) with an
+    ``lpips`` package state dict from ``$LPIPS_TORCH_WEIGHTS``, else
+    ``<datadir>/lpips_<backbone>.pth``. Without a file the weights are drawn
+    from a ``torch.Generator`` seeded 0, Flax's rule but not Flax's numbers,
+    so such a run's feature loss differs from JAX's. Nothing is downloaded.
+    The weights are frozen (``requires_grad=False``, eval mode): they are
+    not trained, not in the optimizer and not in checkpoints, as in JAX."""
+    if not cfg.feature_loss:
+        return None, None
+    if cfg.feature_loss_type == "lpips":
+        return None, init_lpips(
+            cfg.lpips_backbone, spatial=cfg.lpips_spatial, device=device,
+            weights_path=_weight_file("LPIPS_TORCH_WEIGHTS", os.path.join(
+                cfg.datadir, f"lpips_{cfg.lpips_backbone}.pth")))
+    if cfg.feature_loss_type != "vgg":
+        raise ValueError("FEATURE LOSS TYPE CAN BE vgg OR lpips")
+    model = VGG19Features(taps=tuple(cfg.vgg_layers or ("conv1_2", "conv2_2")),
+                          generator=torch.Generator().manual_seed(0))
+    path = _weight_file("VGG19_TORCH_WEIGHTS",
+                        os.path.join(cfg.datadir, "vgg19.pth"))
+    if path:
+        load_torch_vgg19(model, torch.load(path, map_location="cpu",
+                                           weights_only=True))
+    return model.requires_grad_(False).eval().to(device), None
 
 
 def build_models(cfg: TrainConfig, rcfg: RenderConfig, device=None,
                  seed: int | None = None) -> Models:
     """Coarse and fine MLPs on ``device`` (``cuda`` unless given), weights
-    from ``torch.Generator().manual_seed(seed)`` (default ``cfg.seed``)."""
+    from ``torch.Generator().manual_seed(seed)`` (default ``cfg.seed``), and
+    with ``feature_loss`` the frozen perceptual model
+    (:func:`build_perceptual`)."""
     device = resolve_device(device)
     if cfg.alpha_model_path or cfg.no_coarse:
         raise NotImplementedError("the frozen alpha model is not ported yet")
@@ -221,7 +279,7 @@ def build_models(cfg: TrainConfig, rcfg: RenderConfig, device=None,
     coarse = mlp(cfg.netdepth, cfg.netwidth)
     fine = mlp(cfg.netdepth_fine, cfg.netwidth_fine) if cfg.N_importance > 0 \
         else None
-    return Models(coarse, fine)
+    return Models(coarse, fine, *build_perceptual(cfg, device))
 
 
 def _pow(base: float, n: int) -> torch.Tensor:
@@ -315,5 +373,5 @@ def make_optimizer(cfg: TrainConfig, params) -> OptaxAdam:
 
 def init_train_state(cfg: TrainConfig, models: Models) -> TrainState:
     """Optimizer state over every parameter of the coarse and fine MLPs."""
-    params = [p for m in models if m is not None for p in m.parameters()]
+    params = [p for m in models.nerfs() for p in m.parameters()]
     return TrainState(models, make_optimizer(cfg, params), 0)

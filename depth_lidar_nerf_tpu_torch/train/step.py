@@ -1,4 +1,4 @@
-"""The training step (port of the base variant of ``train/step.py``).
+"""The training step (port of ``train/step.py``).
 
 One step of the reference's hot loop (``run_nerf.py:1320-1847``) with RGB and
 LiDAR-depth supervision: gather a ray batch from the device-resident tables,
@@ -17,27 +17,43 @@ Grid training (``grid_mode``, JAX ``--grid_train`` past
 baked along every table ray (``ops/ray_cdf.py``) and an inverse CDF; no
 coarse MLP runs, and the coarse loss terms go.
 
+The patch variants (``feature_on``, ``smooth_on``; ``run_nerf.py:1552-1753``)
+add the losses of a rendered ``nH x nW`` crop of one training image: the
+image-aware inverse-depth smoothness and the feature loss (VGG19 content
+loss or LPIPS). As the reference (``run_nerf.py:1600-1644``), only
+``gradH x gradW`` of the crop's rays, the first of a random permutation,
+render under autograd (the grad leg); the rest render under
+``torch.no_grad()`` (the no-grad leg: no activations saved, the fused
+forward kernels, tiled), and both scatter back into the crop. The driver
+picks a variant per iteration (:func:`build_step_fns`).
+
 The JAX step compiles into one XLA program; here each step is eager PyTorch
-around the kernels. Step variants that the port does not run yet (patch
-losses, GAN, single-image batching, K-step dispatch) raise
-``NotImplementedError``.
+around the kernels. Step variants that the port does not run yet (GAN,
+single-image batching, K-step dispatch) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+import dataclasses
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from depth_lidar_nerf_tpu_torch.models.vgg import vgg_normalize
 from depth_lidar_nerf_tpu_torch.ops.ray_cdf import RayCDF
+from depth_lidar_nerf_tpu_torch.ops.rays import patch_ray_dirs
 from depth_lidar_nerf_tpu_torch.ops.sampling import (sample_pdf,
                                                      stratified_z_vals)
 from depth_lidar_nerf_tpu_torch.ops.sampling_cuda import sample_pdf_cuda
 from depth_lidar_nerf_tpu_torch.render.renderer import (RenderConfig, Rays,
                                                         _composite_from_z,
+                                                        make_rays,
+                                                        pick_render_tile,
                                                         query_network,
-                                                        render_rays)
+                                                        render_rays,
+                                                        render_rays_tiled)
 from depth_lidar_nerf_tpu_torch.train import losses
 from depth_lidar_nerf_tpu_torch.train.config import TrainConfig
 from depth_lidar_nerf_tpu_torch.train.state import (Models, TrainState,
@@ -45,8 +61,108 @@ from depth_lidar_nerf_tpu_torch.train.state import (Models, TrainState,
 from depth_lidar_nerf_tpu_torch.train.tables import (DepthRayTable,
                                                      RgbRayTable, gather_rays)
 
-_UNPORTED = ("no_batching", "feature_loss", "gan_loss",
-             "depth_inverse_loss", "patch_ng_int8")
+_UNPORTED = ("no_batching", "gan_loss")
+# The no-grad patch leg's ray tiles (JAX ``ng_render``): the fused forward
+# keeps no activations, so a tile may be 16,384 rays; a pass that misses the
+# kernels takes the plain module, whose activations cap it at 4,096.
+NG_FUSED_CAP, NG_PLAIN_CAP = 16384, 4096
+
+
+class PatchBatch(NamedTuple):
+    """One patch iteration's crop and grad/no-grad split (JAX
+    ``PatchBatch``), on the tables' device."""
+
+    c2w: torch.Tensor  # [3, 4] pose of the image
+    gt_patch: torch.Tensor  # [nH, nW, 3]
+    start_h: torch.Tensor  # 0-d crop origin, row
+    start_w: torch.Tensor  # 0-d crop origin, column
+    perm: torch.Tensor  # [nH * nW] int64; the first gradH * gradW get grads
+    # The image's position in i_train, the order of the rgb table's images:
+    # the grid step maps the crop's pixels to the table's rows with it.
+    img: Optional[torch.Tensor] = None  # 0-d int64
+
+
+class PatchSource(NamedTuple):
+    """The training images and poses on the tables' device, from which
+    :func:`sample_patch` draws a patch iteration's crop on the device (JAX
+    ``PatchSource``)."""
+
+    images: torch.Tensor  # [N_train, H, W, 3] float32, i_train order
+    poses: torch.Tensor  # [N_train, 3, 4] float32
+
+
+def sample_patch(src: PatchSource, nH: int, nW: int,
+                 generator: torch.Generator | None) -> PatchBatch:
+    """Draw a patch iteration's randomness on the device, in this order: the
+    image, the crop's row, its column, the permutation of its pixels (the
+    reference draws them on the host, ``run_nerf.py:1557-1568``; matched in
+    distribution). Nothing is copied to the host."""
+    dev = src.images.device
+    n_img, H, W, _ = src.images.shape
+    img = torch.randint(0, n_img, (1,), device=dev, generator=generator)
+    sh = torch.randint(0, H - nH + 1, (), device=dev, generator=generator)
+    sw = torch.randint(0, W - nW + 1, (), device=dev, generator=generator)
+    perm = torch.randperm(nH * nW, device=dev, generator=generator)
+    rows = sh + torch.arange(nH, device=dev)
+    cols = sw + torch.arange(nW, device=dev)
+    gt = src.images.index_select(0, img)[0][rows[:, None], cols[None, :]]
+    return PatchBatch(src.poses.index_select(0, img)[0], gt, sh, sw, perm,
+                      img[0])
+
+
+def _patch_rows(patch: PatchBatch, H: int, W: int, nH: int,
+               nW: int) -> torch.Tensor:
+    """The rgb table's rows of the crop's pixels, in the permutation's order
+    (JAX ``_patch_rows``)."""
+    dev = patch.perm.device
+    rr = torch.arange(nH, device=dev)[:, None]
+    cc = torch.arange(nW, device=dev)[None, :]
+    rows = (patch.img * (H * W) + (patch.start_h + rr) * W
+            + (patch.start_w + cc))
+    return rows.reshape(-1)[patch.perm]
+
+
+def _assemble_patch(values_grad: torch.Tensor, values_ng: torch.Tensor,
+                   perm: torch.Tensor, n_grad: int, nH: int,
+                   nW: int) -> torch.Tensor:
+    """Scatter the grad leg's ``[B, n_grad, C]`` and the no-grad leg's
+    ``[B, n - n_grad, C]`` values back into scan-line order, ``[B, nH, nW,
+    C]`` (JAX ``_assemble_patch``): out of place into fresh zeros, the no-grad
+    values detached, so that only the grad leg's entries carry a graph."""
+    B, _, C = values_grad.shape
+    full = values_grad.new_zeros((B, nH * nW, C))
+    full = full.index_copy(1, perm[:n_grad], values_grad)
+    full = full.index_copy(1, perm[n_grad:], values_ng.detach())
+    return full.reshape(B, nH, nW, C)
+
+
+def _clip01(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.clip(x, 0, 1)``, which is ``minimum(maximum(x, 0), 1)``: at a
+    tie each of the two passes half the gradient (``torch.clamp`` would pass
+    all of it)."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+
+
+def _take(rays: Rays, sel: torch.Tensor) -> Rays:
+    return Rays(*(None if x is None else x[sel] for x in rays))
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms for the perceptual model's
+    convolutions within a step, the caller's setting back after it. The
+    default ones accumulate the input gradient with atomics, so two runs
+    from one state drift apart from their first feature-loss step (on an
+    H100, ``scripts/torch_patch_determinism.py``: 28 of 48 tensors differ
+    after 5 such steps; none with this), and a resumed run would not
+    continue an uninterrupted one as JAX's does."""
+    cudnn = torch.backends.cudnn
+    prev = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        cudnn.deterministic = prev
 
 
 def _sigma_loss_term(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
@@ -75,16 +191,19 @@ def _sigma_loss_term(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
 
 def _cdf_render(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
                 rays: Rays, w: torch.Tensor, z_grid: torch.Tensor,
-                generator: torch.Generator | None) -> Dict[str, torch.Tensor]:
+                generator: torch.Generator | None, n_imp: int = 0,
+                save_acts: bool = True) -> Dict[str, torch.Tensor]:
     """The grid step's render (JAX ``_cdf_render``): the fine pass only, its
-    importance samples drawn from the rays' baked weight rows ``w [N, S]``
-    (bfloat16, widened to float32) over the bins ``0.5 (z[1:] + z[:-1])``
-    of the bake grid, shared by every ray (row stride 0). On the card the
-    inverse CDF runs kernel 14; on the CPU JAX's ``sample_pdf``. With
-    ``grid_train_fine_only`` the fine pass evaluates the sorted samples,
-    else their union with ``N_samples`` stratified depths. ``generator``
-    draws the stratified jitter (union only), the importance draws, then
-    the fine pass's sigma noise."""
+    importance samples (``n_imp``, or ``N_importance`` when 0: the patch
+    legs pass ``patch_render_samples``) drawn from the rays' baked weight
+    rows ``w [N, S]`` (bfloat16, widened to float32) over the bins ``0.5
+    (z[1:] + z[:-1])`` of the bake grid, shared by every ray (row stride 0).
+    On the card the inverse CDF runs kernel 14; on the CPU JAX's
+    ``sample_pdf``. With ``grid_train_fine_only`` the fine pass evaluates
+    the sorted samples, else their union with ``N_samples`` stratified
+    depths. ``generator`` draws the stratified jitter (union only), the
+    importance draws, then the fine pass's sigma noise. ``save_acts`` asks a
+    differentiated fused pass to save its activations."""
     n = w.shape[0]
     w32 = w.float()
     z_mid = 0.5 * (z_grid[1:] + z_grid[:-1])
@@ -95,7 +214,7 @@ def _cdf_render(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
                                    lindisp=rcfg.lindisp, perturb=rcfg.perturb,
                                    generator=generator)
     sampler = sample_pdf_cuda if w32.device.type == "cuda" else sample_pdf
-    z_samples = sampler(bins, w32[:, 1:-1], cfg.N_importance,
+    z_samples = sampler(bins, w32[:, 1:-1], n_imp or cfg.N_importance,
                         det=not rcfg.perturb, generator=generator).detach()
     if z_vals is None:
         z_all = torch.sort(z_samples, dim=-1).values
@@ -110,8 +229,8 @@ def _cdf_render(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
         depth_est = (w32 * z_grid).sum(-1) / torch.clamp(acc, min=1e-6)
         fine_key = depth_est + (1.0 - acc) * 1e6
     fm = models.fine if models.fine is not None else models.coarse
-    fine = _composite_from_z(fm, rays, z_all, rcfg, generator, save_acts=True,
-                             fwd_sort_key=fine_key)
+    fine = _composite_from_z(fm, rays, z_all, rcfg, generator,
+                             save_acts=save_acts, fwd_sort_key=fine_key)
     out = {"rgb_map": fine.rgb, "disp_map": fine.disp, "acc_map": fine.acc,
            "depth_map": fine.depth, "weights": fine.weights}
     if fine.semantic is not None:
@@ -120,10 +239,12 @@ def _cdf_render(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
 
 
 def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
-                    hwf, grid_mode: bool = False):
-    """The step function of the base variant (JAX ``make_train_step`` with
-    no patch or GAN term and ``k_steps=1``), with or without the sigma and
-    the semantic terms, and with ``grid_mode`` the grid step::
+                    hwf, grid_mode: bool = False, *, feature_on: bool = False,
+                    gan_on: bool = False, smooth_on: bool = False):
+    """The step function of one loss-schedule variant (JAX
+    ``make_train_step`` with ``k_steps=1``), with or without the sigma and
+    the semantic terms, with ``grid_mode`` the grid step, and with
+    ``feature_on``/``smooth_on`` the patch losses::
 
         metrics = step(state, rgb_table, depth_table, generator)
 
@@ -133,7 +254,7 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
     loss's stratified jitter and its sigma noise. ``idx``/``idx_d`` give the
     ray indices instead (a parity test hands JAX's). The metrics (``loss``,
     ``img_loss``, ``psnr``, ``depth_importance``, and ``img_loss0``/
-    ``psnr0``/``depth_loss`` where the step has them) are detached 0-d
+    ``psnr0``/``depth_loss`` where the step has them) are detached
     tensors; reading them is left to the caller, so the step does not wait
     for the device. With ``sigma_loss`` they also hold ``sigma_loss``; with
     ``semantic_loss``, ``semantic_loss`` and, with a coarse pass,
@@ -143,7 +264,24 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
     driver baked: the rays' weight rows are gathered with their indices
     and :func:`_cdf_render` renders them, drawing after the ray indices.
     Its metrics lack ``img_loss0``, ``psnr0`` and ``semantic_loss0``.
-    """
+
+    A patch step takes ``patch=``, a :class:`PatchSource` (the crop is then
+    drawn from ``generator`` by :func:`sample_patch`, before anything else)
+    or a fixed :class:`PatchBatch`. It renders the no-grad leg next (in
+    ``ng`` tiles of :func:`~render.renderer.pick_render_tile` with caps
+    16,384 and 4,096; with ``patch_ng_int8`` through the int8 kernels;
+    drawing its jitter, noise and importance samples tile by tile), then
+    draws and renders as the base step, then renders the grad leg. Both
+    legs render both passes (the fine pass only in grid mode, from the
+    crop's baked rows, with ``patch_render_samples`` importance samples),
+    and the losses see the clipped crop of each pass. ``inv_loss`` (with
+    ``smooth_on``, weighted by ``depth_inverse_lambda`` and the depth
+    importance), ``feature_loss`` and with a coarse pass ``feature_loss0``
+    (with ``feature_on``) join the metrics, and with ``lpips_spatial`` the
+    fine pass's LPIPS map ``lpips_spatial [nH, nW]``. A feature-loss step
+    runs cuDNN's deterministic algorithms (:func:`_deterministic_cudnn`)."""
+    if gan_on:
+        raise NotImplementedError("the GAN step is not ported to PyTorch yet")
     unported = [n for n in _UNPORTED if getattr(cfg, n)]
     if unported:
         raise NotImplementedError(
@@ -152,10 +290,25 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
         raise ValueError("semantic_loss needs num_semantic_classes > 0")
     if grid_mode and cfg.N_importance <= 0:
         raise ValueError("grid_train needs a fine pass (N_importance > 0)")
-    del hwf  # only the patch and single-image variants need the frame size
+    H, W, focal = int(hwf[0]), int(hwf[1]), float(hwf[2])
+    nH, nW = cfg.nH, cfg.nW
+    patch_mode = feature_on or smooth_on
+    if patch_mode and (nH > H or nW > W):
+        raise ValueError(f"patch {nH}x{nW} larger than image {H}x{W}")
+    feature_model = None
+    if feature_on:
+        feature_model = (models.lpips if cfg.feature_loss_type == "lpips"
+                         else models.vgg)
+        if feature_model is None:
+            raise ValueError("a feature-loss step needs the perceptual model "
+                             "(build_models with feature_loss)")
     n_depth = int(cfg.N_rand * cfg.depth_rays_prop) if cfg.colmap_depth else 0
     n_rgb = cfg.N_rand - n_depth
+    n_grad = cfg.gradH * cfg.gradW
     coarse_on = cfg.N_importance > 0 and not grid_mode
+    # The no-grad leg renders only forward, so the int8 kernels may take it.
+    rcfg_ng = (dataclasses.replace(rcfg, render_int8=True)
+               if cfg.patch_ng_int8 else rcfg)
 
     def draw(n, table, generator, given):
         dev = table.origins.device
@@ -164,14 +317,110 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
         return torch.randint(0, table.origins.shape[0], (n,), device=dev,
                              generator=generator)
 
+    def stack_fc(o, key, key0):
+        # Grid mode has no coarse leg in the patch losses: [1, ...].
+        if coarse_on:
+            return torch.stack([o[key], o[key0]])
+        return o[key][None]
+
+    def ng_render(prays, patch, rows, generator, aux):
+        """The no-grad leg (JAX ``ng_render``)."""
+        rays = _take(prays, patch.perm[n_grad:])
+        if grid_mode:
+            return _cdf_render(cfg, rcfg_ng, models, rays,
+                               aux.w_rgb[rows[n_grad:]], aux.z, generator,
+                               n_imp=cfg.patch_render_samples,
+                               save_acts=False)
+        tile = pick_render_tile(models.coarse, models.fine, rcfg_ng,
+                                rays.origins.shape[0],
+                                fused_cap=NG_FUSED_CAP, flax_cap=NG_PLAIN_CAP)
+        return render_rays_tiled(models.coarse, models.fine, rays, rcfg_ng,
+                                 generator, tile=tile)
+
+    def patch_terms(loss, metrics, patch, prays, rows, ng, generator, aux,
+                    imp):
+        """The grad leg; adds the patch losses to ``loss``, in JAX's order."""
+        rays = _take(prays, patch.perm[:n_grad])
+        if grid_mode:
+            g_out = _cdf_render(cfg, rcfg, models, rays,
+                                aux.w_rgb[rows[:n_grad]], aux.z, generator,
+                                n_imp=cfg.patch_render_samples)
+        else:
+            g_out = render_rays(models.coarse, models.fine, rays, rcfg,
+                                generator)
+        acc_rgb = _assemble_patch(_clip01(stack_fc(g_out, "rgb_map", "rgb0")),
+                                  _clip01(stack_fc(ng, "rgb_map", "rgb0")),
+                                  patch.perm, n_grad, nH, nW)  # [B, nH, nW, 3]
+        if smooth_on:
+            acc_depth = _assemble_patch(
+                stack_fc(g_out, "depth_map", "depth_map0")[..., None],
+                stack_fc(ng, "depth_map", "depth_map0")[..., None],
+                patch.perm, n_grad, nH, nW)
+            inv_loss = losses.inverse_depth_smoothness_loss(acc_depth, acc_rgb)
+            metrics["inv_loss"] = inv_loss
+            loss = loss + inv_loss * cfg.depth_inverse_lambda * imp
+        if not feature_on:
+            return loss
+        gt = patch.gt_patch[None]
+        fl0 = None
+        if cfg.feature_loss_type == "lpips":
+            # run_nerf.py:1708-1721; one call for both passes' crops.
+            d = feature_model(gt.expand(acc_rgb.shape), acc_rgb,
+                              normalize=True)
+            if cfg.lpips_spatial:
+                metrics["lpips_spatial"] = d[0, ..., 0].detach()
+                feature_loss = torch.mean(d[0:1])
+                if coarse_on:
+                    fl0 = torch.mean(d[1:2])
+            else:
+                feature_loss = d[0]
+                if coarse_on:
+                    fl0 = d[1]
+        else:
+            names = tuple(cfg.vgg_layers or ())
+            with torch.no_grad():
+                feats_gt = feature_model(vgg_normalize(gt))
+            feats = feature_model(vgg_normalize(acc_rgb))
+            feature_loss = losses.vgg_feature_distance(
+                {k: v[0:1] for k, v in feats.items()}, feats_gt, names,
+                cfg.vgg_layer_weights, cfg.vgg_loss_type)
+            if coarse_on:
+                fl0 = losses.vgg_feature_distance(
+                    {k: v[1:2] for k, v in feats.items()}, feats_gt, names,
+                    cfg.vgg_layer_weights, cfg.vgg_loss_type)
+        if fl0 is not None:
+            metrics["feature_loss0"] = fl0
+            feature_loss = feature_loss + fl0
+        metrics["feature_loss"] = feature_loss
+        return loss + feature_loss * cfg.feature_lambda
+
     def step(state: TrainState, rgb_table: RgbRayTable,
              depth_table: Optional[DepthRayTable],
              generator: torch.Generator | None = None, idx=None,
-             idx_d=None, aux: Optional[RayCDF] = None
+             idx_d=None, aux: Optional[RayCDF] = None, patch=None
              ) -> Dict[str, torch.Tensor]:
+        with (_deterministic_cudnn() if feature_on
+              else contextlib.nullcontext()):
+            return run(state, rgb_table, depth_table, generator, idx, idx_d,
+                       aux, patch)
+
+    def run(state, rgb_table, depth_table, generator, idx, idx_d, aux,
+            patch):
         if grid_mode and aux is None:
             raise ValueError("a grid step needs the baked RayCDF (aux)")
         metrics = {}
+        if patch_mode:
+            if patch is None:
+                raise ValueError("a patch step needs patch= (a PatchSource "
+                                 "or a PatchBatch)")
+            if isinstance(patch, PatchSource):
+                patch = sample_patch(patch, nH, nW, generator)
+            ro, rd = patch_ray_dirs(H, W, focal, patch.c2w, patch.start_h,
+                                    patch.start_w, nH, nW)
+            prays = make_rays(ro, rd, rcfg, H, W, focal)
+            rows = _patch_rows(patch, H, W, nH, nW) if grid_mode else None
+            with torch.no_grad():
+                ng = ng_render(prays, patch, rows, generator, aux)
         idx = draw(n_rgb, rgb_table, generator, idx)
         rays = gather_rays(rgb_table, idx, rcfg)
         target_s = rgb_table.rgb[idx]
@@ -226,6 +475,9 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
             metrics["img_loss0"] = img_loss0
             metrics["psnr0"] = losses.mse2psnr(img_loss0)
             loss = loss + img_loss0
+        if patch_mode:
+            loss = patch_terms(loss, metrics, patch, prays, rows, ng,
+                               generator, aux, imp)
         metrics["loss"] = loss
 
         state.optimizer.zero_grad(set_to_none=True)
@@ -233,6 +485,53 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
         state.optimizer.step()
         invalidate_packs(models)
         state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        return {k: v.detach() if torch.is_tensor(v) else torch.tensor(v)
+                for k, v in metrics.items()}
 
     return step
+
+
+class StepPlan(NamedTuple):
+    """What :func:`build_step_fns` hands the driver (JAX ``StepPlan``
+    without the K-step and period dispatch, which the port does not run)."""
+
+    select: Callable  # i -> (step, needs_patch)
+    variant_key: Callable  # i -> (feature_on, gan_on, smooth_on, precrop_on, grid_on)
+
+
+def build_step_fns(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
+                   hwf) -> StepPlan:
+    """The step variants of the loss schedule, built when first selected
+    and cached by key (JAX ``build_step_fns``). At iteration ``i``: feature
+    on iff ``feature_loss and i >= feature_start_iteration and i %
+    feature_loss_every_n == 0``; GAN on iff ``gan_loss and i >=
+    gan_start_iteration``; smoothness on iff ``depth_inverse_loss and i %
+    depth_inverse_loss_every_n == 0``; precrop on iff ``no_batching and i <
+    precrop_iters``; grid on iff ``grid_train and i > grid_train_after``.
+    An oversized patch is refused here, before the first step."""
+    H, W = int(hwf[0]), int(hwf[1])
+    if ((cfg.feature_loss or cfg.gan_loss or cfg.depth_inverse_loss)
+            and (cfg.nH > H or cfg.nW > W)):
+        raise ValueError(f"patch {cfg.nH}x{cfg.nW} larger than image {H}x{W}")
+    variants = {}
+
+    def variant_key(i: int):
+        feature_on = bool(cfg.feature_loss and i >= cfg.feature_start_iteration
+                          and i % cfg.feature_loss_every_n == 0)
+        gan_on = bool(cfg.gan_loss and i >= cfg.gan_start_iteration)
+        smooth_on = bool(cfg.depth_inverse_loss
+                         and i % cfg.depth_inverse_loss_every_n == 0)
+        precrop_on = bool(cfg.no_batching and i < cfg.precrop_iters)
+        grid_on = bool(cfg.grid_train and i > cfg.grid_train_after)
+        return (feature_on, gan_on, smooth_on, precrop_on, grid_on)
+
+    def select(i: int):
+        key = variant_key(i)
+        if key not in variants:
+            feature_on, gan_on, smooth_on, _, grid_on = key
+            variants[key] = make_train_step(
+                cfg, rcfg, models, hwf, grid_mode=grid_on,
+                feature_on=feature_on, gan_on=gan_on, smooth_on=smooth_on)
+        return variants[key], any(key[:3])
+
+    return StepPlan(select, variant_key)

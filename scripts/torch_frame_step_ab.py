@@ -60,7 +60,7 @@ def main():
     rcfg = render_config_from(cfg, 0, 0.0, 1.0)
     models = build_models(cfg, rcfg, device=dev)
     with torch.no_grad():
-        for m in models:
+        for m in (models.coarse, models.fine):
             m.sigma.weight *= 50.0
             m.sigma.bias += -2.0
             m.rgb.weight *= 30.0

@@ -148,18 +148,27 @@ _UNPORTED = {
     "gan_loss": dict(gan_loss=True),
     "depth_inverse_loss": dict(depth_inverse_loss=True),
     "patch_ng_int8": dict(patch_ng_int8=True),
-    # Grid mode is ported; its patch legs wait for the patch losses.
     "grid_train_feature_loss": dict(grid_train=True, feature_loss=True),
     "alpha_model_path": dict(alpha_model_path="alpha.tar"),
     "no_coarse": dict(no_coarse=True),
     "mesh_shape": dict(mesh_shape=[2]),
     "dist_coordinator": dict(dist_coordinator="localhost:1234"),
 }
+# The patch losses and their grid variant are ported: the driver's refusal
+# passes them (the driver tests of test_torch_port_patch_driver.py train
+# them).
+_PORTED_SINCE = {"feature_loss", "depth_inverse_loss", "patch_ng_int8",
+                 "grid_train_feature_loss"}
 
 
 @pytest.mark.parametrize("case", list(_UNPORTED))
 def test_unported_flags_refused_before_writing(scene_dir, tmp_path, case):
+    from depth_lidar_nerf_tpu_torch.train.loop import _refuse_unported
+
     cfg = _cfg(scene_dir, tmp_path, **_UNPORTED[case])
+    if case in _PORTED_SINCE:
+        _refuse_unported(cfg)
+        return
     with pytest.raises(NotImplementedError, match="not ported to PyTorch"):
         _train(cfg)
     assert not os.path.exists(os.path.join(str(tmp_path), "t"))

@@ -26,9 +26,12 @@ bad = sorted(m for m in sys.modules
                                     "tensorboardX"))
 print(len(names), bad)
 assert not bad, bad
-# The modules of the grid slice are among those walked.
+# The modules of the grid and patch-loss slices are among those walked.
 assert {"depth_lidar_nerf_tpu_torch.ops.ray_cdf",
-        "depth_lidar_nerf_tpu_torch.ops.density_grid"} <= set(names), names
+        "depth_lidar_nerf_tpu_torch.ops.density_grid",
+        "depth_lidar_nerf_tpu_torch.models.vgg",
+        "depth_lidar_nerf_tpu_torch.models.lpips",
+        "depth_lidar_nerf_tpu_torch.evaluation.eval_metrics"} <= set(names), names
 """
 
 
@@ -37,7 +40,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr + out.stdout
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 41, out.stdout
+    assert n_modules >= 44, out.stdout
 
 
 def test_entry_points_need_a_device(monkeypatch, tmp_path):
@@ -62,6 +65,14 @@ def test_entry_points_need_a_device(monkeypatch, tmp_path):
                      rcfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         render_path(models, [torch.eye(4).numpy()], (2, 2, 1.0), rcfg)
+    from depth_lidar_nerf_tpu_torch.evaluation.eval_metrics import \
+        evaluate_dirs
+    from depth_lidar_nerf_tpu_torch.models.lpips import init_lpips
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_lpips()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate_dirs(str(tmp_path), str(tmp_path))
     # The driver raises before it reads or writes anything.
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train(cfg.replace(basedir=str(tmp_path), datadir=str(tmp_path / "no")))

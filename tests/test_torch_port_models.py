@@ -95,4 +95,5 @@ def test_build_models_honours_fused_flag_on_cpu(use_fused_mlp):
                       use_fused_mlp=use_fused_mlp, dataset_type="llff")
     ms = build_models(cfg, render_config_from(cfg, 0, 0.0, 1.0),
                       device="cpu")
-    assert all(isinstance(m, FusedMLP) == use_fused_mlp for m in ms)
+    assert len(ms.nerfs()) == 2 and ms.vgg is None and ms.lpips is None
+    assert all(isinstance(m, FusedMLP) == use_fused_mlp for m in ms.nerfs())

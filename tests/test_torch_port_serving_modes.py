@@ -309,8 +309,10 @@ def test_render_config_flags_match_jax():
     """``render_config_from`` leaves the three serving flags off the training
     config, as JAX's does; ``eval_render_config`` sets them (JAX
     ``train/loop.py:588-598``); the grid flags reach neither, as in JAX
-    (the driver sets them where it bakes a grid); the int8 patch leg still
-    raises; fine-only serving needs a fine pass."""
+    (the driver sets them where it bakes a grid); ``patch_ng_int8`` reaches
+    no training config either (only the patch step's no-grad leg sets
+    ``render_int8``, so its base step is built as without it); fine-only
+    serving needs a fine pass."""
     from depth_lidar_nerf_tpu.train import config as jcfg
     from depth_lidar_nerf_tpu_torch.render.renderer import RenderConfig
     from depth_lidar_nerf_tpu_torch.train import config as tcfg
@@ -346,6 +348,9 @@ def test_render_config_flags_match_jax():
             tcfg.TrainConfig(render_fine_only=True, N_importance=0), tr)
     cfg = tcfg.TrainConfig(netdepth=2, netdepth_fine=2, netwidth=128,
                            netwidth_fine=128, patch_ng_int8=True)
+    assert tcfg.render_config_from(cfg, 0, 2.0, 6.0) == tcfg.render_config_from(
+        cfg.replace(patch_ng_int8=False), 0, 2.0, 6.0)
     models = build_models(cfg, tr, device="cpu")
-    with pytest.raises(NotImplementedError, match="patch_ng_int8"):
-        make_train_step(cfg, tr, models, (4, 4, 4.0))
+    assert callable(make_train_step(cfg, tr, models, (4, 4, 4.0)))
+    with pytest.raises(NotImplementedError, match="gan_loss"):
+        make_train_step(cfg.replace(gan_loss=True), tr, models, (4, 4, 4.0))
