@@ -201,7 +201,26 @@ which raises on failure:
    B (resumed to 300) and C (300); the [TRAIN] PSNR up by 2 dB from
    iteration 25; the [TEST] line carries LPIPS; B within ``TRAJ_TOL``'s
    update limit of C; the metric keys where the patch iterations fall;
-15. one ``{"kernels": [...]}`` JSON line with every kernel.
+15. the GAN loss, the frozen-alpha model and single-image batching. 15a:
+   14a's KITTI stack with the GAN (``GAN_FIELDS``: the GAN keys of
+   ``configs/content_loss.txt``, noise std 0.1; an ESR discriminator on the
+   94 x 352 crop): the GAN step's and the GAN + feature + smoothness step's
+   ms, the discriminator step alone, the 10-iteration period past
+   ``gan_start`` (9 GAN + 1 GAN + VGG + smoothness) per iteration, peak
+   device memory, launches (those of 14a's patch step), one profiled GAN
+   iteration; two runs of 5 GAN iterations from one seed bit for bit
+   (discriminator and moments included); one GAN step kernel path against
+   plain path from the state of 9 base steps (float32 and bfloat16,
+   ``TRAJ_TOL``; the discriminator's update with the MLPs'). 15b: the
+   driver on ``configs/flagship_synthetic.txt`` with the GAN, runs A (60),
+   B (resumed to 120) and C (120): B equals C bit for bit, the checkpoint's
+   MiB, the CLI's ``--render_only --render_test`` frame equal to the
+   in-process one. 15c: ``--alpha_model_path`` fine-tunes from phase 12's
+   checkpoint, then with ``--no_coarse``: no fused-MLP launch (JAX's route),
+   kernel 14 launched, the rendered density the alpha model's bit for bit,
+   the density head unmoved. 15d: ``--no_batching`` with ``precrop_iters``
+   on phase 12's scene: the base step's launches, ms/step beside phase 5's;
+16. one ``{"kernels": [...]}`` JSON line with every kernel.
 
 It prints ``phase N done at T s`` as it goes; a whole run should stay well
 within the 1,200 s limit on an H100, the build included (PERF.md). The last line is ``{"ok": true,
@@ -2741,10 +2760,13 @@ def driver_run(cfg, hook=None):
 
 
 def net_params(models, clone=False):
-    """Both MLPs' tensors by ``net.name``."""
+    """Both MLPs' tensors by ``net.name``, and the discriminator's where
+    there is one (``disc.name``)."""
+    nets = [("coarse", models.coarse), ("fine", models.fine)]
+    if getattr(models, "discriminator", None) is not None:
+        nets.append(("disc", models.discriminator))
     return {f"{net}.{k}": v.detach().clone() if clone else v.detach()
-            for net, m in (("coarse", models.coarse), ("fine", models.fine))
-            for k, v in m.state_dict().items()}
+            for net, m in nets for k, v in m.state_dict().items()}
 
 
 def resume_check(label, params_b, state_c, cfg_c, rcfg, dev):
@@ -2772,7 +2794,7 @@ def resume_check(label, params_b, state_c, cfg_c, rcfg, dev):
     return gap, identical
 
 
-def driver_phase(fmt, sc, dev, card, ms_step_5, fns):
+def driver_phase(fmt, sc, dev, card, ms_step_5, fns, keep=None):
     """Phase 12: ``train()`` on a scene that the port's ``make_scene`` writes
     to disk (8 views of 94 x 352, focal 88, 8,000 LiDAR points each, view 7
     held out), ``configs/synthetic_smoke.txt`` at the ``two_mlp`` stack
@@ -2787,7 +2809,9 @@ def driver_phase(fmt, sc, dev, card, ms_step_5, fns):
     subprocess, whose rgb must equal an in-process ``render_image`` of the
     restored checkpoint bit for bit, and again with ``--render_int8``
     (kernel 10). Returns the numbers for the JSON line and the window's
-    launch counts."""
+    launch counts. With a list ``keep``, the scene and run C's checkpoint
+    stay on disk for phase 15 (``(tmp, cfg_c)`` appended; the caller cleans
+    up)."""
     import tempfile
 
     import numpy as np
@@ -2975,7 +2999,10 @@ def driver_phase(fmt, sc, dev, card, ms_step_5, fns):
           f"{np.abs(served8 - served).mean():.3g}")
     check(counts["fused_nerf_fwd_q8"] == 2 * n_tiles
           and counts["fused_nerf_fwd"] == 0, "kernel 10 served the int8 frame")
-    tmp.cleanup()
+    if keep is None:
+        tmp.cleanup()
+    else:
+        keep.append((tmp, cfg_c))
     return {"ms_per_step": ms_step, "rays_per_s": TRAIN_N_RAYS * 1e3 / ms_step,
             "bare_step_ms_phase5": ms_step_5,
             "bare_step_ms_driver_scene": bare_ms,
@@ -3570,8 +3597,10 @@ def kitti_stack(dev, root, dtype="bfloat16", **over):
 
 
 def patch_kernel_vs_plain(label, stack, fns, renderer, plain_sampler, dtypes,
-                          grid=None, **over):
-    """One patch step (feature + smoothness) of the kernel path and of the
+                          grid=None, variant=None, **over):
+    """One patch step (``variant``, feature + smoothness unless given; with
+    the GAN, the discriminator's update is held with the MLPs') of the
+    kernel path and of the
     plain path (plain modules, the sampling twin; no kernel may launch) on
     ``stack`` (:func:`kitti_stack`'s config, render config, tables, scene,
     patch source and perceptual models) with ``over``, per dtype, with
@@ -3610,9 +3639,12 @@ def patch_kernel_vs_plain(label, stack, fns, renderer, plain_sampler, dtypes,
             mlps = build_models(cfg.replace(feature_loss=False,
                                             use_fused_mlp=not plain), rcfg,
                                 device="cpu" if plain else dev)
+            disc = mlps.discriminator
             m = mlps._replace(coarse=mlps.coarse.to(dev),
                               fine=mlps.fine.to(dev), vgg=percept[0],
-                              lpips=percept[1])
+                              lpips=percept[1],
+                              discriminator=None if disc is None
+                              else disc.to(dev))
             check(isinstance(m.coarse, FusedMLP) != plain, f"{label} models")
             paths[plain] = (m, init_train_state(cfg, m))
         (mk, sk), (mp, sp) = paths[False], paths[True]
@@ -3633,7 +3665,8 @@ def patch_kernel_vs_plain(label, stack, fns, renderer, plain_sampler, dtypes,
         for plain, (m, st) in paths.items():
             stp = make_train_step(cfg, rcfg, m, scn.hwf,
                                   grid_mode=grid is not None,
-                                  feature_on=True, smooth_on=True)
+                                  **(variant or dict(feature_on=True,
+                                                     smooth_on=True)))
             init = net_params(m, clone=True)
             gen = torch.Generator(device=dev).manual_seed(6)
             n_before = [fn.launches for fn in fns.values()]
@@ -4063,6 +4096,489 @@ def flagship_driver_phase(fmt, sc, dev, card, fns):
             "test_ms": [1e3 * x for x in costs["test_s"]],
             "wall_s": {"A": wall_a, "B": wall_b, "C": wall_c},
             "card": card}, launches
+
+
+# Phase 15: the GAN loss on the KITTI stack (the GAN keys of
+# configs/content_loss.txt, JAX's default input-noise std), the GAN driver
+# on the flagship config, the frozen-alpha fine-tune from phase 12's
+# checkpoint and single-image batching.
+GAN_FIELDS = dict(gan_loss=True, gan_start_iteration=1, gan_lambda=1e-3,
+                  gan_disc_lrate=5e-4, gan_noise_std=0.1)
+GAN_FLAGS = ("--gan_loss", "True", "--gan_start_iteration", "1",
+             "--gan_lambda", "1e-3", "--gan_disc_lrate", "5e-4",
+             "--gan_noise_std", "0.1")
+GAN_STEPS = (2, 5)  # GAN iterations: warm-up, timed (15a)
+GAN_DET_ITERS = 5  # iterations of the two runs that must agree bit for bit
+GAN_DRIVER_STEPS = (60, 120)  # 15b: run A stops and saves; B and C end
+GAN_DRIVER_PRINT = 20
+ALPHA_STEPS, ALPHA_PRINT = 30, 5  # 15c: fine-tune steps, i_print
+NB_STEPS, NB_PRECROP = 30, 15  # 15d: driver steps, precrop_iters
+
+
+def optimizer_state(state):
+    """Both optimizers' moments and counts (the discriminator's with the
+    GAN), by parameter position, and the step."""
+    import torch
+
+    out = {"step": torch.tensor(state.step)}
+    for name, opt in (("nerf", state.optimizer),
+                      ("disc", state.disc_optimizer)):
+        if opt is None:
+            continue
+        out[f"{name}.count"] = torch.tensor(opt.count)
+        for i, p in enumerate(opt.param_groups[0]["params"]):
+            for k, v in opt.state.get(p, {}).items():
+                out[f"{name}.{i}.{k}"] = v.detach().clone()
+    return out
+
+
+def same_tensors(a, b):
+    """Whether two dicts of tensors hold the same keys and equal tensors."""
+    import torch
+
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def gan_phase(fmt, sc, renderer, dev, card, plain_sampler, fns):
+    """Phase 15a (see the module note): the GAN iteration of the KITTI stack
+    at full width. Returns the numbers for the JSON line and each kernel's
+    launches on this path."""
+    import tempfile
+
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.train import losses as L
+    from depth_lidar_nerf_tpu_torch.train.state import (build_models,
+                                                        init_train_state)
+    from depth_lidar_nerf_tpu_torch.train.step import (_deterministic_cudnn,
+                                                       make_train_step,
+                                                       sample_patch)
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_gan_")
+    zero, counts = _counter(fns)
+    launches = dict.fromkeys(fns, 0)
+
+    def add(got):
+        for k in fns:
+            launches[k] += got[k]
+
+    t0 = time.time()
+    cfg, rcfg, models, tabs, scn, src = kitti_stack(dev, tmp.name,
+                                                    **GAN_FIELDS)
+    disc = models.discriminator
+    nH, nW = cfg.nH, cfg.nW
+    check(disc is not None and (nH, nW, cfg.gradH, cfg.gradW)
+          == (94, 352, 32, 64) and disc.classifier[0].in_features == 67584
+          and cfg.feature_loss and cfg.depth_inverse_loss,
+          "the KITTI stack with the GAN")
+    state = init_train_state(cfg, models)
+    gan = make_train_step(cfg, rcfg, models, scn.hwf, gan_on=True)
+    full = make_train_step(cfg, rcfg, models, scn.hwf, gan_on=True,
+                           feature_on=True, smooth_on=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    print(f"GAN iteration: KITTI stack + GAN built in {time.time() - t0:.1f} s"
+          f" (ESR discriminator on {nH}x{nW}, classifier of "
+          f"{disc.classifier[0].in_features} inputs, gan_lambda "
+          f"{cfg.gan_lambda:g}, disc lrate {cfg.gan_disc_lrate:g}, noise std "
+          f"{cfg.gan_noise_std:g})", flush=True)
+
+    def run_gan():
+        return gan(state, *tabs, gen, patch=src)
+
+    def run_full():
+        return full(state, *tabs, gen, patch=src)
+
+    zero()
+    make_train_step(cfg, rcfg, models, scn.hwf, feature_on=True,
+                    smooth_on=True)(state, *tabs, gen, patch=src)
+    torch.cuda.synchronize()
+    patch_counts = counts()  # the patch step without the GAN (phase 14a's)
+    add(patch_counts)
+    zero()
+    m = run_gan()
+    torch.cuda.synchronize()
+    gan_counts = counts()
+    add(gan_counts)
+    zero()
+    run_full()
+    torch.cuda.synchronize()
+    full_counts = counts()
+    add(full_counts)
+    print(f"GAN step launches {gan_counts}; GAN + feature + smoothness "
+          f"{full_counts} (the patch step without the GAN, phase 14a's: "
+          f"{patch_counts})", flush=True)
+    check({"gan_loss", "loss_dis"} <= set(m), "GAN metrics")
+    check(gan_counts == full_counts == patch_counts,
+          "a GAN step launches the patch step's kernels (base step, no-grad "
+          "leg on kernel 6, grad leg on kernels 7 and 8, kernel 14)")
+    peak = {}
+    for name, fn in (("gan", run_gan), ("gan_feature_smooth", run_full)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() / 2 ** 20
+    zero()
+    gan_ms = cuda_ms(run_gan, reps=GAN_STEPS[1], warmup=GAN_STEPS[0])
+    full_ms = cuda_ms(run_full, reps=3, warmup=1)
+
+    def period():  # past gan_start: 9 GAN iterations, 1 with VGG + smoothness
+        for _ in range(9):
+            run_gan()
+        run_full()
+
+    period_ms = cuda_ms(period, reps=1, warmup=0) / 10
+    add(counts())
+
+    # The discriminator step alone (three forwards of a 94 x 352 crop, one
+    # backward, its Adam), as the step runs it.
+    pb = sample_patch(src, nH, nW, gen)
+    fake = torch.rand((2, nH, nW, 3), device=dev, generator=gen)
+    std = L.gan_noise_std_at(state.step, cfg.gan_noise_std)
+
+    def noise():
+        return torch.randn((1, nH, nW, 3), device=dev, generator=gen) * std
+
+    def disc_alone():
+        with _deterministic_cudnn():
+            loss_fake = 0.5 * (L.gan_mse(disc(fake[0:1] + noise()), 0.0)
+                               + L.gan_mse(disc(fake[1:2] + noise()), 0.0))
+            loss = loss_fake + L.gan_mse(disc(pb.gt_patch[None] + noise()),
+                                         1.0)
+            state.disc_optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            state.disc_optimizer.step()
+
+    disc_ms = cuda_ms(disc_alone, reps=5, warmup=1)
+    print(f"GAN iteration ({card}): GAN step {gan_ms:.2f} ms, GAN + feature "
+          f"+ smoothness step {full_ms:.2f} ms, the discriminator step alone "
+          f"{disc_ms:.2f} ms; period of 10 (9 GAN + 1 GAN + VGG + smoothness)"
+          f" {period_ms:.2f} ms/iteration; peak device memory GAN "
+          f"{peak['gan']:.0f} MiB, GAN + VGG {peak['gan_feature_smooth']:.0f}"
+          f" MiB", flush=True)
+    zero()
+    prof = profile_step(run_gan, "GAN iteration")
+    add(counts())
+
+    # Two runs of 5 GAN iterations (the 5th with VGG and smoothness) from
+    # one seeded state: bit for bit, the discriminator and the moments too.
+    def det_run():
+        m = build_models(cfg.replace(feature_loss=False), rcfg, device=dev)
+        m = m._replace(vgg=models.vgg)
+        st = init_train_state(cfg, m)
+        g = make_train_step(cfg, rcfg, m, scn.hwf, gan_on=True)
+        f = make_train_step(cfg, rcfg, m, scn.hwf, gan_on=True,
+                            feature_on=True, smooth_on=True)
+        gn = torch.Generator(device=dev).manual_seed(7)
+        for i in range(1, GAN_DET_ITERS + 1):
+            (f if i == GAN_DET_ITERS else g)(st, *tabs, gn, patch=src)
+        torch.cuda.synchronize()
+        return {**net_params(m, clone=True), **optimizer_state(st)}
+
+    zero()
+    run1, run2 = det_run(), det_run()
+    add(counts())
+    det = same_tensors(run1, run2)
+    print(f"two runs of {GAN_DET_ITERS} GAN iterations from one seed: "
+          f"{len(run1)} tensors, bit-identical {det}", flush=True)
+    check(det, "two GAN runs from one state agree bit for bit")
+    del run1, run2, state, gan, full
+    torch.cuda.empty_cache()
+    stack = (cfg, rcfg, tabs, scn, src, (models.vgg, models.lpips))
+    gaps = patch_kernel_vs_plain("GAN step", stack, fns, renderer,
+                                 plain_sampler, ("float32", "bfloat16"),
+                                 variant=dict(gan_on=True))
+    del stack, tabs, src, models
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    print(f"phase 15a done at {time.time() - T_START:.0f} s", flush=True)
+    return {"gan_ms": gan_ms, "gan_feature_smooth_ms": full_ms,
+            "disc_step_ms": disc_ms, "period_ms_per_iteration": period_ms,
+            "peak_mib": peak, "profile": prof,
+            "launches": {"gan": gan_counts, "gan_feature_smooth": full_counts},
+            "bit_identical_runs": det, "kernel_vs_plain": gaps,
+            "card": card}, launches
+
+
+def gan_driver_phase(fmt, sc, dev, card, fns):
+    """Phase 15b: ``train()`` on ``configs/flagship_synthetic.txt`` with the
+    GAN (``GAN_FLAGS``: every iteration a GAN iteration, feature and
+    smoothness every 10th), cut to ``GAN_DRIVER_STEPS`` iterations, on the
+    scene of phase 14d: run A saves at 60, B resumes it to 120, C runs 120
+    from scratch with its launches counted. B equals C bit for bit (the
+    MLPs, the discriminator and both optimizers' moments and counts); the
+    checkpoint's MiB; the CLI's ``--render_only --render_test`` frame of
+    C's checkpoint equals an in-process ``render_image`` bit for bit."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.data.synthetic import make_scene
+    from depth_lidar_nerf_tpu_torch.render.renderer import render_image
+    from depth_lidar_nerf_tpu_torch.train import checkpoint
+    from depth_lidar_nerf_tpu_torch.train.config import (eval_render_config,
+                                                         parse_args,
+                                                         render_config_from)
+    from depth_lidar_nerf_tpu_torch.train.loop import load_scene
+    from depth_lidar_nerf_tpu_torch.train.state import (build_models,
+                                                        init_train_state)
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_gan_driver_")
+    root = tmp.name
+    make_scene(os.path.join(root, "scene"), n_images=FLAGSHIP_VIEWS, H=H, W=W,
+               focal=FOCAL, n_depth_points=DRIVER_DEPTH_POINTS, seed=1,
+               backdrop=True)
+    a_steps, c_steps = GAN_DRIVER_STEPS
+
+    def argv(expname, n_iters):
+        return ["--config", FLAGSHIP_CONFIG,
+                "--datadir", os.path.join(root, "scene"),
+                "--basedir", os.path.join(root, "logs"), "--expname", expname,
+                "--N_iters", str(n_iters), "--i_print", str(GAN_DRIVER_PRINT),
+                "--i_weights", str(a_steps), "--i_testset", "0",
+                "--no_reload_optimizer", "False", *GAN_FLAGS]
+
+    cfg_a = parse_args(argv("resumed", a_steps))
+    check(cfg_a.gan_loss and cfg_a.gan_start_iteration == 1
+          and cfg_a.feature_loss and (cfg_a.nH, cfg_a.nW) == (H, W),
+          "the flagship config with the GAN")
+    state_a, wall_a, _ = driver_run(cfg_a)
+    check(state_a.step == a_steps and state_a.disc_optimizer.count == a_steps,
+          "GAN run A's step")
+    del state_a
+    state_b, wall_b, out_b = driver_run(cfg_a.replace(N_iters=c_steps))
+    check(f"resumed from checkpoint at step {a_steps}" in out_b,
+          "GAN run B resumes")
+    snap_b = {**net_params(state_b.models, clone=True),
+              **optimizer_state(state_b)}
+    del state_b
+    torch.cuda.empty_cache()
+    seen = {}
+    zero, counts = _counter(fns)
+    cfg_c = cfg_a.replace(expname="fresh", N_iters=c_steps)
+    zero()
+    state_c, wall_c, out_c = driver_run(cfg_c,
+                                        lambda i, m: seen.setdefault(i, m))
+    launches = counts()
+    zero()
+    snap_c = {**net_params(state_c.models, clone=True),
+              **optimizer_state(state_c)}
+    identical = same_tensors(snap_b, snap_c)
+    ck_path = checkpoint.path_of(checkpoint.ckpt_dir(cfg_c.basedir,
+                                                     cfg_c.expname), c_steps)
+    ck_mib = os.path.getsize(ck_path) / 2 ** 20
+    keys = {i: sorted(m) for i, m in seen.items()}
+    psnr = {i: m["psnr"] for i, m in seen.items()}
+    print(f"GAN driver: resumed run B vs run C at {c_steps}: {len(snap_c)} "
+          f"tensors (MLPs, discriminator, both optimizers), bit-identical "
+          f"{identical}; checkpoint {ck_mib:.2f} MiB; [TRAIN] psnr {psnr}; "
+          f"metric keys {keys}; launches {launches}; wall s: run A "
+          f"{wall_a:.1f}, B {wall_b:.1f}, C {wall_c:.1f} on {card}",
+          flush=True)
+    check(identical, "GAN run B equals run C bit for bit")
+    check(all({"gan_loss", "loss_dis"} <= set(m) for m in seen.values()),
+          "every GAN driver iteration is a GAN iteration")
+    check(launches["fused_nerf_fwd_sem"] > 0
+          and launches["fused_nerf_fwd_acts_sem"] > 0
+          and launches["fused_nerf_bwd_acts_sem"] > 0
+          and launches[sc.KERNEL] > 0 and launches[fmt.KERNEL] == 0,
+          "the GAN driver ran the semantic kernels and kernel 14")
+    del state_c, snap_b, snap_c
+    torch.cuda.empty_cache()
+
+    expdir = os.path.join(root, "logs", "fresh")
+    outdir = os.path.join(expdir, f"renderonly_test_{c_steps:06d}")
+    t = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "depth_lidar_nerf_tpu_torch.train",
+         *argv("fresh", c_steps), "--render_only", "--render_test"],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    wall_cli = time.time() - t
+    check(proc.returncode == 0, f"GAN CLI render_only: {proc.stderr[-2000:]}")
+    served = np.load(os.path.join(outdir, "000.npz"))["rgb"]
+    scene = load_scene(cfg_c)
+    rcfg = render_config_from(cfg_c, scene.num_semantic_classes, scene.near,
+                              scene.far)
+    models = build_models(cfg_c, rcfg, device=dev)
+    checkpoint.restore(checkpoint.load_file(ck_path),
+                       init_train_state(cfg_c, models),
+                       checkpoint.topology(cfg_c, rcfg.num_semantic_classes))
+    frame = render_image(models.coarse, models.fine, H, W, FOCAL,
+                         scene.poses[int(scene.i_test[0])],
+                         eval_render_config(cfg_c, rcfg), device=dev)
+    rgb = frame["rgb_map"].float().cpu().numpy()
+    cli_equal = bool(np.array_equal(rgb, served))
+    print(f"GAN driver CLI --render_only --render_test: exit 0 in "
+          f"{wall_cli:.1f} s; frame vs in-process render_image: bit-identical "
+          f"{cli_equal} (max abs diff {np.abs(rgb - served).max():.3g})",
+          flush=True)
+    check(cli_equal, "GAN CLI frame equals the in-process frame bit for bit")
+    del models, frame
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    print(f"phase 15b done at {time.time() - T_START:.0f} s", flush=True)
+    return {"resume_bit_identical": identical, "checkpoint_mib": ck_mib,
+            "psnr": psnr, "metric_keys": keys, "launches": launches,
+            "cli_frame_bit_identical": cli_equal,
+            "wall_s": {"A": wall_a, "B": wall_b, "C": wall_c,
+                       "cli": wall_cli}, "card": card}, launches
+
+
+def timed_hook(store):
+    """A metrics hook that keeps each ``i_print`` iteration's metrics and
+    the host time at it, once the device's work up to it is done."""
+    import torch
+
+    def hook(i, m):
+        torch.cuda.synchronize()
+        store[i] = (time.time(), m)
+    return hook
+
+
+def window_ms(store, lo, hi):
+    """Host ms per step between the ``i_print`` iterations ``lo`` and
+    ``hi`` of a :func:`timed_hook` store."""
+    return (store[hi][0] - store[lo][0]) * 1e3 / (hi - lo)
+
+
+def alpha_phase(fmt, sc, dev, card, fns, kept):
+    """Phase 15c: fine-tunes from phase 12's checkpoint (run C's newest) with
+    ``--alpha_model_path``, then with ``--no_coarse`` too, through
+    ``train()``, ``ALPHA_STEPS`` steps each at phase 12's stack. The MLPs
+    run as JAX's frozen-alpha route runs them, plain modules (no fused-MLP
+    launch), sampling on kernel 14; the density the fine-tune renders equals
+    the alpha model's bit for bit (and the coarse pass's, which with
+    ``no_coarse`` is the alpha model); the trained density head keeps its
+    seeded weights while the colour branch moves."""
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.models.nerf_mlp import NeRFMLP
+    from depth_lidar_nerf_tpu_torch.render.renderer import query_network
+    from depth_lidar_nerf_tpu_torch.train import checkpoint
+    from depth_lidar_nerf_tpu_torch.train.config import (parse_args,
+                                                         render_config_from)
+    from depth_lidar_nerf_tpu_torch.train.state import (FrozenModel,
+                                                        build_models)
+
+    tmp, cfg12 = kept
+    root = tmp.name
+    ckdir = checkpoint.ckpt_dir(cfg12.basedir, cfg12.expname)
+    src = checkpoint.path_of(ckdir, checkpoint.latest_step(ckdir))
+    zero, counts = _counter(fns)
+    launches = dict.fromkeys(fns, 0)
+    out = {"card": card}
+    g = torch.Generator(device=dev).manual_seed(3)
+    pts = torch.rand((4096, 64, 3), device=dev, generator=g) * 2 - 1
+    vd = torch.nn.functional.normalize(
+        torch.randn((4096, 3), device=dev, generator=g), dim=-1)
+    for no_coarse in (False, True):
+        label = "no_coarse" if no_coarse else "alpha"
+        cfg = parse_args(driver_argv(
+            root, f"ft_{label}", ALPHA_STEPS,
+            ("--alpha_model_path", src, "--no_coarse", str(no_coarse),
+             "--i_print", str(ALPHA_PRINT))))
+        store = {}
+        zero()
+        state, wall, _ = driver_run(cfg, timed_hook(store))
+        got = counts()
+        for k in fns:
+            launches[k] += got[k]
+        zero()
+        ms = window_ms(store, 2 * ALPHA_PRINT, ALPHA_STEPS)
+        rcfg = render_config_from(cfg, 0, 0.0, 1.0)
+        alpha = NeRFMLP(depth=cfg.netdepth_fine, width=cfg.netwidth_fine,
+                        in_channels=state.models.fine.in_channels,
+                        in_channels_views=state.models.fine.in_channels_views,
+                        output_ch=5, dtype=state.models.fine.dtype).to(dev)
+        alpha.load_state_dict(checkpoint.load_file(src)["models"]["fine"])
+        with torch.no_grad():
+            want = query_network(alpha, pts, vd, rcfg)
+            fine = query_network(state.models.fine, pts, vd, rcfg)
+            coarse = query_network(state.models.coarse, pts, vd, rcfg)
+        same_fine = torch.equal(fine[..., 3], want[..., 3])
+        same_coarse = (torch.equal(coarse, want) if no_coarse
+                       else torch.equal(coarse[..., 3], want[..., 3]))
+        init = build_models(cfg, rcfg, device=dev, seed=cfg.seed)
+        heads = [torch.equal(getattr(m, "sigma").weight,
+                             getattr(i, "sigma").weight)
+                 for m, i in ((state.models.fine, init.fine),
+                              (state.models.coarse, init.coarse))
+                 if not isinstance(m, FrozenModel)]
+        rgb_moved = not torch.equal(state.models.fine.rgb.weight,
+                                    init.fine.rgb.weight)
+        fused = {k: v for k, v in got.items() if k != sc.KERNEL and v}
+        print(f"frozen alpha ({label}) from phase 12's checkpoint: "
+              f"{ALPHA_STEPS} steps, {ms:.1f} ms/step over steps "
+              f"{2 * ALPHA_PRINT + 1}-{ALPHA_STEPS} (host clock; phase 12's "
+              f"fused driver step is the kernels' route); wall {wall:.1f} s; "
+              f"launches: kernel 14 {got[sc.KERNEL]}, fused MLP kernels "
+              f"{sum(fused.values())} {fused}; rendered density equal to the "
+              f"alpha model's: fine {same_fine}, coarse {same_coarse}; "
+              f"density heads unmoved {heads}; colour moved {rgb_moved} on "
+              f"{card}", flush=True)
+        check(not fused and got[sc.KERNEL] > 0,
+              f"{label}: plain MLPs (JAX's route) and kernel 14")
+        check(same_fine and same_coarse, f"{label}: the alpha model's density")
+        check(all(heads) and heads and rgb_moved,
+              f"{label}: the density head frozen, the colour trained")
+        check(isinstance(state.models.coarse, FrozenModel) == no_coarse,
+              f"{label}: the coarse field")
+        out[label] = {"ms_per_step": ms, "wall_s": wall, "launches": got,
+                      "density_equal": [same_fine, same_coarse]}
+        del state, init, alpha
+        torch.cuda.empty_cache()
+    print(f"phase 15c done at {time.time() - T_START:.0f} s", flush=True)
+    return out, launches
+
+
+def no_batching_phase(fmt, sc, dev, card, fns, kept, ms_step_5):
+    """Phase 15d: ``train()`` with ``--no_batching`` and ``precrop_iters``
+    ``NB_PRECROP`` on phase 12's scene and stack, ``NB_STEPS`` steps: every
+    step runs the base step's kernels (1, 3, 4, 5 with its phases, 14), as
+    many launches as phase 12's window counts a step; ms/step over the
+    precrop steps and over those after, beside phase 5's."""
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.train.config import (parse_args,
+                                                         render_config_from)
+
+    tmp, _ = kept
+    cfg = parse_args(driver_argv(
+        tmp.name, "no_batching", NB_STEPS,
+        ("--no_batching", "True", "--precrop_iters", str(NB_PRECROP),
+         "--precrop_frac", "0.5", "--i_print", "5")))
+    zero, counts = _counter(fns)
+    store = {}
+    zero()
+    state, wall, _ = driver_run(cfg, timed_hook(store))
+    got = counts()
+    zero()
+    check(state.step == NB_STEPS, "the no_batching run's step")
+    rcfg = render_config_from(cfg, 0, 0.0, 1.0)
+    n_chunks = -(-TRAIN_N_RAYS * (rcfg.N_samples + rcfg.N_importance)
+                 // fmt.BWD_CHUNK)
+    want = {k: 0 for k in fns}
+    want.update({fmt.KERNEL: NB_STEPS, "fused_nerf_fwd_acts": NB_STEPS,
+                 "fused_nerf_bwd_culled": NB_STEPS,
+                 "fused_nerf_bwd_acts": NB_STEPS, sc.KERNEL: NB_STEPS,
+                 "fused_nerf_grad_reduce": 2 * NB_STEPS,
+                 "fused_nerf_bwd_chain": NB_STEPS * n_chunks,
+                 "fused_nerf_bwd_weight_grads": NB_STEPS * n_chunks})
+    ms_pre = window_ms(store, 5, NB_PRECROP)
+    ms_after = window_ms(store, NB_PRECROP, NB_STEPS)
+    print(f"no_batching ({card}): {ms_pre:.1f} ms/step over precrop steps "
+          f"6-{NB_PRECROP}, {ms_after:.1f} ms/step over steps "
+          f"{NB_PRECROP + 1}-{NB_STEPS} (host clock, metric fetches "
+          f"included; phase 5's bare step {ms_step_5:.1f} ms); launches "
+          f"{got}", flush=True)
+    check(got == want, f"no_batching launch counts, want {want}")
+    del state
+    torch.cuda.empty_cache()
+    print(f"phase 15d done at {time.time() - T_START:.0f} s", flush=True)
+    return {"ms_per_step_precrop": ms_pre, "ms_per_step_after": ms_after,
+            "bare_step_ms_phase5": ms_step_5, "launches": got,
+            "wall_s": wall, "card": card}, got
 
 
 def main() -> int:
@@ -4588,8 +5104,9 @@ def main() -> int:
     sem = semantic_phases(fmt, sc, renderer, dev, card, plain_sampler)
 
     # ---- 12. the driver: train, resume and serve a scene from disk -------------
+    kept = []  # phase 12's scene and checkpoint, for phases 15c and 15d
     driver, driver_launches = driver_phase(fmt, sc, dev, card, ms_step,
-                                           kernel_fns(fmt, sc))
+                                           kernel_fns(fmt, sc), keep=kept)
     print(f"phase 12 done at {time.time() - T_START:.0f} s", flush=True)
 
     # ---- 13. grid training and baked-density-grid serving -----------------------
@@ -4613,14 +5130,28 @@ def main() -> int:
                                                         kernel_fns(fmt, sc))
     print(f"phase 14d done at {time.time() - T_START:.0f} s", flush=True)
 
-    # ---- 15. the kernels line ------------------------------------------------------
+    # ---- 15. the GAN loss, the frozen-alpha model, single-image batching ---
+    gan_out, gan_launches = gan_phase(fmt, sc, renderer, dev, card,
+                                      plain_sampler, kernel_fns(fmt, sc))
+    gan_driver, gan_driver_launches = gan_driver_phase(fmt, sc, dev, card,
+                                                       kernel_fns(fmt, sc))
+    alpha_out, alpha_launches = alpha_phase(fmt, sc, dev, card,
+                                            kernel_fns(fmt, sc), kept[0])
+    nb_out, nb_launches = no_batching_phase(fmt, sc, dev, card,
+                                            kernel_fns(fmt, sc), kept[0],
+                                            ms_step)
+    kept[0][0].cleanup()
+
+    # ---- 16. the kernels line -----------------------------------------------
     src = "depth_lidar_nerf_tpu_torch/csrc/"
     main_launches = {k: launches.get(k, 0) + train_launches.get(k, 0)
                      + int8_launches[k] + sem["launches"][k]
                      + s5["launches"].get(k, 0) + driver_launches.get(k, 0)
                      + grid_step_launches[k] + grid_serving_launches[k]
                      + grid_driver_launches[k] + patch_launches[k]
-                     + flagship_launches[k]
+                     + flagship_launches[k] + gan_launches[k]
+                     + gan_driver_launches[k] + alpha_launches[k]
+                     + nb_launches[k]
                      for k in sem["launches"]}
     kernels = [
         {"name": fmt.KERNEL, "route": "cuda", "source": src + "fused_nerf_fwd.cu",
@@ -4708,6 +5239,8 @@ def main() -> int:
     print(json.dumps({"grid": {"step": grid_step, "serving": grid_serving,
                                "driver": grid_driver}}))
     print(json.dumps({"patch": {**patch_out, "flagship_driver": flagship}}))
+    print(json.dumps({"gan": {**gan_out, "driver": gan_driver},
+                      "frozen_alpha": alpha_out, "no_batching": nb_out}))
     print(f"total {time.time() - T_START:.0f} s")
     print(json.dumps({"training": {
         "ms_per_step": ms_step, "rays_per_s": TRAIN_N_RAYS * 1e3 / ms_step,

@@ -12,6 +12,12 @@ and with the Flax module, layer for layer and name for name (``trunk_i``,
   feature vector;
 - output ``[rgb(3), sigma(1), semantic(C)]``.
 
+The frozen-alpha ``NeRF_RGB`` variant (``run_nerf_helpers.py:176-260``) is
+expressed as in JAX: ``forward(..., frozen_sigma=s)`` puts ``s`` (the frozen
+alpha model's density, computed without a gradient) in place of the density
+head's output, and the head is not evaluated, so its parameters get no
+gradient.
+
 Parameters are float32; ``dtype`` is the compute type (bfloat16 rounds the
 operands of every layer, as Flax ``Dense(dtype=bfloat16)`` does). Weights
 initialise as Flax ``Dense`` does: LeCun-normal kernel (a normal truncated at
@@ -82,7 +88,8 @@ class NeRFMLP(nn.Module):
         return F.linear(x, layer.weight.to(self.dtype), layer.bias.to(self.dtype))
 
     def forward(self, pts_embed: torch.Tensor,
-                views_embed: torch.Tensor | None = None) -> torch.Tensor:
+                views_embed: torch.Tensor | None = None,
+                frozen_sigma: torch.Tensor | None = None) -> torch.Tensor:
         x = pts_embed.to(self.dtype)
         h = x
         for i in range(self.depth):
@@ -92,7 +99,8 @@ class NeRFMLP(nn.Module):
         if not self.use_viewdirs:
             return self._dense("output", h)
 
-        sigma = self._dense("sigma", h)
+        sigma = (self._dense("sigma", h) if frozen_sigma is None
+                 else frozen_sigma.to(self.dtype))
         feature = self._dense("feature", h)
         semantic = None
         if self.num_semantic_classes > 0:

@@ -136,8 +136,8 @@ def query_network(model, pts, viewdirs, cfg: RenderConfig) -> torch.Tensor:
     packed-lane kernels 12 and 13 (``model.apply_raw``) on JAX's predicate
     (``render/renderer.py`` ``query_network``: ``[N, S, 3]`` points with S
     dividing 1,024, view directions, and a model that ``supports_raw``),
-    else the plain module. The port has no frozen-sigma model, JAX's other
-    condition."""
+    else the plain module. A frozen-alpha model is a plain module that puts
+    its alpha model's density in place of its own."""
     if (hasattr(model, "supports_raw") and pts.dim() == 3
             and pts.shape[-2] > 0 and 1024 % pts.shape[-2] == 0
             and viewdirs is not None and model.supports_raw(cfg)):

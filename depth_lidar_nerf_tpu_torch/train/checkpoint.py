@@ -13,7 +13,14 @@ writes one ``torch.save`` file a step, ``<basedir>/<expname>/checkpoints/
 - ``optimizer``: the ``OptaxAdam`` ``state_dict`` (the Adam moments) and
   ``optimizer_count``, its step count, which ``state_dict()`` does not carry
   and the learning-rate schedule and bias corrections read;
+- ``discriminator``, ``disc_optimizer`` and ``disc_optimizer_count``: the
+  GAN's discriminator and its Adam in the same way (all None without the
+  GAN; files of runs without it may lack the keys);
 - ``topology``: the config fields that shape the models, checked on load.
+
+A run with the GAN and a checkpoint without a discriminator, or the other
+way round, are refused on load, as JAX's orbax restore refuses a template
+whose tree differs from the saved one.
 
 A file is written to a temporary name and moved into place with
 ``os.replace``, so a crash leaves no partial checkpoint; the newest
@@ -93,7 +100,14 @@ def save_state(directory: str, state: TrainState, step: int, topo: Dict,
                             else state.models.fine.state_dict())},
         "optimizer": state.optimizer.state_dict(),
         "optimizer_count": int(state.optimizer.count),
+        "discriminator": None, "disc_optimizer": None,
+        "disc_optimizer_count": None,
     }
+    if state.models.discriminator is not None:
+        payload.update(
+            discriminator=state.models.discriminator.state_dict(),
+            disc_optimizer=state.disc_optimizer.state_dict(),
+            disc_optimizer_count=int(state.disc_optimizer.count))
     path = path_of(directory, step)
     tmp = f"{path}.tmp{os.getpid()}"
     torch.save(payload, tmp)
@@ -109,15 +123,9 @@ def load_file(path: str) -> Dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def restore(ckpt: Dict, state: TrainState, topo: Dict,
-            source: str = "checkpoint") -> TrainState:
-    """Load a checkpoint (the dict of :func:`load_file`) into ``state``: the
-    models, the optimizer's moments and count, the step."""
-    if ckpt.get("format") != FORMAT:
-        raise ValueError(
-            f"{source} is neither a checkpoint of this package (format "
-            f"{FORMAT!r}) nor a reference .tar (network_fn_state_dict)")
-    saved = ckpt["topology"]
+def check_topology(saved: Dict, topo: Dict, source: str) -> None:
+    """Refuse a checkpoint whose ``topology`` differs from ``topo`` in any of
+    ``topo``'s fields."""
     diff = {k: (saved.get(k), v) for k, v in topo.items() if saved.get(k) != v}
     if diff:
         raise ValueError(
@@ -125,15 +133,38 @@ def restore(ckpt: Dict, state: TrainState, topo: Dict,
             + ", ".join(f"{k}={a} (this run: {b})" for k, (a, b) in diff.items())
             + " — check the netdepth/netwidth/multires/use_viewdirs flags "
             "match the checkpoint's training config")
+
+
+def restore(ckpt: Dict, state: TrainState, topo: Dict,
+            source: str = "checkpoint") -> TrainState:
+    """Load a checkpoint (the dict of :func:`load_file`) into ``state``: the
+    models, the optimizer's moments and count, the step, and with the GAN
+    the discriminator and its optimizer."""
+    if ckpt.get("format") != FORMAT:
+        raise ValueError(
+            f"{source} is neither a checkpoint of this package (format "
+            f"{FORMAT!r}) nor a reference .tar (network_fn_state_dict)")
+    check_topology(ckpt["topology"], topo, source)
     models = state.models
     if (models.fine is None) != (ckpt["models"]["fine"] is None):
         raise ValueError(f"{source}: the fine MLP is present in only one of "
                          "the checkpoint and this run (N_importance)")
+    disc = models.discriminator
+    if (disc is None) != (ckpt.get("discriminator") is None):
+        raise ValueError(
+            f"{source}: the GAN's discriminator is present in only one of the "
+            "checkpoint and this run (gan_loss); JAX's restore refuses such a "
+            "checkpoint too. Start the run afresh (--no_reload) or fine-tune "
+            "from a reference .tar (--ft_path)")
     models.coarse.load_state_dict(ckpt["models"]["coarse"])
     if models.fine is not None:
         models.fine.load_state_dict(ckpt["models"]["fine"])
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.optimizer.count = int(ckpt["optimizer_count"])
+    if disc is not None:
+        disc.load_state_dict(ckpt["discriminator"])
+        state.disc_optimizer.load_state_dict(ckpt["disc_optimizer"])
+        state.disc_optimizer.count = int(ckpt["disc_optimizer_count"])
     state.step = int(ckpt["step"])
     invalidate_packs(models)
     return state

@@ -10,10 +10,15 @@ stacked scalar metrics, a checkpoint every ``i_weights``, held-out views
 every ``i_testset``, a held-out frame every ``i_img`` (with a summary
 writer) and the spiral every ``i_video``.
 
-Patch losses (``feature_loss``, ``depth_inverse_loss``): every iteration
-runs the step variant that :func:`train.step.build_step_fns` picks for it,
-and a patch iteration draws its crop on the device from the training images
-(:class:`train.step.PatchSource`). The held-out ``[TEST]`` line carries the
+Patch losses (``feature_loss``, ``depth_inverse_loss``, ``gan_loss``): every
+iteration runs the step variant that :func:`train.step.build_step_fns` picks
+for it (past ``gan_start_iteration`` every iteration is a GAN patch
+iteration, as in JAX), and a patch iteration draws its crop on the device
+from the training images (:class:`train.step.PatchSource`). The metrics of
+a GAN iteration carry ``gan_loss`` and ``loss_dis``; they reach the
+summary writer, as JAX's do. ``no_batching`` (with ``precrop_iters``) and
+the frozen-alpha model (``alpha_model_path``, ``no_coarse``) train through
+the same loop. The held-out ``[TEST]`` line carries the
 views' mean LPIPS (AlexNet; weights from ``$LPIPS_TORCH_WEIGHTS`` if set,
 else seed 0), as JAX's.
 
@@ -70,8 +75,8 @@ from depth_lidar_nerf_tpu_torch.train.config import (TrainConfig, dump_args,
 from depth_lidar_nerf_tpu_torch.train.state import (Models, build_models,
                                                     init_train_state,
                                                     make_optimizer)
-from depth_lidar_nerf_tpu_torch.train.step import (_UNPORTED, PatchBatch,
-                                                   PatchSource, build_step_fns)
+from depth_lidar_nerf_tpu_torch.train.step import (PatchBatch, PatchSource,
+                                                   build_step_fns)
 from depth_lidar_nerf_tpu_torch.train.tables import (build_depth_table,
                                                      build_rgb_table)
 from depth_lidar_nerf_tpu_torch.train.torch_import import \
@@ -404,10 +409,10 @@ def _validate_flags(cfg: TrainConfig) -> None:
 
 
 def _refuse_unported(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for every flag whose path the port does
-    not run yet (ROADMAP Queue 1), before anything is written."""
-    unported = [n for n in _UNPORTED + (
-        "alpha_model_path", "no_coarse", "dist_coordinator") if getattr(cfg, n)]
+    """Raise ``NotImplementedError`` for the multi-device flags, whose paths
+    the port does not run yet (ROADMAP Queue 1), before anything is
+    written: a mesh of more than one device and ``dist_coordinator``."""
+    unported = ["dist_coordinator"] if cfg.dist_coordinator else []
     if cfg.mesh_shape and int(np.prod(cfg.mesh_shape)) > 1:
         unported.append("mesh_shape")
     if unported:
@@ -584,7 +589,7 @@ def _train(cfg: TrainConfig, metrics_hook, device: torch.device):
                                         device=device)
     plan = build_step_fns(cfg, rcfg, models, scene.hwf)
     patch_source = None
-    if cfg.feature_loss or cfg.depth_inverse_loss:
+    if cfg.feature_loss or cfg.gan_loss or cfg.depth_inverse_loss:
         patch_source = PatchSource(
             torch.as_tensor(scene.images[scene.i_train], dtype=torch.float32,
                             device=device),

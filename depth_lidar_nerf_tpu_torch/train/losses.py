@@ -13,10 +13,11 @@ Parity targets (the reference train loop):
 - the image-aware inverse-depth smoothness of a rendered patch
   (``loss.py:55-133``);
 - the VGG feature distance (``run_nerf.py:1692-1700``);
-- SSIM, the train-time metric (``loss.py:143-212``).
+- SSIM, the train-time metric (``loss.py:143-212``);
+- the GAN criterion, plain MSE (``run_nerf.py:1263``), and the decaying
+  input-noise std of the discriminator (``run_nerf.py:1860-1862``).
 
-Images are NHWC, as in the JAX package. The GAN terms come with the slice
-that ports the GAN step.
+Images are NHWC, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -136,6 +137,28 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
     if size_average:
         return torch.mean(ssim_map)
     return torch.mean(ssim_map, dim=(1, 2, 3))
+
+
+# ---------------------------------------------------------------------- GAN
+
+def gan_mse(pred: torch.Tensor, target_value: float) -> torch.Tensor:
+    """The reference's adversarial criterion is plain MSE."""
+    return torch.mean((pred - target_value) ** 2)
+
+
+def gan_noise_std_at(step, start_std: float) -> torch.Tensor:
+    """``start_std * 0.9 ** (step / 5000)``, the discriminator's input-noise
+    std at a step count, as a float32 0-d tensor on the CPU, evaluated as
+    JAX's jitted step evaluates it on the int32 count, so that the two agree
+    bit for bit: XLA turns the division by the constant into a product with
+    its float32 reciprocal, then takes ``pow`` and the product in float32.
+    (Dividing instead rounds otherwise at about a quarter of the counts,
+    123,457 among them.)"""
+    f32 = torch.float32
+    x = torch.tensor(float(step), dtype=f32) * (
+        torch.tensor(1.0, dtype=f32) / torch.tensor(5000.0, dtype=f32))
+    return (torch.tensor(start_std, dtype=f32)
+            * torch.tensor(0.9, dtype=f32) ** x)
 
 
 # --------------------------------------------------------------- VGG feature

@@ -2,8 +2,12 @@
 
 Builds the coarse and fine NeRF MLPs of ``create_nerf`` (``run_nerf.py:389-517``)
 as ``nn.Module``s on one device, with weights drawn from a seeded
-``torch.Generator``, and the frozen perceptual model of the feature loss
-(VGG19 or LPIPS), whose weights are read from disk where a file is found.
+``torch.Generator``, the frozen perceptual model of the feature loss
+(VGG19 or LPIPS), whose weights are read from disk where a file is found,
+and with ``gan_loss`` the discriminator (``run_nerf.py:1253-1264``) with its
+own Adam at the constant rate ``gan_disc_lrate``. With ``alpha_model_path``
+the density comes from a frozen pretrained fine MLP
+(:class:`FrozenAlphaMLP`, :class:`FrozenModel`; ``run_nerf.py:400-431``).
 :class:`FusedMLP` dispatches covered topologies to the fused kernels. The optimizer is Adam with the reference's continuous
 exponential LR decay ``lrate * 0.1^(step / (lrate_decay * 1000))``
 (``run_nerf.py:1843-1847``), as the JAX package's optax schedule: the rate
@@ -20,6 +24,7 @@ import torch
 from torch import nn
 
 from depth_lidar_nerf_tpu_torch.device import resolve_device
+from depth_lidar_nerf_tpu_torch.models.discriminator import ESRDiscriminator
 from depth_lidar_nerf_tpu_torch.models.lpips import init_lpips
 from depth_lidar_nerf_tpu_torch.models.nerf_mlp import NeRFMLP
 from depth_lidar_nerf_tpu_torch.models.vgg import (VGG19Features,
@@ -184,15 +189,54 @@ class FusedMLP(NeRFMLP):
             viewdirs=rays.viewdirs, z_vals=z_vals, **kw)
 
 
+class FrozenAlphaMLP(NeRFMLP):
+    """The ``NeRF_RGB`` variant (``run_nerf_helpers.py:176-260``; JAX
+    ``FrozenAlphaMLP``): a :class:`NeRFMLP` whose density comes from a
+    frozen pretrained alpha model. Its forward evaluates ``alpha_module``
+    under ``torch.no_grad()`` and passes column 3 of that raw output as
+    ``frozen_sigma``, so only the colour branch trains and the density head
+    gets no gradient. The alpha model is held outside the module's
+    parameters: it is neither optimized nor checkpointed, as in JAX. The
+    parameter names are :class:`NeRFMLP`'s, so checkpoints and weight
+    conversions treat it as one."""
+
+    def __init__(self, alpha_module: nn.Module, **kw):
+        super().__init__(**kw)
+        object.__setattr__(self, "alpha_module", alpha_module)
+
+    def forward(self, pts_embed, views_embed=None):
+        with torch.no_grad():
+            fs = self.alpha_module(pts_embed, views_embed)[..., 3:4]
+        return super().forward(pts_embed, views_embed, frozen_sigma=fs)
+
+
+class FrozenModel(nn.Module):
+    """A wholly frozen field (the ``--no_coarse`` path, ``run_nerf.py:417-419,
+    606-616``; JAX ``FrozenModel``): the coarse pass queries the pretrained
+    alpha model under ``torch.no_grad()``. It has no parameters of its own
+    (JAX keeps an unused tree for its optimizer), so nothing of it trains or
+    is checkpointed."""
+
+    def __init__(self, module: nn.Module):
+        super().__init__()
+        object.__setattr__(self, "module", module)
+        self.dtype = getattr(module, "dtype", torch.float32)
+
+    def forward(self, pts_embed, views_embed=None):
+        with torch.no_grad():
+            return self.module(pts_embed, views_embed)
+
+
 class Models(NamedTuple):
-    """The trained NeRF MLPs and the frozen perceptual model of the feature
+    """The trained NeRF MLPs, the frozen perceptual model of the feature
     loss (``vgg`` with ``feature_loss_type = vgg``, ``lpips`` with
-    ``lpips``; None otherwise)."""
+    ``lpips``; None otherwise) and with ``gan_loss`` the discriminator."""
 
     coarse: nn.Module
     fine: Optional[nn.Module]
     vgg: Optional[nn.Module] = None
     lpips: Optional[nn.Module] = None
+    discriminator: Optional[nn.Module] = None
 
     def nerfs(self):
         """The trained MLPs: the coarse one, and the fine one if any."""
@@ -252,12 +296,17 @@ def build_perceptual(cfg: TrainConfig, device):
 def build_models(cfg: TrainConfig, rcfg: RenderConfig, device=None,
                  seed: int | None = None) -> Models:
     """Coarse and fine MLPs on ``device`` (``cuda`` unless given), weights
-    from ``torch.Generator().manual_seed(seed)`` (default ``cfg.seed``), and
-    with ``feature_loss`` the frozen perceptual model
-    (:func:`build_perceptual`)."""
+    from ``torch.Generator().manual_seed(seed)`` (default ``cfg.seed``), with
+    ``feature_loss`` the frozen perceptual model (:func:`build_perceptual`),
+    and with ``gan_loss`` an :class:`~models.discriminator.ESRDiscriminator`
+    for the ``nH x nW`` crop, drawn from the same generator after the MLPs.
+
+    With ``alpha_model_path`` (JAX ``build_models``' alpha branch): the
+    alpha model, a fine-width MLP without a semantic head, is read by
+    :func:`load_alpha_params`; the fine MLP (and the coarse one, unless
+    ``no_coarse`` makes the coarse pass a :class:`FrozenModel` of it) becomes
+    a :class:`FrozenAlphaMLP`."""
     device = resolve_device(device)
-    if cfg.alpha_model_path or cfg.no_coarse:
-        raise NotImplementedError("the frozen alpha model is not ported yet")
     if cfg.mesh_shape and any(s > 1 for s in cfg.mesh_shape):
         raise NotImplementedError("multi-device meshes are not ported yet")
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
@@ -265,21 +314,71 @@ def build_models(cfg: TrainConfig, rcfg: RenderConfig, device=None,
     views_dim = embedding_dim(3, rcfg.multires_views) if cfg.use_viewdirs else 0
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     output_ch = 5 if cfg.N_importance > 0 else 4  # run_nerf.py:398
+    kw = dict(in_channels=pts_dim, in_channels_views=views_dim,
+              use_viewdirs=cfg.use_viewdirs, output_ch=output_ch, dtype=dtype)
 
-    # On the card a covered topology always takes the kernel; the flag
-    # picks the plain module on the CPU only.
+    # On the card a covered topology takes the kernel; the flag picks the
+    # plain module on the CPU only. JAX's alpha branch returns before it
+    # wraps the MLPs in its FusedMLP, so a frozen-alpha run evaluates plain
+    # modules in both packages (sampling still takes kernel 14): that is
+    # the reference package's route, not a fallback.
+    alpha = None
+    if cfg.alpha_model_path:
+        alpha = NeRFMLP(depth=cfg.netdepth_fine, width=cfg.netwidth_fine,
+                        generator=torch.Generator().manual_seed(0), **kw)
+        load_alpha_params(cfg, alpha)
+        alpha = alpha.requires_grad_(False).eval().to(device)
     cls = FusedMLP if cfg.use_fused_mlp or device.type == "cuda" else NeRFMLP
 
     def mlp(depth, width):
-        return cls(depth=depth, width=width, in_channels=pts_dim,
-                   in_channels_views=views_dim, use_viewdirs=cfg.use_viewdirs,
-                   num_semantic_classes=rcfg.num_semantic_classes,
-                   output_ch=output_ch, dtype=dtype, generator=gen).to(device)
+        sem = rcfg.num_semantic_classes
+        if alpha is not None:
+            return FrozenAlphaMLP(alpha, depth=depth, width=width,
+                                  num_semantic_classes=sem, generator=gen,
+                                  **kw).to(device)
+        return cls(depth=depth, width=width, num_semantic_classes=sem,
+                   generator=gen, **kw).to(device)
 
     coarse = mlp(cfg.netdepth, cfg.netwidth)
     fine = mlp(cfg.netdepth_fine, cfg.netwidth_fine) if cfg.N_importance > 0 \
         else None
-    return Models(coarse, fine, *build_perceptual(cfg, device))
+    if alpha is not None and cfg.no_coarse:
+        coarse = FrozenModel(alpha)
+    disc = None
+    if cfg.gan_loss:
+        disc = ESRDiscriminator((cfg.nH, cfg.nW), generator=gen).to(device)
+    return Models(coarse, fine, *build_perceptual(cfg, device), disc)
+
+
+def load_alpha_params(cfg: TrainConfig, alpha_module: nn.Module) -> nn.Module:
+    """Load the frozen alpha model's weights into ``alpha_module`` (JAX
+    ``load_alpha_params``, which reads its own orbax step directory): the
+    fine MLP of a checkpoint of this package, ``alpha_model_path`` naming
+    its ``<step>.pt`` file or a directory of them (the newest is taken). The
+    file's topology must be the alpha model's (the fine widths, the
+    encodings, no semantic head), else the load is refused with the message
+    of ``checkpoint.restore``."""
+    from depth_lidar_nerf_tpu_torch.train import checkpoint
+
+    path = cfg.alpha_model_path
+    if os.path.isdir(path):
+        last = checkpoint.latest_step(path)
+        if last is None:
+            raise FileNotFoundError(f"no checkpoint (<step>.pt) in {path}")
+        path = checkpoint.path_of(path, last)
+    ckpt = checkpoint.load_file(path)
+    if ckpt.get("format") != checkpoint.FORMAT:
+        raise ValueError(f"{path} is not a checkpoint of this package "
+                         f"(format {checkpoint.FORMAT!r})")
+    topo = checkpoint.topology(cfg.replace(N_importance=1), 0)
+    topo = {k: topo[k] for k in ("netdepth_fine", "netwidth_fine",
+                                 "use_viewdirs", "multires", "multires_views",
+                                 "num_semantic_classes")}
+    checkpoint.check_topology(ckpt["topology"], topo, path)
+    if ckpt["models"]["fine"] is None:
+        raise ValueError(f"{path} has no fine MLP to take the density from")
+    alpha_module.load_state_dict(ckpt["models"]["fine"])
+    return alpha_module
 
 
 def _pow(base: float, n: int) -> torch.Tensor:
@@ -352,6 +451,8 @@ class TrainState:
     # call: seconds of each metric fetch, checkpoint save and held-out
     # evaluation, and each checkpoint's size in bytes (lists by event).
     loop_costs: dict = dataclasses.field(default_factory=dict)
+    # The discriminator's Adam (JAX ``disc_opt_state``); None without the GAN.
+    disc_optimizer: Optional[OptaxAdam] = None
 
 
 def lr_schedule(cfg: TrainConfig):
@@ -371,7 +472,19 @@ def make_optimizer(cfg: TrainConfig, params) -> OptaxAdam:
     return OptaxAdam(params, lr_schedule(cfg), b1=0.9, b2=0.999, eps=1e-8)
 
 
+def make_disc_optimizer(cfg: TrainConfig, params) -> OptaxAdam:
+    """JAX ``make_disc_optimizer``: ``adam(gan_disc_lrate, b1=0.9,
+    b2=0.999, eps=1e-8)``, a constant rate."""
+    lr = torch.tensor(cfg.gan_disc_lrate, dtype=torch.float32)
+    return OptaxAdam(params, lambda step: lr, b1=0.9, b2=0.999, eps=1e-8)
+
+
 def init_train_state(cfg: TrainConfig, models: Models) -> TrainState:
-    """Optimizer state over every parameter of the coarse and fine MLPs."""
+    """Optimizer state over every parameter of the coarse and fine MLPs, and
+    with a discriminator its own optimizer over its parameters."""
     params = [p for m in models.nerfs() for p in m.parameters()]
-    return TrainState(models, make_optimizer(cfg, params), 0)
+    disc_opt = None
+    if models.discriminator is not None:
+        disc_opt = make_disc_optimizer(cfg, models.discriminator.parameters())
+    return TrainState(models, make_optimizer(cfg, params), 0,
+                      disc_optimizer=disc_opt)

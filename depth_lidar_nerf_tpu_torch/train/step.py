@@ -17,19 +17,24 @@ Grid training (``grid_mode``, JAX ``--grid_train`` past
 baked along every table ray (``ops/ray_cdf.py``) and an inverse CDF; no
 coarse MLP runs, and the coarse loss terms go.
 
-The patch variants (``feature_on``, ``smooth_on``; ``run_nerf.py:1552-1753``)
-add the losses of a rendered ``nH x nW`` crop of one training image: the
-image-aware inverse-depth smoothness and the feature loss (VGG19 content
-loss or LPIPS). As the reference (``run_nerf.py:1600-1644``), only
+The patch variants (``feature_on``, ``smooth_on``, ``gan_on``;
+``run_nerf.py:1552-1816``) add the losses of a rendered ``nH x nW`` crop of
+one training image: the image-aware inverse-depth smoothness, the feature
+loss (VGG19 content loss or LPIPS) and the adversarial loss, after whose
+NeRF update the discriminator takes its own step on the detached crops.
+As the reference (``run_nerf.py:1600-1644``), only
 ``gradH x gradW`` of the crop's rays, the first of a random permutation,
 render under autograd (the grad leg); the rest render under
 ``torch.no_grad()`` (the no-grad leg: no activations saved, the fused
 forward kernels, tiled), and both scatter back into the crop. The driver
 picks a variant per iteration (:func:`build_step_fns`).
 
+With ``no_batching`` the RGB rays come from one image, inside its central
+``precrop_frac`` window while ``precrop_on`` (``run_nerf.py:1376-1404``).
+
 The JAX step compiles into one XLA program; here each step is eager PyTorch
-around the kernels. Step variants that the port does not run yet (GAN,
-single-image batching, K-step dispatch) raise ``NotImplementedError``.
+around the kernels, one step a dispatch (JAX's K-step and period dispatch
+is not ported).
 """
 
 from __future__ import annotations
@@ -61,7 +66,6 @@ from depth_lidar_nerf_tpu_torch.train.state import (Models, TrainState,
 from depth_lidar_nerf_tpu_torch.train.tables import (DepthRayTable,
                                                      RgbRayTable, gather_rays)
 
-_UNPORTED = ("no_batching", "gan_loss")
 # The no-grad patch leg's ray tiles (JAX ``ng_render``): the fused forward
 # keeps no activations, so a tile may be 16,384 rays; a pass that misses the
 # kernels takes the plain module, whose activations cap it at 4,096.
@@ -143,19 +147,36 @@ def _clip01(x: torch.Tensor) -> torch.Tensor:
     return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
 
 
+GAN_NOISES = ("noise", "noise0", "noise_real", "noise_fake", "noise_f0")
+
+
+@contextlib.contextmanager
+def _no_param_grad(module: torch.nn.Module):
+    """``module``'s parameters as constants of the graph built within (JAX's
+    ``stop_gradient(disc_params)``): no gradient reaches them from it."""
+    params = [p for p in module.parameters() if p.requires_grad]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
+
+
 def _take(rays: Rays, sel: torch.Tensor) -> Rays:
     return Rays(*(None if x is None else x[sel] for x in rays))
 
 
 @contextlib.contextmanager
 def _deterministic_cudnn():
-    """cuDNN's deterministic algorithms for the perceptual model's
-    convolutions within a step, the caller's setting back after it. The
-    default ones accumulate the input gradient with atomics, so two runs
-    from one state drift apart from their first feature-loss step (on an
-    H100, ``scripts/torch_patch_determinism.py``: 28 of 48 tensors differ
-    after 5 such steps; none with this), and a resumed run would not
-    continue an uninterrupted one as JAX's does."""
+    """cuDNN's deterministic algorithms for the perceptual model's and the
+    discriminator's convolutions within a step, the caller's setting back
+    after it. The default ones accumulate the input gradient with atomics,
+    so two runs from one state drift apart from their first feature-loss
+    step (on an H100, ``scripts/torch_patch_determinism.py``: 28 of 48
+    tensors differ after 5 such steps; none with this), and a resumed run
+    would not continue an uninterrupted one as JAX's does."""
     cudnn = torch.backends.cudnn
     prev = cudnn.deterministic
     cudnn.deterministic = True
@@ -240,17 +261,21 @@ def _cdf_render(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
 
 def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
                     hwf, grid_mode: bool = False, *, feature_on: bool = False,
-                    gan_on: bool = False, smooth_on: bool = False):
+                    gan_on: bool = False, smooth_on: bool = False,
+                    precrop_on: bool = False):
     """The step function of one loss-schedule variant (JAX
     ``make_train_step`` with ``k_steps=1``), with or without the sigma and
-    the semantic terms, with ``grid_mode`` the grid step, and with
-    ``feature_on``/``smooth_on`` the patch losses::
+    the semantic terms, with ``grid_mode`` the grid step, with
+    ``feature_on``/``smooth_on``/``gan_on`` the patch losses, and with
+    ``precrop_on`` (under ``no_batching``) the central crop::
 
         metrics = step(state, rgb_table, depth_table, generator)
 
     ``generator`` (a ``torch.Generator`` on the tables' device) draws the
-    RGB ray indices, then the depth ray indices, then the render's jitter,
-    sigma noise and importance draws, then, with ``sigma_loss``, the sigma
+    RGB ray indices (with ``no_batching``: the image, the rows, the
+    columns, with replacement; while ``precrop_on`` within the central
+    ``precrop_frac`` window), then the depth ray indices, then the render's
+    jitter, sigma noise and importance draws, then, with ``sigma_loss``, the sigma
     loss's stratified jitter and its sigma noise. ``idx``/``idx_d`` give the
     ray indices instead (a parity test hands JAX's). The metrics (``loss``,
     ``img_loss``, ``psnr``, ``depth_importance``, and ``img_loss0``/
@@ -279,22 +304,32 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
     importance), ``feature_loss`` and with a coarse pass ``feature_loss0``
     (with ``feature_on``) join the metrics, and with ``lpips_spatial`` the
     fine pass's LPIPS map ``lpips_spatial [nH, nW]``. A feature-loss step
-    runs cuDNN's deterministic algorithms (:func:`_deterministic_cudnn`)."""
-    if gan_on:
-        raise NotImplementedError("the GAN step is not ported to PyTorch yet")
-    unported = [n for n in _UNPORTED if getattr(cfg, n)]
-    if unported:
-        raise NotImplementedError(
-            f"training step variants not ported to PyTorch yet: {unported}")
+    runs cuDNN's deterministic algorithms (:func:`_deterministic_cudnn`).
+
+    With ``gan_on`` the discriminator sees the fine pass's clipped crop plus
+    noise (and the coarse pass's, with a coarse leg), its parameters
+    constants there; ``gan_loss`` (weighted by ``gan_lambda``) joins the
+    total. After the NeRF optimizer's step, :func:`disc_step`'s one
+    discriminator step on the real crop and the detached fake crops, each
+    plus noise, gives ``loss_dis``. Both legs take the noise std of
+    :func:`losses.gan_noise_std_at` at the step count before the update,
+    and draw their standard normal noise from ``generator`` after
+    everything else, in :data:`GAN_NOISES`' order; ``gan_noise=`` (a dict
+    of those names, ``[1, nH, nW, 3]`` each) gives them instead, as
+    ``idx`` gives the rays. Every GAN step, like a feature-loss step, runs
+    cuDNN's deterministic algorithms."""
     if cfg.semantic_loss and not rcfg.num_semantic_classes:
         raise ValueError("semantic_loss needs num_semantic_classes > 0")
     if grid_mode and cfg.N_importance <= 0:
         raise ValueError("grid_train needs a fine pass (N_importance > 0)")
     H, W, focal = int(hwf[0]), int(hwf[1]), float(hwf[2])
     nH, nW = cfg.nH, cfg.nW
-    patch_mode = feature_on or smooth_on
+    patch_mode = feature_on or smooth_on or gan_on
     if patch_mode and (nH > H or nW > W):
         raise ValueError(f"patch {nH}x{nW} larger than image {H}x{W}")
+    if gan_on and getattr(models, "discriminator", None) is None:
+        raise ValueError("a GAN step needs the discriminator (build_models "
+                         "with gan_loss)")
     feature_model = None
     if feature_on:
         feature_model = (models.lpips if cfg.feature_loss_type == "lpips"
@@ -305,7 +340,10 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
     n_depth = int(cfg.N_rand * cfg.depth_rays_prop) if cfg.colmap_depth else 0
     n_rgb = cfg.N_rand - n_depth
     n_grad = cfg.gradH * cfg.gradW
-    coarse_on = cfg.N_importance > 0 and not grid_mode
+    # The patch losses take both passes' crops (JAX's stack_fc); the RGB loss
+    # of the coarse pass goes with no_coarse, whose coarse field is frozen.
+    two_pass = cfg.N_importance > 0 and not grid_mode
+    coarse_on = two_pass and not cfg.no_coarse
     # The no-grad leg renders only forward, so the int8 kernels may take it.
     rcfg_ng = (dataclasses.replace(rcfg, render_int8=True)
                if cfg.patch_ng_int8 else rcfg)
@@ -317,11 +355,76 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
         return torch.randint(0, table.origins.shape[0], (n,), device=dev,
                              generator=generator)
 
+    def draw_one_image(table, generator, given):
+        """JAX's ``no_batching`` draw (``run_nerf.py:1376-1404``): one image,
+        then ``n_rgb`` rows and columns with replacement (the reference
+        draws without), within the central window while ``precrop_on``."""
+        dev = table.origins.device
+        if given is not None:
+            return torch.tensor(np.asarray(given), dtype=torch.long, device=dev)
+        n_img = table.origins.shape[0] // (H * W)
+        img = torch.randint(0, n_img, (), device=dev, generator=generator)
+        if precrop_on:
+            dH = int(H // 2 * cfg.precrop_frac)
+            dW = int(W // 2 * cfg.precrop_frac)
+            r0, r1 = H // 2 - dH, max(H // 2 + dH, H // 2 - dH + 1)
+            c0, c1 = W // 2 - dW, max(W // 2 + dW, W // 2 - dW + 1)
+        else:
+            r0, r1, c0, c1 = 0, H, 0, W
+        rows = torch.randint(r0, r1, (n_rgb,), device=dev, generator=generator)
+        cols = torch.randint(c0, c1, (n_rgb,), device=dev, generator=generator)
+        return img * (H * W) + rows * W + cols
+
     def stack_fc(o, key, key0):
         # Grid mode has no coarse leg in the patch losses: [1, ...].
-        if coarse_on:
+        if two_pass:
             return torch.stack([o[key], o[key0]])
         return o[key][None]
+
+    def noise(name, generator, given, std, like):
+        """Standard normal ``[1, nH, nW, 3]`` noise times ``std``."""
+        if given is not None:
+            z = torch.tensor(np.asarray(given[name]), dtype=torch.float32,
+                             device=like.device)
+        else:
+            z = torch.randn((1, nH, nW, 3), dtype=torch.float32,
+                            device=like.device, generator=generator)
+        return z * std
+
+    def gan_term(acc_rgb, std, generator, given):
+        """The generator's adversarial loss (JAX ``loss_fn``'s GAN branch):
+        the discriminator's parameters are constants here."""
+        disc = models.discriminator
+        with _no_param_grad(disc):
+            pred = disc(acc_rgb[0:1] + noise("noise", generator, given, std,
+                                             acc_rgb))
+            gan_loss = losses.gan_mse(pred, 1.0)
+            if two_pass:
+                pred0 = disc(acc_rgb[1:2] + noise("noise0", generator, given,
+                                                  std, acc_rgb))
+                gan_loss = gan_loss + losses.gan_mse(pred0, 1.0)
+        return gan_loss
+
+    def disc_step(state, gt_patch, fake, std, generator, given):
+        """One discriminator step on the real crop and the detached fake
+        crops (JAX ``disc_step``, ``run_nerf.py:1779-1816``)."""
+        disc = models.discriminator
+        fake = fake.detach()
+        pred_real = disc(gt_patch[None] + noise("noise_real", generator,
+                                                given, std, fake))
+        pred_fake = disc(fake[0:1] + noise("noise_fake", generator, given,
+                                           std, fake))
+        loss_real = losses.gan_mse(pred_real, 1.0)
+        loss_fake = losses.gan_mse(pred_fake, 0.0)
+        if two_pass:
+            pred_f0 = disc(fake[1:2] + noise("noise_f0", generator, given,
+                                             std, fake))
+            loss_fake = 0.5 * (loss_fake + losses.gan_mse(pred_f0, 0.0))
+        loss_dis = loss_fake + loss_real
+        state.disc_optimizer.zero_grad(set_to_none=True)
+        loss_dis.backward()
+        state.disc_optimizer.step()
+        return loss_dis
 
     def ng_render(prays, patch, rows, generator, aux):
         """The no-grad leg (JAX ``ng_render``)."""
@@ -338,8 +441,9 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
                                  generator, tile=tile)
 
     def patch_terms(loss, metrics, patch, prays, rows, ng, generator, aux,
-                    imp):
-        """The grad leg; adds the patch losses to ``loss``, in JAX's order."""
+                    imp, gan_std, gan_noise):
+        """The grad leg; adds the patch losses to ``loss``, in JAX's order.
+        Returns the total and the assembled crops."""
         rays = _take(prays, patch.perm[:n_grad])
         if grid_mode:
             g_out = _cdf_render(cfg, rcfg, models, rays,
@@ -359,8 +463,16 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
             inv_loss = losses.inverse_depth_smoothness_loss(acc_depth, acc_rgb)
             metrics["inv_loss"] = inv_loss
             loss = loss + inv_loss * cfg.depth_inverse_lambda * imp
-        if not feature_on:
-            return loss
+        if feature_on:
+            loss = feature_terms(loss, metrics, patch, acc_rgb)
+        if gan_on:
+            gan_loss = gan_term(acc_rgb, gan_std, generator, gan_noise)
+            metrics["gan_loss"] = gan_loss
+            loss = loss + gan_loss * cfg.gan_lambda
+        return loss, acc_rgb
+
+    def feature_terms(loss, metrics, patch, acc_rgb):
+        """The feature loss of both passes' crops."""
         gt = patch.gt_patch[None]
         fl0 = None
         if cfg.feature_loss_type == "lpips":
@@ -370,11 +482,11 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
             if cfg.lpips_spatial:
                 metrics["lpips_spatial"] = d[0, ..., 0].detach()
                 feature_loss = torch.mean(d[0:1])
-                if coarse_on:
+                if two_pass:
                     fl0 = torch.mean(d[1:2])
             else:
                 feature_loss = d[0]
-                if coarse_on:
+                if two_pass:
                     fl0 = d[1]
         else:
             names = tuple(cfg.vgg_layers or ())
@@ -384,7 +496,7 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
             feature_loss = losses.vgg_feature_distance(
                 {k: v[0:1] for k, v in feats.items()}, feats_gt, names,
                 cfg.vgg_layer_weights, cfg.vgg_loss_type)
-            if coarse_on:
+            if two_pass:
                 fl0 = losses.vgg_feature_distance(
                     {k: v[1:2] for k, v in feats.items()}, feats_gt, names,
                     cfg.vgg_layer_weights, cfg.vgg_loss_type)
@@ -397,15 +509,15 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
     def step(state: TrainState, rgb_table: RgbRayTable,
              depth_table: Optional[DepthRayTable],
              generator: torch.Generator | None = None, idx=None,
-             idx_d=None, aux: Optional[RayCDF] = None, patch=None
-             ) -> Dict[str, torch.Tensor]:
-        with (_deterministic_cudnn() if feature_on
+             idx_d=None, aux: Optional[RayCDF] = None, patch=None,
+             gan_noise=None) -> Dict[str, torch.Tensor]:
+        with (_deterministic_cudnn() if feature_on or gan_on
               else contextlib.nullcontext()):
             return run(state, rgb_table, depth_table, generator, idx, idx_d,
-                       aux, patch)
+                       aux, patch, gan_noise)
 
     def run(state, rgb_table, depth_table, generator, idx, idx_d, aux,
-            patch):
+            patch, gan_noise):
         if grid_mode and aux is None:
             raise ValueError("a grid step needs the baked RayCDF (aux)")
         metrics = {}
@@ -421,7 +533,8 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
             rows = _patch_rows(patch, H, W, nH, nW) if grid_mode else None
             with torch.no_grad():
                 ng = ng_render(prays, patch, rows, generator, aux)
-        idx = draw(n_rgb, rgb_table, generator, idx)
+        idx = (draw_one_image(rgb_table, generator, idx) if cfg.no_batching
+               else draw(n_rgb, rgb_table, generator, idx))
         rays = gather_rays(rgb_table, idx, rcfg)
         target_s = rgb_table.rgb[idx]
         target_sem = rgb_table.semantic[idx] if cfg.semantic_loss else None
@@ -475,9 +588,13 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
             metrics["img_loss0"] = img_loss0
             metrics["psnr0"] = losses.mse2psnr(img_loss0)
             loss = loss + img_loss0
+        # Both GAN legs take the noise std at the count before the update.
+        gan_std = (losses.gan_noise_std_at(state.step, cfg.gan_noise_std)
+                   if gan_on else None)
         if patch_mode:
-            loss = patch_terms(loss, metrics, patch, prays, rows, ng,
-                               generator, aux, imp)
+            loss, acc_rgb = patch_terms(loss, metrics, patch, prays, rows, ng,
+                                        generator, aux, imp, gan_std,
+                                        gan_noise)
         metrics["loss"] = loss
 
         state.optimizer.zero_grad(set_to_none=True)
@@ -485,6 +602,9 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
         state.optimizer.step()
         invalidate_packs(models)
         state.step += 1
+        if gan_on:
+            metrics["loss_dis"] = disc_step(state, patch.gt_patch, acc_rgb,
+                                            gan_std, generator, gan_noise)
         return {k: v.detach() if torch.is_tensor(v) else torch.tensor(v)
                 for k, v in metrics.items()}
 
@@ -528,10 +648,11 @@ def build_step_fns(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
     def select(i: int):
         key = variant_key(i)
         if key not in variants:
-            feature_on, gan_on, smooth_on, _, grid_on = key
+            feature_on, gan_on, smooth_on, precrop_on, grid_on = key
             variants[key] = make_train_step(
                 cfg, rcfg, models, hwf, grid_mode=grid_on,
-                feature_on=feature_on, gan_on=gan_on, smooth_on=smooth_on)
+                feature_on=feature_on, gan_on=gan_on, smooth_on=smooth_on,
+                precrop_on=precrop_on)
         return variants[key], any(key[:3])
 
     return StepPlan(select, variant_key)

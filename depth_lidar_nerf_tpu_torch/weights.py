@@ -13,6 +13,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from depth_lidar_nerf_tpu_torch.models.discriminator import feature_hw
+
 
 def mlp_state_dict(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """One MLP's Flax params (with or without the ``params`` level) -> a
@@ -57,4 +59,67 @@ def conv_state_dict(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 walk(v, f"{prefix}{name}.")
 
     walk(p, "")
+    return out
+
+
+# Flax layer name -> the port's (the reference's) parameter prefix, per
+# discriminator, and the classifier's (Flax name, prefix, channels,
+# stride-2 convolutions before it).
+_DISC_LAYOUTS = {
+    "esr": ({"block0_conv0": "model.0", "block0_conv1": "model.2",
+             "block1_conv0": "model.4", "block1_conv1": "model.6"},
+            ("classifier", "classifier.0", 32, 2)),
+    "ls": ({f"block{i}_conv": f"model.{2 * i}" for i in range(4)},
+           ("adv", "adv_layer", 128, 4)),
+    "basic": ({"conv": "model.0"}, ("adv", "adv_layer", 16, 1)),
+}
+
+
+def disc_state_dict(tree: Mapping[str, Any], patch_hw=None,
+                    arch: str = "esr") -> Dict[str, torch.Tensor]:
+    """A Flax discriminator tree (``models/discriminator.py``; numpy leaves,
+    with or without the ``params`` level) -> the state dict of the port's
+    module of ``arch`` ("esr", "ls", "basic" or "dc"), float32.
+
+    The convolutions go HWIO -> OIHW. The classifier's ``[h * w * c, 1]``
+    kernel flattens Flax's NHWC map: it is reshaped ``(h, w, c)``, put in
+    the port's NCHW order ``(c, h, w)`` and flattened to ``[1, c * h * w]``,
+    where ``(h, w)`` is the crop ``patch_hw`` halved, rounding up, once per
+    stride-2 convolution. DC has no linear layer and takes no
+    ``patch_hw``."""
+    p = tree["params"] if "params" in tree else tree
+
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+
+    def oihw(kernel):
+        return t(np.asarray(kernel, np.float32).transpose(3, 2, 0, 1))
+
+    out = {}
+    if arch == "dc":
+        for name, layer in p.items():
+            key = ("conv_out" if name == "conv_out"
+                   else f"blocks.{int(name[len('block'):])}")
+            out[f"{key}.weight"] = oihw(layer["kernel"])
+        return out
+    conv_map, (lin_name, lin_key, c, n_stride2) = _DISC_LAYOUTS[arch]
+    for name, layer in p.items():
+        if name in conv_map:
+            out[f"{conv_map[name]}.weight"] = oihw(layer["kernel"])
+            out[f"{conv_map[name]}.bias"] = t(layer["bias"])
+        elif name == lin_name:
+            if patch_hw is None:
+                raise ValueError("patch_hw (nH, nW) is needed to reorder the "
+                                 "classifier's flattened input")
+            h, w = feature_hw(patch_hw, n_stride2)
+            k = np.asarray(layer["kernel"], np.float32)
+            if k.shape[0] != h * w * c:
+                raise ValueError(
+                    f"discriminator {lin_name} has {k.shape[0]} inputs, a "
+                    f"{patch_hw[0]}x{patch_hw[1]} crop gives {h}x{w}x{c}")
+            out[f"{lin_key}.weight"] = t(
+                k[:, 0].reshape(h, w, c).transpose(2, 0, 1).reshape(1, -1))
+            out[f"{lin_key}.bias"] = t(layer["bias"])
+        else:
+            raise KeyError(f"unexpected discriminator layer {name!r}")
     return out

@@ -1,8 +1,13 @@
-"""Build the kernels and run ``chip_smoke.py``'s phase 14 alone: the KITTI
-patch iteration, LPIPS and ``patch_ng_int8``, the grid patch step (14a-c,
-``patch``) and the flagship driver (14d, ``flagship``), on the card.
+"""Build the kernels and run ``chip_smoke.py``'s phases 14 and 15 alone, on
+the card: the KITTI patch iteration, LPIPS and ``patch_ng_int8``, the grid
+patch step (14a-c, ``patch``), the flagship driver (14d, ``flagship``), the
+GAN iteration (15a, ``gan``), the GAN driver (15b, ``gan_driver``), and the
+frozen-alpha fine-tunes and single-image batching (15c, ``alpha``; 15d,
+``no_batching``), which train their source run first: phase 12's stack and
+scene, ``--source_steps`` steps (default 100).
 
-    python scripts/torch_patch_phase.py [patch] [flagship]
+    python scripts/torch_patch_phase.py [patch] [flagship] [gan] \
+        [gan_driver] [alpha] [no_batching] [--source_steps N]
 
 The phase's own checks apply; it prints the phase's lines and one JSON
 line of its numbers.
@@ -50,6 +55,11 @@ def main(argv):
         return sc.inverse_cdf_plain(bins, weights, u)
 
     dev = torch.device("cuda")
+    source_steps = 100
+    if "--source_steps" in argv:
+        i = argv.index("--source_steps")
+        source_steps = int(argv[i + 1])
+        argv = argv[:i] + argv[i + 2:]
     which = argv or ["patch", "flagship"]
     out = {}
     if "patch" in which:
@@ -59,6 +69,33 @@ def main(argv):
     if "flagship" in which:
         out["flagship"], _ = cs.flagship_driver_phase(fmt, sc, dev, card,
                                                       cs.kernel_fns(fmt, sc))
+    if "gan" in which:
+        out["gan"], _ = cs.gan_phase(fmt, sc, renderer, dev, card,
+                                     plain_sampler, cs.kernel_fns(fmt, sc))
+    if "gan_driver" in which:
+        out["gan_driver"], _ = cs.gan_driver_phase(fmt, sc, dev, card,
+                                                   cs.kernel_fns(fmt, sc))
+    if "alpha" in which or "no_batching" in which:
+        import tempfile
+
+        from depth_lidar_nerf_tpu_torch.data.synthetic import make_scene
+        from depth_lidar_nerf_tpu_torch.train.config import parse_args
+
+        tmp = tempfile.TemporaryDirectory(prefix="torch_patch_phase_")
+        make_scene(os.path.join(tmp.name, "scene"), n_images=cs.DRIVER_VIEWS,
+                   H=cs.H, W=cs.W, focal=cs.FOCAL,
+                   n_depth_points=cs.DRIVER_DEPTH_POINTS, backdrop=True)
+        cfg = parse_args(cs.driver_argv(tmp.name, "fresh", source_steps))
+        cs.driver_run(cfg)
+        kept = (tmp, cfg)
+        if "alpha" in which:
+            out["alpha"], _ = cs.alpha_phase(fmt, sc, dev, card,
+                                             cs.kernel_fns(fmt, sc), kept)
+        if "no_batching" in which:
+            out["no_batching"], _ = cs.no_batching_phase(
+                fmt, sc, dev, card, cs.kernel_fns(fmt, sc), kept,
+                float("nan"))
+        tmp.cleanup()
     print(json.dumps(out, default=str))
 
 

@@ -154,11 +154,14 @@ _UNPORTED = {
     "mesh_shape": dict(mesh_shape=[2]),
     "dist_coordinator": dict(dist_coordinator="localhost:1234"),
 }
-# The patch losses and their grid variant are ported: the driver's refusal
-# passes them (the driver tests of test_torch_port_patch_driver.py train
-# them).
+# The patch losses and their grid variant, the GAN, single-image batching
+# and the frozen-alpha model are ported: the driver's refusal passes them
+# (test_torch_port_patch_driver.py, test_torch_port_gan_driver.py,
+# test_torch_port_no_batching.py and test_torch_port_frozen_alpha.py train
+# them). The multi-device flags are still refused.
 _PORTED_SINCE = {"feature_loss", "depth_inverse_loss", "patch_ng_int8",
-                 "grid_train_feature_loss"}
+                 "grid_train_feature_loss", "gan_loss", "no_batching",
+                 "alpha_model_path", "no_coarse"}
 
 
 @pytest.mark.parametrize("case", list(_UNPORTED))

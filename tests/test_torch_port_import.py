@@ -26,9 +26,10 @@ bad = sorted(m for m in sys.modules
                                     "tensorboardX"))
 print(len(names), bad)
 assert not bad, bad
-# The modules of the grid and patch-loss slices are among those walked.
+# The modules of the grid, patch-loss and GAN slices are among those walked.
 assert {"depth_lidar_nerf_tpu_torch.ops.ray_cdf",
         "depth_lidar_nerf_tpu_torch.ops.density_grid",
+        "depth_lidar_nerf_tpu_torch.models.discriminator",
         "depth_lidar_nerf_tpu_torch.models.vgg",
         "depth_lidar_nerf_tpu_torch.models.lpips",
         "depth_lidar_nerf_tpu_torch.evaluation.eval_metrics"} <= set(names), names
@@ -40,7 +41,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr + out.stdout
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 44, out.stdout
+    assert n_modules >= 45, out.stdout
 
 
 def test_entry_points_need_a_device(monkeypatch, tmp_path):

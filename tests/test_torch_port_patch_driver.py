@@ -3,7 +3,8 @@ where both can run: ``train()`` with JAX's end-to-end patch config
 (``tests/test_train_e2e.py:180-190``, without the GAN) and its schedule, the
 oversized patch, the held-out ``[TEST]`` line's LPIPS (against JAX's
 ``_test_lpips`` on one weight file), the ``eval_metrics`` CLI against JAX's,
-and the flags still refused."""
+and the GAN and single-image batching through the driver with the patch
+losses."""
 
 import os
 
@@ -184,11 +185,21 @@ def test_eval_metrics_matches_jax_cli(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flag", [dict(gan_loss=True),
                                   dict(no_batching=True)])
-def test_gan_and_no_batching_still_refused(scene_dir, tmp_path, flag):
-    name = next(iter(flag))
-    with pytest.raises(NotImplementedError, match=name):
-        _train(_cfg(scene_dir, tmp_path, **_PATCH, **flag))
-    assert not os.path.exists(os.path.join(str(tmp_path), "t"))
+def test_gan_and_no_batching_train(scene_dir, tmp_path, flag):
+    """Each flag, once refused, now trains through the driver with the
+    patch losses: 6 iterations reach ``N_iters`` with finite metrics; the
+    GAN, from ``gan_start_iteration`` 1, makes every
+    iteration a GAN patch iteration."""
+    seen = {}
+    state = _train(_cfg(scene_dir, tmp_path, N_iters=6, i_weights=6,
+                        i_print=1, gan_start_iteration=1, **_PATCH, **flag),
+                   metrics_hook=lambda i, m: seen.setdefault(i, m))
+    assert state.step == 6 and sorted(seen) == list(range(1, 7))
+    assert all(np.isfinite(v) for m in seen.values() for v in m.values())
+    gan = "gan_loss" in flag
+    assert all(("loss_dis" in m) == gan for m in seen.values())
+    assert os.path.exists(os.path.join(str(tmp_path), "t", "checkpoints",
+                                       "6.pt"))
 
 
 def test_make_patch_batch_draws_as_jax(scene_dir, tmp_path):

@@ -189,7 +189,10 @@ def test_oversized_patch_is_refused():
         tstep.make_train_step(cfg, rcfg, None, (24, 32, 30.0), smooth_on=True)
     with pytest.raises(ValueError, match="larger than image"):
         tstep.build_step_fns(cfg, rcfg, None, (24, 32, 30.0))
-    with pytest.raises(NotImplementedError, match="GAN"):
+    # The GAN step is refused the same way, and without a discriminator.
+    with pytest.raises(ValueError, match="larger than image"):
+        tstep.make_train_step(cfg, rcfg, None, (24, 32, 30.0), gan_on=True)
+    with pytest.raises(ValueError, match="needs the discriminator"):
         tstep.make_train_step(cfg, rcfg, None, (94, 352, 88.0), gan_on=True)
 
 

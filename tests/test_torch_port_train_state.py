@@ -84,14 +84,14 @@ def test_step_refuses_unported_variants(flag):
                       netwidth_fine=32, N_importance=4, use_viewdirs=True)
     rcfg = render_config_from(cfg, 0, 0.0, 1.0)
     models = build_models(cfg, rcfg, device="cpu")
-    # The patch losses are ported: their variants build (a 32 x 32 patch of
-    # a 40 x 40 frame); the GAN and single-image batching are refused.
-    ported = {"depth_inverse_loss": "smooth_on", "feature_loss": "feature_on"}
-    if flag in ported:
-        c = cfg.replace(**{flag: True})
-        m = build_models(c, rcfg, device="cpu")
-        assert callable(make_train_step(c, rcfg, m, (40, 40, 30.0),
-                                        **{ported[flag]: True}))
-        return
-    with pytest.raises(NotImplementedError, match=flag):
-        make_train_step(cfg.replace(**{flag: True}), rcfg, models, (4, 4, 2.0))
+    # Every variant is ported now (the patch losses, then the GAN and
+    # single-image batching): each builds (a 32 x 32 patch of a 40 x 40
+    # frame), and its base step too.
+    ported = {"depth_inverse_loss": "smooth_on", "feature_loss": "feature_on",
+              "gan_loss": "gan_on", "no_batching": "precrop_on"}
+    c = cfg.replace(**{flag: True})
+    m = build_models(c, rcfg, device="cpu")
+    assert (m.discriminator is not None) == (flag == "gan_loss")
+    assert callable(make_train_step(c, rcfg, m, (40, 40, 30.0),
+                                    **{ported[flag]: True}))
+    assert callable(make_train_step(c, rcfg, models, (4, 4, 2.0)))

@@ -18,8 +18,8 @@ SMALL_PATCH = dict(nH=8, nW=12, gradH=2, gradW=4)
 
 
 def patch_pair(monkeypatch, *, feature_on=False, smooth_on=False,
-               semantic=False, grid=False, hw=(12, 16), focal=14.0,
-               samples=(64, 64), **extra):
+               gan_on=False, precrop_on=False, semantic=False, grid=False,
+               hw=(12, 16), focal=14.0, samples=(64, 64), **extra):
     """Both packages' patch steps: coarse D=4 / fine D=4 (D=8 skip@4 with
     ``semantic``) / W=128, ``samples`` (N_samples, N_importance), half RGB
     and half depth rays, float32, multires 4/2 and a coarse density head of
@@ -43,6 +43,7 @@ def patch_pair(monkeypatch, *, feature_on=False, smooth_on=False,
     from depth_lidar_nerf_tpu_torch.train import step as tstep
     from depth_lidar_nerf_tpu_torch.train import tables as ttables
     from depth_lidar_nerf_tpu_torch.weights import (conv_state_dict,
+                                                    disc_state_dict,
                                                     params_from_jax)
 
     monkeypatch.setenv("DLNERF_PALLAS_INTERPRET", "1")
@@ -63,7 +64,7 @@ def patch_pair(monkeypatch, *, feature_on=False, smooth_on=False,
                   vgg_layer_weights=[0.1, 1.0], vgg_loss_type="l1",
                   depth_inverse_loss=smooth_on, depth_inverse_loss_every_n=1,
                   depth_inverse_lambda=0.1, datadir="/nonexistent",
-                  **SMALL_PATCH)
+                  gan_loss=gan_on, gan_lambda=0.1, **SMALL_PATCH)
     fields.update(extra)
     if grid:
         fields.update(grid_train=True, grid_train_samples=96)
@@ -93,7 +94,11 @@ def patch_pair(monkeypatch, *, feature_on=False, smooth_on=False,
         if mod is not None:
             mod.load_state_dict(conv_state_dict(
                 jax.tree.map(np.asarray, vgg_params)))
-    variant = dict(feature_on=feature_on, smooth_on=smooth_on)
+    if gan_on:
+        tm.discriminator.load_state_dict(disc_state_dict(
+            jax.tree.map(np.asarray, js.disc_params), (jc.nH, jc.nW)))
+    variant = dict(feature_on=feature_on, smooth_on=smooth_on, gan_on=gan_on,
+                   precrop_on=precrop_on)
     t = dict(
         jax_step=jstep.make_train_step(jc, jr, jm, sc.hwf, grid_mode=grid,
                                        **variant),
@@ -149,25 +154,89 @@ def patch_batches(t, seed=0):
     return jp, tp
 
 
-def patch_step_against_jax(t, seed=0, metric_rtol=1e-4):
+def jax_gan_noises(rng, nH, nW):
+    """The standard normal noises JAX's GAN step draws from its step key, by
+    the port's names (``train.step.GAN_NOISES``): in ``_iter_body``,
+    ``k_ng, k_loss, k_disc = split(rng, 3)``; the generator's from
+    ``split(k_loss, 8)[5:7]``, the discriminator's from ``split(k_disc,
+    3)``."""
+    import jax
+
+    _, k_loss, k_disc = jax.random.split(rng, 3)
+    keys = jax.random.split(k_loss, 8)
+    k_r, k_f, k_f0 = jax.random.split(k_disc, 3)
+    shape = (1, nH, nW, 3)
+    return {name: np.asarray(jax.random.normal(k, shape))
+            for name, k in (("noise", keys[5]), ("noise0", keys[6]),
+                            ("noise_real", k_r), ("noise_fake", k_f),
+                            ("noise_f0", k_f0))}
+
+
+def _disc_moments(js, nH, nW):
+    """JAX's discriminator parameters and Adam moments as the port's state
+    dicts."""
+    import jax
+
+    from depth_lidar_nerf_tpu_torch.weights import disc_state_dict
+
+    adam = js.disc_opt_state[0]
+    return [disc_state_dict(jax.tree.map(np.asarray, t), (nH, nW))
+            for t in (js.disc_params, adam.mu, adam.nu)]
+
+
+def sync_port_from_jax(t):
+    """Start the port from JAX's state: the MLPs' parameters and Adam
+    moments and counts, and with the GAN the discriminator's."""
+    import torch
+
+    js, ts = t["jax_state"], t["port_state"]
+    params, mu, nu = _jax_state_dicts(js)
+    with torch.no_grad():
+        for net, m in (("coarse", ts.models.coarse), ("fine", ts.models.fine)):
+            for name, p in m.named_parameters():
+                p.copy_(params[net][name])
+                st = ts.optimizer.state[p]
+                st["exp_avg"] = mu[net][name].clone()
+                st["exp_avg_sq"] = nu[net][name].clone()
+        ts.optimizer.count = int(js.opt_state[0].count)
+        if ts.disc_optimizer is not None:
+            cfg = t["port_cfg"][0]
+            dp, dmu, dnu = _disc_moments(js, cfg.nH, cfg.nW)
+            for name, p in ts.models.discriminator.named_parameters():
+                p.copy_(dp[name])
+                st = ts.disc_optimizer.state[p]
+                st["exp_avg"] = dmu[name].clone()
+                st["exp_avg_sq"] = dnu[name].clone()
+            ts.disc_optimizer.count = int(js.disc_opt_state[0].count)
+    ts.step = int(js.step)
+
+
+def patch_step_against_jax(t, seed=0, metric_rtol=1e-4,
+                           indices=jax_step_indices):
     """One patch step of both packages from the same state, crop and ray
-    indices: every metric (``metric_rtol``; maps elementwise), every updated
-    parameter (rtol 1e-4, atol 2.5e-5, as the base step tests) and both Adam
-    moments (rtol 1e-3 with an atol of 1e-3 of each tensor's largest).
-    Returns both metric dicts."""
+    indices (and with the GAN JAX's noises): every metric (``metric_rtol``;
+    maps elementwise), every updated parameter (rtol 1e-4, atol 2.5e-5, as
+    the base step tests) and both Adam moments (rtol 1e-3 with an atol of
+    1e-3 of each tensor's largest), the discriminator's too. ``indices``
+    rebuilds JAX's ray indices from its step key. Returns both metric
+    dicts."""
     import jax
 
     js, ts = t["jax_state"], t["port_state"]
     j_rgb, j_dep = t["jax_tables"]
+    cfg = t["port_cfg"][0]
     jp, tp = patch_batches(t, seed)
     rng = jax.random.key(300 + seed)
-    idx, idx_d = jax_step_indices(rng, t["n_rgb"], t["n_depth"],
-                                  j_rgb.origins.shape[0],
-                                  j_dep.origins.shape[0])
+    idx, idx_d = indices(rng, t["n_rgb"], t["n_depth"],
+                         j_rgb.origins.shape[0], j_dep.origins.shape[0])
+    gan_noise = (jax_gan_noises(rng, cfg.nH, cfg.nW)
+                 if ts.disc_optimizer is not None else None)
+    step0 = int(js.step)
     js, jm = t["jax_step"](js, j_rgb, j_dep, jp, t["vgg_params"], rng,
                            t["jax_cdf"])
+    t["jax_state"] = js
     tm = t["port_step"](ts, *t["port_tables"], idx=idx, idx_d=idx_d,
-                        aux=t["port_cdf"], patch=tp)
+                        aux=t["port_cdf"], patch=tp, gan_noise=gan_noise)
     assert set(tm) == set(jm), (sorted(tm), sorted(jm))
     for k in jm:
         np.testing.assert_allclose(tm[k].numpy(), np.asarray(jm[k]),
@@ -188,5 +257,19 @@ def patch_step_against_jax(t, seed=0, metric_rtol=1e-4):
                     opt.state[p][key].numpy(), w, rtol=1e-3,
                     atol=1e-3 * np.abs(w).max() + 1e-30,
                     err_msg=f"{net} {name} {key}")
-    assert ts.step == int(js.step) == 1
+    if ts.disc_optimizer is not None:
+        dp, dmu, dnu = _disc_moments(js, cfg.nH, cfg.nW)
+        for name, p in ts.models.discriminator.named_parameters():
+            np.testing.assert_allclose(p.detach().numpy(), dp[name].numpy(),
+                                       rtol=1e-4, atol=2.5e-5,
+                                       err_msg=f"disc {name}")
+            st = ts.disc_optimizer.state[p]
+            for key, want in (("exp_avg", dmu), ("exp_avg_sq", dnu)):
+                w = want[name].numpy()
+                np.testing.assert_allclose(
+                    st[key].numpy(), w, rtol=1e-3,
+                    atol=1e-3 * np.abs(w).max() + 1e-30,
+                    err_msg=f"disc {name} {key}")
+        assert ts.disc_optimizer.count == int(js.disc_opt_state[0].count)
+    assert ts.step == int(js.step) == step0 + 1
     return tm, jm
