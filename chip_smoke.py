@@ -220,7 +220,19 @@ which raises on failure:
    kernel 14 launched, the rendered density the alpha model's bit for bit,
    the density head unmoved. 15d: ``--no_batching`` with ``precrop_iters``
    on phase 12's scene: the base step's launches, ms/step beside phase 5's;
-16. one ``{"kernels": [...]}`` JSON line with every kernel.
+16. ray data parallelism (``parallel/``). 16a: an NCCL group of one
+   process, joined as ``--dist_coordinator`` joins it (row-sliced tables,
+   the row gather, the ray gathers, the gradient all-reduce): 5 two_mlp
+   steps (phase 5's stack at full width) and one GAN iteration of 15a's
+   stack equal the non-distributed ones bit for bit, with phase 5's
+   launches; ms/step beside the non-distributed step's and phase 5's. 16b:
+   two ranks on the one card over gloo (this process rank 0, rank 1
+   spawned): the ranks agree bit for bit, and 5 steps are within
+   ``TRAJ_TOL`` of one rank's. 16c: the CLI with ``--dist_coordinator`` on
+   phase 12's scene: 150 steps equal phase 12's run A bit for bit, the run
+   resumed to 300 equals run C, and its ``--render_only`` frame equals an
+   in-process frame of its checkpoint;
+then one ``{"kernels": [...]}`` JSON line with every kernel.
 
 It prints ``phase N done at T s`` as it goes; a whole run should stay well
 within the 1,200 s limit on an H100, the build included (PERF.md). The last line is ``{"ok": true,
@@ -4581,6 +4593,320 @@ def no_batching_phase(fmt, sc, dev, card, fns, kept, ms_step_5):
             "wall_s": wall, "card": card}, got
 
 
+# Phase 16, ray data parallelism (see the module note).
+DP_STEPS = 5  # steps of each 16a / 16b run
+DP_TIMED = (2, 10)  # 16a's ms/step: warm-up, timed
+
+
+def dp_counts(fmt, sc, n_steps):
+    """Phase 5's launches of ``n_steps`` two_mlp steps (64 + 64 samples) at
+    ``cull_eps`` 1e-4."""
+    n_chunks = -(-TRAIN_N_RAYS * (64 + 64) // fmt.BWD_CHUNK)
+    return {fmt.KERNEL: n_steps, "fused_nerf_fwd_acts": n_steps,
+            "fused_nerf_bwd_culled": n_steps, "fused_nerf_bwd_acts": n_steps,
+            sc.KERNEL: n_steps, "fused_nerf_grad_reduce": 2 * n_steps,
+            "fused_nerf_bwd_chain": n_steps * n_chunks,
+            "fused_nerf_bwd_weight_grads": n_steps * n_chunks}
+
+
+def dp_stack(dev, mesh, kitti_root=None):
+    """Phase 5's ``two_mlp`` stack (or with ``kitti_root`` 15a's KITTI stack
+    with the GAN) from its seed, its step on ``mesh``, its tables as the
+    driver holds them there (row slices under ``dist_coordinator``):
+    (cfg, state, step, tables, extra step keywords)."""
+    from depth_lidar_nerf_tpu_torch.train.loop import _row_sliced_table
+    from depth_lidar_nerf_tpu_torch.train.state import init_train_state
+    from depth_lidar_nerf_tpu_torch.train.step import make_train_step
+
+    if kitti_root is None:
+        cfg, rcfg, models, tables, scn = bench_stack(dev, TRAIN_N_RAYS,
+                                                     "bfloat16")
+        kw, extra = {}, {}
+    else:
+        cfg, rcfg, models, tables, scn, src = kitti_stack(dev, kitti_root,
+                                                          **GAN_FIELDS)
+        kw, extra = dict(gan_on=True), dict(patch=src)
+    if mesh is not None and mesh.row_sliced:
+        tables = tuple(_row_sliced_table(t, mesh, dev) for t in tables)
+    state = init_train_state(cfg, models)
+    return (cfg, state, make_train_step(cfg, rcfg, models, scn.hwf,
+                                        mesh=mesh, **kw), tables, extra)
+
+
+def dp_run(dev, mesh, n_steps, kitti_root=None, timed=False):
+    """``n_steps`` steps of :func:`dp_stack` from generator seed 0: the
+    metrics, every tensor of the state after them, and with ``timed`` the
+    ms/step of ``DP_TIMED`` more steps by CUDA events."""
+    import torch
+
+    cfg, state, step, tables, extra = dp_stack(dev, mesh, kitti_root)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    metrics = [step(state, *tables, gen, **extra) for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    out = {"metrics": [{k: v.float().cpu() for k, v in m.items()}
+                       for m in metrics],
+           "state": {**net_params(state.models, clone=True),
+                     **optimizer_state(state)}}
+    if timed:
+        out["ms"] = cuda_ms(lambda: step(state, *tables, gen, **extra),
+                            reps=DP_TIMED[1], warmup=DP_TIMED[0])
+    return out
+
+
+def same_run(a, b):
+    """Whether two :func:`dp_run` results agree bit for bit."""
+    import torch
+
+    return (len(a["metrics"]) == len(b["metrics"])
+            and all(same_tensors(x, y) for x, y in zip(a["metrics"],
+                                                       b["metrics"]))
+            and same_tensors(a["state"], b["state"]))
+
+
+def dp_gloo_rank(out_dir):
+    """A rank of 16b (this process's rank in the group): ``DP_STEPS`` steps
+    of the two_mlp stack on the 2-rank mesh, saved to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+
+    from depth_lidar_nerf_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh([2], device=dev)
+    run = dp_run(dev, mesh, DP_STEPS)
+    torch.save(run, os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
+    return run
+
+
+def update_gaps(a, b, p0):
+    """The largest relative loss gap over the steps and the largest relative
+    L2 gap of the parameters' updates from ``p0`` (``trajectories``'
+    measures) between two :func:`dp_run` results."""
+    import torch
+
+    loss = max(abs(x["loss"].item() - y["loss"].item())
+               / max(abs(y["loss"].item()), 1e-12)
+               for x, y in zip(a["metrics"], b["metrics"]))
+    upd = max((torch.linalg.norm(a["state"][k] - b["state"][k])
+               / torch.linalg.norm(b["state"][k] - p0[k])).item()
+              for k in p0 if torch.linalg.norm(b["state"][k] - p0[k]) > 0)
+    return loss, upd
+
+
+def same_checkpoint(path_a, path_b):
+    """Whether two checkpoint files hold the same step, models and
+    optimizer moments, bit for bit."""
+    import torch
+
+    a, b = (torch.load(p, map_location="cpu", weights_only=True)
+            for p in (path_a, path_b))
+
+    def flat(d, pre=""):
+        if torch.is_tensor(d):
+            return {pre: d}
+        if isinstance(d, dict):
+            return {k2: v2 for k, v in d.items()
+                    for k2, v2 in flat(v, f"{pre}.{k}").items()}
+        if isinstance(d, (list, tuple)):
+            return {k2: v2 for i, v in enumerate(d)
+                    for k2, v2 in flat(v, f"{pre}.{i}").items()}
+        return {pre: torch.tensor(float(d)) if isinstance(d, (int, float))
+                else d}
+
+    fa = flat({k: a[k] for k in ("step", "models", "optimizer",
+                                 "optimizer_count")})
+    fb = flat({k: b[k] for k in ("step", "models", "optimizer",
+                                 "optimizer_count")})
+    return fa.keys() == fb.keys() and all(
+        torch.equal(fa[k], fb[k]) if torch.is_tensor(fa[k])
+        else fa[k] == fb[k] for k in fa)
+
+
+def dp_phase(fmt, sc, dev, card, fns, ms_step_5, kept):
+    """Phase 16: 16a, the NCCL group of one process joined as the CLI's
+    ``--dist_coordinator`` joins it (row-sliced tables, the row gather, the
+    ray gathers and the gradient all-reduce at world size 1): ``DP_STEPS``
+    two_mlp steps and one GAN iteration of 15a's stack each equal the
+    non-distributed ones bit for bit, with phase 5's launches; ms/step
+    beside the non-distributed step's and phase 5's. 16b, two ranks on the
+    one card over gloo: the ranks agree bit for bit, and their trajectory
+    is within ``TRAJ_TOL`` of one rank's. 16c, the CLI with
+    ``--dist_coordinator`` on phase 12's scene: 150 steps equal phase 12's
+    run A bit for bit, the run resumed to 300 equals run C, and its
+    ``--render_only`` frame equals an in-process frame. Returns the numbers
+    for the JSON line."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from depth_lidar_nerf_tpu_torch.parallel import distributed as pdist
+    from depth_lidar_nerf_tpu_torch.parallel.mesh import make_mesh
+    from depth_lidar_nerf_tpu_torch.render.renderer import render_image
+    from depth_lidar_nerf_tpu_torch.train import checkpoint
+    from depth_lidar_nerf_tpu_torch.train.config import (eval_render_config,
+                                                         parse_args,
+                                                         render_config_from)
+    from depth_lidar_nerf_tpu_torch.train.loop import load_scene
+    from depth_lidar_nerf_tpu_torch.train.state import (build_models,
+                                                        init_train_state)
+
+    out = {"card": card}
+    zero, counts = _counter(fns)
+
+    # ---- 16a ----
+    t0 = time.time()
+    pdist.init_distributed(f"127.0.0.1:{pdist.free_port()}", 1, 0)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          "16a: an NCCL group of one rank")
+    mesh = make_mesh([1], device=dev, row_sliced=True)
+    zero()
+    one = dp_run(dev, None, DP_STEPS, timed=True)
+    one_counts = counts()
+    zero()
+    dp = dp_run(dev, mesh, DP_STEPS, timed=True)
+    dp_counts_got = counts()
+    want = dict.fromkeys(fns, 0)
+    want.update(dp_counts(fmt, sc, DP_STEPS + sum(DP_TIMED)))
+    equal = same_run(one, dp)
+    print(f"16a NCCL world size 1 (dist_coordinator route, row-sliced tables):"
+          f" {DP_STEPS} two_mlp steps bit-identical to the non-distributed "
+          f"steps {equal}; launches {dp_counts_got} (non-distributed "
+          f"{one_counts}); {dp['ms']:.2f} ms/step, non-distributed "
+          f"{one['ms']:.2f} ms/step (phase 5's bare step {ms_step_5:.2f} ms) "
+          f"on {card}", flush=True)
+    check(equal, "16a: world size 1 equals the non-distributed steps")
+    check(dp_counts_got == one_counts == want,
+          f"16a: phase 5's launches, want {want}")
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dp_")
+    gan_one = dp_run(dev, None, 1, kitti_root=tmp.name)
+    gan_dp = dp_run(dev, mesh, 1, kitti_root=tmp.name)
+    gan_equal = same_run(gan_one, gan_dp)
+    print(f"16a GAN iteration of 15a's stack at world size 1: "
+          f"{len(gan_dp['state'])} tensors and metrics {sorted(gan_dp['metrics'][0])}"
+          f" bit-identical {gan_equal}", flush=True)
+    check(gan_equal and "loss_dis" in gan_dp["metrics"][0],
+          "16a: the GAN iteration at world size 1 equals the "
+          "non-distributed one")
+    dist.destroy_process_group()
+    out["16a"] = {"bit_identical": equal, "gan_bit_identical": gan_equal,
+                  "launches": dp_counts_got, "ms_per_step": dp["ms"],
+                  "ms_per_step_non_distributed": one["ms"],
+                  "ms_per_step_phase5": ms_step_5}
+    del gan_one, gan_dp
+    torch.cuda.empty_cache()
+    print(f"phase 16a done at {time.time() - T_START:.0f} s "
+          f"({time.time() - t0:.0f} s)", flush=True)
+
+    # ---- 16c's first CLI run starts here and runs beside 16b ----
+    root = kept[0].name
+    logs = os.path.join(root, "logs")
+
+    def start_cli(n_iters, extra=()):
+        argv = driver_argv(root, "dist", n_iters) + [
+            "--dist_coordinator", f"127.0.0.1:{pdist.free_port()}",
+            "--dist_num_processes", "1", "--dist_process_id", "0", *extra]
+        log = os.path.join(tmp.name, f"cli_{n_iters}_{len(extra)}")
+        with open(log + ".out", "w") as fo, open(log + ".err", "w") as fe:
+            proc = subprocess.Popen([sys.executable, "-c", CLI_COUNTING, *argv],
+                                    cwd=HERE, stdout=fo, stderr=fe)
+        return proc, time.time(), extra, log
+
+    def finish_cli(started):
+        proc, t, extra, log = started
+        proc.wait(timeout=600)
+        stdout, stderr = (open(log + ext).read() for ext in (".out", ".err"))
+        check(proc.returncode == 0, f"16c CLI {extra}: {stderr[-3000:]}")
+        got = json.loads([l for l in stdout.splitlines()
+                          if l.startswith("launches ")][-1][len("launches "):])
+        return stdout, got, time.time() - t
+
+    def ckpt(exp, step):
+        return checkpoint.path_of(os.path.join(logs, exp, "checkpoints"), step)
+
+    s0, s1 = DRIVER_STEPS
+    t_c = time.time()
+    run_d = start_cli(s0)
+
+    # ---- 16b ----
+    t0 = time.time()
+    r0 = pdist.launch_local(2, dp_gloo_rank, (tmp.name,), device="cuda",
+                            backend="gloo")
+    r1 = torch.load(os.path.join(tmp.name, "rank1.pt"), weights_only=False)
+    ranks_equal = same_run(r0, r1)
+    p0 = net_params(bench_stack(dev, TRAIN_N_RAYS, "bfloat16")[2])
+    loss_gap, upd_gap = update_gaps(r0, one, p0)
+    tol = TRAJ_TOL["bfloat16"]
+    print(f"16b two gloo ranks on one card: ranks bit-identical {ranks_equal}; "
+          f"against one rank over {DP_STEPS} steps: loss gap {loss_gap:.3g} "
+          f"(tolerance {tol[0]:g}), update gap {upd_gap:.3g} (tolerance "
+          f"{tol[1]:g}) on {card}", flush=True)
+    check(ranks_equal, "16b: the two ranks agree bit for bit")
+    check(loss_gap <= tol[0] and upd_gap <= tol[1],
+          "16b: two ranks against one rank within TRAJ_TOL")
+    out["16b"] = {"ranks_bit_identical": ranks_equal, "loss_gap": loss_gap,
+                  "update_gap": upd_gap}
+    del r0, r1, one, dp
+    torch.cuda.empty_cache()
+    print(f"phase 16b done at {time.time() - T_START:.0f} s "
+          f"({time.time() - t0:.0f} s)", flush=True)
+
+    # ---- 16c: the run of 150 steps, then its resumed run to 300 beside a
+    # --render_only frame of its checkpoint at 150 ----
+    out_d, launch_d, wall_d = finish_cli(run_d)
+    check("multi-host ray-DP mesh: 1 processes" in out_d,
+          "16c: the CLI joined the group")
+    first = same_checkpoint(ckpt("dist", s0), ckpt("resumed", s0))
+    run_e = start_cli(s1)
+    run_f = start_cli(s1, ["--render_only", "--render_test", "--ft_path",
+                           ckpt("dist", s0)])
+    out_e, launch_e, wall_e = finish_cli(run_e)
+    check(f"resumed from checkpoint at step {s0}" in out_e,
+          "16c: the resumed CLI run")
+    resumed = same_checkpoint(ckpt("dist", s1), ckpt("fresh", s1))
+    out_f, launch_f, wall_f = finish_cli(run_f)
+    served = np.load(os.path.join(logs, "dist", f"renderonly_test_{s0:06d}",
+                                  "000.npz"))["rgb"]
+    cfg = parse_args(driver_argv(root, "dist", s1))
+    scene = load_scene(cfg)
+    rcfg = render_config_from(cfg, 0, scene.near, scene.far)
+    models = build_models(cfg, rcfg, device=dev)
+    checkpoint.restore(checkpoint.load_file(ckpt("dist", s0)),
+                       init_train_state(cfg, models),
+                       checkpoint.topology(cfg, 0))
+    frame = render_image(models.coarse, models.fine, H, W, FOCAL,
+                         scene.poses[DRIVER_HOLDOUT],
+                         eval_render_config(cfg, rcfg), device=dev)
+    rgb = frame["rgb_map"].float().cpu().numpy()
+    frame_equal = bool(np.array_equal(rgb, served))
+    print(f"16c CLI --dist_coordinator (world size 1; wall s with 16b, then "
+          f"with each other, on the card): {s0} steps in "
+          f"{wall_d:.1f} s, checkpoint {s0} bit-identical to phase 12's run A "
+          f"{first}; resumed to {s1} in {wall_e:.1f} s, bit-identical to run C "
+          f"(uninterrupted) {resumed}; --render_only frame of checkpoint {s0} "
+          f"in {wall_f:.1f} s vs in-process render_image: bit-identical "
+          f"{frame_equal} (max abs "
+          f"diff {np.abs(rgb - served).max():.3g}); CLI launches {launch_d}, "
+          f"{launch_e}, {launch_f} on {card}", flush=True)
+    check(first, "16c: 150 distributed CLI steps equal run A's")
+    check(resumed, "16c: the resumed distributed run equals run C")
+    check(frame_equal, "16c: the CLI frame equals the in-process frame")
+    check(launch_d["fused_nerf_fwd"] == s0 and launch_d[sc.KERNEL] == s0,
+          "16c: the CLI's steps ran kernels 1 and 14")
+    out["16c"] = {"first_bit_identical": first,
+                  "resumed_bit_identical": resumed,
+                  "frame_bit_identical": frame_equal,
+                  "wall_s": [wall_d, wall_e, wall_f]}
+    tmp.cleanup()
+    print(f"phase 16c done at {time.time() - T_START:.0f} s "
+          f"({time.time() - t_c:.0f} s from its start, 16b's included)",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5140,9 +5466,13 @@ def main() -> int:
     nb_out, nb_launches = no_batching_phase(fmt, sc, dev, card,
                                             kernel_fns(fmt, sc), kept[0],
                                             ms_step)
+
+    # ---- 16. ray data parallelism --------------------------------------------
+    dp_out = dp_phase(fmt, sc, dev, card, kernel_fns(fmt, sc), ms_step,
+                      kept[0])
     kept[0][0].cleanup()
 
-    # ---- 16. the kernels line -----------------------------------------------
+    # ---- the kernels line ---------------------------------------------------
     src = "depth_lidar_nerf_tpu_torch/csrc/"
     main_launches = {k: launches.get(k, 0) + train_launches.get(k, 0)
                      + int8_launches[k] + sem["launches"][k]
@@ -5241,6 +5571,7 @@ def main() -> int:
     print(json.dumps({"patch": {**patch_out, "flagship_driver": flagship}}))
     print(json.dumps({"gan": {**gan_out, "driver": gan_driver},
                       "frozen_alpha": alpha_out, "no_batching": nb_out}))
+    print(json.dumps({"data_parallel": dp_out}))
     print(f"total {time.time() - T_START:.0f} s")
     print(json.dumps({"training": {
         "ms_per_step": ms_step, "rays_per_s": TRAIN_N_RAYS * 1e3 / ms_step,

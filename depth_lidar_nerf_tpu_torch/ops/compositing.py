@@ -14,6 +14,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from depth_lidar_nerf_tpu_torch.ops.sampling import base_generator, draw_rows
+
 
 class RayOutputs(NamedTuple):
     rgb: torch.Tensor  # [N, 3]
@@ -36,11 +38,11 @@ def _sigma_noise(sigma, raw_noise_std, generator, noise):
     if noise is not None:
         return sigma + noise.float()
     if raw_noise_std > 0.0:
-        if generator is None:
+        if base_generator(generator) is None:
             raise ValueError("raw_noise_std > 0 requires a generator")
-        return sigma + torch.randn(sigma.shape, dtype=sigma.dtype,
-                                   device=sigma.device,
-                                   generator=generator) * raw_noise_std
+        return sigma + draw_rows(sigma.shape, generator, normal=True,
+                                 dtype=sigma.dtype,
+                                 device=sigma.device) * raw_noise_std
     return sigma
 
 

@@ -32,7 +32,7 @@ def frustum_bounds(rays_o, rays_d, near: float, far: float,
 
 @torch.no_grad()
 def bake_density_grid(model, cfg, lo, hi, resolution: int, device=None,
-                      chunk: int = 1 << 18):
+                      chunk: int = 1 << 18, mesh=None):
     """The model's raw sigma on an ``R^3`` grid over ``[lo, hi]`` (axes in
     ``meshgrid(indexing="ij")`` order), through the plain module's forward
     in chunks of ``chunk`` points: the positional encoding cast to the
@@ -44,7 +44,15 @@ def bake_density_grid(model, cfg, lo, hi, resolution: int, device=None,
     Each axis is ``lo (1 - t) + hi t`` on :func:`unit_linspace`, the formula
     of ``jnp.linspace``; XLA compiles JAX's into a reassociated product and
     a fused multiply-add, so the axes agree with JAX's within one float32
-    ulp, not bit for bit."""
+    ulp, not bit for bit.
+
+    With a ``mesh`` each rank bakes its share of the chunks
+    (``parallel.mesh.ray_range``) and the ranks gather them: each chunk is
+    evaluated as one process evaluates it, so the grid equals one
+    process's."""
+    from depth_lidar_nerf_tpu_torch.parallel.gather import gather_rays
+    from depth_lidar_nerf_tpu_torch.parallel.mesh import ray_range
+
     if device is None:
         device = next(model.parameters()).device
     R = int(resolution)
@@ -56,13 +64,17 @@ def bake_density_grid(model, cfg, lo, hi, resolution: int, device=None,
                       dim=-1).reshape(-1, 3)
     dtype = getattr(model, "dtype", torch.float32)
     n_views = 3 + 6 * cfg.multires_views
-    sigma = []
-    for s in range(0, pts.shape[0], chunk):
-        x = pts[s:s + chunk]
+    p_lo, p_hi = ray_range(pts.shape[0], mesh, chunk)
+    sigma = [torch.empty((0,), dtype=torch.float32, device=device)]
+    for s in range(p_lo, p_hi, chunk):
+        x = pts[s:min(s + chunk, p_hi)]
         pe = positional_encoding(x, cfg.multires).to(dtype)
         ve = torch.zeros((x.shape[0], n_views), dtype=dtype, device=device)
         sigma.append(model(pe, ve)[..., 3].float())
-    return torch.cat(sigma).reshape(R, R, R), lo, hi
+    sigma = torch.cat(sigma)
+    if mesh is not None:
+        sigma = gather_rays(sigma, pts.shape[0], mesh, chunk)
+    return sigma.reshape(R, R, R), lo, hi
 
 
 def trilinear_sigma(grid, lo, hi, pts):

@@ -26,9 +26,13 @@ class RayCDF(NamedTuple):
     """Baked per-ray weights of the two tables. ``z`` is the shared bake
     z-grid ``[S]``; ``0.5 (z[1:] + z[:-1])`` are the inverse CDF's bins."""
 
-    w_rgb: torch.Tensor  # [M_rgb, S] bfloat16
+    # [M_rgb, S] bfloat16 (a RowShard of it where the tables are row slices)
+    w_rgb: torch.Tensor
     w_depth: Optional[torch.Tensor]  # [M_depth, S] bfloat16 or None
     z: torch.Tensor  # [S] float32
+
+
+BAKE_CHUNK = 1 << 14  # rays a chunk of :func:`bake_table_weights`
 
 
 def cdf_z_grid(rcfg: RenderConfig, S: int, device=None) -> torch.Tensor:
@@ -45,7 +49,7 @@ def cdf_z_grid(rcfg: RenderConfig, S: int, device=None) -> torch.Tensor:
 
 @torch.no_grad()
 def bake_table_weights(model, rcfg: RenderConfig, origins, directions,
-                       viewdirs, S: int, chunk: int = 1 << 14) -> torch.Tensor:
+                       viewdirs, S: int, chunk: int = BAKE_CHUNK) -> torch.Tensor:
     """The field's compositing weights along every table ray, ``[M, S]``
     bfloat16, in chunks of ``chunk`` rays (JAX pads the last chunk with zero
     rays; per-ray results do not depend on the others, so a ragged last
@@ -77,15 +81,38 @@ def bake_table_weights(model, rcfg: RenderConfig, origins, directions,
 
 
 def bake_ray_cdf(models, rcfg: RenderConfig, rgb_table, depth_table,
-                 S: int) -> RayCDF:
+                 S: int, mesh=None) -> RayCDF:
     """Bake both tables' weights from the live fine model (the coarse one
-    without a fine pass)."""
+    without a fine pass).
+
+    With a ``mesh`` each rank bakes its share of the chunks of rows
+    (``parallel.mesh.ray_range``) and the ranks gather them, so every rank
+    holds all of them (JAX replicates the bake). A table held as row slices
+    (:class:`~parallel.distributed.RowShard`, multi-host) gives weights
+    held the same way: each process bakes its own slice, and a step
+    collects its batch's rows with ``gather_table_rows``. The bake works
+    row by row, so either way the rows equal one process's bake."""
+    from depth_lidar_nerf_tpu_torch.parallel.distributed import RowShard
+    from depth_lidar_nerf_tpu_torch.parallel.gather import gather_rays
+    from depth_lidar_nerf_tpu_torch.parallel.mesh import ray_range
+
     model = models.fine if models.fine is not None else models.coarse
 
     def bake(table):
-        return bake_table_weights(model, rcfg, table.origins,
-                                  table.directions, table.viewdirs, S)
+        if isinstance(table, RowShard):
+            t = table.local
+            return RowShard(bake_table_weights(
+                model, rcfg, t.origins, t.directions, t.viewdirs, S),
+                table.lo, table.rows)
+        n = table.origins.shape[0]
+        lo, hi = ray_range(n, mesh, BAKE_CHUNK)
+        w = bake_table_weights(model, rcfg, table.origins[lo:hi],
+                               table.directions[lo:hi],
+                               table.viewdirs[lo:hi], S)
+        return w if mesh is None else gather_rays(w, n, mesh, BAKE_CHUNK)
 
+    dev = (rgb_table.local if isinstance(rgb_table, RowShard)
+           else rgb_table).origins.device
     return RayCDF(bake(rgb_table),
                   bake(depth_table) if depth_table is not None else None,
-                  cdf_z_grid(rcfg, S, rgb_table.origins.device))
+                  cdf_z_grid(rcfg, S, dev))

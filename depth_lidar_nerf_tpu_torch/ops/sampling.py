@@ -8,12 +8,60 @@ in :mod:`depth_lidar_nerf_tpu_torch.ops.sampling_cuda`.
 
 Randomness comes from an explicit ``torch.Generator``; JAX's threefry
 streams are never reproduced, so parity tests run with ``det=True`` or hand
-the same uniforms to both sides (:func:`sample_pdf_from_u`).
+the same uniforms to both sides (:func:`sample_pdf_from_u`). Where a caller
+renders only some rows of a batch (a rank of a data-parallel step), it
+passes a :class:`RowRange` in the generator's place, and every per-ray draw
+is drawn for the whole batch and sliced (:func:`draw_rows`).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
+
+
+class RowRange(NamedTuple):
+    """Rows ``lo:hi`` of an ``n``-row batch with the batch's generator
+    (possibly None). Passed where a render takes its generator, it makes
+    every per-ray draw (jitter, sigma noise, importance uniforms) draw all
+    ``n`` rows from ``generator`` and keep ``lo:hi``: the shards of a batch
+    then read the stream that one process reads for the whole batch, and
+    at ``lo, hi, n = 0, n, n`` nothing changes, bit for bit."""
+
+    generator: Optional[torch.Generator]
+    lo: int
+    hi: int
+    n: int
+
+
+def base_generator(generator) -> Optional[torch.Generator]:
+    """The ``torch.Generator`` behind ``generator`` (a generator, a
+    :class:`RowRange` or None)."""
+    return generator.generator if isinstance(generator, RowRange) else generator
+
+
+def batch_rows(generator, n_local: int) -> int:
+    """The rows of the batch that ``n_local`` rows belong to: the
+    :class:`RowRange`'s ``n``, else ``n_local``."""
+    return generator.n if isinstance(generator, RowRange) else n_local
+
+
+def draw_rows(shape, generator, *, normal: bool = False,
+              dtype=torch.float32, device=None) -> torch.Tensor:
+    """``torch.rand`` (``torch.randn`` with ``normal``) of ``shape``, whose
+    dim 0 is rays, from ``generator``; through a :class:`RowRange` drawn for
+    its ``n`` rows and sliced to ``lo:hi``."""
+    fn = torch.randn if normal else torch.rand
+    shape = tuple(shape)
+    if not isinstance(generator, RowRange):
+        return fn(shape, dtype=dtype, device=device, generator=generator)
+    if shape[0] != generator.hi - generator.lo:
+        raise ValueError(f"{shape[0]} rows drawn for the range "
+                         f"{generator.lo}:{generator.hi}")
+    full = fn((generator.n,) + shape[1:], dtype=dtype, device=device,
+              generator=generator.generator)
+    return full[generator.lo:generator.hi]
 
 
 def unit_linspace(n: int, device=None) -> torch.Tensor:
@@ -61,13 +109,13 @@ def stratified_z_vals(near: torch.Tensor, far: torch.Tensor, N_samples: int,
     z_vals = z_vals.expand(near.shape[:-1] + (N_samples,))
 
     if perturb:
-        if generator is None:
+        if base_generator(generator) is None:
             raise ValueError("perturb=True requires a generator")
         mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
         upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
         lower = torch.cat([z_vals[..., :1], mids], dim=-1)
-        t_rand = torch.rand(z_vals.shape, dtype=z_vals.dtype,
-                            device=z_vals.device, generator=generator)
+        t_rand = draw_rows(z_vals.shape, generator, dtype=z_vals.dtype,
+                           device=z_vals.device)
         z_vals = lower + (upper - lower) * t_rand
     return z_vals
 
@@ -85,10 +133,9 @@ def pdf_uniforms(n_rays: int, N_samples: int, *, det: bool,
     :func:`unit_linspace` for ``det``, else uniform from ``generator``."""
     if det:
         return unit_linspace(N_samples, device).expand(n_rays, N_samples)
-    if generator is None:
+    if base_generator(generator) is None:
         raise ValueError("det=False requires a generator")
-    return torch.rand((n_rays, N_samples), dtype=torch.float32, device=device,
-                      generator=generator)
+    return draw_rows((n_rays, N_samples), generator, device=device)
 
 
 def sample_pdf_from_u(bins: torch.Tensor, weights: torch.Tensor,

@@ -34,10 +34,13 @@ from depth_lidar_nerf_tpu_torch.ops.embedding import positional_encoding
 from depth_lidar_nerf_tpu_torch.ops.fused_mlp_t import supports_rays_shape
 from depth_lidar_nerf_tpu_torch.ops.rays import (camera_rays, ndc_rays,
                                                  rays_by_coord)
-from depth_lidar_nerf_tpu_torch.ops.sampling import (sample_pdf,
+from depth_lidar_nerf_tpu_torch.ops.sampling import (base_generator,
+                                                     batch_rows, draw_rows,
+                                                     sample_pdf,
                                                      stratified_z_vals,
                                                      unit_linspace)
 from depth_lidar_nerf_tpu_torch.ops.sampling_cuda import sample_pdf_cuda
+from depth_lidar_nerf_tpu_torch.parallel.gather import run_sharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,10 +182,9 @@ def _semantic_ok(model, cfg: RenderConfig, n_rays: int, S: int) -> bool:
 
 
 def _sigma_noise(z_vals, cfg: RenderConfig, generator):
-    if cfg.raw_noise_std > 0.0 and generator is not None:
-        return torch.randn(z_vals.shape, dtype=torch.float32,
-                           device=z_vals.device,
-                           generator=generator) * cfg.raw_noise_std
+    if cfg.raw_noise_std > 0.0 and base_generator(generator) is not None:
+        return draw_rows(z_vals.shape, generator, normal=True,
+                         device=z_vals.device) * cfg.raw_noise_std
     return None
 
 
@@ -200,10 +202,13 @@ def _composite_from_z(model, rays: Rays, z_vals, cfg: RenderConfig,
     termination depth) with ``cull_eps > 0`` hands the fused RGB pass what
     the early-terminating forward needs (JAX ``fwd_cull``): the key, the
     compositor's distance terms and the one sigma noise tensor that the
-    compositor also adds."""
+    compositor also adds. Given a :class:`~ops.sampling.RowRange` for its
+    generator (a rank's shard of a batch), the semantic kernels' cap is
+    checked at the whole batch's ray count, so that a shard takes the
+    route that the batch takes in one process."""
     S = z_vals.shape[-1]
-    if rays.viewdirs is not None and _semantic_ok(model, cfg,
-                                                  z_vals.shape[0], S):
+    if rays.viewdirs is not None and _semantic_ok(
+            model, cfg, batch_rows(generator, z_vals.shape[0]), S):
         noise = _sigma_noise(z_vals, cfg, generator)
         if _int8_semantic(model, cfg):
             raw_t, sem_map = model.apply_rays_semantic_q8(rays, z_vals, cfg)
@@ -398,46 +403,66 @@ def pick_render_tile(model, fine_model, cfg: RenderConfig, n: int,
     return tile if flax_cap is None else min(tile, flax_cap)
 
 
+def _rows(rays: Rays, lo: int, hi: int) -> Rays:
+    return Rays(*(None if x is None else x[lo:hi] for x in rays))
+
+
 def render_rays_tiled(model, fine_model, rays: Rays, cfg: RenderConfig,
                       generator: torch.Generator | None = None,
                       tile: int | None = None,
-                      density_grid=None) -> Dict[str, torch.Tensor]:
+                      density_grid=None, mesh=None) -> Dict[str, torch.Tensor]:
     """Render a large ray batch in tiles of ``tile`` rays (``chunk`` by
     default); the last tile is ragged. Per-ray results do not depend on the
-    tiling when ``generator`` is None."""
+    tiling when ``generator`` is None.
+
+    With a ``mesh`` (:class:`~parallel.mesh.RayMesh`) each tile is split
+    over the ranks, each rank renders its rows (drawing for the whole tile,
+    :func:`~parallel.gather.run_sharded`), and the tile's per-ray outputs
+    are gathered, every key but the ``[N, S]`` ``weights``. The kernels
+    work ray by ray, so the outputs equal one process's."""
     n = rays.origins.shape[0]
     if tile is None:
         tile = pick_render_tile(model, fine_model, cfg, n, density_grid)
     tile = max(1, min(tile, n))
     outs = []
     for s in range(0, n, tile):
-        sub = Rays(*(None if x is None else x[s:s + tile] for x in rays))
-        outs.append(render_rays(model, fine_model, sub, cfg, generator,
-                                density_grid))
+        sub = _rows(rays, s, s + tile)
+        if mesh is None:
+            outs.append(render_rays(model, fine_model, sub, cfg, generator,
+                                    density_grid))
+            continue
+        out = run_sharded(mesh, sub.origins.shape[0], lambda lo, hi, g: {
+            k: v for k, v in render_rays(model, fine_model, _rows(sub, lo, hi),
+                                         cfg, g, density_grid).items()
+            if k != "weights"}, generator)
+        outs.append(out)
     return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
 
 @torch.no_grad()
 def render_image(model, fine_model, H: int, W: int, focal, c2w,
                  cfg: RenderConfig, tile: int | None = None,
-                 device=None, density_grid=None) -> Dict[str, torch.Tensor]:
+                 device=None, density_grid=None,
+                 mesh=None) -> Dict[str, torch.Tensor]:
     """Render a full image pose on ``device`` (``cuda`` unless given):
     ``render(..., c2w=...)`` plus chunking (``run_nerf.py:138-189``). With
     ``render_coarse_downsample`` k > 1, a fine pass, k dividing H and W and
     no ``density_grid``, the frame is
-    :func:`render_image_coarse_downsampled`'s."""
+    :func:`render_image_coarse_downsampled`'s. With a ``mesh`` the frame's
+    rays are split over the ranks (:func:`render_rays_tiled`) and every
+    rank gets the whole frame, without ``weights``."""
     k = cfg.render_coarse_downsample
     if (k > 1 and cfg.N_importance > 0 and H % k == 0 and W % k == 0
             and density_grid is None):
         return render_image_coarse_downsampled(model, fine_model, H, W, focal,
-                                               c2w, cfg, tile, device)
+                                               c2w, cfg, tile, device, mesh)
     device = resolve_device(device)
     c2w = torch.as_tensor(c2w, dtype=torch.float32, device=device)[:3, :4]
     rays_o, rays_d = camera_rays(H, W, focal, c2w)
     rays = make_rays(rays_o, rays_d, cfg, H, W, focal)
     out = render_rays_tiled(model, fine_model, rays, cfg.eval_mode(),
                             generator=None, tile=tile,
-                            density_grid=density_grid)
+                            density_grid=density_grid, mesh=mesh)
     return {k: v.reshape((H, W) + v.shape[1:]) for k, v in out.items()}
 
 
@@ -445,7 +470,8 @@ def render_image(model, fine_model, H: int, W: int, focal, c2w,
 def render_image_coarse_downsampled(model, fine_model, H: int, W: int, focal,
                                     c2w, cfg: RenderConfig,
                                     tile: int | None = None,
-                                    device=None) -> Dict[str, torch.Tensor]:
+                                    device=None,
+                                    mesh=None) -> Dict[str, torch.Tensor]:
     """Serving with ``render_coarse_downsample = k`` (JAX
     ``render_image_coarse_downsampled``): the coarse pass at ``(H/k, W/k)``,
     one ray through the centre of each k x k pixel block, untiled;
@@ -454,7 +480,8 @@ def render_image_coarse_downsampled(model, fine_model, H: int, W: int, focal,
     ``tile``-ray tiles (picked as for a ``render_fine_only`` frame). Returns
     the fine ``rgb_map``/``disp_map``/``acc_map``/``depth_map`` (and
     ``sem_preds``) and the coarse ``rgb0``/``depth_map0``/``acc0`` upsampled
-    to full resolution."""
+    to full resolution. With a ``mesh`` the coarse rays and each fine tile
+    are split over the ranks and gathered, as in :func:`render_rays_tiled`."""
     k = cfg.render_coarse_downsample
     if k <= 1 or cfg.N_importance <= 0 or H % k or W % k:
         raise ValueError(
@@ -477,13 +504,20 @@ def render_image_coarse_downsampled(model, fine_model, H: int, W: int, focal,
                          dim=-1).reshape(-1, 2)
     ro, rd = rays_by_coord(H, W, focal, c2w, coords)
     rays_lo = make_rays(ro, rd, cfg, H, W, focal)
-    z_lo = stratified_z_vals(rays_lo.near, rays_lo.far, cfg.N_samples,
-                             lindisp=cfg.lindisp, perturb=False)
-    coarse = _composite_from_z(model, rays_lo, z_lo, cfg, None)
-    z_mid = 0.5 * (z_lo[..., 1:] + z_lo[..., :-1])
-    sampler = sample_pdf_cuda if z_mid.device.type == "cuda" else sample_pdf
-    z_samples = torch.sort(sampler(z_mid, coarse.weights[..., 1:-1],
-                                   cfg.N_importance, det=True), dim=-1).values
+    sampler = sample_pdf_cuda if device.type == "cuda" else sample_pdf
+
+    def coarse_pass(lo, hi, gen):
+        sub = _rows(rays_lo, lo, hi)
+        z_lo = stratified_z_vals(sub.near, sub.far, cfg.N_samples,
+                                 lindisp=cfg.lindisp, perturb=False)
+        c = _composite_from_z(model, sub, z_lo, cfg, gen)
+        z_mid = 0.5 * (z_lo[..., 1:] + z_lo[..., :-1])
+        z = torch.sort(sampler(z_mid, c.weights[..., 1:-1], cfg.N_importance,
+                               det=True), dim=-1).values
+        return {"rgb": c.rgb, "depth": c.depth, "acc": c.acc, "z": z}
+
+    coarse = run_sharded(mesh, Hd * Wd, coarse_pass)
+    z_samples = coarse["z"]
 
     def up(a):  # [Hd * Wd, ...] -> [H, W, ...], each value over its block
         a = a.reshape((Hd, Wd) + a.shape[1:])
@@ -495,17 +529,22 @@ def render_image_coarse_downsampled(model, fine_model, H: int, W: int, focal,
     fm = fine_model if fine_model is not None else model
     outs = []
     for s in range(0, H * W, tile):
-        sub = Rays(*(None if x is None else x[s:s + tile] for x in rays))
-        fine = _composite_from_z(fm, sub, z_full[s:s + tile], cfg, None)
-        o = {"rgb_map": fine.rgb, "disp_map": fine.disp,
-             "acc_map": fine.acc, "depth_map": fine.depth}
-        if fine.semantic is not None:
-            o["sem_preds"] = fine.semantic
-        outs.append(o)
+        sub, z_tile = _rows(rays, s, s + tile), z_full[s:s + tile]
+
+        def fine_pass(lo, hi, gen):
+            fine = _composite_from_z(fm, _rows(sub, lo, hi), z_tile[lo:hi],
+                                     cfg, gen)
+            o = {"rgb_map": fine.rgb, "disp_map": fine.disp,
+                 "acc_map": fine.acc, "depth_map": fine.depth}
+            if fine.semantic is not None:
+                o["sem_preds"] = fine.semantic
+            return o
+
+        outs.append(run_sharded(mesh, z_tile.shape[0], fine_pass))
     out = {key: torch.cat([o[key] for o in outs]).reshape(
         (H, W) + outs[0][key].shape[1:]) for key in outs[0]}
-    out.update({"rgb0": up(coarse.rgb), "depth_map0": up(coarse.depth),
-                "acc0": up(coarse.acc)})
+    out.update({"rgb0": up(coarse["rgb"]), "depth_map0": up(coarse["depth"]),
+                "acc0": up(coarse["acc"])})
     return out
 
 

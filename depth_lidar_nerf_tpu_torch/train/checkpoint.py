@@ -27,6 +27,12 @@ A file is written to a temporary name and moved into place with
 ``KEEP`` (5, orbax's ``max_to_keep``) are kept; "latest" is the highest step,
 and a save at or below it is skipped, as orbax's ``should_save`` skips it.
 Files are read with ``torch.load(..., weights_only=True)``.
+
+Data parallelism: only rank 0 of a process group writes (:func:`save_state`
+returns None elsewhere), and a run's start state is rank 0's
+(:func:`broadcast_state`, JAX ``broadcast_one_to_all``): rank 0 restores,
+and its state goes to every rank, the GAN's discriminator and its optimizer
+included. The other processes need not see the checkpoint directory.
 """
 
 from __future__ import annotations
@@ -36,7 +42,9 @@ import re
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from depth_lidar_nerf_tpu_torch.parallel.distributed import broadcast_object
 from depth_lidar_nerf_tpu_torch.train.config import TrainConfig
 from depth_lidar_nerf_tpu_torch.train.state import TrainState, invalidate_packs
 
@@ -84,13 +92,27 @@ def save_state(directory: str, state: TrainState, step: int, topo: Dict,
                keep: int = KEEP) -> Optional[Tuple[str, int]]:
     """Write ``state`` as ``<directory>/<step>.pt`` and drop all but the
     newest ``keep``; returns the path and its size in bytes, or None when
-    ``step`` is not above the latest checkpoint's (nothing written). The
-    file holds ``state.step``, which equals ``step`` except where JAX's
-    final save labels a state by ``N_iters``."""
+    ``step`` is not above the latest checkpoint's or this process is not
+    rank 0 of a process group (nothing written). The file holds
+    ``state.step``, which equals ``step`` except where JAX's final save
+    labels a state by ``N_iters``."""
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return None
     last = latest_step(directory)
     if last is not None and step <= last:
         return None
     os.makedirs(directory, exist_ok=True)
+    path = path_of(directory, step)
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save(state_payload(state, topo), tmp)
+    os.replace(tmp, path)
+    for old in steps(directory)[:-keep]:
+        os.remove(path_of(directory, old))
+    return path, os.path.getsize(path)
+
+
+def state_payload(state: TrainState, topo: Dict) -> Dict:
+    """What a checkpoint file holds (the module's note)."""
     payload = {
         "format": FORMAT,
         "step": int(state.step),
@@ -108,13 +130,30 @@ def save_state(directory: str, state: TrainState, step: int, topo: Dict,
             discriminator=state.models.discriminator.state_dict(),
             disc_optimizer=state.disc_optimizer.state_dict(),
             disc_optimizer_count=int(state.disc_optimizer.count))
-    path = path_of(directory, step)
-    tmp = f"{path}.tmp{os.getpid()}"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
-    for old in steps(directory)[:-keep]:
-        os.remove(path_of(directory, old))
-    return path, os.path.getsize(path)
+    return payload
+
+
+def _to_cpu(x):
+    if torch.is_tensor(x):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_cpu(v) for v in x)
+    return x
+
+
+def broadcast_state(state: TrainState, topo: Dict, mesh) -> TrainState:
+    """Rank 0's state (models, optimizers, step) on every rank of ``mesh``:
+    rank 0's :func:`state_payload` is broadcast and restored elsewhere.
+    Without a mesh, ``state`` as it is."""
+    if mesh is None:
+        return state
+    payload = _to_cpu(state_payload(state, topo)) if mesh.rank == 0 else None
+    payload = broadcast_object(payload, mesh)
+    if mesh.rank != 0:
+        restore(payload, state, topo, source="rank 0's state")
+    return state
 
 
 def load_file(path: str) -> Dict:

@@ -144,19 +144,15 @@ class TrainConfig:
 
     # --- TPU-native additions (no reference counterpart) ---
     compute_dtype: str = "float32"  # "bfloat16" for MXU-speed training
-    mesh_shape: Optional[List[int]] = None  # e.g. [8] -> 1-D ray-DP mesh
-    # Multi-host (DCN) data parallelism: when dist_coordinator is set, the
-    # CLI calls jax.distributed.initialize BEFORE any backend use and the
-    # trainer runs one global ray-DP mesh over every process's devices —
-    # ray tables sharded per process (each host holds only its row slice),
-    # params replicated, gradient psum over ICI within hosts and DCN across
-    # (parallel/distributed.py; certified by tests/test_multihost.py on a
-    # 2-process x 4-virtual-device CPU mesh). On TPU pods leave
-    # dist_num_processes/dist_process_id at their defaults: initialize()
-    # auto-detects the pod topology.
-    dist_coordinator: Optional[str] = None  # "host0:port" enables multi-host
-    dist_num_processes: int = -1  # -1 = auto-detect (TPU pods)
-    dist_process_id: int = -1  # -1 = auto-detect (TPU pods)
+    mesh_shape: Optional[List[int]] = None  # e.g. [8] -> 8-rank ray-DP mesh
+    # Multi-host data parallelism: with dist_coordinator ("host0:port") each
+    # process joins one torch.distributed group (NCCL on the card) before
+    # the trainer runs, keeps only its row slice of the ray tables, and the
+    # ranks sum their gradients (parallel/). dist_num_processes /
+    # dist_process_id -1 read WORLD_SIZE / RANK (as torchrun sets them).
+    dist_coordinator: Optional[str] = None
+    dist_num_processes: int = -1
+    dist_process_id: int = -1
     log_every_host: int = 100
     # The port honours these two flags on the CPU only: on the card a covered
     # topology always runs the fused MLP kernel and inverse-CDF sampling

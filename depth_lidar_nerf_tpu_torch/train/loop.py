@@ -40,6 +40,20 @@ resumed run continues the stream of an uninterrupted one. The host draws
 JAX batches several steps into one dispatch (``steps_per_dispatch``,
 ``cycle_dispatch``) with the same trajectory; the port accepts both flags
 and runs one step an iteration (ROADMAP Queue 1, item 8).
+
+Data parallelism over rays (JAX ``train/loop.py:726-807``), one process a
+device: with ``mesh_shape [n]`` and no process group, :func:`train` makes
+this process rank 0, starts ranks 1..n-1 (``parallel.distributed.
+launch_local``) and returns rank 0's state; under torchrun (``RANK`` and
+``WORLD_SIZE`` set) each process joins the group; with
+``dist_coordinator`` (multi-host; ``python -m depth_lidar_nerf_tpu_torch.
+train`` joins first) each process keeps only its row slice of the ray
+tables, and the mid-run eval renders are off, as in JAX. Every rank draws
+the same batches and takes the same steps (``train/step.py``); rank 0
+alone prints, writes logs, images, videos and checkpoints, and a run
+starts from rank 0's state. Single-host eval frames are split over the
+ranks. Tensor parallelism (``mesh_shape [dp, tp]``, ``tp > 1``) is not
+ported.
 """
 
 from __future__ import annotations
@@ -53,6 +67,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from depth_lidar_nerf_tpu_torch.data.depth import load_lidar_depth
 from depth_lidar_nerf_tpu_torch.data.llff import load_llff_data
@@ -65,6 +80,8 @@ from depth_lidar_nerf_tpu_torch.ops.density_grid import (bake_density_grid,
                                                          frustum_bounds)
 from depth_lidar_nerf_tpu_torch.ops.ray_cdf import bake_ray_cdf
 from depth_lidar_nerf_tpu_torch.ops.rays import rays_by_coord
+from depth_lidar_nerf_tpu_torch.parallel import distributed as pdist
+from depth_lidar_nerf_tpu_torch.parallel.mesh import make_mesh
 from depth_lidar_nerf_tpu_torch.render.renderer import (RenderConfig,
                                                         make_rays,
                                                         render_image)
@@ -222,13 +239,15 @@ def _save_image_outputs(out, savedir, idx):
 
 def render_path(models: Models, render_poses, hwf, cfg_render: RenderConfig,
                 render_factor: int = 0, device=None,
-                savedir: Optional[str] = None, density_grid=None):
+                savedir: Optional[str] = None, density_grid=None, mesh=None):
     """Render every pose (``run_nerf.py:268-359``); returns numpy stacks
     ``rgbs [F, H, W, 3]`` and ``disps [F, H, W]``. ``cfg_render`` is the
     eval config, ``train.config.eval_render_config(cfg, rcfg)``, which
     carries the serving modes (int8, fine-only, coarse-downsampled), and
     with a baked ``density_grid`` the grid fields. With ``savedir``, each
-    frame's PNG, NPZ and depth PNG are written there."""
+    frame's PNG, NPZ and depth PNG are written there. With a ``mesh`` each
+    frame's rays are split over the ranks (``render_image``) and every rank
+    gets the frames."""
     device = resolve_device(device)
     H, W, focal = hwf
     if render_factor:
@@ -237,7 +256,7 @@ def render_path(models: Models, render_poses, hwf, cfg_render: RenderConfig,
     for i, c2w in enumerate(render_poses):
         out = render_image(models.coarse, models.fine, int(H), int(W), focal,
                            np.asarray(c2w)[:3, :4], cfg_render, device=device,
-                           density_grid=density_grid)
+                           density_grid=density_grid, mesh=mesh)
         maps = {k: _host(out[k]) for k in ("rgb_map", "disp_map")}
         rgbs.append(maps["rgb_map"])
         disps.append(maps["disp_map"])
@@ -271,13 +290,14 @@ def grid_bounds_for_poses(rcfg: RenderConfig, poses, hwf,
 
 
 def bake_grid(rcfg: RenderConfig, models: Models, lo, hi, resolution: int,
-              verbose: bool = True):
+              verbose: bool = True, mesh=None):
     """Bake the fine model's raw sigma (the coarse one's without a fine
     pass) to ``(grid, lo, hi)`` (JAX ``bake_grid``); shared by
-    ``--render_grid`` serving and ``--grid_train``."""
+    ``--render_grid`` serving and ``--grid_train``. With a ``mesh`` the
+    ranks bake shares of the grid and gather them."""
     model = models.fine if models.fine is not None else models.coarse
     t0 = time.time()
-    grid3 = bake_density_grid(model, rcfg, lo, hi, resolution)
+    grid3 = bake_density_grid(model, rcfg, lo, hi, resolution, mesh=mesh)
     if grid3[0].device.type == "cuda":
         torch.cuda.synchronize(grid3[0].device)
     if verbose:
@@ -288,11 +308,12 @@ def bake_grid(rcfg: RenderConfig, models: Models, lo, hi, resolution: int,
 
 
 def _bake_render_grid(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
-                      render_poses, hwf):
+                      render_poses, hwf, mesh=None):
     """The ``--render_grid`` serving bake (JAX ``_bake_render_grid``):
     ``(grid3, rcfg with the grid fields)``, bounds from the poses served."""
     lo, hi = grid_bounds_for_poses(rcfg, render_poses, hwf, cfg.render_factor)
-    return bake_grid(rcfg, models, lo, hi, cfg.render_grid), \
+    return bake_grid(rcfg, models, lo, hi, cfg.render_grid,
+                     verbose=mesh is None or mesh.rank == 0, mesh=mesh), \
         dataclasses.replace(rcfg, render_grid=cfg.render_grid,
                             render_grid_fine_only=cfg.render_grid_fine_only,
                             render_grid_samples=cfg.render_grid_samples)
@@ -409,15 +430,13 @@ def _validate_flags(cfg: TrainConfig) -> None:
 
 
 def _refuse_unported(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for the multi-device flags, whose paths
-    the port does not run yet (ROADMAP Queue 1), before anything is
-    written: a mesh of more than one device and ``dist_coordinator``."""
-    unported = ["dist_coordinator"] if cfg.dist_coordinator else []
-    if cfg.mesh_shape and int(np.prod(cfg.mesh_shape)) > 1:
-        unported.append("mesh_shape")
-    if unported:
+    """Raise ``NotImplementedError``, before anything is written, for
+    tensor parallelism (``mesh_shape [dp, tp]`` with ``tp > 1``), which the
+    port does not run yet (ROADMAP Queue 1)."""
+    if cfg.mesh_shape and len(cfg.mesh_shape) == 2 and cfg.mesh_shape[1] > 1:
         raise NotImplementedError(
-            f"not ported to PyTorch yet: {unported} (ROADMAP Queue 1)")
+            f"not ported to PyTorch yet: mesh_shape {list(cfg.mesh_shape)}, "
+            "tensor parallelism (tp > 1) (ROADMAP Queue 1)")
 
 
 def dispatch_k_max(cfg: TrainConfig) -> int:
@@ -448,16 +467,61 @@ def train(cfg: TrainConfig, metrics_hook=None, device=None):
     """Run the training loop on ``device`` (``cuda`` unless given) and return
     the :class:`~train.state.TrainState`. ``metrics_hook(i, metrics_dict)``,
     when given, receives the host-fetched scalar metrics at every
-    ``i_print`` boundary (the values printed and logged). With ``debug``
-    or ``debug_nans``, autograd's anomaly detection is on for the run."""
-    device = resolve_device(device)
+    ``i_print`` boundary (the values printed and logged; in a data-parallel
+    run, on every rank that has one). With ``debug``
+    or ``debug_nans``, autograd's anomaly detection is on for the run.
+
+    With ``mesh_shape [n]`` (n > 1) or ``dist_coordinator`` the run is data
+    parallel (the module's note): without a process group this process
+    joins one (``dist_coordinator``, or torchrun's variables) or, for
+    ``mesh_shape``, starts the other ranks itself; on the CPU the ranks
+    talk over gloo, on the card over NCCL, one card a rank. The ranks
+    that this process starts get no ``metrics_hook``."""
+    device_type = resolve_device(device).type
     _validate_flags(cfg)
     _refuse_unported(cfg)
+    n = int(np.prod(cfg.mesh_shape)) if cfg.mesh_shape else 1
+    if (n > 1 or cfg.dist_coordinator) and not dist.is_initialized():
+        if cfg.dist_coordinator:
+            pdist.init_distributed(cfg.dist_coordinator,
+                                   cfg.dist_num_processes,
+                                   cfg.dist_process_id, device_type)
+        elif "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            pdist.init_distributed(None, device=device_type)
+        else:
+            return pdist.launch_local(n, _train_rank,
+                                      (cfg, None, device_type),
+                                      (cfg, metrics_hook, device_type),
+                                      device_type)
+    return _train_rank(cfg, metrics_hook, device)
+
+
+def _train_rank(cfg: TrainConfig, metrics_hook, device):
+    """:func:`train` on this process, on the ray mesh of the process group
+    when the config asks for one."""
+    mesh = None
+    if dist.is_initialized() and (cfg.dist_coordinator or (
+            cfg.mesh_shape and int(np.prod(cfg.mesh_shape)) > 1)):
+        device = pdist.rank_device(dist.get_rank(),
+                                   resolve_device(device).type)
+        mesh = make_mesh(cfg.mesh_shape, device=device,
+                         row_sliced=bool(cfg.dist_coordinator))
+    device = resolve_device(device)
     with torch.autograd.set_detect_anomaly(bool(cfg.debug_nans or cfg.debug)):
-        return _train(cfg, metrics_hook, device)
+        return _train(cfg, metrics_hook, device, mesh)
 
 
-def _train(cfg: TrainConfig, metrics_hook, device: torch.device):
+def _row_sliced_table(table, mesh, device):
+    """This process's row slice of a table (JAX ``_to_global_table``):
+    padded to a multiple of the world size by repeating row 0, sliced,
+    moved to ``device``."""
+    table, rows = pdist.pad_rows(table, mesh.size)
+    lo, hi = pdist.process_row_slice(rows, group=mesh.group)
+    local = type(table)(*(None if x is None else x[lo:hi] for x in table))
+    return pdist.shard_table_rows(local, lo, rows, device)
+
+
+def _train(cfg: TrainConfig, metrics_hook, device: torch.device, mesh=None):
     scene = load_scene(cfg)
     H, W, focal = scene.hwf
     rcfg = render_config_from(cfg, scene.num_semantic_classes, scene.near,
@@ -466,12 +530,14 @@ def _train(cfg: TrainConfig, metrics_hook, device: torch.device):
     # modes; training keeps rcfg.
     rcfg_r = eval_render_config(cfg, rcfg)
 
+    rank0 = mesh is None or mesh.rank == 0
     expdir = os.path.join(cfg.basedir, cfg.expname)
-    os.makedirs(expdir, exist_ok=True)
-    with open(os.path.join(expdir, "args.txt"), "w") as f:
-        f.write(dump_args(cfg))
-    if cfg.config:
-        shutil.copyfile(cfg.config, os.path.join(expdir, "config.txt"))
+    if rank0:
+        os.makedirs(expdir, exist_ok=True)
+        with open(os.path.join(expdir, "args.txt"), "w") as f:
+            f.write(dump_args(cfg))
+        if cfg.config:
+            shutil.copyfile(cfg.config, os.path.join(expdir, "config.txt"))
 
     seed = cfg.seed if cfg.should_seed else 0
     host_rng = np.random.default_rng(cfg.seed if cfg.should_seed else None)
@@ -484,7 +550,8 @@ def _train(cfg: TrainConfig, metrics_hook, device: torch.device):
                         "test_s": []}
 
     start = 0
-    if cfg.ft_path:
+    # Under a mesh rank 0 restores, and its state goes to every rank below.
+    if rank0 and cfg.ft_path:
         # Pin a specific checkpoint (run_nerf.py:449-450) instead of the
         # latest of the experiment: a file of this package or a reference
         # .tar (which also carries a JAX run: export_reference_checkpoint).
@@ -504,7 +571,7 @@ def _train(cfg: TrainConfig, metrics_hook, device: torch.device):
             state = checkpoint.restore(ckpt, state, topo, source=cfg.ft_path)
         start = int(state.step)
         print(f"loaded --ft_path checkpoint {cfg.ft_path} (step {start})")
-    elif not cfg.no_reload:
+    elif rank0 and not cfg.no_reload:
         last = checkpoint.latest_step(ckdir)
         if last is not None:
             state = checkpoint.restore(
@@ -512,14 +579,20 @@ def _train(cfg: TrainConfig, metrics_hook, device: torch.device):
                 topo, source=checkpoint.path_of(ckdir, last))
             start = int(state.step)
             print(f"resumed from checkpoint at step {start}")
+    if mesh is not None:
+        state = checkpoint.broadcast_state(state, topo, mesh)
+        start = int(state.step)
     if start > 0 and cfg.no_reload_optimizer:
         # run_nerf.py:462: keep the freshly initialized optimizer state.
         state.optimizer = make_optimizer(
             cfg, [p for m in models.nerfs() for p in m.parameters()])
-        print("--no_reload_optimizer: optimizer state reset")
+        if rank0:
+            print("--no_reload_optimizer: optimizer state reset")
 
     # ---------------- render-only short-circuit (run_nerf.py:1030-1114) ----
     if cfg.render_only:
+        if cfg.render_test_ray and not rank0:
+            return state
         if cfg.render_test_ray:
             # Depth-ray 3D visualization (run_nerf.py:1048-1101): export the
             # first train view's depth-supervised rays + frusta as PLY.
@@ -561,7 +634,8 @@ def _train(cfg: TrainConfig, metrics_hook, device: torch.device):
             poses = np.asarray(scene.render_poses)[:, :3, :4]
             tag = "path"
         savedir = os.path.join(expdir, f"renderonly_{tag}_{start:06d}")
-        os.makedirs(savedir, exist_ok=True)
+        if rank0:
+            os.makedirs(savedir, exist_ok=True)
         grid3, rcfg_ro = None, rcfg_r
         if cfg.render_grid > 0 or cfg.grid_train:
             # A grid-trained checkpoint's coarse MLP stopped training at
@@ -571,23 +645,44 @@ def _train(cfg: TrainConfig, metrics_hook, device: torch.device):
                 render_grid_fine_only=cfg.grid_train_fine_only,
                 render_grid_samples=cfg.grid_train_samples)
             grid3, rcfg_ro = _bake_render_grid(eff, rcfg_r, models, poses,
-                                               scene.hwf)
+                                               scene.hwf, mesh)
         rgbs, disps = render_path(models, poses, scene.hwf, rcfg_ro,
-                                  cfg.render_factor, device, savedir, grid3)
-        _write_videos(savedir, "", rgbs, disps)
-        print("Done rendering", savedir)
+                                  cfg.render_factor, device,
+                                  savedir if rank0 else None, grid3, mesh)
+        if rank0:
+            _write_videos(savedir, "", rgbs, disps)
+            print("Done rendering", savedir)
         return state
 
     # ------------------------------ tables --------------------------------
+    # Multi-host tables are sliced on the host: a process's device holds
+    # only its rows.
+    row_sliced = mesh is not None and mesh.row_sliced
+    table_device = "cpu" if row_sliced else device
     rgb_table = build_rgb_table(scene.images, scene.poses, scene.i_train,
                                 H, W, focal, rcfg, scene.segmentation,
-                                device=device)
+                                device=table_device)
     depth_table = None
     if cfg.colmap_depth:
         depth_table = build_depth_table(scene.depth_gts, scene.poses,
                                         scene.i_train, H, W, focal, rcfg,
-                                        device=device)
-    plan = build_step_fns(cfg, rcfg, models, scene.hwf)
+                                        device=table_device)
+    if row_sliced:
+        # Multi-host: each process keeps only its row slice of the tables;
+        # a step collects its batch's rows from the others.
+        rgb_table = _row_sliced_table(rgb_table, mesh, device)
+        if depth_table is not None:
+            depth_table = _row_sliced_table(depth_table, mesh, device)
+        # Host-divergent mid-run renders would desynchronise the processes
+        # (collectives must be entered by all); as JAX, render the saved
+        # checkpoints with --render_only instead.
+        cfg = dataclasses.replace(cfg, i_testset=0, i_img=0, i_video=0)
+        if rank0:
+            print(f"multi-host ray-DP mesh: {mesh.size} processes x 1 local "
+                  f"device = {mesh.size} global")
+    elif mesh is not None and rank0:
+        print(f"ray-DP mesh over {mesh.size} devices")
+    plan = build_step_fns(cfg, rcfg, models, scene.hwf, mesh=mesh)
     patch_source = None
     if cfg.feature_loss or cfg.gan_loss or cfg.depth_inverse_loss:
         patch_source = PatchSource(
@@ -596,7 +691,8 @@ def _train(cfg: TrainConfig, metrics_hook, device: torch.device):
             torch.as_tensor(scene.poses[scene.i_train], dtype=torch.float32,
                             device=device))
     test_lpips = None
-    if cfg.i_testset > 0 and len(scene.i_test) > 0 and min(H, W) >= 31:
+    if (rank0 and cfg.i_testset > 0 and len(scene.i_test) > 0
+            and min(H, W) >= 31):
         # Built and run once before the loop (JAX warms its jit here).
         # AlexNet's taps vanish below 31 px a side; JAX's LPIPS then fails
         # and its [TEST] line goes without it, as the port's.
@@ -605,27 +701,31 @@ def _train(cfg: TrainConfig, metrics_hook, device: torch.device):
         zero = np.zeros((H, W, 3), np.float32)
         _test_lpips(test_lpips, [zero], [zero], device)
     k_max = dispatch_k_max(cfg)
-    if k_max > 1:
+    if k_max > 1 and rank0:
         print(f"[config] the JAX driver batches up to {k_max} steps into one "
               "dispatch (steps_per_dispatch, cycle_dispatch; same trajectory); "
               "the port runs one step an iteration")
 
-    print(f"TRAIN views: {list(scene.i_train)}  TEST views: {list(scene.i_test)}")
-    writer = _summary_writer(cfg.expname)
+    writer = None
+    if rank0:
+        print(f"TRAIN views: {list(scene.i_train)}  "
+              f"TEST views: {list(scene.i_test)}")
+        writer = _summary_writer(cfg.expname)
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
+    profile = bool(cfg.profile_dir) and rank0
     try:
-        with (torch.profiler.profile(activities=acts) if cfg.profile_dir
+        with (torch.profiler.profile(activities=acts) if profile
               else contextlib.nullcontext()) as prof:
             _loop(cfg, metrics_hook, device, scene, models, state,
                   (plan, patch_source, test_lpips), rgb_table, depth_table,
                   rcfg, rcfg_r, seed, host_rng, writer, expdir, ckdir, topo,
-                  start)
+                  start, mesh)
     finally:
         if writer:
             writer.close()
-    if cfg.profile_dir:
+    if profile:
         os.makedirs(cfg.profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(cfg.profile_dir, "trace.json"))
     _save(ckdir, state, cfg.N_iters, topo)
@@ -648,8 +748,8 @@ class _Grid:
     ``grid_rebake_every`` steps."""
 
     def __init__(self, cfg: TrainConfig, rcfg: RenderConfig, rcfg_r, scene,
-                 models, rgb_table, depth_table):
-        self.cfg, self.rcfg, self.models = cfg, rcfg, models
+                 models, rgb_table, depth_table, mesh=None):
+        self.cfg, self.rcfg, self.models, self.mesh = cfg, rcfg, models, mesh
         self.tables = (rgb_table, depth_table)
         poses = [scene.poses]
         if scene.render_poses is not None and len(scene.render_poses):
@@ -669,28 +769,51 @@ class _Grid:
         cfg = self.cfg
         t0 = time.time()
         self.cdf = bake_ray_cdf(self.models, self.rcfg, *self.tables,
-                                cfg.grid_train_samples or cfg.N_samples)
-        dev = self.cdf.w_rgb.device
+                                cfg.grid_train_samples or cfg.N_samples,
+                                mesh=self.mesh)
+        dev = self.cdf.z.device
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t1 = time.time()
+        rank0 = self.mesh is None or self.mesh.rank == 0
         self.grid3 = bake_grid(self.rcfg, self.models, *self.bounds,
-                               cfg.grid_train_res, verbose=self.last < 0)
-        if os.environ.get("DLNERF_LOG_REBAKE", "0") == "1":
+                               cfg.grid_train_res,
+                               verbose=self.last < 0 and rank0, mesh=self.mesh)
+        if os.environ.get("DLNERF_LOG_REBAKE", "0") == "1" and rank0:
             print(f"[grid] rebake@{i}: cdf {t1 - t0:.2f}s, "
                   f"grid3 {time.time() - t1:.2f}s")
         self.last = i
 
 
+def _test_report(i, rgbs, gts, test_lpips, device, writer):
+    """The ``[TEST]`` line of the held-out views' frames and its scalars."""
+    t_psnr = float(np.mean([psnr_np(r, g) for r, g in zip(rgbs, gts)]))
+    t_ssim = float(np.mean([ssim_np(r, g) for r, g in zip(rgbs, gts)]))
+    t_lpips = (None if test_lpips is None
+               else _test_lpips(test_lpips, rgbs, gts, device))
+    print(f"[TEST] iter {i} psnr {t_psnr:.2f} ssim {t_ssim:.4f}"
+          + (f" lpips {t_lpips:.4f}" if t_lpips is not None else ""))
+    if writer:
+        writer.add_scalar("Test/psnr", t_psnr, i)
+        writer.add_scalar("Test/ssim", t_ssim, i)
+        if t_lpips is not None:
+            writer.add_scalar("Test/lpips", t_lpips, i)
+
+
 def _loop(cfg: TrainConfig, metrics_hook, device, scene: Scene, models,
           state, step_fns, rgb_table, depth_table, rcfg, rcfg_r, seed,
-          host_rng, writer, expdir, ckdir, topo, start):
-    """Steps ``start + 1 .. N_iters`` with their events."""
+          host_rng, writer, expdir, ckdir, topo, start, mesh=None):
+    """Steps ``start + 1 .. N_iters`` with their events. Under a ``mesh``
+    every rank takes the steps and renders the eval frames; rank 0 alone
+    prints and writes."""
     H, W, focal = scene.hwf
     costs = state.loop_costs
     plan, patch_source, test_lpips = step_fns
+    rank0 = mesh is None or mesh.rank == 0
+    # Every rank renders the held-out frame when rank 0 has a writer.
+    has_writer = pdist.broadcast_object(writer is not None, mesh)
     grid = _Grid(cfg, rcfg, rcfg_r, scene, models, rgb_table,
-                 depth_table) if cfg.grid_train else None
+                 depth_table, mesh) if cfg.grid_train else None
 
     def eval_view():
         """(density_grid, rcfg) of eval renders: through the grid once one
@@ -699,7 +822,7 @@ def _loop(cfg: TrainConfig, metrics_hook, device, scene: Scene, models,
             return None, rcfg_r
         return grid.grid3, grid.rcfg_eval
 
-    gen = torch.Generator(device=rgb_table.origins.device)
+    gen = torch.Generator(device=device)
     t0 = time.time()
     rays_done = 0
     for i in range(start + 1, cfg.N_iters + 1):
@@ -713,7 +836,9 @@ def _loop(cfg: TrainConfig, metrics_hook, device, scene: Scene, models,
                           patch=patch_source if needs_patch else None)
         rays_done += cfg.N_rand
 
-        if cfg.i_print > 0 and i % cfg.i_print == 0:
+        if cfg.i_print > 0 and i % cfg.i_print == 0 and (
+                rank0 or metrics_hook is not None):
+            # The metrics are the same on every rank; rank 0 prints them.
             # ONE device->host copy for all scalar metrics.
             tf = time.time()
             # Maps (the LPIPS spatial map) go to the writer as images.
@@ -725,8 +850,9 @@ def _loop(cfg: TrainConfig, metrics_hook, device, scene: Scene, models,
             costs["fetch_s"].append(time.time() - tf)
             dt = time.time() - t0
             rps = rays_done / dt if dt > 0 else 0.0
-            print(f"[TRAIN] iter {i} loss {m['loss']:.5f} psnr {m['psnr']:.2f} "
-                  f"rays/s {rps:,.0f}")
+            if rank0:
+                print(f"[TRAIN] iter {i} loss {m['loss']:.5f} "
+                      f"psnr {m['psnr']:.2f} rays/s {rps:,.0f}")
             if metrics_hook is not None:
                 metrics_hook(i, m)
             if writer:
@@ -745,45 +871,42 @@ def _loop(cfg: TrainConfig, metrics_hook, device, scene: Scene, models,
         if cfg.i_testset > 0 and i % cfg.i_testset == 0 and len(scene.i_test) > 0:
             tt = time.time()
             testdir = os.path.join(expdir, f"testset_{i:06d}")
-            os.makedirs(testdir, exist_ok=True)
+            if rank0:
+                os.makedirs(testdir, exist_ok=True)
             grid3, rcfg_e = eval_view()
             rgbs, _ = render_path(models, scene.poses[scene.i_test], scene.hwf,
-                                  rcfg_e, device=device, savedir=testdir,
-                                  density_grid=grid3)
-            gts = scene.images[scene.i_test]
-            t_psnr = float(np.mean([psnr_np(r, g) for r, g in zip(rgbs, gts)]))
-            t_ssim = float(np.mean([ssim_np(r, g) for r, g in zip(rgbs, gts)]))
-            t_lpips = (None if test_lpips is None
-                       else _test_lpips(test_lpips, rgbs, gts, device))
-            print(f"[TEST] iter {i} psnr {t_psnr:.2f} ssim {t_ssim:.4f}"
-                  + (f" lpips {t_lpips:.4f}" if t_lpips is not None else ""))
-            costs["test_s"].append(time.time() - tt)
-            if writer:
-                writer.add_scalar("Test/psnr", t_psnr, i)
-                writer.add_scalar("Test/ssim", t_ssim, i)
-                if t_lpips is not None:
-                    writer.add_scalar("Test/lpips", t_lpips, i)
+                                  rcfg_e, device=device,
+                                  savedir=testdir if rank0 else None,
+                                  density_grid=grid3, mesh=mesh)
+            if rank0:
+                _test_report(i, rgbs, scene.images[scene.i_test], test_lpips,
+                             device, writer)
+                costs["test_s"].append(time.time() - tt)
 
-        if (cfg.i_img > 0 and i % cfg.i_img == 0 and writer
+        if (cfg.i_img > 0 and i % cfg.i_img == 0 and has_writer
                 and len(scene.i_test) > 0):
             # Validation-view image logging (run_nerf.py:1995-2014).
-            img_i = int(host_rng.choice(scene.i_test))
+            img_i = pdist.broadcast_object(
+                int(host_rng.choice(scene.i_test)) if rank0 else None, mesh)
             grid3, rcfg_e = eval_view()
             out = render_image(models.coarse, models.fine, H, W, focal,
                                scene.poses[img_i], rcfg_e, device=device,
-                               density_grid=grid3)
-            rgb = _host(out["rgb_map"])
-            writer.add_image("Images/rgb_holdout", losses.to8b(rgb), i,
-                             dataformats="HWC")
-            writer.add_image("Images/depth_holdout",
-                             depth_to_colormap(_host(out["depth_map"])), i,
-                             dataformats="HWC")
-            writer.add_scalar("Val/psnr_holdout",
-                              psnr_np(rgb, scene.images[img_i]), i)
+                               density_grid=grid3, mesh=mesh)
+            if rank0:
+                rgb = _host(out["rgb_map"])
+                writer.add_image("Images/rgb_holdout", losses.to8b(rgb), i,
+                                 dataformats="HWC")
+                writer.add_image("Images/depth_holdout",
+                                 depth_to_colormap(_host(out["depth_map"])),
+                                 i, dataformats="HWC")
+                writer.add_scalar("Val/psnr_holdout",
+                                  psnr_np(rgb, scene.images[img_i]), i)
 
         if cfg.i_video > 0 and i % cfg.i_video == 0:
             grid3, rcfg_e = eval_view()
             rgbs, disps = render_path(models, scene.render_poses, scene.hwf,
                                       rcfg_e, device=device,
-                                      density_grid=grid3)
-            _write_videos(expdir, f"{cfg.expname}_spiral_{i:06d}_", rgbs, disps)
+                                      density_grid=grid3, mesh=mesh)
+            if rank0:
+                _write_videos(expdir, f"{cfg.expname}_spiral_{i:06d}_", rgbs,
+                              disps)

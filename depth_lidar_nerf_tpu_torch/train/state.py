@@ -307,8 +307,10 @@ def build_models(cfg: TrainConfig, rcfg: RenderConfig, device=None,
     ``no_coarse`` makes the coarse pass a :class:`FrozenModel` of it) becomes
     a :class:`FrozenAlphaMLP`."""
     device = resolve_device(device)
-    if cfg.mesh_shape and any(s > 1 for s in cfg.mesh_shape):
-        raise NotImplementedError("multi-device meshes are not ported yet")
+    if cfg.mesh_shape and len(cfg.mesh_shape) == 2 and cfg.mesh_shape[1] > 1:
+        raise NotImplementedError(
+            f"mesh_shape {list(cfg.mesh_shape)}: tensor parallelism (tp > 1) "
+            "is not ported to PyTorch yet (ROADMAP Queue 1)")
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
     pts_dim = embedding_dim(3, rcfg.multires)
     views_dim = embedding_dim(3, rcfg.multires_views) if cfg.use_viewdirs else 0

@@ -35,6 +35,15 @@ With ``no_batching`` the RGB rays come from one image, inside its central
 The JAX step compiles into one XLA program; here each step is eager PyTorch
 around the kernels, one step a dispatch (JAX's K-step and period dispatch
 is not ported).
+
+Data parallelism (``mesh=``, a :class:`~parallel.mesh.RayMesh`): every rank
+draws the same global batch, renders its contiguous shard of each leg's
+rays (the step's rays, the sigma term's, the patch's grad and no-grad legs)
+drawing for the whole leg, and the per-ray outputs are gathered
+(:func:`~parallel.gather.run_sharded`); every loss term then runs on the
+gathered batch as in one process, and the gradients are summed over the
+ranks before the optimizer's step. The discriminator's step and the Adam
+updates run on every rank on the same inputs, unreduced.
 """
 
 from __future__ import annotations
@@ -49,12 +58,17 @@ import torch
 from depth_lidar_nerf_tpu_torch.models.vgg import vgg_normalize
 from depth_lidar_nerf_tpu_torch.ops.ray_cdf import RayCDF
 from depth_lidar_nerf_tpu_torch.ops.rays import patch_ray_dirs
-from depth_lidar_nerf_tpu_torch.ops.sampling import (sample_pdf,
+from depth_lidar_nerf_tpu_torch.ops.sampling import (draw_rows, sample_pdf,
                                                      stratified_z_vals)
 from depth_lidar_nerf_tpu_torch.ops.sampling_cuda import sample_pdf_cuda
+from depth_lidar_nerf_tpu_torch.parallel.distributed import (RowShard,
+                                                             table_rows,
+                                                             take_rows)
+from depth_lidar_nerf_tpu_torch.parallel.gather import (all_reduce_grads,
+                                                        run_sharded)
 from depth_lidar_nerf_tpu_torch.render.renderer import (RenderConfig, Rays,
                                                         _composite_from_z,
-                                                        make_rays,
+                                                        _rows, make_rays,
                                                         pick_render_tile,
                                                         query_network,
                                                         render_rays,
@@ -70,6 +84,10 @@ from depth_lidar_nerf_tpu_torch.train.tables import (DepthRayTable,
 # keeps no activations, so a tile may be 16,384 rays; a pass that misses the
 # kernels takes the plain module, whose activations cap it at 4,096.
 NG_FUSED_CAP, NG_PLAIN_CAP = 16384, 4096
+
+# The per-ray outputs that a sharded leg gathers: those the losses read.
+GATHERED = ("rgb_map", "depth_map", "acc_map", "rgb0", "depth_map0",
+            "sem_preds", "sem_preds0")
 
 
 class PatchBatch(NamedTuple):
@@ -196,6 +214,13 @@ def _sigma_loss_term(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
     there), sigma noise added before the ReLU, the mean of
     :func:`losses.sigma_loss_from_sigma`. ``generator`` draws the
     stratified jitter, then the noise."""
+    return torch.mean(losses.sigma_loss_from_sigma(
+        _sigma_term_sigma(cfg, rcfg, models, rays, target_depth, generator)))
+
+
+def _sigma_term_sigma(cfg, rcfg, models, rays, target_depth, generator):
+    """The sigma term's post-ReLU sigma ``[N, N_samples]`` (the per-ray part
+    of :func:`_sigma_loss_term`, which a sharded step gathers)."""
     z = stratified_z_vals(rays.near, target_depth[:, None], cfg.N_samples,
                           perturb=rcfg.perturb, generator=generator)
     pts = (rays.origins[..., None, :]
@@ -204,10 +229,10 @@ def _sigma_loss_term(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
     raw = query_network(net, pts, rays.viewdirs, rcfg)
     sigma_raw = raw[..., 3].float()
     if rcfg.raw_noise_std > 0:
-        sigma_raw = sigma_raw + torch.randn(
-            sigma_raw.shape, dtype=torch.float32, device=sigma_raw.device,
-            generator=generator) * rcfg.raw_noise_std
-    return torch.mean(losses.sigma_loss_from_sigma(torch.relu(sigma_raw)))
+        sigma_raw = sigma_raw + draw_rows(
+            sigma_raw.shape, generator, normal=True,
+            device=sigma_raw.device) * rcfg.raw_noise_std
+    return torch.relu(sigma_raw)
 
 
 def _cdf_render(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
@@ -262,7 +287,7 @@ def _cdf_render(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
 def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
                     hwf, grid_mode: bool = False, *, feature_on: bool = False,
                     gan_on: bool = False, smooth_on: bool = False,
-                    precrop_on: bool = False):
+                    precrop_on: bool = False, mesh=None):
     """The step function of one loss-schedule variant (JAX
     ``make_train_step`` with ``k_steps=1``), with or without the sigma and
     the semantic terms, with ``grid_mode`` the grid step, with
@@ -317,7 +342,13 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
     everything else, in :data:`GAN_NOISES`' order; ``gan_noise=`` (a dict
     of those names, ``[1, nH, nW, 3]`` each) gives them instead, as
     ``idx`` gives the rays. Every GAN step, like a feature-loss step, runs
-    cuDNN's deterministic algorithms."""
+    cuDNN's deterministic algorithms.
+
+    With ``mesh`` the step is data parallel (the module's note); its tables
+    (and the grid step's baked rows) are whole on every rank or
+    :class:`~parallel.distributed.RowShard` slices, whose batch rows are
+    collected by ``gather_table_rows``. Its metrics are the same on every
+    rank."""
     if cfg.semantic_loss and not rcfg.num_semantic_classes:
         raise ValueError("semantic_loss needs num_semantic_classes > 0")
     if grid_mode and cfg.N_importance <= 0:
@@ -347,22 +378,44 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
     # The no-grad leg renders only forward, so the int8 kernels may take it.
     rcfg_ng = (dataclasses.replace(rcfg, render_int8=True)
                if cfg.patch_ng_int8 else rcfg)
+    group = None if mesh is None else mesh.group
+
+    def table_device(table):
+        return (table.local if isinstance(table, RowShard)
+                else table).origins.device
 
     def draw(n, table, generator, given):
-        dev = table.origins.device
+        dev = table_device(table)
         if given is not None:
             return torch.tensor(np.asarray(given), dtype=torch.long, device=dev)
-        return torch.randint(0, table.origins.shape[0], (n,), device=dev,
+        return torch.randint(0, table_rows(table), (n,), device=dev,
                              generator=generator)
+
+    def batch_of(table, idx):
+        """A table holding the batch's rows and their indices in it: the
+        table and ``idx``, or for a row-sliced table the batch's rows
+        collected from every process and ``arange``."""
+        if isinstance(table, RowShard):
+            return (take_rows(table, idx, group),
+                    torch.arange(idx.shape[0], device=idx.device))
+        return table, idx
+
+    def render_leg(n, rays, w, generator, fn, keys=GATHERED):
+        """``fn(rays, w, gen)`` over an ``n``-ray leg: on this rank's rows of
+        ``rays`` (and of the baked rows ``w``, where given) under a mesh,
+        the outputs gathered."""
+        return run_sharded(mesh, n, lambda lo, hi, g: fn(
+            _rows(rays, lo, hi), None if w is None else w[lo:hi], g),
+            generator, keys)
 
     def draw_one_image(table, generator, given):
         """JAX's ``no_batching`` draw (``run_nerf.py:1376-1404``): one image,
         then ``n_rgb`` rows and columns with replacement (the reference
         draws without), within the central window while ``precrop_on``."""
-        dev = table.origins.device
+        dev = table_device(table)
         if given is not None:
             return torch.tensor(np.asarray(given), dtype=torch.long, device=dev)
-        n_img = table.origins.shape[0] // (H * W)
+        n_img = table_rows(table) // (H * W)
         img = torch.randint(0, n_img, (), device=dev, generator=generator)
         if precrop_on:
             dH = int(H // 2 * cfg.precrop_frac)
@@ -427,18 +480,21 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
         return loss_dis
 
     def ng_render(prays, patch, rows, generator, aux):
-        """The no-grad leg (JAX ``ng_render``)."""
+        """The no-grad leg (JAX ``ng_render``); under a mesh each tile is
+        split over the ranks."""
         rays = _take(prays, patch.perm[n_grad:])
         if grid_mode:
-            return _cdf_render(cfg, rcfg_ng, models, rays,
-                               aux.w_rgb[rows[n_grad:]], aux.z, generator,
-                               n_imp=cfg.patch_render_samples,
-                               save_acts=False)
+            return render_leg(
+                rays.origins.shape[0], rays,
+                take_rows(aux.w_rgb, rows[n_grad:], group), generator,
+                lambda r, w, g: _cdf_render(
+                    cfg, rcfg_ng, models, r, w, aux.z, g,
+                    n_imp=cfg.patch_render_samples, save_acts=False))
         tile = pick_render_tile(models.coarse, models.fine, rcfg_ng,
                                 rays.origins.shape[0],
                                 fused_cap=NG_FUSED_CAP, flax_cap=NG_PLAIN_CAP)
         return render_rays_tiled(models.coarse, models.fine, rays, rcfg_ng,
-                                 generator, tile=tile)
+                                 generator, tile=tile, mesh=mesh)
 
     def patch_terms(loss, metrics, patch, prays, rows, ng, generator, aux,
                     imp, gan_std, gan_noise):
@@ -446,12 +502,15 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
         Returns the total and the assembled crops."""
         rays = _take(prays, patch.perm[:n_grad])
         if grid_mode:
-            g_out = _cdf_render(cfg, rcfg, models, rays,
-                                aux.w_rgb[rows[:n_grad]], aux.z, generator,
-                                n_imp=cfg.patch_render_samples)
+            g_out = render_leg(
+                n_grad, rays, take_rows(aux.w_rgb, rows[:n_grad], group),
+                generator, lambda r, w, g: _cdf_render(
+                    cfg, rcfg, models, r, w, aux.z, g,
+                    n_imp=cfg.patch_render_samples))
         else:
-            g_out = render_rays(models.coarse, models.fine, rays, rcfg,
-                                generator)
+            g_out = render_leg(n_grad, rays, None, generator,
+                               lambda r, w, g: render_rays(
+                                   models.coarse, models.fine, r, rcfg, g))
         acc_rgb = _assemble_patch(_clip01(stack_fc(g_out, "rgb_map", "rgb0")),
                                   _clip01(stack_fc(ng, "rgb_map", "rgb0")),
                                   patch.perm, n_grad, nH, nW)  # [B, nH, nW, 3]
@@ -535,26 +594,31 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
                 ng = ng_render(prays, patch, rows, generator, aux)
         idx = (draw_one_image(rgb_table, generator, idx) if cfg.no_batching
                else draw(n_rgb, rgb_table, generator, idx))
-        rays = gather_rays(rgb_table, idx, rcfg)
-        target_s = rgb_table.rgb[idx]
-        target_sem = rgb_table.semantic[idx] if cfg.semantic_loss else None
+        tab, at = batch_of(rgb_table, idx)
+        rays = gather_rays(tab, at, rcfg)
+        target_s = tab.rgb[at]
+        target_sem = tab.semantic[at] if cfg.semantic_loss else None
         if n_depth > 0:
             idx_d = draw(n_depth, depth_table, generator, idx_d)
-            rays_depth = gather_rays(depth_table, idx_d, rcfg)
-            target_depth = depth_table.depth[idx_d]
-            ray_weights = depth_table.weight[idx_d]
+            tab_d, at_d = batch_of(depth_table, idx_d)
+            rays_depth = gather_rays(tab_d, at_d, rcfg)
+            target_depth = tab_d.depth[at_d]
+            ray_weights = tab_d.weight[at_d]
             rays = Rays(*(None if a is None else torch.cat([a, b])
                           for a, b in zip(rays, rays_depth)))
 
         if grid_mode:
-            w_all = aux.w_rgb[idx]
+            w_all = take_rows(aux.w_rgb, idx, group)
             if n_depth > 0:
-                w_all = torch.cat([w_all, aux.w_depth[idx_d]])
-            out = _cdf_render(cfg, rcfg, models, rays, w_all, aux.z,
-                              generator)
+                w_all = torch.cat([w_all, take_rows(aux.w_depth, idx_d,
+                                                    group)])
+            out = render_leg(rays.origins.shape[0], rays, w_all, generator,
+                             lambda r, w, g: _cdf_render(cfg, rcfg, models,
+                                                         r, w, aux.z, g))
         else:
-            out = render_rays(models.coarse, models.fine, rays, rcfg,
-                              generator)
+            out = render_leg(rays.origins.shape[0], rays, None, generator,
+                             lambda r, w, g: render_rays(
+                                 models.coarse, models.fine, r, rcfg, g))
         img_loss = losses.img2mse(out["rgb_map"][:n_rgb], target_s)
         metrics["img_loss"] = img_loss
         metrics["psnr"] = losses.mse2psnr(img_loss)
@@ -569,8 +633,12 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
             metrics["depth_loss"] = d_loss
             loss = loss + cfg.depth_lambda * imp * d_loss
         if cfg.sigma_loss and n_depth > 0:
-            s_loss = _sigma_loss_term(cfg, rcfg, models, rays_depth,
-                                      target_depth, generator)
+            sigma = run_sharded(mesh, n_depth, lambda lo, hi, g: {
+                "sigma": _sigma_term_sigma(cfg, rcfg, models,
+                                           _rows(rays_depth, lo, hi),
+                                           target_depth[lo:hi], g)},
+                generator)["sigma"]
+            s_loss = torch.mean(losses.sigma_loss_from_sigma(sigma))
             metrics["sigma_loss"] = s_loss
             loss = loss + cfg.sigma_lambda * s_loss
         if cfg.semantic_loss:
@@ -599,6 +667,8 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
 
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_grads((p for g in state.optimizer.param_groups
+                          for p in g["params"]), mesh)
         state.optimizer.step()
         invalidate_packs(models)
         state.step += 1
@@ -620,7 +690,7 @@ class StepPlan(NamedTuple):
 
 
 def build_step_fns(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
-                   hwf) -> StepPlan:
+                   hwf, mesh=None) -> StepPlan:
     """The step variants of the loss schedule, built when first selected
     and cached by key (JAX ``build_step_fns``). At iteration ``i``: feature
     on iff ``feature_loss and i >= feature_start_iteration and i %
@@ -628,7 +698,8 @@ def build_step_fns(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
     gan_start_iteration``; smoothness on iff ``depth_inverse_loss and i %
     depth_inverse_loss_every_n == 0``; precrop on iff ``no_batching and i <
     precrop_iters``; grid on iff ``grid_train and i > grid_train_after``.
-    An oversized patch is refused here, before the first step."""
+    An oversized patch is refused here, before the first step. ``mesh``
+    makes every variant data parallel (:func:`make_train_step`)."""
     H, W = int(hwf[0]), int(hwf[1])
     if ((cfg.feature_loss or cfg.gan_loss or cfg.depth_inverse_loss)
             and (cfg.nH > H or cfg.nW > W)):
@@ -652,7 +723,7 @@ def build_step_fns(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
             variants[key] = make_train_step(
                 cfg, rcfg, models, hwf, grid_mode=grid_on,
                 feature_on=feature_on, gan_on=gan_on, smooth_on=smooth_on,
-                precrop_on=precrop_on)
+                precrop_on=precrop_on, mesh=mesh)
         return variants[key], any(key[:3])
 
     return StepPlan(select, variant_key)

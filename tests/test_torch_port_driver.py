@@ -153,15 +153,19 @@ _UNPORTED = {
     "no_coarse": dict(no_coarse=True),
     "mesh_shape": dict(mesh_shape=[2]),
     "dist_coordinator": dict(dist_coordinator="localhost:1234"),
+    "mesh_shape_tp": dict(mesh_shape=[2, 2]),
 }
 # The patch losses and their grid variant, the GAN, single-image batching
 # and the frozen-alpha model are ported: the driver's refusal passes them
 # (test_torch_port_patch_driver.py, test_torch_port_gan_driver.py,
 # test_torch_port_no_batching.py and test_torch_port_frozen_alpha.py train
-# them). The multi-device flags are still refused.
+# them), and so is ray data parallelism (test_torch_port_parallel.py and
+# test_torch_port_multihost.py train it). Tensor parallelism is still
+# refused.
 _PORTED_SINCE = {"feature_loss", "depth_inverse_loss", "patch_ng_int8",
                  "grid_train_feature_loss", "gan_loss", "no_batching",
-                 "alpha_model_path", "no_coarse"}
+                 "alpha_model_path", "no_coarse", "mesh_shape",
+                 "dist_coordinator"}
 
 
 @pytest.mark.parametrize("case", list(_UNPORTED))
@@ -581,8 +585,12 @@ def test_cli_needs_a_card_and_refuses_multi_host(scene_dir, tmp_path):
     out = subprocess.run(base, capture_output=True, text=True, env=env,
                          timeout=120, cwd=str(tmp_path))
     assert out.returncode != 0 and "no CUDA device" in out.stderr
-    out = subprocess.run(base + ["--dist_coordinator", "h:1"],
+    # Multi-host training is ported; without a card its process refuses to
+    # join the group, before it writes anything.
+    out = subprocess.run(base + ["--dist_coordinator", "h:1",
+                                 "--dist_num_processes", "2",
+                                 "--dist_process_id", "0"],
                          capture_output=True, text=True, env=env, timeout=120,
                          cwd=str(tmp_path))
-    assert out.returncode != 0 and "--dist_coordinator" in out.stderr
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
     assert not os.path.exists(tmp_path / "exp")

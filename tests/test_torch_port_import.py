@@ -26,8 +26,13 @@ bad = sorted(m for m in sys.modules
                                     "tensorboardX"))
 print(len(names), bad)
 assert not bad, bad
-# The modules of the grid, patch-loss and GAN slices are among those walked.
-assert {"depth_lidar_nerf_tpu_torch.ops.ray_cdf",
+# The modules of the grid, patch-loss, GAN and data-parallel slices are
+# among those walked.
+assert {"depth_lidar_nerf_tpu_torch.parallel",
+        "depth_lidar_nerf_tpu_torch.parallel.mesh",
+        "depth_lidar_nerf_tpu_torch.parallel.distributed",
+        "depth_lidar_nerf_tpu_torch.parallel.gather",
+        "depth_lidar_nerf_tpu_torch.ops.ray_cdf",
         "depth_lidar_nerf_tpu_torch.ops.density_grid",
         "depth_lidar_nerf_tpu_torch.models.discriminator",
         "depth_lidar_nerf_tpu_torch.models.vgg",

@@ -5,6 +5,17 @@ are initialised by the Flax module and converted with ``params_from_jax``.
 """
 
 import numpy as np
+import torch
+
+# torch's float32 sin and cos on the CPU call MKL's vector math, which sets
+# itself up on its first call in a process. A first call that several
+# OpenMP threads make at once has returned sin with errors up to 1.5e-4 in
+# whole thread slices (scripts/torch_sin_first_call.py: the first call of
+# 4 of 240 fresh processes, no second call, none after one call on one
+# thread). So that no test's result depends on being a worker's first sin,
+# the first call is made here, on one thread.
+torch.sin(torch.zeros(8))
+torch.cos(torch.zeros(8))
 
 
 def interpret_pallas(monkeypatch, *modules):

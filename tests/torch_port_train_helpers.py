@@ -169,8 +169,8 @@ def train_pair(monkeypatch, cull_eps, n_rand=64, seed=0, semantic=False,
                      ttables.build_depth_table(sc.depth_gts, sc.poses,
                                                i_train, H, W, focal, tr,
                                                device=cpu)),
-        port_cfg=(tc, tr, sc.hwf), n_rgb=n_rand - n_rand // 2,
-        n_depth=n_rand // 2)
+        port_cfg=(tc, tr, sc.hwf), jax_cfg=(jc, jr, jm, sc.hwf),
+        n_rgb=n_rand - n_rand // 2, n_depth=n_rand // 2)
 
 
 def jax_step_indices(rng, n_rgb, n_depth, m_rgb, m_depth):
