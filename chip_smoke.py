@@ -232,6 +232,24 @@ which raises on failure:
    phase 12's scene: 150 steps equal phase 12's run A bit for bit, the run
    resumed to 300 equals run C, and its ``--render_only`` frame equals an
    in-process frame of its checkpoint;
+17. tensor parallelism (``mesh_shape [dp, tp]``, the plain modules with
+   their wide layers split by columns). 17a: phase 5's stack on plain
+   modules in one process (the route tensor parallelism takes), ms/step
+   beside the fused step's in the same call, kernel 14 launched and no
+   fused-MLP kernel. 17b: ``mesh_shape [1, 2]``, two gloo ranks on the
+   one card (NCCL refuses two ranks on one GPU; its ms/step is not a
+   scaling number), ``TP_STEPS`` steps in float32 and in bfloat16 at
+   ``TP_N_RAYS``: the ranks' replicated parameters bit for bit equal, the
+   gathered parameters and losses against one process's plain run (float32
+   step 1 at JAX's ``test_parallel.py:417-422`` limits, then ``TRAJ_TOL``),
+   kernel 14 launched on each rank and no fused-MLP kernel, peak MiB a
+   rank. 17c: a bfloat16 94 x 352 frame of the seeded weights split over
+   the model group against one process's plain frame at phase 4's
+   bfloat16 limit. 17d:
+   ``train()`` on ``[1, 2]`` over phase 12's scene for ``TP_DRIVER[0]``
+   steps with a checkpoint, which resumes in one process on the fused
+   route to ``TP_DRIVER[1]`` (it must say so) and serves the held-out view
+   through the CLI's ``--render_only``;
 then one ``{"kernels": [...]}`` JSON line with every kernel.
 
 It prints ``phase N done at T s`` as it goes; a whole run should stay well
@@ -4907,6 +4925,399 @@ def dp_phase(fmt, sc, dev, card, fns, ms_step_5, kept):
     return out
 
 
+# Phase 17, tensor parallelism (see the module note).
+TP_STEPS = 5  # steps of each 17b run
+TP_TIMED = (2, 10)  # 17a's ms/step: warm-up, timed
+# 17b's rays a step, cut from phase 5's 16,384 for time, not memory. Two
+# gloo ranks on one card move every split layer's output through the host,
+# at ~0.9 GB/s on an H100's host (PERF.md, section 5): 1.1 GB a float32
+# step at 1,024 rays, 17.6 GB at 16,384.
+TP_N_RAYS = 1024
+TP_DRIVER = (30, 35)  # 17d: the [1, 2] run's steps (checkpoint), resumed to
+TP_DRIVER_RAYS = 1024  # 17d's N_rand (as TP_N_RAYS, for the gloo traffic)
+MLP_KERNELS = ("fused_nerf_fwd", "fused_nerf_fwd_acts", "fused_nerf_bwd",
+               "fused_nerf_bwd_culled", "fused_nerf_bwd_acts",
+               "fused_nerf_packed_fwd", "fused_nerf_packed_bwd")
+
+
+def tp_run(dev, mesh, n_rays, dtype, n_steps, frame=False):
+    """``n_steps`` steps of phase 5's stack on plain modules
+    (:func:`bench_stack` with ``fused=False``), split over the model group
+    of ``mesh`` (None: one process), from generator seed 0: the metrics,
+    the whole parameters before the steps, after step 1 and after the last
+    (gathered), this rank's own tensors, ms/step over steps 2.. by the host clock
+    (synchronised) and peak MiB; with ``frame`` first a bfloat16 94 x 352
+    frame of the seeded weights (18 GB gathered; float32's 36), and its wall
+    ms."""
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.render.renderer import render_image
+    from depth_lidar_nerf_tpu_torch.train.checkpoint import full_payload
+    from depth_lidar_nerf_tpu_torch.train.state import (build_models,
+                                                        init_train_state,
+                                                        shard_models,
+                                                        shard_train_state)
+    from depth_lidar_nerf_tpu_torch.train.step import make_train_step
+
+    out = {}
+    cfg, rcfg, models, tables, scn = bench_stack(dev, n_rays, dtype,
+                                                 fused=False)
+    torch.cuda.reset_peak_memory_stats(dev)
+    if frame:
+        fcfg = cfg.replace(compute_dtype="bfloat16")
+        fm_ = build_models(fcfg, rcfg, device="cpu")
+        fm_.coarse.load_state_dict(models.coarse.state_dict())
+        fm_.fine.load_state_dict(models.fine.state_dict())
+        fm_ = shard_models(fm_._replace(coarse=fm_.coarse.to(dev),
+                                        fine=fm_.fine.to(dev)), mesh)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with torch.no_grad():
+            f = render_image(fm_.coarse, fm_.fine, H, W, FOCAL,
+                             scn.poses[0], rcfg.eval_mode(), device=dev,
+                             mesh=mesh)
+        torch.cuda.synchronize()
+        out["frame_ms"] = (time.time() - t0) * 1e3
+        out["frame"] = {k: f[k].float().cpu() for k in ("rgb_map",
+                                                        "depth_map",
+                                                        "acc_map")}
+        del fm_, f
+    state = shard_train_state(init_train_state(cfg, models), mesh)
+    step = make_train_step(cfg, rcfg, state.models, scn.hwf, mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def whole():
+        sd = full_payload(state, {}, mesh)["models"]
+        return {f"{n}.{k}": v.detach().float().cpu().clone()
+                for n in ("coarse", "fine") for k, v in sd[n].items()}
+
+    out["init"] = whole()
+    metrics, params, secs = [], [], 0.0
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        m = step(state, *tables, gen)
+        torch.cuda.synchronize()
+        secs += (time.time() - t0) if i > 0 else 0.0
+        metrics.append({k: v.float().cpu() for k, v in m.items()})
+        if i in (0, n_steps - 1):
+            params.append(whole())
+    out.update(metrics=metrics, params=params,
+               local={k: v.float().cpu() for k, v in
+                      net_params(state.models, clone=True).items()},
+               ms=secs * 1e3 / max(n_steps - 1, 1),
+               peak_mib=torch.cuda.max_memory_allocated(dev) / 2**20)
+    return out
+
+
+def tp_gloo_rank(out_dir, n_rays):
+    """A rank of 17b/17c (this process's rank in the gloo group): on the
+    ``[1, 2]`` mesh, 17c's frame and ``TP_STEPS`` steps in float32, then
+    ``TP_STEPS`` in bfloat16, each rank's launch counts; saved to
+    ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as fmt
+    from depth_lidar_nerf_tpu_torch.ops import sampling_cuda as sc
+    from depth_lidar_nerf_tpu_torch.parallel.distributed import rank_device
+    from depth_lidar_nerf_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device(dist.get_rank(), "cuda")
+    mesh = make_mesh([1, 2], device=dev)
+    zero, counts = _counter(kernel_fns(fmt, sc))
+    zero()
+    out = {"float32": tp_run(dev, mesh, n_rays, "float32", TP_STEPS,
+                             frame=True),
+           "bfloat16": tp_run(dev, mesh, n_rays, "bfloat16", TP_STEPS)}
+    out["launches"] = counts()
+    out["tp_rank"] = mesh.tp_rank
+    torch.save(out, os.path.join(out_dir, f"tp_rank{dist.get_rank()}.pt"))
+    return out
+
+
+def tp_driver_rank(root, argv):
+    """A rank of 17d: ``train()`` of ``argv`` in the gloo group; rank 0
+    returns what it printed and its launches."""
+    import io
+
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as fmt
+    from depth_lidar_nerf_tpu_torch.ops import sampling_cuda as sc
+    from depth_lidar_nerf_tpu_torch.train.config import parse_args
+    from depth_lidar_nerf_tpu_torch.train.loop import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    zero, counts = _counter(kernel_fns(fmt, sc))
+    zero()
+    text = io.StringIO()
+    t = time.time()
+    with contextlib.redirect_stdout(text):
+        state = train(parse_args(argv))
+    torch.cuda.synchronize()
+    return {"printed": text.getvalue(), "launches": counts(),
+            "wall_s": time.time() - t, "step": state.step,
+            "trunk": tuple(state.models.coarse.trunk_0.weight.shape)}
+
+
+def tp_phase(fmt, sc, dev, card, fns, kept, n_rays=TP_N_RAYS):
+    """Phase 17 (see the module note), 17b at ``n_rays`` rays a step: returns
+    the numbers for the JSON line and the launches of the main paths it
+    drove in this process (17a's plain steps, rank 0 of 17b/17c, rank 0 of
+    17d and the resumed run)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from depth_lidar_nerf_tpu_torch.parallel import distributed as pdist
+    from depth_lidar_nerf_tpu_torch.render.renderer import render_image
+    from depth_lidar_nerf_tpu_torch.train import checkpoint
+    from depth_lidar_nerf_tpu_torch.train.config import (eval_render_config,
+                                                         parse_args,
+                                                         render_config_from)
+    from depth_lidar_nerf_tpu_torch.train.loop import load_scene
+    from depth_lidar_nerf_tpu_torch.train.state import (build_models,
+                                                        init_train_state)
+    from depth_lidar_nerf_tpu_torch.train.step import make_train_step
+
+    out = {"card": card}
+    zero, counts = _counter(fns)
+    launched = dict.fromkeys(fns, 0)
+
+    def add(got):
+        for k, v in got.items():
+            launched[k] += v
+
+    # ---- 17a ----
+    t0 = time.time()
+    ms = {}
+    for route in ("plain", "fused"):
+        cfg, rcfg, models, tables, scn = bench_stack(
+            dev, TRAIN_N_RAYS, "bfloat16", fused=route == "fused")
+        state = init_train_state(cfg, models)
+        step = make_train_step(cfg, rcfg, models, scn.hwf)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero()
+        ms[route] = cuda_ms(lambda: step(state, *tables, gen),
+                            reps=TP_TIMED[1], warmup=TP_TIMED[0])
+        got = counts()
+        if route == "plain":
+            add(got)
+            plain_got = got
+            peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        del state, step, models, tables
+        torch.cuda.empty_cache()
+    n = sum(TP_TIMED)
+    print(f"17a plain-module two_mlp step (phase 5's stack, {TRAIN_N_RAYS} "
+          f"rays, bfloat16, one process): {ms['plain']:.2f} ms/step, "
+          f"{TRAIN_N_RAYS * 1e3 / ms['plain']:,.0f} rays/s, peak "
+          f"{peak:.0f} MiB; the fused step in this call {ms['fused']:.2f} "
+          f"ms/step ({ms['plain'] / ms['fused']:.2f}x); launches "
+          f"{ {k: v for k, v in plain_got.items() if v} } on {card}",
+          flush=True)
+    check(plain_got[sc.KERNEL] == n and not any(plain_got[k]
+                                                for k in MLP_KERNELS),
+          "17a: kernel 14 once a step and no fused-MLP kernel")
+    out["17a"] = {"ms_per_step_plain": ms["plain"],
+                  "ms_per_step_fused": ms["fused"], "peak_mib": peak,
+                  "launches": plain_got}
+    print(f"phase 17a done at {time.time() - T_START:.0f} s "
+          f"({time.time() - t0:.0f} s)", flush=True)
+
+    # ---- 17d: the [1, 2] driver; its CLI frame runs beside 17b-c ----
+    t0 = time.time()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_tp_")
+    root = kept[0].name
+    logs = os.path.join(root, "logs")
+    s0, s1 = TP_DRIVER
+    extra = ["--N_rand", str(TP_DRIVER_RAYS), "--i_weights", str(s0),
+             "--i_testset", "0", "--i_print", "10"]
+    argv_tp = driver_argv(root, "tp", s0, extra + [
+        "--mesh_shape", "1", "2", "--use_fused_mlp", "False"])
+    zero()
+    d0 = pdist.launch_local(2, tp_driver_rank, (root, argv_tp),
+                            device="cuda", backend="gloo")
+    add(counts())
+    ck = checkpoint.path_of(os.path.join(logs, "tp", "checkpoints"), s0)
+    check(d0["step"] == s0 and os.path.exists(ck)
+          and "ray-DP x 2-way model-TP mesh over 2 devices" in d0["printed"]
+          and d0["trunk"] == (128, 63),
+          "17d: the [1, 2] driver trained with split trunks and saved")
+    check(d0["launches"][sc.KERNEL] >= s0
+          and not any(d0["launches"][k] for k in MLP_KERNELS),
+          "17d: kernel 14 on rank 0 and no fused-MLP kernel")
+    log = os.path.join(tmp.name, "cli_tp")
+    fo, fe = open(log + ".out", "w"), open(log + ".err", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", CLI_COUNTING,
+         *driver_argv(root, "tp", s0, extra + [
+             "--render_only", "True", "--render_test", "True",
+             "--ft_path", ck])], cwd=HERE, stdout=fo, stderr=fe)
+    t_d = time.time() - t0
+
+    try:  # the CLI run is stopped if a check below fails
+        # ---- 17b / 17c: one process's plain runs, then two gloo ranks ----
+        t0 = time.time()
+        one = {"float32": tp_run(dev, None, n_rays, "float32", TP_STEPS,
+                                 frame=True),
+               "bfloat16": tp_run(dev, None, n_rays, "bfloat16", TP_STEPS)}
+        torch.cuda.empty_cache()
+        t_ranks = time.time()
+        zero()
+        r0 = pdist.launch_local(2, tp_gloo_rank, (tmp.name, n_rays),
+                                device="cuda", backend="gloo")
+        add(counts())
+        r1 = torch.load(os.path.join(tmp.name, "tp_rank1.pt"), weights_only=False)
+        t_ranks = time.time() - t_ranks
+        for r in (r0, r1):
+            got = r["launches"]
+            check(got[sc.KERNEL] > 0 and not any(got[k] for k in MLP_KERNELS),
+                  f"17b: rank {r['tp_rank']} launched kernel 14 and no "
+                  "fused-MLP kernel")
+        b17 = {}
+        for d in ("float32", "bfloat16"):
+            a, b = r0[d], r1[d]
+            split = {k for k in a["local"] if a["local"][k].shape
+                     != a["params"][-1][k].shape}
+            same = all(torch.equal(a["local"][k], b["local"][k])
+                       for k in a["local"] if k not in split)
+            same_whole = all(torch.equal(a["params"][-1][k], b["params"][-1][k])
+                             for k in a["params"][-1])
+            check(same and same_whole, f"17b {d}: the ranks' replicated and "
+                  "gathered parameters agree bit for bit")
+            check(split >= {"coarse.trunk_0.weight", "fine.feature.weight",
+                            "fine.views_0.weight"}
+                  and not split & {"coarse.sigma.weight", "fine.rgb.weight"},
+                  f"17b {d}: the wide layers are split, the heads whole")
+            run = {"metrics": a["metrics"], "state": a["params"][-1]}
+            ref = {"metrics": one[d]["metrics"], "state": one[d]["params"][-1]}
+            loss_gap, upd_gap = update_gaps(run, ref, one[d]["init"])
+            tol = TRAJ_TOL[d]
+            entry = {"ranks_bit_identical": same and same_whole,
+                     "loss_gap": loss_gap, "update_gap": upd_gap,
+                     "ms_per_step_gloo_one_card": a["ms"],
+                     "ms_per_step_one_process": one[d]["ms"],
+                     "peak_mib_rank": [a["peak_mib"], b["peak_mib"]]}
+            if d == "float32":
+                l1, l0 = a["metrics"][0]["loss"].item(), \
+                    one[d]["metrics"][0]["loss"].item()
+                w1, w0 = a["params"][0], one[d]["params"][0]
+                worst = max(((w1[k] - w0[k]).abs() - 2e-5 - 2e-4 * w0[k].abs())
+                            .max().item() for k in w0)
+                step1 = abs(l1 - l0) <= 1e-6 + 1e-5 * abs(l0) and worst <= 0
+                entry.update(step1_loss_gap=abs(l1 - l0),
+                             step1_params_within_jax_limits=step1,
+                             step1_params_excess=worst)
+                check(step1, "17b float32 step 1 within JAX's test_parallel "
+                      "limits (loss rtol 1e-5 / atol 1e-6, parameters rtol 2e-4 "
+                      "/ atol 2e-5)")
+            print(f"17b mesh_shape [1, 2] ({d}, {n_rays} rays, {TP_STEPS} "
+                  f"steps): ranks bit-identical {same and same_whole}; against "
+                  f"one process's plain run: loss gap {loss_gap:.3g} (tolerance "
+                  f"{tol[0]:g}), update gap {upd_gap:.3g} (tolerance {tol[1]:g})"
+                  + (f", step 1 loss gap {entry['step1_loss_gap']:.3g}, "
+                     "parameters within JAX's limits "
+                     f"{entry['step1_params_within_jax_limits']}"
+                     if d == "float32" else "")
+                  + f"; two gloo ranks on one card (not a scaling number) "
+                  f"{a['ms']:.1f} ms/step, one process {one[d]['ms']:.1f} "
+                  f"ms/step; peak MiB a rank {a['peak_mib']:.0f}, "
+                  f"{b['peak_mib']:.0f} on {card}", flush=True)
+            check(loss_gap <= tol[0] and upd_gap <= tol[1],
+                  f"17b {d}: within TRAJ_TOL of one process")
+            b17[d] = entry
+        out["17b"] = b17
+        out["17b"]["launches_rank"] = [r0["launches"][sc.KERNEL],
+                                       r1["launches"][sc.KERNEL]]
+        # ---- 17c ----
+        f1 = one["float32"]["frame"]
+        c17 = {}
+        for key in ("rgb_map", "depth_map", "acc_map"):
+            gaps = [(r["float32"]["frame"][key] - f1[key]).abs()
+                    for r in (r0, r1)]
+            e = (max(g.max().item() for g in gaps),
+                 max(g.mean().item() for g in gaps))
+            c17[key] = e
+            print(f"17c frame {H}x{W} (bfloat16) split over the model group "
+                  f"vs one process, {key}: max abs {e[0]:.3g} mean {e[1]:.3g} "
+                  f"(tolerance: phase 4's bfloat16 mean {BF16_TOL_MEAN:g}); "
+                  f"{r0['float32']['frame_ms']:.0f} ms on two gloo ranks, one "
+                  f"process {one['float32']['frame_ms']:.0f} ms", flush=True)
+            check(e[1] <= BF16_TOL_MEAN,
+                  f"17c {key} split frame vs one process")
+        out["17c"] = {"gaps_max_mean": c17,
+                      "frame_ms_gloo": r0["float32"]["frame_ms"],
+                      "frame_ms_one_process": one["float32"]["frame_ms"]}
+        del one, r0, r1
+        torch.cuda.empty_cache()
+        print(f"phase 17b-c done at {time.time() - T_START:.0f} s "
+              f"({time.time() - t0:.0f} s, the ranks {t_ranks:.0f} s)",
+              flush=True)
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+
+    # ---- 17d, continued: the checkpoint in one process, the CLI frame ----
+    t0 = time.time()
+    saved = checkpoint.load_file(ck)
+    whole = saved["models"]["coarse"]["trunk_0.weight"].shape == (256, 63)
+    cfg_r = parse_args(driver_argv(root, "tp", s1, extra))
+    zero()
+    state_r, wall_r, out_r = driver_run(cfg_r)
+    got_r = counts()
+    add(got_r)
+    check(whole and f"resumed from checkpoint at step {s0}" in out_r
+          and state_r.step == s1, "17d: the checkpoint holds whole layers "
+          "and resumes in one process")
+    check(got_r["fused_nerf_fwd"] >= s1 - s0
+          and got_r["fused_nerf_bwd_acts"] >= s1 - s0,
+          "17d: the resumed run took the fused kernels")
+    del state_r
+    proc.wait(timeout=600)
+    fo.close()
+    fe.close()
+    check(proc.returncode == 0,
+          f"17d CLI --render_only: {open(log + '.err').read()[-3000:]}")
+    served = np.load(os.path.join(logs, "tp", f"renderonly_test_{s0:06d}",
+                                  "000.npz"))["rgb"]
+    cfg = parse_args(driver_argv(root, "tp", s0, extra))
+    scene = load_scene(cfg)
+    rcfg = render_config_from(cfg, 0, scene.near, scene.far)
+    models = build_models(cfg, rcfg, device=dev)
+    checkpoint.restore(saved, init_train_state(cfg, models),
+                       checkpoint.topology(cfg, 0))
+    frame = render_image(models.coarse, models.fine, H, W, FOCAL,
+                         scene.poses[DRIVER_HOLDOUT],
+                         eval_render_config(cfg, rcfg), device=dev)
+    rgb = frame["rgb_map"].float().cpu().numpy()
+    frame_equal = bool(np.array_equal(rgb, served))
+    print(f"17d train() on [1, 2] (two gloo ranks on one card, "
+          f"{TP_DRIVER_RAYS} rays): {s0} steps in {d0['wall_s']:.1f} s, "
+          f"rank 0's trunk_0 {d0['trunk']}, checkpoint {s0} whole; resumed in "
+          f"one process on the fused kernels to {s1} in {wall_r:.1f} s; CLI "
+          f"--render_only frame of the checkpoint vs in-process render_image: "
+          f"bit-identical {frame_equal} (max abs diff "
+          f"{np.abs(rgb - served).max():.3g}); rank 0 launches "
+          f"{ {k: v for k, v in d0['launches'].items() if v} } on {card}",
+          flush=True)
+    check(frame_equal, "17d: the CLI frame equals the in-process frame")
+    out["17d"] = {"wall_s": d0["wall_s"], "resumed_wall_s": wall_r,
+                  "frame_bit_identical": frame_equal,
+                  "launches_rank0": d0["launches"]}
+    tmp.cleanup()
+    print(f"phase 17d done at {time.time() - T_START:.0f} s "
+          f"({t_d + time.time() - t0:.0f} s, its CLI run beside 17b-c)",
+          flush=True)
+    return out, launched
+
+
 def main() -> int:
     import torch
 
@@ -5470,6 +5881,10 @@ def main() -> int:
     # ---- 16. ray data parallelism --------------------------------------------
     dp_out = dp_phase(fmt, sc, dev, card, kernel_fns(fmt, sc), ms_step,
                       kept[0])
+
+    # ---- 17. tensor parallelism ----------------------------------------------
+    tp_out, tp_launches = tp_phase(fmt, sc, dev, card, kernel_fns(fmt, sc),
+                                   kept[0])
     kept[0][0].cleanup()
 
     # ---- the kernels line ---------------------------------------------------
@@ -5481,7 +5896,7 @@ def main() -> int:
                      + grid_driver_launches[k] + patch_launches[k]
                      + flagship_launches[k] + gan_launches[k]
                      + gan_driver_launches[k] + alpha_launches[k]
-                     + nb_launches[k]
+                     + nb_launches[k] + tp_launches[k]
                      for k in sem["launches"]}
     kernels = [
         {"name": fmt.KERNEL, "route": "cuda", "source": src + "fused_nerf_fwd.cu",
@@ -5572,6 +5987,7 @@ def main() -> int:
     print(json.dumps({"gan": {**gan_out, "driver": gan_driver},
                       "frozen_alpha": alpha_out, "no_batching": nb_out}))
     print(json.dumps({"data_parallel": dp_out}))
+    print(json.dumps({"tensor_parallel": tp_out}, default=str))
     print(f"total {time.time() - T_START:.0f} s")
     print(json.dumps({"training": {
         "ms_per_step": ms_step, "rays_per_s": TRAIN_N_RAYS * 1e3 / ms_step,

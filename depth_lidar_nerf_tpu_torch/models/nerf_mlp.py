@@ -18,6 +18,10 @@ alpha model's density, computed without a gradient) in place of the density
 head's output, and the head is not evaluated, so its parameters get no
 gradient.
 
+:class:`ColumnParallelNeRFMLP` splits the wide layers over a model group
+(tensor parallelism, ``mesh_shape [dp, tp]``) as JAX's ``shard_params``
+splits the Flax kernels.
+
 Parameters are float32; ``dtype`` is the compute type (bfloat16 rounds the
 operands of every layer, as Flax ``Dense(dtype=bfloat16)`` does). Weights
 initialise as Flax ``Dense`` does: LeCun-normal kernel (a normal truncated at
@@ -33,6 +37,9 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from depth_lidar_nerf_tpu_torch.parallel.mesh import shard_rows, tp_spec
+from depth_lidar_nerf_tpu_torch.parallel.tensor import column_parallel_linear
 
 # Standard deviation of a unit normal truncated to [-2, 2] (the constant
 # jax.nn.initializers.variance_scaling divides by).
@@ -60,6 +67,7 @@ class NeRFMLP(nn.Module):
         self.skips = tuple(skips)
         self.use_viewdirs = use_viewdirs
         self.num_semantic_classes = num_semantic_classes
+        self.output_ch = output_ch
         self.dtype = dtype
 
         def dense(name, fan_in, fan_out):
@@ -82,6 +90,15 @@ class NeRFMLP(nn.Module):
             dense("semantic_1", width // 2, num_semantic_classes)
         dense("views_0", width + in_channels_views, width // 2)
         dense("rgb", width // 2, 3)
+
+    def init_kwargs(self) -> dict:
+        """The keywords that build a module of this topology."""
+        return dict(depth=self.depth, width=self.width,
+                    in_channels=self.in_channels,
+                    in_channels_views=self.in_channels_views,
+                    skips=self.skips, use_viewdirs=self.use_viewdirs,
+                    num_semantic_classes=self.num_semantic_classes,
+                    output_ch=self.output_ch, dtype=self.dtype)
 
     def _dense(self, name: str, x: torch.Tensor) -> torch.Tensor:
         layer = getattr(self, name)
@@ -113,3 +130,45 @@ class NeRFMLP(nn.Module):
         if semantic is not None:
             out = torch.cat([out, semantic], dim=-1)
         return out
+
+
+class ColumnParallelNeRFMLP(NeRFMLP):
+    """A :class:`NeRFMLP` whose wide layers are split by output over the
+    model group of ``mesh`` (a :class:`~parallel.mesh.RayMesh` with ``tp >
+    1``): a layer whose weight :func:`~parallel.mesh.tp_spec` splits holds
+    model rank ``t``'s rows of its weight and bias and runs as
+    :func:`~parallel.tensor.column_parallel_linear`; the narrow heads are
+    whole on every rank. At W=256 and tp=2 the trunk, ``feature`` (256
+    outputs), ``views_0`` and ``semantic_0`` (128) are split; ``sigma``,
+    ``rgb``, ``semantic_1`` and ``output`` are not.
+
+    It is made from ``whole``, a :class:`NeRFMLP` of one process: this
+    rank's rows of the split layers, copies of the others, so that a run
+    from a seed starts from one process's weights (JAX's
+    ``init_train_state`` + ``shard_params``). ``full_shapes`` holds each
+    state-dict entry's shape in one process."""
+
+    def __init__(self, *, whole: NeRFMLP, mesh):
+        with torch.device("meta"):  # the topology; the values are whole's
+            super().__init__(**whole.init_kwargs())
+        self.tp, self.tp_rank = mesh.tp, mesh.tp_rank
+        self.model_group = mesh.model_group
+        self.full_shapes = {k: tuple(v.shape)
+                            for k, v in whole.state_dict().items()}
+        self.sharded = {name for name, layer in self.named_children()
+                        if tp_spec(layer.weight.shape, self.tp) is not None}
+        for name, layer in list(self.named_children()):
+            for kind in ("weight", "bias"):
+                src = getattr(getattr(whole, name), kind)
+                part = shard_rows(src.detach(), self.tp, self.tp_rank)
+                setattr(layer, kind, nn.Parameter(
+                    part.clone(), requires_grad=src.requires_grad))
+            layer.out_features = layer.weight.shape[0]
+
+    def _dense(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        if name not in self.sharded:
+            return super()._dense(name, x)
+        layer = getattr(self, name)
+        return column_parallel_linear(x, layer.weight.to(self.dtype),
+                                      layer.bias.to(self.dtype),
+                                      self.model_group)

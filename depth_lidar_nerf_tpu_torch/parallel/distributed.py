@@ -240,13 +240,14 @@ def take_rows(x, idx: torch.Tensor, group=None):
 
 
 def broadcast_object(obj, mesh):
-    """Rank 0's ``obj`` (any picklable object; tensors on the CPU) on every
-    rank."""
+    """Global rank 0's ``obj`` (any picklable object; tensors on the CPU) on
+    every rank of the mesh."""
     if mesh is None:
         return obj
-    src = 0 if mesh.group is None else dist.get_global_rank(mesh.group, 0)
-    box = [obj if mesh.rank == 0 else None]
-    dist.broadcast_object_list(box, src, group=mesh.group,
+    group = mesh.world_group
+    src = 0 if group is None else dist.get_global_rank(group, 0)
+    box = [obj if mesh.global_rank == 0 else None]
+    dist.broadcast_object_list(box, src, group=group,
                                device=mesh.device if mesh.device.type == "cuda"
                                else None)
     return box[0]

@@ -10,8 +10,9 @@ this host (or, under ``torchrun --nproc_per_node N``, joins torchrun's);
 with ``--dist_coordinator host:port`` every participating process runs this
 same command with its ``--dist_process_id`` (and ``--dist_num_processes``;
 -1 reads torchrun's ``RANK`` and ``WORLD_SIZE``) and joins the group before
-the trainer starts, as JAX's entry does. Tensor parallelism
-(``--mesh_shape dp tp`` with tp > 1) is not ported yet.
+the trainer starts, as JAX's entry does. Tensor parallelism:
+``--mesh_shape dp tp --use_fused_mlp False`` starts ``dp * tp`` ranks, the
+MLPs' wide layers split over each ``tp`` consecutive ranks.
 """
 
 from depth_lidar_nerf_tpu_torch.train.config import parse_args

@@ -33,6 +33,14 @@ returns None elsewhere), and a run's start state is rank 0's
 (:func:`broadcast_state`, JAX ``broadcast_one_to_all``): rank 0 restores,
 and its state goes to every rank, the GAN's discriminator and its optimizer
 included. The other processes need not see the checkpoint directory.
+
+Tensor parallelism (a mesh whose ``tp`` is above 1): a file holds the whole
+state in the one-process format. :func:`save_state` gathers each split
+parameter and Adam moment over the model group, which every rank enters,
+and global rank 0 writes; :func:`broadcast_state` splits the whole state
+after it has reached every rank. So a checkpoint of a ``[dp, tp]`` run
+resumes in one process, on the fused kernels, or on the same mesh, as
+JAX's orbax restore re-shards.
 """
 
 from __future__ import annotations
@@ -45,8 +53,12 @@ import torch
 import torch.distributed as dist
 
 from depth_lidar_nerf_tpu_torch.parallel.distributed import broadcast_object
+from depth_lidar_nerf_tpu_torch.parallel.mesh import model_parallel_size
 from depth_lidar_nerf_tpu_torch.train.config import TrainConfig
-from depth_lidar_nerf_tpu_torch.train.state import TrainState, invalidate_packs
+from depth_lidar_nerf_tpu_torch.train.state import (TrainState,
+                                                    invalidate_packs,
+                                                    shard_train_state)
+from depth_lidar_nerf_tpu_torch.weights import gather_mlp_state_dict
 
 FORMAT = "depth_lidar_nerf_tpu_torch.checkpoint.v1"
 KEEP = 5
@@ -89,13 +101,15 @@ def path_of(directory: str, step: int) -> str:
 
 
 def save_state(directory: str, state: TrainState, step: int, topo: Dict,
-               keep: int = KEEP) -> Optional[Tuple[str, int]]:
+               keep: int = KEEP, mesh=None) -> Optional[Tuple[str, int]]:
     """Write ``state`` as ``<directory>/<step>.pt`` and drop all but the
     newest ``keep``; returns the path and its size in bytes, or None when
     ``step`` is not above the latest checkpoint's or this process is not
     rank 0 of a process group (nothing written). The file holds
     ``state.step``, which equals ``step`` except where JAX's final save
-    labels a state by ``N_iters``."""
+    labels a state by ``N_iters``. On a ``mesh`` with a model axis every
+    rank calls it (:func:`full_payload` is a collective)."""
+    payload = full_payload(state, topo, mesh)
     if dist.is_initialized() and dist.get_rank() != 0:
         return None
     last = latest_step(directory)
@@ -104,7 +118,7 @@ def save_state(directory: str, state: TrainState, step: int, topo: Dict,
     os.makedirs(directory, exist_ok=True)
     path = path_of(directory, step)
     tmp = f"{path}.tmp{os.getpid()}"
-    torch.save(state_payload(state, topo), tmp)
+    torch.save(payload, tmp)
     os.replace(tmp, path)
     for old in steps(directory)[:-keep]:
         os.remove(path_of(directory, old))
@@ -133,6 +147,36 @@ def state_payload(state: TrainState, topo: Dict) -> Dict:
     return payload
 
 
+def full_payload(state: TrainState, topo: Dict, mesh=None) -> Dict:
+    """:func:`state_payload` of the whole state: on a ``mesh`` with a model
+    axis, the MLPs' split parameters and Adam moments gathered over the
+    model group (every rank of it calls this), the file of one process.
+    Else :func:`state_payload` as it is."""
+    payload = state_payload(state, topo)
+    if model_parallel_size(mesh) <= 1:
+        return payload
+    nets = [(k, m) for k, m in (("coarse", state.models.coarse),
+                                ("fine", state.models.fine)) if m is not None]
+    names = [(k, name) for k, m in nets for name, _ in m.named_parameters()]
+    moments = payload["optimizer"]["state"]
+    parts = [None] * mesh.tp
+    dist.all_gather_object(parts, _to_cpu(
+        {"models": payload["models"], "moments": moments}),
+        group=mesh.model_group)
+    models = dict(nets)
+    for k, m in nets:
+        if hasattr(m, "full_shapes"):
+            payload["models"][k] = gather_mlp_state_dict(
+                [p["models"][k] for p in parts], m.full_shapes)
+    for i, (k, name) in enumerate(names):
+        if i in moments and hasattr(models[k], "full_shapes"):
+            shape = models[k].full_shapes[name]
+            moments[i] = gather_mlp_state_dict(
+                [p["moments"][i] for p in parts],
+                dict.fromkeys(moments[i], shape))
+    return payload
+
+
 def _to_cpu(x):
     if torch.is_tensor(x):
         return x.cpu()
@@ -144,16 +188,19 @@ def _to_cpu(x):
 
 
 def broadcast_state(state: TrainState, topo: Dict, mesh) -> TrainState:
-    """Rank 0's state (models, optimizers, step) on every rank of ``mesh``:
-    rank 0's :func:`state_payload` is broadcast and restored elsewhere.
-    Without a mesh, ``state`` as it is."""
+    """Global rank 0's state (models, optimizers, step; whole MLPs) on every
+    rank of ``mesh``: rank 0's :func:`state_payload` is broadcast and
+    restored elsewhere; then, on a mesh with a model axis, each rank keeps
+    its part (:func:`train.state.shard_train_state`). Without a mesh,
+    ``state`` as it is."""
     if mesh is None:
         return state
-    payload = _to_cpu(state_payload(state, topo)) if mesh.rank == 0 else None
+    rank0 = mesh.global_rank == 0
+    payload = _to_cpu(state_payload(state, topo)) if rank0 else None
     payload = broadcast_object(payload, mesh)
-    if mesh.rank != 0:
+    if not rank0:
         restore(payload, state, topo, source="rank 0's state")
-    return state
+    return shard_train_state(state, mesh)
 
 
 def load_file(path: str) -> Dict:

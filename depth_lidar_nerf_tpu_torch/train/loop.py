@@ -39,7 +39,8 @@ resumed run continues the stream of an uninterrupted one. The host draws
 
 JAX batches several steps into one dispatch (``steps_per_dispatch``,
 ``cycle_dispatch``) with the same trajectory; the port accepts both flags
-and runs one step an iteration (ROADMAP Queue 1, item 8).
+and runs one step an iteration, the same trajectory (batching dispatches
+is speed work, ROADMAP Queue 2, item 1).
 
 Data parallelism over rays (JAX ``train/loop.py:726-807``), one process a
 device: with ``mesh_shape [n]`` and no process group, :func:`train` makes
@@ -52,8 +53,17 @@ tables, and the mid-run eval renders are off, as in JAX. Every rank draws
 the same batches and takes the same steps (``train/step.py``); rank 0
 alone prints, writes logs, images, videos and checkpoints, and a run
 starts from rank 0's state. Single-host eval frames are split over the
-ranks. Tensor parallelism (``mesh_shape [dp, tp]``, ``tp > 1``) is not
-ported.
+ranks.
+
+Tensor parallelism (JAX ``loop.py:772-785``): ``mesh_shape [dp, tp]`` with
+``tp > 1`` starts ``dp * tp`` ranks on a ``dp x tp`` grid
+(``parallel.mesh.make_mesh``); the MLPs' wide layers are split over each
+model group (``train.state.shard_models``), the batch and the eval frames
+over the ray groups, and the checkpoints hold the whole state. It takes
+the plain modules: ``use_fused_mlp`` raises ``ValueError`` before anything
+is written, as JAX's ``build_models`` does. "Rank 0" is global rank 0
+(``parallel.mesh.is_rank0``). Under ``dist_coordinator`` ``mesh_shape`` is
+ignored and the mesh is the ray mesh over every process, as in JAX.
 """
 
 from __future__ import annotations
@@ -81,7 +91,7 @@ from depth_lidar_nerf_tpu_torch.ops.density_grid import (bake_density_grid,
 from depth_lidar_nerf_tpu_torch.ops.ray_cdf import bake_ray_cdf
 from depth_lidar_nerf_tpu_torch.ops.rays import rays_by_coord
 from depth_lidar_nerf_tpu_torch.parallel import distributed as pdist
-from depth_lidar_nerf_tpu_torch.parallel.mesh import make_mesh
+from depth_lidar_nerf_tpu_torch.parallel.mesh import is_rank0, make_mesh
 from depth_lidar_nerf_tpu_torch.render.renderer import (RenderConfig,
                                                         make_rays,
                                                         render_image)
@@ -90,6 +100,7 @@ from depth_lidar_nerf_tpu_torch.train.config import (TrainConfig, dump_args,
                                                      eval_render_config,
                                                      render_config_from)
 from depth_lidar_nerf_tpu_torch.train.state import (Models, build_models,
+                                                    check_tp_route,
                                                     init_train_state,
                                                     make_optimizer)
 from depth_lidar_nerf_tpu_torch.train.step import (PatchBatch, PatchSource,
@@ -313,7 +324,7 @@ def _bake_render_grid(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
     ``(grid3, rcfg with the grid fields)``, bounds from the poses served."""
     lo, hi = grid_bounds_for_poses(rcfg, render_poses, hwf, cfg.render_factor)
     return bake_grid(rcfg, models, lo, hi, cfg.render_grid,
-                     verbose=mesh is None or mesh.rank == 0, mesh=mesh), \
+                     verbose=is_rank0(mesh), mesh=mesh), \
         dataclasses.replace(rcfg, render_grid=cfg.render_grid,
                             render_grid_fine_only=cfg.render_grid_fine_only,
                             render_grid_samples=cfg.render_grid_samples)
@@ -429,16 +440,6 @@ def _validate_flags(cfg: TrainConfig) -> None:
                   "no effect.")
 
 
-def _refuse_unported(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError``, before anything is written, for
-    tensor parallelism (``mesh_shape [dp, tp]`` with ``tp > 1``), which the
-    port does not run yet (ROADMAP Queue 1)."""
-    if cfg.mesh_shape and len(cfg.mesh_shape) == 2 and cfg.mesh_shape[1] > 1:
-        raise NotImplementedError(
-            f"not ported to PyTorch yet: mesh_shape {list(cfg.mesh_shape)}, "
-            "tensor parallelism (tp > 1) (ROADMAP Queue 1)")
-
-
 def dispatch_k_max(cfg: TrainConfig) -> int:
     """JAX ``dispatch_k_max``: the steps JAX would batch into one dispatch."""
     k_auto = min(32, max(1, 16384 // max(1, cfg.N_rand)))
@@ -472,14 +473,15 @@ def train(cfg: TrainConfig, metrics_hook=None, device=None):
     or ``debug_nans``, autograd's anomaly detection is on for the run.
 
     With ``mesh_shape [n]`` (n > 1) or ``dist_coordinator`` the run is data
-    parallel (the module's note): without a process group this process
+    parallel, with ``mesh_shape [dp, tp]`` also tensor parallel (the
+    module's note): without a process group this process
     joins one (``dist_coordinator``, or torchrun's variables) or, for
     ``mesh_shape``, starts the other ranks itself; on the CPU the ranks
     talk over gloo, on the card over NCCL, one card a rank. The ranks
     that this process starts get no ``metrics_hook``."""
     device_type = resolve_device(device).type
     _validate_flags(cfg)
-    _refuse_unported(cfg)
+    check_tp_route(cfg)
     n = int(np.prod(cfg.mesh_shape)) if cfg.mesh_shape else 1
     if (n > 1 or cfg.dist_coordinator) and not dist.is_initialized():
         if cfg.dist_coordinator:
@@ -497,15 +499,16 @@ def train(cfg: TrainConfig, metrics_hook=None, device=None):
 
 
 def _train_rank(cfg: TrainConfig, metrics_hook, device):
-    """:func:`train` on this process, on the ray mesh of the process group
-    when the config asks for one."""
+    """:func:`train` on this process, on the mesh of the process group
+    when the config asks for one (under ``dist_coordinator`` the ray mesh
+    over every process, whatever ``mesh_shape`` says, as in JAX)."""
     mesh = None
     if dist.is_initialized() and (cfg.dist_coordinator or (
             cfg.mesh_shape and int(np.prod(cfg.mesh_shape)) > 1)):
         device = pdist.rank_device(dist.get_rank(),
                                    resolve_device(device).type)
-        mesh = make_mesh(cfg.mesh_shape, device=device,
-                         row_sliced=bool(cfg.dist_coordinator))
+        mesh = make_mesh(None if cfg.dist_coordinator else cfg.mesh_shape,
+                         device=device, row_sliced=bool(cfg.dist_coordinator))
     device = resolve_device(device)
     with torch.autograd.set_detect_anomaly(bool(cfg.debug_nans or cfg.debug)):
         return _train(cfg, metrics_hook, device, mesh)
@@ -530,7 +533,7 @@ def _train(cfg: TrainConfig, metrics_hook, device: torch.device, mesh=None):
     # modes; training keeps rcfg.
     rcfg_r = eval_render_config(cfg, rcfg)
 
-    rank0 = mesh is None or mesh.rank == 0
+    rank0 = is_rank0(mesh)
     expdir = os.path.join(cfg.basedir, cfg.expname)
     if rank0:
         os.makedirs(expdir, exist_ok=True)
@@ -580,7 +583,9 @@ def _train(cfg: TrainConfig, metrics_hook, device: torch.device, mesh=None):
             start = int(state.step)
             print(f"resumed from checkpoint at step {start}")
     if mesh is not None:
+        # Every rank gets rank 0's state, and on a model axis its part.
         state = checkpoint.broadcast_state(state, topo, mesh)
+        models = state.models
         start = int(state.step)
     if start > 0 and cfg.no_reload_optimizer:
         # run_nerf.py:462: keep the freshly initialized optimizer state.
@@ -681,7 +686,8 @@ def _train(cfg: TrainConfig, metrics_hook, device: torch.device, mesh=None):
             print(f"multi-host ray-DP mesh: {mesh.size} processes x 1 local "
                   f"device = {mesh.size} global")
     elif mesh is not None and rank0:
-        print(f"ray-DP mesh over {mesh.size} devices")
+        kind = f"ray-DP x {mesh.tp}-way model-TP" if mesh.tp > 1 else "ray-DP"
+        print(f"{kind} mesh over {mesh.size * mesh.tp} devices")
     plan = build_step_fns(cfg, rcfg, models, scene.hwf, mesh=mesh)
     patch_source = None
     if cfg.feature_loss or cfg.gan_loss or cfg.depth_inverse_loss:
@@ -728,14 +734,15 @@ def _train(cfg: TrainConfig, metrics_hook, device: torch.device, mesh=None):
     if profile:
         os.makedirs(cfg.profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(cfg.profile_dir, "trace.json"))
-    _save(ckdir, state, cfg.N_iters, topo)
+    _save(ckdir, state, cfg.N_iters, topo, mesh)
     return state
 
 
-def _save(ckdir, state, step, topo):
-    """Checkpoint ``state`` as ``step``, its cost in ``state.loop_costs``."""
+def _save(ckdir, state, step, topo, mesh=None):
+    """Checkpoint ``state`` as ``step``, its cost in ``state.loop_costs``.
+    Every rank calls it (a tensor-parallel save gathers)."""
     ts = time.time()
-    saved = checkpoint.save_state(ckdir, state, step, topo)
+    saved = checkpoint.save_state(ckdir, state, step, topo, mesh=mesh)
     if saved is not None:
         state.loop_costs["save_s"].append(time.time() - ts)
         state.loop_costs["save_bytes"].append(saved[1])
@@ -775,7 +782,7 @@ class _Grid:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t1 = time.time()
-        rank0 = self.mesh is None or self.mesh.rank == 0
+        rank0 = is_rank0(self.mesh)
         self.grid3 = bake_grid(self.rcfg, self.models, *self.bounds,
                                cfg.grid_train_res,
                                verbose=self.last < 0 and rank0, mesh=self.mesh)
@@ -809,7 +816,7 @@ def _loop(cfg: TrainConfig, metrics_hook, device, scene: Scene, models,
     H, W, focal = scene.hwf
     costs = state.loop_costs
     plan, patch_source, test_lpips = step_fns
-    rank0 = mesh is None or mesh.rank == 0
+    rank0 = is_rank0(mesh)
     # Every rank renders the held-out frame when rank 0 has a writer.
     has_writer = pdist.broadcast_object(writer is not None, mesh)
     grid = _Grid(cfg, rcfg, rcfg_r, scene, models, rgb_table,
@@ -866,7 +873,7 @@ def _loop(cfg: TrainConfig, metrics_hook, device, scene: Scene, models,
             rays_done = 0
 
         if cfg.i_weights > 0 and i % cfg.i_weights == 0:
-            _save(ckdir, state, i, topo)
+            _save(ckdir, state, i, topo, mesh)
 
         if cfg.i_testset > 0 and i % cfg.i_testset == 0 and len(scene.i_test) > 0:
             tt = time.time()

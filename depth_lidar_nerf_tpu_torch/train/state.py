@@ -8,7 +8,11 @@ and with ``gan_loss`` the discriminator (``run_nerf.py:1253-1264``) with its
 own Adam at the constant rate ``gan_disc_lrate``. With ``alpha_model_path``
 the density comes from a frozen pretrained fine MLP
 (:class:`FrozenAlphaMLP`, :class:`FrozenModel`; ``run_nerf.py:400-431``).
-:class:`FusedMLP` dispatches covered topologies to the fused kernels. The optimizer is Adam with the reference's continuous
+:class:`FusedMLP` dispatches covered topologies to the fused kernels. On a
+mesh with a model axis (``mesh_shape [dp, tp]``, ``tp > 1``) the MLPs are
+column-parallel plain modules (:func:`shard_models`), JAX's Flax route
+under tensor parallelism; the fused kernels are per-device there, in both
+packages. The optimizer is Adam with the reference's continuous
 exponential LR decay ``lrate * 0.1^(step / (lrate_decay * 1000))``
 (``run_nerf.py:1843-1847``), as the JAX package's optax schedule: the rate
 of a step is read at the step count before the update.
@@ -26,13 +30,16 @@ from torch import nn
 from depth_lidar_nerf_tpu_torch.device import resolve_device
 from depth_lidar_nerf_tpu_torch.models.discriminator import ESRDiscriminator
 from depth_lidar_nerf_tpu_torch.models.lpips import init_lpips
-from depth_lidar_nerf_tpu_torch.models.nerf_mlp import NeRFMLP
+from depth_lidar_nerf_tpu_torch.models.nerf_mlp import (ColumnParallelNeRFMLP,
+                                                        NeRFMLP)
 from depth_lidar_nerf_tpu_torch.models.vgg import (VGG19Features,
                                                    load_torch_vgg19)
 from depth_lidar_nerf_tpu_torch.ops import fused_mlp, fused_mlp_t
 from depth_lidar_nerf_tpu_torch.ops.embedding import embedding_dim
+from depth_lidar_nerf_tpu_torch.parallel.mesh import model_parallel_size
 from depth_lidar_nerf_tpu_torch.render.renderer import RenderConfig
 from depth_lidar_nerf_tpu_torch.train.config import TrainConfig
+from depth_lidar_nerf_tpu_torch.weights import shard_mlp_state_dict
 
 
 class FusedMLP(NeRFMLP):
@@ -210,6 +217,13 @@ class FrozenAlphaMLP(NeRFMLP):
         return super().forward(pts_embed, views_embed, frozen_sigma=fs)
 
 
+class ColumnParallelFrozenAlphaMLP(FrozenAlphaMLP, ColumnParallelNeRFMLP):
+    """A :class:`FrozenAlphaMLP` whose trained layers are column-parallel
+    (:class:`~models.nerf_mlp.ColumnParallelNeRFMLP`); the frozen alpha
+    model is whole on every rank, as JAX keeps its parameters outside the
+    sharded state."""
+
+
 class FrozenModel(nn.Module):
     """A wholly frozen field (the ``--no_coarse`` path, ``run_nerf.py:417-419,
     606-616``; JAX ``FrozenModel``): the coarse pass queries the pretrained
@@ -293,6 +307,20 @@ def build_perceptual(cfg: TrainConfig, device):
     return model.requires_grad_(False).eval().to(device), None
 
 
+def check_tp_route(cfg: TrainConfig) -> None:
+    """JAX ``build_models``' refusal of the fused kernels on a mesh with a
+    model axis: they are per-device, and tensor parallelism takes the plain
+    modules. A frozen-alpha run takes them anyway (JAX's alpha branch
+    returns before the check)."""
+    if cfg.use_fused_mlp and not cfg.alpha_model_path and cfg.mesh_shape \
+            and len(cfg.mesh_shape) == 2 and cfg.mesh_shape[1] > 1:
+        raise ValueError(
+            "use_fused_mlp with a model-TP mesh (mesh_shape=[dp, tp], "
+            "tp > 1) is unsupported; the fused kernels are per-device. "
+            "Use the plain modules (--use_fused_mlp False) for tensor "
+            "parallelism.")
+
+
 def build_models(cfg: TrainConfig, rcfg: RenderConfig, device=None,
                  seed: int | None = None) -> Models:
     """Coarse and fine MLPs on ``device`` (``cuda`` unless given), weights
@@ -305,12 +333,14 @@ def build_models(cfg: TrainConfig, rcfg: RenderConfig, device=None,
     alpha model, a fine-width MLP without a semantic head, is read by
     :func:`load_alpha_params`; the fine MLP (and the coarse one, unless
     ``no_coarse`` makes the coarse pass a :class:`FrozenModel` of it) becomes
-    a :class:`FrozenAlphaMLP`."""
+    a :class:`FrozenAlphaMLP`.
+
+    ``use_fused_mlp`` with ``mesh_shape [dp, tp]``, ``tp > 1``, raises
+    ``ValueError`` (:func:`check_tp_route`). The MLPs are whole; a
+    tensor-parallel run splits them with its state
+    (:func:`shard_train_state`)."""
     device = resolve_device(device)
-    if cfg.mesh_shape and len(cfg.mesh_shape) == 2 and cfg.mesh_shape[1] > 1:
-        raise NotImplementedError(
-            f"mesh_shape {list(cfg.mesh_shape)}: tensor parallelism (tp > 1) "
-            "is not ported to PyTorch yet (ROADMAP Queue 1)")
+    check_tp_route(cfg)
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
     pts_dim = embedding_dim(3, rcfg.multires)
     views_dim = embedding_dim(3, rcfg.multires_views) if cfg.use_viewdirs else 0
@@ -323,7 +353,8 @@ def build_models(cfg: TrainConfig, rcfg: RenderConfig, device=None,
     # plain module on the CPU only. JAX's alpha branch returns before it
     # wraps the MLPs in its FusedMLP, so a frozen-alpha run evaluates plain
     # modules in both packages (sampling still takes kernel 14): that is
-    # the reference package's route, not a fallback.
+    # the reference package's route, not a fallback. So is tensor
+    # parallelism's (shard_models).
     alpha = None
     if cfg.alpha_model_path:
         alpha = NeRFMLP(depth=cfg.netdepth_fine, width=cfg.netwidth_fine,
@@ -350,6 +381,58 @@ def build_models(cfg: TrainConfig, rcfg: RenderConfig, device=None,
     if cfg.gan_loss:
         disc = ESRDiscriminator((cfg.nH, cfg.nW), generator=gen).to(device)
     return Models(coarse, fine, *build_perceptual(cfg, device), disc)
+
+
+def _column_parallel(module, mesh):
+    """``module`` (a whole MLP) as this rank's column-parallel part of it;
+    a :class:`FrozenModel` or None as it is."""
+    if not isinstance(module, NeRFMLP):
+        return module
+    if isinstance(module, FrozenAlphaMLP):
+        return ColumnParallelFrozenAlphaMLP(module.alpha_module, whole=module,
+                                            mesh=mesh)
+    return ColumnParallelNeRFMLP(whole=module, mesh=mesh)
+
+
+def shard_models(models: Models, mesh) -> Models:
+    """``models`` with each trained MLP split over the model group of
+    ``mesh`` (:class:`~models.nerf_mlp.ColumnParallelNeRFMLP`, this rank's
+    rows of the wide layers; JAX ``shard_params``). The discriminator and
+    the perceptual model stay whole: JAX's rule also places the
+    discriminator's 1-D biases on the model axis, which moves bytes, not
+    results. Without a mesh, or at ``tp`` 1, ``models`` as they are."""
+    if model_parallel_size(mesh) <= 1:
+        return models
+    return models._replace(coarse=_column_parallel(models.coarse, mesh),
+                           fine=_column_parallel(models.fine, mesh))
+
+
+def shard_train_state(state: TrainState, mesh) -> TrainState:
+    """``state`` (whole MLPs) split over the model group of ``mesh``:
+    :func:`shard_models`, and the MLPs' Adam moments split as their
+    parameters, the count kept. The discriminator and its optimizer are
+    kept. Without a model axis, ``state`` as it is."""
+    if model_parallel_size(mesh) <= 1:
+        return state
+    old = state.optimizer
+    models = shard_models(state.models, mesh)
+    params = []
+    for whole, part in zip(state.models.nerfs(), models.nerfs()):
+        moments = {}
+        for name, p in whole.named_parameters():
+            if old.state.get(p):  # the moments have the parameter's shape
+                moments[name] = shard_mlp_state_dict(old.state[p], mesh.tp,
+                                                     mesh.tp_rank)
+        params.extend((p, moments.get(name))
+                      for name, p in part.named_parameters())
+    opt = OptaxAdam([p for p, _ in params], old.schedule,
+                    **{k: old.defaults[k] for k in ("b1", "b2", "eps")})
+    for p, st in params:
+        if st:
+            opt.state[p] = {k: v.clone() for k, v in st.items()}
+    opt.count = old.count
+    state.models, state.optimizer = models, opt
+    return state
 
 
 def load_alpha_params(cfg: TrainConfig, alpha_module: nn.Module) -> nn.Module:

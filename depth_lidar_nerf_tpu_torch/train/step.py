@@ -34,7 +34,8 @@ With ``no_batching`` the RGB rays come from one image, inside its central
 
 The JAX step compiles into one XLA program; here each step is eager PyTorch
 around the kernels, one step a dispatch (JAX's K-step and period dispatch
-is not ported).
+give the same trajectory; batching dispatches is speed work, ROADMAP Queue
+2, item 1).
 
 Data parallelism (``mesh=``, a :class:`~parallel.mesh.RayMesh`): every rank
 draws the same global batch, renders its contiguous shard of each leg's

@@ -1,10 +1,10 @@
 """Camera-frustum and ray 3D export (the port's copy of
-``utils/camera_viz.py`` without its matplotlib snapshot).
+``utils/camera_viz.py``).
 
 Role of the reference's open3d viewers (``visualize_cameras.py:8-53``,
 ``run_nerf.py:1048-1101`` --render_test_ray): geometry is exported as ASCII
 PLY line sets and point clouds, openable in MeshLab, CloudCompare or open3d.
-Pure numpy.
+Pure numpy; :func:`plot_poses_matplotlib` imports matplotlib when called.
 """
 
 from __future__ import annotations
@@ -88,4 +88,26 @@ def export_depth_rays(rays_o: np.ndarray, rays_d: np.ndarray,
         pts.extend([a, b])
         edges.append((2 * i, 2 * i + 1))
     write_ply_lines(out_path, np.asarray(pts), edges, color=(255, 64, 64))
+    return out_path
+
+
+def plot_poses_matplotlib(poses: np.ndarray, out_path: str,
+                          points: np.ndarray | None = None):
+    """Static 3D snapshot (pose sanity check, poses_test.py role)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig = plt.figure(figsize=(8, 8))
+    ax = fig.add_subplot(projection="3d")
+    for c2w in poses:
+        pts, segs = frustum_lines(np.asarray(c2w))
+        for a, b in segs:
+            ax.plot(*zip(pts[a], pts[b]), c="tab:orange", lw=0.8)
+    if points is not None and len(points):
+        sub = points[:: max(1, len(points) // 5000)]
+        ax.scatter(sub[:, 0], sub[:, 1], sub[:, 2], s=0.5, c="tab:red")
+    fig.savefig(out_path, dpi=120)
+    plt.close(fig)
     return out_path

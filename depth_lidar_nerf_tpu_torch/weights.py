@@ -8,12 +8,13 @@ Flax ``Conv`` stores ``kernel [kh, kw, in, out]`` (HWIO); ``nn.Conv2d`` stores
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
 
 from depth_lidar_nerf_tpu_torch.models.discriminator import feature_hw
+from depth_lidar_nerf_tpu_torch.parallel.mesh import shard_rows
 
 
 def mlp_state_dict(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -35,6 +36,38 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor
     keys mapped to state dicts; load each with ``module.load_state_dict``."""
     return {k: (None if v is None else mlp_state_dict(v))
             for k, v in tree.items()}
+
+
+def shard_mlp_state_dict(sd: Mapping[str, torch.Tensor], tp: int,
+                         tp_rank: int) -> Dict[str, torch.Tensor]:
+    """One process's MLP state dict (or a dict of tensors shaped as its
+    entries, such as their Adam moments) -> model rank ``tp_rank``'s of a
+    ``tp``-way split: the rows of each entry that
+    :func:`~parallel.mesh.tp_spec` splits, every other entry whole (JAX
+    ``shard_params``; load it into a
+    :class:`~models.nerf_mlp.ColumnParallelNeRFMLP`)."""
+    return {k: shard_rows(v, tp, tp_rank) for k, v in sd.items()}
+
+
+def gather_mlp_state_dict(shards: Sequence[Mapping[str, torch.Tensor]],
+                          full_shapes: Mapping[str, Sequence[int]]
+                          ) -> Dict[str, torch.Tensor]:
+    """The model ranks' :func:`shard_mlp_state_dict` parts, in rank order ->
+    one process's state dict: an entry whose part is smaller than its
+    ``full_shapes`` entry is the parts stacked; any other is held whole by
+    every rank, which computes it alike, and must be the same in every part
+    (``RuntimeError`` if the ranks drifted apart)."""
+    out = {}
+    for k, v in shards[0].items():
+        if tuple(v.shape) != tuple(full_shapes[k]):
+            out[k] = torch.cat([s[k] for s in shards])
+        elif all(torch.equal(v, s[k]) for s in shards[1:]):
+            out[k] = v
+        else:
+            raise RuntimeError(
+                f"{k}: held whole on every model rank, but the ranks' copies "
+                "differ")
+    return out
 
 
 def conv_state_dict(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -154,30 +154,35 @@ _UNPORTED = {
     "mesh_shape": dict(mesh_shape=[2]),
     "dist_coordinator": dict(dist_coordinator="localhost:1234"),
     "mesh_shape_tp": dict(mesh_shape=[2, 2]),
+    "mesh_shape_tp_plain": dict(mesh_shape=[2, 2], use_fused_mlp=False),
 }
-# The patch losses and their grid variant, the GAN, single-image batching
-# and the frozen-alpha model are ported: the driver's refusal passes them
-# (test_torch_port_patch_driver.py, test_torch_port_gan_driver.py,
-# test_torch_port_no_batching.py and test_torch_port_frozen_alpha.py train
-# them), and so is ray data parallelism (test_torch_port_parallel.py and
-# test_torch_port_multihost.py train it). Tensor parallelism is still
-# refused.
-_PORTED_SINCE = {"feature_loss", "depth_inverse_loss", "patch_ng_int8",
-                 "grid_train_feature_loss", "gan_loss", "no_batching",
-                 "alpha_model_path", "no_coarse", "mesh_shape",
-                 "dist_coordinator"}
 
 
 @pytest.mark.parametrize("case", list(_UNPORTED))
 def test_unported_flags_refused_before_writing(scene_dir, tmp_path, case):
-    from depth_lidar_nerf_tpu_torch.train.loop import _refuse_unported
+    """Every flag the port once refused now passes the training entry
+    point's checks (``_validate_flags`` and the route check of ``train``): the patch
+    losses, the GAN, single-image batching, the frozen-alpha model, data
+    and tensor parallelism train (their own test files train them). The
+    one refusal left is JAX's: ``mesh_shape [2, 2]`` on the fused kernels
+    raises JAX's ``ValueError`` before anything is written."""
+    from depth_lidar_nerf_tpu.train import state as jstate
+    from depth_lidar_nerf_tpu.train.config import TrainConfig as JCfg
+    from depth_lidar_nerf_tpu.train.config import render_config_from
+    from depth_lidar_nerf_tpu_torch.train.loop import _validate_flags
+    from depth_lidar_nerf_tpu_torch.train.state import check_tp_route
 
     cfg = _cfg(scene_dir, tmp_path, **_UNPORTED[case])
-    if case in _PORTED_SINCE:
-        _refuse_unported(cfg)
+    _validate_flags(cfg)
+    if case != "mesh_shape_tp":
+        check_tp_route(cfg)
         return
-    with pytest.raises(NotImplementedError, match="not ported to PyTorch"):
+    jcfg = JCfg(**_fields(scene_dir, tmp_path, **_UNPORTED[case]))
+    with pytest.raises(ValueError) as want:
+        jstate.build_models(jcfg, render_config_from(jcfg, 0, 2.0, 6.0))
+    with pytest.raises(ValueError, match="model-TP mesh") as got:
         _train(cfg)
+    assert str(got.value).split(";")[0] == str(want.value).split(";")[0]
     assert not os.path.exists(os.path.join(str(tmp_path), "t"))
 
 

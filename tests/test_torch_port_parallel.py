@@ -212,9 +212,11 @@ def test_ray_range_is_contiguous_and_even(n):
 
 
 def test_make_mesh_errors_and_tensor_parallel_refused(monkeypatch, tmp_path):
-    """``make_mesh`` carries JAX's error text, refuses ``tp > 1`` and needs a
-    process group; ``train`` and ``build_models`` refuse ``mesh_shape
-    [2, 2]`` before anything is written."""
+    """``make_mesh`` carries JAX's error text, needs a process group and a
+    grid that names every rank; ``train`` and ``build_models`` refuse
+    ``mesh_shape [2, 2]`` on the fused kernels with JAX's ``ValueError``
+    before anything is written (tensor parallelism takes the plain
+    modules, ``test_torch_port_tensor_parallel.py``)."""
     import jax
     import torch.distributed as dist
 
@@ -241,16 +243,42 @@ def test_make_mesh_errors_and_tensor_parallel_refused(monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="names 1 of the 2 ranks"):
         make_mesh([1], device="cpu")
     mesh = make_mesh([2, 1], device="cpu")
-    assert (mesh.size, mesh.rank) == (2, 0)
+    assert (mesh.size, mesh.rank, mesh.tp) == (2, 0, 1)
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        make_mesh([2, 2], device="cpu")
+    with pytest.raises(ValueError, match=r"mesh_shape \[3, 2\] needs 6 "
+                       "devices, have 4"):
+        make_mesh([3, 2], device="cpu")
+    with pytest.raises(ValueError, match="names 2 of the 4 ranks"):
+        make_mesh([1, 2], device="cpu")
     monkeypatch.undo()
 
     cfg = TrainConfig(basedir=str(tmp_path), expname="tp", mesh_shape=[2, 2],
                       datadir=str(tmp_path / "none"))
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    assert cfg.use_fused_mlp
+    with pytest.raises(ValueError, match="model-TP mesh"):
         train(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="model-TP mesh"):
         build_models(cfg, render_config_from(cfg, 0, 0.0, 1.0), device="cpu")
     assert os.listdir(tmp_path) == []
+
+def test_multihost_mesh_ignores_mesh_shape(monkeypatch):
+    """Under ``dist_coordinator`` JAX builds the ray mesh over every device
+    and ignores ``mesh_shape`` (``train/loop.py:727-736``); so does the
+    port (it used to hand ``mesh_shape`` to ``make_mesh``, which refused
+    ``[4]`` on two processes and would have split the MLPs on ``[1, 2]``)."""
+    import torch.distributed as dist
+
+    from depth_lidar_nerf_tpu_torch.train import loop
+    from depth_lidar_nerf_tpu_torch.train.config import TrainConfig
+
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: 1)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+    monkeypatch.setattr(loop, "_train", lambda cfg, hook, device, mesh: mesh)
+    for shape in ([4], [1, 2], None):
+        mesh = loop._train_rank(TrainConfig(dist_coordinator="h:1",
+                                            mesh_shape=shape,
+                                            use_fused_mlp=False),
+                                None, "cpu")
+        assert (mesh.size, mesh.rank, mesh.tp, mesh.row_sliced) == (
+            2, 1, 1, True)

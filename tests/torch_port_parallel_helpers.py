@@ -1,5 +1,6 @@
-"""Spawned gloo ranks for the port's data-parallel tests
-(``test_torch_port_parallel.py``, ``test_torch_port_multihost.py``).
+"""Spawned gloo ranks for the port's data- and tensor-parallel tests
+(``test_torch_port_parallel.py``, ``test_torch_port_multihost.py``,
+``test_torch_port_tensor_parallel.py``).
 
 The ranks import torch, numpy and the port only (no JAX); each runs a
 function of this module and saves what it returns to a file, which the test
@@ -104,8 +105,13 @@ VARIANTS = {
                          precrop_frac=0.5, colmap_depth=False,
                          depth_loss=False, N_rand=32),
                     dict(precrop_on=True)),
+    # The frozen-alpha model: the alpha MLP read from a checkpoint that
+    # variant_run writes (ALPHA stands for its path).
+    "alpha": (dict(alpha_model_path="ALPHA"), {}),
 }
 STEPS = 2
+# A tensor-parallel run's fields over a variant's: JAX's route under tp > 1.
+TP_FIELDS = dict(use_fused_mlp=False, mesh_shape=[2, 2])
 
 
 def _scene(semantic=False):
@@ -116,36 +122,68 @@ def _scene(semantic=False):
                       num_classes=19 if semantic else None)
 
 
-def _snapshot(state):
-    models = state.models
-    nets = [("coarse", models.coarse), ("fine", models.fine),
-            ("disc", models.discriminator)]
-    return {f"{n}.{k}": v.detach().clone().numpy() for n, m in nets
-            if m is not None for k, v in m.state_dict().items()}
+def _snapshot(state, mesh=None):
+    """Every parameter of ``state``, whole (gathered over the model group
+    on a tensor-parallel ``mesh``: every rank of it calls this)."""
+    from depth_lidar_nerf_tpu_torch.train.checkpoint import full_payload
+
+    models = full_payload(state, {}, mesh)["models"]
+    disc = state.models.discriminator
+    nets = [("coarse", models["coarse"]), ("fine", models["fine"]),
+            ("disc", None if disc is None else disc.state_dict())]
+    return {f"{n}.{k}": v.detach().clone().numpy() for n, sd in nets
+            if sd is not None for k, v in sd.items()}
 
 
-def variant_run(name, mesh):
-    """``STEPS`` steps of variant ``name`` from seeded weights and step
-    generators, on ``mesh`` (None: one process): the metrics of each step,
-    the parameters after them (the discriminator's too) and, for the grid
-    variant, the ray CDF baked on the mesh."""
+def _alpha_checkpoint(cfg, rcfg, directory):
+    """A checkpoint of this package holding seed 5's fine MLP of ``cfg``'s
+    topology, for ``alpha_model_path``; returns its path."""
+    from depth_lidar_nerf_tpu_torch.train import checkpoint
+    from depth_lidar_nerf_tpu_torch.train.state import (build_models,
+                                                        init_train_state)
+
+    src = cfg.replace(alpha_model_path="", mesh_shape=None)
+    state = init_train_state(src, build_models(src, rcfg, device="cpu",
+                                               seed=5))
+    path = os.path.join(directory, "alpha.pt")
+    torch.save(checkpoint.state_payload(
+        state, checkpoint.topology(src, rcfg.num_semantic_classes)), path)
+    return path
+
+
+def variant_run(name, mesh, **over):
+    """``STEPS`` steps of variant ``name`` (its fields and ``over`` over
+    BASE) from seeded weights and step generators, on ``mesh`` (None: one
+    process): the metrics of each step, the parameters after them (the
+    discriminator's too) and, for the grid variant, the ray CDF baked on
+    the mesh. On a tensor-parallel mesh also this rank's parameter shapes
+    and the gradients of the parameters that every rank holds whole."""
+    import tempfile
+
     from depth_lidar_nerf_tpu_torch.ops.ray_cdf import bake_ray_cdf
     from depth_lidar_nerf_tpu_torch.train.config import (TrainConfig,
                                                          render_config_from)
     from depth_lidar_nerf_tpu_torch.train.state import (build_models,
-                                                        init_train_state)
+                                                        init_train_state,
+                                                        shard_train_state)
     from depth_lidar_nerf_tpu_torch.train.step import (PatchSource,
                                                        make_train_step)
     from depth_lidar_nerf_tpu_torch.train.tables import (build_depth_table,
                                                          build_rgb_table)
 
     fields, kw = VARIANTS[name]
-    cfg = TrainConfig(**{**BASE, **fields})
+    cfg = TrainConfig(**{**BASE, **fields, **over})
     sc = _scene(cfg.semantic_loss)
     rcfg = render_config_from(cfg, sc.num_classes if cfg.semantic_loss
                               else 0, sc.near, sc.far)
-    models = build_models(cfg, rcfg, device="cpu", seed=0)
-    state = init_train_state(cfg, models)
+    tmp = tempfile.TemporaryDirectory()
+    if cfg.alpha_model_path:
+        cfg = cfg.replace(alpha_model_path=_alpha_checkpoint(cfg, rcfg,
+                                                             tmp.name))
+    # Split as the driver splits (train.checkpoint.broadcast_state).
+    state = shard_train_state(init_train_state(
+        cfg, build_models(cfg, rcfg, device="cpu", seed=0)), mesh)
+    models = state.models
     it = range(2)
     rgb = build_rgb_table(sc.images, sc.poses, it, *sc.hwf, rcfg,
                           segmentation=sc.segmentation if cfg.semantic_loss
@@ -167,7 +205,16 @@ def variant_run(name, mesh):
         gen = torch.Generator().manual_seed(1000 + i)
         m = step(state, rgb, dep, gen, **extra)
         metrics.append({k: v.numpy().copy() for k, v in m.items()})
-    out.update(metrics=metrics, params=_snapshot(state))
+    out.update(metrics=metrics, params=_snapshot(state, mesh))
+    if mesh is not None and mesh.tp > 1:
+        nets = [("coarse", models.coarse), ("fine", models.fine)]
+        out["shapes"] = {f"{n}.{k}": tuple(p.shape) for n, m in nets
+                         for k, p in m.named_parameters()}
+        out["replicated_grads"] = {
+            f"{n}.{k}": p.grad.numpy().copy() for n, m in nets
+            for k, p in m.named_parameters()
+            if k.split(".")[0] not in m.sharded and p.grad is not None}
+    tmp.cleanup()
     return out
 
 
@@ -181,23 +228,24 @@ FRAMES = {
 }
 
 
-def frame(name, mesh):
+def frame(name, mesh, **over):
     """A held-out frame of seeded weights through ``render_image`` on
     ``mesh`` (None: one process), in tiles of ``chunk`` 40 (the last one
-    ragged)."""
+    ragged); ``over``: config fields over the frame's."""
     import dataclasses
 
     from depth_lidar_nerf_tpu_torch.render.renderer import render_image
     from depth_lidar_nerf_tpu_torch.train.config import (TrainConfig,
                                                          render_config_from)
-    from depth_lidar_nerf_tpu_torch.train.state import build_models
+    from depth_lidar_nerf_tpu_torch.train.state import (build_models,
+                                                        shard_models)
 
     fields, ev = FRAMES[name]
-    cfg = TrainConfig(**{**BASE, **fields})
+    cfg = TrainConfig(**{**BASE, **fields, **over})
     sc = _scene()
     rcfg = dataclasses.replace(render_config_from(cfg, 0, sc.near, sc.far),
                                chunk=40, **ev)
-    models = build_models(cfg, rcfg, device="cpu", seed=0)
+    models = shard_models(build_models(cfg, rcfg, device="cpu", seed=0), mesh)
     out = render_image(models.coarse, models.fine, 12, 16, 14.0, sc.poses[1],
                        rcfg, device="cpu", mesh=mesh)
     return {k: v.numpy() for k, v in out.items() if k != "weights"}
@@ -222,7 +270,8 @@ def jax_base_run(path, mesh):
     (``test_torch_port_parallel.py``): the port's models with JAX's weights,
     the tables and JAX's ray indices."""
     from depth_lidar_nerf_tpu_torch.train.state import (build_models,
-                                                        init_train_state)
+                                                        init_train_state,
+                                                        shard_train_state)
     from depth_lidar_nerf_tpu_torch.train.step import make_train_step
 
     d = torch.load(path, weights_only=False)
@@ -230,11 +279,11 @@ def jax_base_run(path, mesh):
     models = build_models(tc, tr, device="cpu")
     models.coarse.load_state_dict(d["coarse"])
     models.fine.load_state_dict(d["fine"])
-    state = init_train_state(tc, models)
-    step = make_train_step(tc, tr, models, hwf, mesh=mesh)
+    state = shard_train_state(init_train_state(tc, models), mesh)
+    step = make_train_step(tc, tr, state.models, hwf, mesh=mesh)
     m = step(state, *d["tables"], idx=d["idx"], idx_d=d["idx_d"])
     return {"metrics": {k: float(v) for k, v in m.items()},
-            "params": _snapshot(state)}
+            "params": _snapshot(state, mesh)}
 
 
 def parallel_cases(rank, jax_inputs):
@@ -339,3 +388,108 @@ def multihost_driver(rank, scene, basedirs, coordinator):
                    for d, _, fs in os.walk(basedirs[rank]) for f in fs)
     return {"metrics": hist, "params": _snapshot(st), "steps": states,
             "kept": kept, "files": files}
+
+
+# ------------------------------------------------------ tensor parallelism
+
+TP_DRIVER = dict(N_rand=64, N_samples=8, N_importance=8, netdepth=2,
+                 netwidth=32, netdepth_fine=2, netwidth_fine=32)
+
+
+def tp_linear(mesh):
+    """One ``nn.Linear`` of 12 -> 16 against its column-parallel form
+    (``column_parallel_linear``) on this rank, forward and backward, in
+    float32 and in bfloat16; and a no-grad call."""
+    import torch.nn.functional as F
+
+    from depth_lidar_nerf_tpu_torch.parallel.mesh import shard_rows
+    from depth_lidar_nerf_tpu_torch.parallel.tensor import \
+        column_parallel_linear
+
+    gen = torch.Generator().manual_seed(0)
+    lin = torch.nn.Linear(12, 16)
+    with torch.no_grad():
+        lin.weight.copy_(torch.randn(16, 12, generator=gen))
+        lin.bias.copy_(torch.randn(16, generator=gen))
+    x = torch.randn(5, 3, 12, generator=gen)
+    g = torch.randn(5, 3, 16, generator=gen)
+    out = {}
+    for route in ("whole", "column", "column_bf16", "whole_bf16"):
+        dtype = torch.bfloat16 if route.endswith("bf16") else torch.float32
+        xi = x.to(dtype).clone().requires_grad_()
+        w = lin.weight.detach().to(dtype)
+        b = lin.bias.detach().to(dtype)
+        if not route.startswith("whole"):
+            w = shard_rows(w, mesh.tp, mesh.tp_rank)
+            b = shard_rows(b, mesh.tp, mesh.tp_rank)
+        w, b = w.clone().requires_grad_(), b.clone().requires_grad_()
+        if route.startswith("whole"):
+            y = F.linear(xi, w, b)
+        else:
+            y = column_parallel_linear(xi, w, b, mesh.model_group)
+        y.backward(g.to(dtype))
+        out[route] = {k: v.detach().float().numpy()
+                      for k, v in (("y", y), ("dx", xi.grad),
+                                   ("dw", w.grad), ("db", b.grad))}
+    with torch.no_grad():
+        out["no_grad"] = column_parallel_linear(
+            x, shard_rows(lin.weight, mesh.tp, mesh.tp_rank),
+            shard_rows(lin.bias, mesh.tp, mesh.tp_rank),
+            mesh.model_group).numpy()
+    return out
+
+
+def tp_driver(rank, scene, basedir):
+    """JAX ``test_cli_train_with_model_parallel_mesh`` on the port: the
+    driver with colmap depth on ``mesh_shape [2, 2]`` for 10 steps (a
+    checkpoint at 10), then resumed to 15 on the same mesh. Returns this
+    rank's trunk shape, the steps, rank 0's printed lines, and (every rank
+    gathers) the whole parameters of the final state."""
+    import contextlib
+    import io
+
+    from depth_lidar_nerf_tpu_torch.parallel.mesh import make_mesh
+    from depth_lidar_nerf_tpu_torch.train.config import TrainConfig
+    from depth_lidar_nerf_tpu_torch.train.loop import train
+
+    os.chdir(basedir)
+    fields = dict(expname="mesh", basedir=basedir, datadir=scene,
+                  dataset_type="llff", factor=0, llffhold=0, test_scene=[2],
+                  use_viewdirs=True, no_ndc=True, i_print=5, i_testset=0,
+                  i_video=0, multires=4, multires_views=2, should_seed=True,
+                  colmap_depth=True, depth_loss=True, **TP_DRIVER,
+                  **TP_FIELDS)
+    text = io.StringIO()
+    steps = []
+    with contextlib.redirect_stdout(text):
+        for n in (10, 15):
+            st = train(TrainConfig(**fields, N_iters=n, i_weights=n),
+                       device="cpu")
+            steps.append(int(st.step))
+    return {"steps": steps, "printed": text.getvalue(),
+            "trunk": tuple(st.models.coarse.trunk_0.weight.shape),
+            "params": _snapshot(st, make_mesh([2, 2], device="cpu"))}
+
+
+def tensor_parallel_cases(rank, jax_inputs, scene, basedir):
+    """Everything ``test_torch_port_tensor_parallel.py`` needs of a 4-rank
+    group on a ``[2, 2]`` grid: the layer functions against ``nn.Linear``,
+    the JAX-paired base step, every step variant on the grid and (rank 0)
+    in one process, a frame on the grid and in one process, and the
+    driver."""
+    from depth_lidar_nerf_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh([2, 2], device="cpu")
+    out = {"ray_rank": mesh.rank, "tp_rank": mesh.tp_rank,
+           "linear": tp_linear(mesh),
+           "jax_base": jax_base_run(jax_inputs, mesh), "variants": {}}
+    for name in VARIANTS:
+        r = {"tp": variant_run(name, mesh, **TP_FIELDS)}
+        if rank == 0:
+            r["one"] = variant_run(name, None, use_fused_mlp=False)
+        out["variants"][name] = r
+    out["frame"] = {"tp": frame("plain", mesh)}
+    if rank == 0:
+        out["frame"]["one"] = frame("plain", None)
+    out["driver"] = tp_driver(rank, scene, basedir)
+    return out
