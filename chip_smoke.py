@@ -1576,31 +1576,14 @@ def int8_semantic_serving(fmt, sc, renderer, dev, card, cfg, rcfg, sm, pose,
     return out, q_launches
 
 
-def kernel_fns(fmt, sc):
-    """Every kernel wrapper with a launch counter, by kernel name."""
-    from depth_lidar_nerf_tpu_torch.ops import fused_mlp as fm
+def kernel_fns():
+    """Every kernel wrapper with a launch counter, by kernel name (the
+    registry of ``utils.tracing``, once every kernel module is imported)."""
+    from depth_lidar_nerf_tpu_torch.ops import (fused_mlp,  # noqa: F401
+                                                fused_mlp_t, sampling_cuda)
+    from depth_lidar_nerf_tpu_torch.utils import tracing
 
-    return {"fused_nerf_fwd": fmt.fused_nerf_fwd,
-            "fused_nerf_fwd_acts": fmt.fused_nerf_fwd_acts,
-            "fused_nerf_bwd": fmt.fused_nerf_bwd,
-            "fused_nerf_bwd_culled": fmt.fused_nerf_bwd_culled,
-            "fused_nerf_bwd_acts": fmt.fused_nerf_bwd_acts,
-            "fused_nerf_fwd_sem": fmt.fused_nerf_fwd_sem,
-            "fused_nerf_fwd_acts_sem": fmt.fused_nerf_fwd_acts_sem,
-            "fused_nerf_bwd_acts_sem": fmt.fused_nerf_bwd_acts_sem,
-            "fused_nerf_sem_head": fmt.sem_head,
-            "fused_nerf_sem_head_bwd": fmt.sem_head_bwd,
-            "fused_nerf_grad_reduce": fmt.grad_reduce,
-            "fused_nerf_bwd_chain": fmt.fused_nerf_bwd_chain,
-            "fused_nerf_bwd_weight_grads": fmt.bwd_weight_grads,
-            "fused_nerf_fwd_q8": fmt.fused_nerf_fwd_q8,
-            "fused_nerf_fwd_q8_sem": fmt.fused_nerf_fwd_q8_sem,
-            "fused_nerf_fwd_cf": fmt.fused_nerf_fwd_cf,
-            "fused_nerf_packed_fwd": fm.fused_packed_fwd,
-            "fused_nerf_packed_bwd": fm.fused_packed_bwd,
-            "fused_nerf_packed_chain": fm.fused_packed_chain,
-            "fused_nerf_packed_weight_grads": fm.packed_wgrad,
-            sc.KERNEL: sc.inverse_cdf}
+    return tracing.launch_wrappers()
 
 
 def semantic_phases(fmt, sc, renderer, dev, card, plain_sampler):
@@ -1614,7 +1597,7 @@ def semantic_phases(fmt, sc, renderer, dev, card, plain_sampler):
     from depth_lidar_nerf_tpu_torch.train.state import init_train_state
     from depth_lidar_nerf_tpu_torch.train.step import make_train_step
 
-    fns = kernel_fns(fmt, sc)
+    fns = kernel_fns()
     out = {}
 
     # ---- 9. semantic training ----------------------------------------------
@@ -2294,7 +2277,7 @@ def sigma_and_cf_training(fm, fmt, sc, renderer, dev, card, plain_sampler,
     from depth_lidar_nerf_tpu_torch.train.step import make_train_step
 
     out = {"launches": {}}
-    fns = kernel_fns(fmt, sc)
+    fns = kernel_fns()
     warm, timed = SIGMA_STEPS
     n = warm + timed
 
@@ -2731,11 +2714,8 @@ CLI_COUNTING = (
     "import json, runpy, sys\n"
     "runpy.run_module('depth_lidar_nerf_tpu_torch.train', run_name='__main__',"
     " alter_sys=True)\n"
-    "from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f\n"
-    "from depth_lidar_nerf_tpu_torch.ops import sampling_cuda as s\n"
-    "print('launches ' + json.dumps({'fused_nerf_fwd_q8': "
-    "f.fused_nerf_fwd_q8.launches, 'fused_nerf_fwd': f.fused_nerf_fwd.launches,"
-    " s.KERNEL: s.inverse_cdf.launches}))\n")
+    "from depth_lidar_nerf_tpu_torch.utils import tracing\n"
+    "print('launches ' + json.dumps(tracing.launch_counts()))\n")
 
 
 class _Tee:
@@ -2966,17 +2946,10 @@ def driver_phase(fmt, sc, dev, card, ms_step_5, fns, keep=None):
           f"{test_c} (run B: {test_b})")
     check(last >= first + DRIVER_PSNR_GAIN, "driver PSNR climbs by 2 dB")
     check(len(test_c) == 1 and len(test_b) == 1, "held-out [TEST] lines")
-    costs = state_c.loop_costs
     print(f"driver two_mlp: {ms_step:.1f} ms/step, "
           f"{TRAIN_N_RAYS * 1e3 / ms_step:,.0f} rays/s over steps "
           f"{DRIVER_WINDOW[0] + 1}-{DRIVER_WINDOW[1]} of run C (phase 5's bare "
-          f"step: {ms_step_5:.1f} ms) on {card}")
-    print(f"driver loop costs (run C): metric fetch "
-          f"{1e3 * np.mean(costs['fetch_s']):.2f} ms x {len(costs['fetch_s'])}"
-          f" (max {1e3 * np.max(costs['fetch_s']):.2f}); checkpoint save "
-          f"{1e3 * np.mean(costs['save_s']):.1f} ms x {len(costs['save_s'])}, "
-          f"{costs['save_bytes'][-1] / 2 ** 20:.2f} MiB each; held-out eval "
-          f"{1e3 * np.mean(costs['test_s']):.1f} ms; wall s: run A {wall_a:.1f}, "
+          f"step: {ms_step_5:.1f} ms) on {card}; wall s: run A {wall_a:.1f}, "
           f"run B {wall_b:.1f}, run C {wall_c:.1f}", flush=True)
     del state_c
     torch.cuda.empty_cache()
@@ -3040,10 +3013,6 @@ def driver_phase(fmt, sc, dev, card, ms_step_5, fns, keep=None):
             "window_launches": launches,
             "psnr_first": first, "psnr_last": last, "test_line": test_c[0],
             "resume_update_gap": gap, "resume_bit_identical": identical,
-            "fetch_ms": [1e3 * x for x in costs["fetch_s"]],
-            "save_ms": [1e3 * x for x in costs["save_s"]],
-            "save_bytes": costs["save_bytes"],
-            "test_ms": [1e3 * x for x in costs["test_s"]],
             "wall_s": {"A": wall_a, "B": wall_b, "C": wall_c,
                        "cli": wall_cli, "cli_int8": wall_int8},
             "cli_frame_bit_identical": cli_equal,
@@ -4115,7 +4084,6 @@ def flagship_driver_phase(fmt, sc, dev, card, fns):
     check(last >= first + DRIVER_PSNR_GAIN, "flagship PSNR climbs by 2 dB")
     check(len(test_c) == 1 and " lpips " in test_c[0],
           "the flagship [TEST] line carries LPIPS")
-    costs = state_c.loop_costs
     del state_c
     torch.cuda.empty_cache()
     tmp.cleanup()
@@ -4123,7 +4091,6 @@ def flagship_driver_phase(fmt, sc, dev, card, fns):
             "resume_update_gap": gap, "resume_bit_identical": identical,
             "metric_keys": keys, "patch_iterations": n_patch,
             "launches": launches,
-            "test_ms": [1e3 * x for x in costs["test_s"]],
             "wall_s": {"A": wall_a, "B": wall_b, "C": wall_c},
             "card": card}, launches
 
@@ -5027,7 +4994,7 @@ def tp_gloo_rank(out_dir, n_rays):
     torch.backends.cudnn.allow_tf32 = False
     dev = rank_device(dist.get_rank(), "cuda")
     mesh = make_mesh([1, 2], device=dev)
-    zero, counts = _counter(kernel_fns(fmt, sc))
+    zero, counts = _counter(kernel_fns())
     zero()
     out = {"float32": tp_run(dev, mesh, n_rays, "float32", TP_STEPS,
                              frame=True),
@@ -5052,7 +5019,7 @@ def tp_driver_rank(root, argv):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    zero, counts = _counter(kernel_fns(fmt, sc))
+    zero, counts = _counter(kernel_fns())
     zero()
     text = io.StringIO()
     t = time.time()
@@ -5462,7 +5429,7 @@ def main() -> int:
                  "fused_nerf_bwd": fmt.fused_nerf_bwd,
                  "fused_nerf_bwd_culled": fmt.fused_nerf_bwd_culled,
                  "fused_nerf_bwd_acts": fmt.fused_nerf_bwd_acts}
-    all_fns = list(kernel_fns(fmt, sc).values())
+    all_fns = list(kernel_fns().values())
     t0 = time.time()
     err.update(train_kernel_checks(fmt, NeRFMLP, dev, all_fns))
     print(f"training kernels checked in {time.time() - t0:.1f} s", flush=True)
@@ -5593,7 +5560,7 @@ def main() -> int:
     # ---- 4b. int8 serving and the modes that compose with it ---------------
     int8_out, int8_launches = int8_serving_phase(
         fmt, sc, renderer, dev, card, cfg, rcfg, models, poses, ms_frame,
-        kernel_fns(fmt, sc))
+        kernel_fns())
     print(f"phase 4b done at {time.time() - T_START:.0f} s", flush=True)
 
     # ---- 5. kernel times at the serving shapes ----------------------------
@@ -5843,47 +5810,47 @@ def main() -> int:
     # ---- 12. the driver: train, resume and serve a scene from disk -------------
     kept = []  # phase 12's scene and checkpoint, for phases 15c and 15d
     driver, driver_launches = driver_phase(fmt, sc, dev, card, ms_step,
-                                           kernel_fns(fmt, sc), keep=kept)
+                                           kernel_fns(), keep=kept)
     print(f"phase 12 done at {time.time() - T_START:.0f} s", flush=True)
 
     # ---- 13. grid training and baked-density-grid serving -----------------------
     grid_step, grid_step_launches = grid_step_phase(
-        fmt, sc, renderer, dev, card, plain_sampler, kernel_fns(fmt, sc),
+        fmt, sc, renderer, dev, card, plain_sampler, kernel_fns(),
         all_fns, ms_step)
     print(f"phase 13a done at {time.time() - T_START:.0f} s", flush=True)
     grid_serving, grid_serving_launches = grid_serving_phase(
         fmt, sc, renderer, dev, card, cfg, rcfg, poses, ms_frame, rgb0_phase4,
-        plain_sampler, kernel_fns(fmt, sc))
+        plain_sampler, kernel_fns())
     print(f"phase 13b done at {time.time() - T_START:.0f} s", flush=True)
     grid_driver, grid_driver_launches = grid_driver_phase(
-        fmt, sc, renderer, dev, card, kernel_fns(fmt, sc))
+        fmt, sc, renderer, dev, card, kernel_fns())
     print(f"phase 13c done at {time.time() - T_START:.0f} s", flush=True)
 
     # ---- 14. the patch-loss iteration and the flagship driver -------------------
     patch_out, patch_launches = patch_phase(fmt, sc, renderer, dev, card,
-                                            plain_sampler, kernel_fns(fmt, sc),
+                                            plain_sampler, kernel_fns(),
                                             ms_step)
     flagship, flagship_launches = flagship_driver_phase(fmt, sc, dev, card,
-                                                        kernel_fns(fmt, sc))
+                                                        kernel_fns())
     print(f"phase 14d done at {time.time() - T_START:.0f} s", flush=True)
 
     # ---- 15. the GAN loss, the frozen-alpha model, single-image batching ---
     gan_out, gan_launches = gan_phase(fmt, sc, renderer, dev, card,
-                                      plain_sampler, kernel_fns(fmt, sc))
+                                      plain_sampler, kernel_fns())
     gan_driver, gan_driver_launches = gan_driver_phase(fmt, sc, dev, card,
-                                                       kernel_fns(fmt, sc))
+                                                       kernel_fns())
     alpha_out, alpha_launches = alpha_phase(fmt, sc, dev, card,
-                                            kernel_fns(fmt, sc), kept[0])
+                                            kernel_fns(), kept[0])
     nb_out, nb_launches = no_batching_phase(fmt, sc, dev, card,
-                                            kernel_fns(fmt, sc), kept[0],
+                                            kernel_fns(), kept[0],
                                             ms_step)
 
     # ---- 16. ray data parallelism --------------------------------------------
-    dp_out = dp_phase(fmt, sc, dev, card, kernel_fns(fmt, sc), ms_step,
+    dp_out = dp_phase(fmt, sc, dev, card, kernel_fns(), ms_step,
                       kept[0])
 
     # ---- 17. tensor parallelism ----------------------------------------------
-    tp_out, tp_launches = tp_phase(fmt, sc, dev, card, kernel_fns(fmt, sc),
+    tp_out, tp_launches = tp_phase(fmt, sc, dev, card, kernel_fns(),
                                    kept[0])
     kept[0][0].cleanup()
 

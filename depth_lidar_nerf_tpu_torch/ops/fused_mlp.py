@@ -57,6 +57,8 @@ import torch
 from depth_lidar_nerf_tpu_torch.ops import _build
 from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t
 from depth_lidar_nerf_tpu_torch.ops.embedding import positional_encoding
+from depth_lidar_nerf_tpu_torch.utils.tracing import (count_split_call,
+                                                     register_launches)
 
 KERNEL = "fused_nerf_packed"
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
@@ -633,7 +635,7 @@ def fused_packed_fwd(ws: List[torch.Tensor], x: torch.Tensor, *, depth: int,
     return out
 
 
-fused_packed_fwd.launches = 0
+register_launches("fused_nerf_packed_fwd", fused_packed_fwd)
 
 
 def _grad_list(flat: torch.Tensor, shapes) -> List[torch.Tensor]:
@@ -685,7 +687,7 @@ def fused_packed_bwd(ws: List[torch.Tensor], x: torch.Tensor, g: torch.Tensor,
     return _grad_list(fused_mlp_t.grad_reduce(part, kw.grad_numel), kw.shapes)
 
 
-fused_packed_bwd.launches = 0
+register_launches("fused_nerf_packed_bwd", fused_packed_bwd)
 
 
 def fused_packed_chain(ws: List[torch.Tensor], x: torch.Tensor,
@@ -747,15 +749,16 @@ def fused_packed_chain(ws: List[torch.Tensor], x: torch.Tensor,
     _build.check(lib, KERNEL, err)
     fused_packed_chain.launches += 1
     if start == 0:
-        fused_packed_bwd.launches += 1
+        count_split_call(fused_packed_bwd)
     return acts[:sizes[0]], cot[:sizes[1]]
 
 
-fused_packed_chain.launches = 0
+register_launches("fused_nerf_packed_chain", fused_packed_chain)
 # Kernel 13's phase 2: fused_mlp_t.bwd_weight_grads adds its launches on
 # :func:`packed_wgrad_entries`' tables here (``counter=packed_wgrad``), and
 # those on kernels 5 and 8's tables to its own count.
-packed_wgrad = SimpleNamespace(launches=0)
+packed_wgrad = register_launches("fused_nerf_packed_weight_grads",
+                                 SimpleNamespace())
 
 
 def _packed_bwd_split(ws, x, g, *, depth, e_p, e_v, dtype, kw=None):

@@ -26,8 +26,10 @@ backwards return float32 weight gradients and zero input cotangents. Here:
 Each wrapper launches its kernel for CUDA tensors and runs its plain PyTorch
 twin (``*_plain``, the kernel's arithmetic step by step) for CPU tensors; it
 never falls back from one to the other. ``<wrapper>.launches`` counts kernel
-launches; the backward wrappers also launch ``fused_nerf_grad_reduce``, which
-sums the blocks' partial gradients (counted in ``grad_reduce.launches``).
+launches (registered by kernel name in ``utils.tracing``, whose
+``launch_counts()`` reads every wrapper's); the backward wrappers also
+launch ``fused_nerf_grad_reduce``, which sums the blocks' partial
+gradients (counted in ``grad_reduce.launches``).
 Kernels 6 and 7 write per-tile partial sums of the feature activation that
 the semantic head kernel (:func:`sem_head`) turns into per-ray logits;
 kernel 8 first runs the head's backward (:func:`sem_head_bwd`), whose
@@ -78,6 +80,7 @@ import torch
 
 from depth_lidar_nerf_tpu_torch.ops import _build
 from depth_lidar_nerf_tpu_torch.ops.embedding import positional_encoding
+from depth_lidar_nerf_tpu_torch.utils import tracing
 
 KERNEL = "fused_nerf_fwd"
 BWD_KERNEL = "fused_nerf_bwd"
@@ -974,7 +977,7 @@ def fused_nerf_fwd(params: Mapping[str, torch.Tensor], pts_t: torch.Tensor,
                        multires, multires_views, skips)
 
 
-fused_nerf_fwd.launches = 0
+tracing.register_launches("fused_nerf_fwd", fused_nerf_fwd)
 
 
 def fused_nerf_fwd_acts(params: Mapping[str, torch.Tensor], pts_t, viewdirs_t,
@@ -998,7 +1001,7 @@ def fused_nerf_fwd_acts(params: Mapping[str, torch.Tensor], pts_t, viewdirs_t,
     return raw, acts
 
 
-fused_nerf_fwd_acts.launches = 0
+tracing.register_launches("fused_nerf_fwd_acts", fused_nerf_fwd_acts)
 
 
 def _sem_packed_for(params, depth, dtype, device, packed):
@@ -1035,7 +1038,7 @@ def sem_head(fpart: torch.Tensor, sem: SemPacked, n_rays: int, S: int,
     return logits, sem_acts
 
 
-sem_head.launches = 0
+tracing.register_launches("fused_nerf_sem_head", sem_head)
 
 
 def _fwd_sem(fn, params, pts_t, viewdirs_t, S, kw, packed, save):
@@ -1075,7 +1078,7 @@ def fused_nerf_fwd_sem(params: Mapping[str, torch.Tensor], pts_t, viewdirs_t,
     return raw, logits
 
 
-fused_nerf_fwd_sem.launches = 0
+tracing.register_launches("fused_nerf_fwd_sem", fused_nerf_fwd_sem)
 
 
 def fused_nerf_fwd_acts_sem(params: Mapping[str, torch.Tensor], pts_t,
@@ -1097,7 +1100,7 @@ def fused_nerf_fwd_acts_sem(params: Mapping[str, torch.Tensor], pts_t,
                     kw, packed, save=True)
 
 
-fused_nerf_fwd_acts_sem.launches = 0
+tracing.register_launches("fused_nerf_fwd_acts_sem", fused_nerf_fwd_acts_sem)
 
 _SM_COUNT: Dict[int, int] = {}
 
@@ -1128,7 +1131,7 @@ def grad_reduce(part: torch.Tensor, n: int) -> torch.Tensor:
     return out
 
 
-grad_reduce.launches = 0
+tracing.register_launches("fused_nerf_grad_reduce", grad_reduce)
 
 
 def _bwd_launch(fn, mode, params, packed, pts_t, viewdirs_t, g, S, depth,
@@ -1199,7 +1202,7 @@ def fused_nerf_bwd(params, pts_t, viewdirs_t, g, S: int, *, depth: int,
                        g, S, **kw)
 
 
-fused_nerf_bwd.launches = 0
+tracing.register_launches("fused_nerf_bwd", fused_nerf_bwd)
 
 
 def fused_nerf_bwd_culled(params, pts_t, viewdirs_t, g, S: int,
@@ -1225,7 +1228,7 @@ def fused_nerf_bwd_culled(params, pts_t, viewdirs_t, g, S: int,
                        viewdirs_t, g, S, flags=flags.int().contiguous(), **kw)
 
 
-fused_nerf_bwd_culled.launches = 0
+tracing.register_launches("fused_nerf_bwd_culled", fused_nerf_bwd_culled)
 
 
 def fused_nerf_bwd_acts(params, pts_t, viewdirs_t, g, acts, S: int, *,
@@ -1252,7 +1255,7 @@ def fused_nerf_bwd_acts(params, pts_t, viewdirs_t, g, acts, S: int, *,
                        viewdirs_t, g, S, acts=acts.contiguous(), **kw)
 
 
-fused_nerf_bwd_acts.launches = 0
+tracing.register_launches("fused_nerf_bwd_acts", fused_nerf_bwd_acts)
 
 
 def sem_head_bwd(gsem: torch.Tensor, sem_acts: torch.Tensor, sem: SemPacked,
@@ -1283,7 +1286,7 @@ def sem_head_bwd(gsem: torch.Tensor, sem_acts: torch.Tensor, sem: SemPacked,
     return grad_reduce(part, n_sem), dfeat_ray
 
 
-sem_head_bwd.launches = 0
+tracing.register_launches("fused_nerf_sem_head_bwd", sem_head_bwd)
 
 
 def fused_nerf_bwd_acts_sem(params, pts_t, viewdirs_t, g, gsem, acts,
@@ -1328,7 +1331,7 @@ def fused_nerf_bwd_acts_sem(params, pts_t, viewdirs_t, g, gsem, acts,
     return grads
 
 
-fused_nerf_bwd_acts_sem.launches = 0
+tracing.register_launches("fused_nerf_bwd_acts_sem", fused_nerf_bwd_acts_sem)
 
 
 # ------------------- the split backward of kernels 5 and 8 (bf16, card)
@@ -1510,7 +1513,7 @@ def bwd_weight_grads(entries, part: torch.Tensor, count: int, *,
     (bwd_weight_grads if counter is None else counter).launches += 1
 
 
-bwd_weight_grads.launches = 0
+tracing.register_launches("fused_nerf_bwd_weight_grads", bwd_weight_grads)
 
 
 def fused_nerf_bwd_chain(params, pts_t, viewdirs_t, g, acts, S: int,
@@ -1527,9 +1530,10 @@ def fused_nerf_bwd_chain(params, pts_t, viewdirs_t, g, acts, S: int,
     :func:`fused_nerf_bwd_chain_plain`. Its input products run on the
     tensor cores, except with ``dfeat_ray`` (kernel 8), whose chain keeps
     its twin's float32 FMA order (csrc/fused_nerf_bwd.cu, ``backward_tile``'s
-    note). The launch of a call's first chunk (``start == 0``) also counts
-    as one of kernel 5 (:func:`fused_nerf_bwd_acts`), or of kernel 8's
-    trunk (:func:`fused_nerf_bwd_acts_sem`) with ``dfeat_ray``."""
+    note). A call's first chunk (``start == 0``) also counts one call of
+    kernel 5 (:func:`fused_nerf_bwd_acts`), or of kernel 8's trunk
+    (:func:`fused_nerf_bwd_acts_sem`) with ``dfeat_ray``
+    (``tracing.count_split_call``)."""
     kw = dict(depth=depth, width=width, multires=multires,
               multires_views=multires_views, skips=skips)
     if start % TILE or count < 1 or start + count > pts_t.shape[1]:
@@ -1578,12 +1582,12 @@ def fused_nerf_bwd_chain(params, pts_t, viewdirs_t, g, acts, S: int,
     _build.check(lib, BWD_KERNEL, err)
     fused_nerf_bwd_chain.launches += 1
     if start == 0:
-        (fused_nerf_bwd_acts if dfeat_ray is None
-         else fused_nerf_bwd_acts_sem).launches += 1
+        tracing.count_split_call(fused_nerf_bwd_acts if dfeat_ray is None
+                                 else fused_nerf_bwd_acts_sem)
     return cot[:n]
 
 
-fused_nerf_bwd_chain.launches = 0
+tracing.register_launches("fused_nerf_bwd_chain", fused_nerf_bwd_chain)
 
 
 def _bwd_split(params, packed, pts_t, viewdirs_t, g, acts, S, *, depth,
@@ -1876,7 +1880,7 @@ def fused_nerf_fwd_cf(params: Mapping[str, torch.Tensor], xb, vb, aux, S: int,
     return out
 
 
-fused_nerf_fwd_cf.launches = 0
+tracing.register_launches("fused_nerf_fwd_cf", fused_nerf_fwd_cf)
 
 
 def _fwd_cf(params, pts_t, vd_t, key, deltas, noise, spec, eps, packed=None):
@@ -1916,8 +1920,12 @@ def _bwd_dense_dparams(params, pts_t, vd_t, g, spec: _Spec, packed=None):
 
 def _bwd_culled_dparams(params, pts_t, vd_t, g, spec: _Spec, packed=None):
     """Cotangent-culled recompute backward (:func:`culled_layout`, then
-    kernel 3)."""
+    kernel 3). While tracing is on, its tiles count in ``cull.tiles`` and
+    the live ones, on the device, in ``cull.live_tiles``."""
     xb, vb, gb, flags = culled_layout(pts_t, vd_t, g, spec.S)
+    if tracing.enabled():
+        tracing.count("cull.tiles", flags.numel())
+        tracing.add_device("cull.live_tiles", flags.sum())
     return fused_nerf_bwd_culled(params, xb, vb, gb, SAMPLE_BLOCK, flags,
                                  packed=packed, **spec.kw())
 
@@ -2407,7 +2415,7 @@ def fused_nerf_fwd_q8(params: Mapping[str, torch.Tensor], pts_t, viewdirs_t,
                       multires, multires_views, skips)
 
 
-fused_nerf_fwd_q8.launches = 0
+tracing.register_launches("fused_nerf_fwd_q8", fused_nerf_fwd_q8)
 
 
 def fused_nerf_fwd_q8_sem(params: Mapping[str, torch.Tensor], pts_t,
@@ -2439,7 +2447,7 @@ def fused_nerf_fwd_q8_sem(params: Mapping[str, torch.Tensor], pts_t,
     return raw, logits
 
 
-fused_nerf_fwd_q8_sem.launches = 0
+tracing.register_launches("fused_nerf_fwd_q8_sem", fused_nerf_fwd_q8_sem)
 
 
 def _padded_rays(rays_o, rays_d, viewdirs, z_vals):

@@ -24,6 +24,7 @@ import torch
 
 from depth_lidar_nerf_tpu_torch.ops import _build
 from depth_lidar_nerf_tpu_torch.ops.sampling import pdf_uniforms
+from depth_lidar_nerf_tpu_torch.utils.tracing import register_launches
 
 KERNEL = "sample_pdf"
 # sample_pdf_launch(bins, bins row stride, weights, weights row stride,
@@ -102,7 +103,7 @@ def inverse_cdf(bins: torch.Tensor, weights: torch.Tensor,
     return _launch(bins, weights, u)
 
 
-inverse_cdf.launches = 0
+register_launches(KERNEL, inverse_cdf)
 
 
 def sample_pdf_cuda(bins: torch.Tensor, weights: torch.Tensor, N_samples: int,

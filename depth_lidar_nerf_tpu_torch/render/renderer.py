@@ -41,6 +41,7 @@ from depth_lidar_nerf_tpu_torch.ops.sampling import (base_generator,
                                                      unit_linspace)
 from depth_lidar_nerf_tpu_torch.ops.sampling_cuda import sample_pdf_cuda
 from depth_lidar_nerf_tpu_torch.parallel.gather import run_sharded
+from depth_lidar_nerf_tpu_torch.utils.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -419,22 +420,26 @@ def render_rays_tiled(model, fine_model, rays: Rays, cfg: RenderConfig,
     over the ranks, each rank renders its rows (drawing for the whole tile,
     :func:`~parallel.gather.run_sharded`), and the tile's per-ray outputs
     are gathered, every key but the ``[N, S]`` ``weights``. The kernels
-    work ray by ray, so the outputs equal one process's."""
+    work ray by ray, so the outputs equal one process's. Each tile is a
+    ``frame.tile`` span (``utils.tracing``), its id the tile's index."""
     n = rays.origins.shape[0]
     if tile is None:
         tile = pick_render_tile(model, fine_model, cfg, n, density_grid)
     tile = max(1, min(tile, n))
     outs = []
-    for s in range(0, n, tile):
+    for t, s in enumerate(range(0, n, tile)):
         sub = _rows(rays, s, s + tile)
-        if mesh is None:
-            outs.append(render_rays(model, fine_model, sub, cfg, generator,
-                                    density_grid))
-            continue
-        out = run_sharded(mesh, sub.origins.shape[0], lambda lo, hi, g: {
-            k: v for k, v in render_rays(model, fine_model, _rows(sub, lo, hi),
-                                         cfg, g, density_grid).items()
-            if k != "weights"}, generator)
+        with span("frame.tile", t):
+            if mesh is None:
+                out = render_rays(model, fine_model, sub, cfg, generator,
+                                  density_grid)
+            else:
+                out = run_sharded(
+                    mesh, sub.origins.shape[0], lambda lo, hi, g: {
+                        k: v for k, v in render_rays(
+                            model, fine_model, _rows(sub, lo, hi), cfg, g,
+                            density_grid).items() if k != "weights"},
+                    generator)
         outs.append(out)
     return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
@@ -450,16 +455,19 @@ def render_image(model, fine_model, H: int, W: int, focal, c2w,
     no ``density_grid``, the frame is
     :func:`render_image_coarse_downsampled`'s. With a ``mesh`` the frame's
     rays are split over the ranks (:func:`render_rays_tiled`) and every
-    rank gets the whole frame, without ``weights``."""
+    rank gets the whole frame, without ``weights``. Making the rays is a
+    ``frame.rays`` span (``utils.tracing``)."""
     k = cfg.render_coarse_downsample
     if (k > 1 and cfg.N_importance > 0 and H % k == 0 and W % k == 0
             and density_grid is None):
         return render_image_coarse_downsampled(model, fine_model, H, W, focal,
                                                c2w, cfg, tile, device, mesh)
     device = resolve_device(device)
-    c2w = torch.as_tensor(c2w, dtype=torch.float32, device=device)[:3, :4]
-    rays_o, rays_d = camera_rays(H, W, focal, c2w)
-    rays = make_rays(rays_o, rays_d, cfg, H, W, focal)
+    with span("frame.rays"):
+        c2w = torch.as_tensor(c2w, dtype=torch.float32,
+                              device=device)[:3, :4]
+        rays_o, rays_d = camera_rays(H, W, focal, c2w)
+        rays = make_rays(rays_o, rays_d, cfg, H, W, focal)
     out = render_rays_tiled(model, fine_model, rays, cfg.eval_mode(),
                             generator=None, tile=tile,
                             density_grid=density_grid, mesh=mesh)

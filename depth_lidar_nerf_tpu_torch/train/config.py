@@ -252,7 +252,9 @@ class TrainConfig:
     grid_train_fine_only: bool = False
     # Stratified sample count for the training grid CDF (0 = N_samples).
     grid_train_samples: int = 0
-    profile_dir: Optional[str] = None  # jax.profiler trace output (TPU)
+    # torch.profiler's chrome trace of one print interval (steps i_print+1
+    # to 2 i_print): the spans of utils.tracing above the kernels.
+    profile_dir: Optional[str] = None
     debug_nans: bool = False  # jax.config debug_nans (reference: DEBUG scan, run_nerf.py:671-673)
 
     def replace(self, **kw) -> "TrainConfig":

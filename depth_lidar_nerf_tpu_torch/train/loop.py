@@ -110,6 +110,7 @@ from depth_lidar_nerf_tpu_torch.train.tables import (build_depth_table,
 from depth_lidar_nerf_tpu_torch.train.torch_import import \
     import_reference_checkpoint
 from depth_lidar_nerf_tpu_torch.utils.images import write_png
+from depth_lidar_nerf_tpu_torch.utils.tracing import span
 from depth_lidar_nerf_tpu_torch.utils.visualization import depth_to_colormap
 
 
@@ -258,21 +259,27 @@ def render_path(models: Models, render_poses, hwf, cfg_render: RenderConfig,
     with a baked ``density_grid`` the grid fields. With ``savedir``, each
     frame's PNG, NPZ and depth PNG are written there. With a ``mesh`` each
     frame's rays are split over the ranks (``render_image``) and every rank
-    gets the frames."""
+    gets the frames. Each frame is a ``frame`` span (``utils.tracing``), id
+    its pose's index, whose copies to the host are a ``frame.to_host``
+    span."""
     device = resolve_device(device)
     H, W, focal = hwf
     if render_factor:
         H, W, focal = H // render_factor, W // render_factor, focal / render_factor
     rgbs, disps = [], []
     for i, c2w in enumerate(render_poses):
-        out = render_image(models.coarse, models.fine, int(H), int(W), focal,
-                           np.asarray(c2w)[:3, :4], cfg_render, device=device,
-                           density_grid=density_grid, mesh=mesh)
-        maps = {k: _host(out[k]) for k in ("rgb_map", "disp_map")}
+        with span("frame", i):
+            out = render_image(models.coarse, models.fine, int(H), int(W),
+                               focal, np.asarray(c2w)[:3, :4], cfg_render,
+                               device=device, density_grid=density_grid,
+                               mesh=mesh)
+            keys = ("rgb_map", "disp_map") + (
+                ("acc_map", "depth_map") if savedir is not None else ())
+            with span("frame.to_host"):
+                maps = {k: _host(out[k]) for k in keys}
         rgbs.append(maps["rgb_map"])
         disps.append(maps["disp_map"])
         if savedir is not None:
-            maps.update({k: _host(out[k]) for k in ("acc_map", "depth_map")})
             _save_image_outputs(maps, savedir, i)
     return np.stack(rgbs), np.stack(disps)
 
@@ -549,8 +556,6 @@ def _train(cfg: TrainConfig, metrics_hook, device: torch.device, mesh=None):
     state = init_train_state(cfg, models)
     topo = checkpoint.topology(cfg, rcfg.num_semantic_classes)
     ckdir = checkpoint.ckpt_dir(cfg.basedir, cfg.expname)
-    state.loop_costs = {"fetch_s": [], "save_s": [], "save_bytes": [],
-                        "test_s": []}
 
     start = 0
     # Under a mesh rank 0 restores, and its state goes to every rank below.
@@ -717,35 +722,52 @@ def _train(cfg: TrainConfig, metrics_hook, device: torch.device, mesh=None):
         print(f"TRAIN views: {list(scene.i_train)}  "
               f"TEST views: {list(scene.i_test)}")
         writer = _summary_writer(cfg.expname)
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    profile = bool(cfg.profile_dir) and rank0
+    profile = bool(cfg.profile_dir) and rank0 and cfg.N_iters > start
     try:
-        with (torch.profiler.profile(activities=acts) if profile
+        with (_interval_profiler(cfg, start, device) if profile
               else contextlib.nullcontext()) as prof:
             _loop(cfg, metrics_hook, device, scene, models, state,
                   (plan, patch_source, test_lpips), rgb_table, depth_table,
                   rcfg, rcfg_r, seed, host_rng, writer, expdir, ckdir, topo,
-                  start, mesh)
+                  start, mesh, prof)
     finally:
         if writer:
             writer.close()
-    if profile:
-        os.makedirs(cfg.profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(cfg.profile_dir, "trace.json"))
     _save(ckdir, state, cfg.N_iters, topo, mesh)
     return state
 
 
+def _interval_profiler(cfg: TrainConfig, start: int, device):
+    """``torch.profiler`` over one print interval: the run's second (steps
+    ``start + i_print + 1`` to ``start + 2 i_print``), or its last when the
+    run is shorter. The loop calls its ``step()`` after each iteration; it
+    writes ``<profile_dir>/trace.json`` when the interval has ended: the
+    program's spans (``utils.tracing``: each step's phases, the driver's
+    ``loop.*`` events, the eval frames) above the kernels they launched."""
+    n = max(cfg.i_print, 1)
+    hi = min(start + 2 * n, cfg.N_iters)
+    lo = max(start + 1, hi - n + 1)
+    warmup = min(1, lo - start - 1)  # the step before, where there is one
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+
+    def write(prof):
+        os.makedirs(cfg.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(cfg.profile_dir, "trace.json"))
+
+    return torch.profiler.profile(
+        activities=acts, on_trace_ready=write,
+        schedule=torch.profiler.schedule(
+            skip_first=lo - start - 1 - warmup, wait=0, warmup=warmup,
+            active=hi - lo + 1, repeat=1))
+
+
 def _save(ckdir, state, step, topo, mesh=None):
-    """Checkpoint ``state`` as ``step``, its cost in ``state.loop_costs``.
-    Every rank calls it (a tensor-parallel save gathers)."""
-    ts = time.time()
-    saved = checkpoint.save_state(ckdir, state, step, topo, mesh=mesh)
-    if saved is not None:
-        state.loop_costs["save_s"].append(time.time() - ts)
-        state.loop_costs["save_bytes"].append(saved[1])
+    """Checkpoint ``state`` as ``step`` (a ``loop.save`` span). Every rank
+    calls it (a tensor-parallel save gathers)."""
+    with span("loop.save", step):
+        checkpoint.save_state(ckdir, state, step, topo, mesh=mesh)
 
 
 class _Grid:
@@ -809,12 +831,15 @@ def _test_report(i, rgbs, gts, test_lpips, device, writer):
 
 def _loop(cfg: TrainConfig, metrics_hook, device, scene: Scene, models,
           state, step_fns, rgb_table, depth_table, rcfg, rcfg_r, seed,
-          host_rng, writer, expdir, ckdir, topo, start, mesh=None):
+          host_rng, writer, expdir, ckdir, topo, start, mesh=None,
+          prof=None):
     """Steps ``start + 1 .. N_iters`` with their events. Under a ``mesh``
     every rank takes the steps and renders the eval frames; rank 0 alone
-    prints and writes."""
+    prints and writes. The metric fetch, the checkpoint saves and the
+    held-out evaluation are ``loop.fetch``, ``loop.save`` and ``loop.test``
+    spans (``utils.tracing``), id the step. ``prof`` (``--profile_dir``'s
+    profiler) is stepped after each iteration."""
     H, W, focal = scene.hwf
-    costs = state.loop_costs
     plan, patch_source, test_lpips = step_fns
     rank0 = is_rank0(mesh)
     # Every rank renders the held-out frame when rank 0 has a writer.
@@ -847,14 +872,14 @@ def _loop(cfg: TrainConfig, metrics_hook, device, scene: Scene, models,
                 rank0 or metrics_hook is not None):
             # The metrics are the same on every rank; rank 0 prints them.
             # ONE device->host copy for all scalar metrics.
-            tf = time.time()
-            # Maps (the LPIPS spatial map) go to the writer as images.
-            maps = {k: _host(v) for k, v in metrics.items() if v.dim() >= 2}
-            names = [k for k, v in metrics.items() if v.dim() < 2]
-            packed = torch.stack([metrics[k].to(device, torch.float32)
-                                  for k in names]).cpu().numpy()
+            with span("loop.fetch", i):
+                # Maps (the LPIPS spatial map) go to the writer as images.
+                maps = {k: _host(v) for k, v in metrics.items()
+                        if v.dim() >= 2}
+                names = [k for k, v in metrics.items() if v.dim() < 2]
+                packed = torch.stack([metrics[k].to(device, torch.float32)
+                                      for k in names]).cpu().numpy()
             m = {k: float(x) for k, x in zip(names, packed)}
-            costs["fetch_s"].append(time.time() - tf)
             dt = time.time() - t0
             rps = rays_done / dt if dt > 0 else 0.0
             if rank0:
@@ -876,19 +901,18 @@ def _loop(cfg: TrainConfig, metrics_hook, device, scene: Scene, models,
             _save(ckdir, state, i, topo, mesh)
 
         if cfg.i_testset > 0 and i % cfg.i_testset == 0 and len(scene.i_test) > 0:
-            tt = time.time()
-            testdir = os.path.join(expdir, f"testset_{i:06d}")
-            if rank0:
-                os.makedirs(testdir, exist_ok=True)
-            grid3, rcfg_e = eval_view()
-            rgbs, _ = render_path(models, scene.poses[scene.i_test], scene.hwf,
-                                  rcfg_e, device=device,
-                                  savedir=testdir if rank0 else None,
-                                  density_grid=grid3, mesh=mesh)
-            if rank0:
-                _test_report(i, rgbs, scene.images[scene.i_test], test_lpips,
-                             device, writer)
-                costs["test_s"].append(time.time() - tt)
+            with span("loop.test", i):
+                testdir = os.path.join(expdir, f"testset_{i:06d}")
+                if rank0:
+                    os.makedirs(testdir, exist_ok=True)
+                grid3, rcfg_e = eval_view()
+                rgbs, _ = render_path(models, scene.poses[scene.i_test],
+                                      scene.hwf, rcfg_e, device=device,
+                                      savedir=testdir if rank0 else None,
+                                      density_grid=grid3, mesh=mesh)
+                if rank0:
+                    _test_report(i, rgbs, scene.images[scene.i_test],
+                                 test_lpips, device, writer)
 
         if (cfg.i_img > 0 and i % cfg.i_img == 0 and has_writer
                 and len(scene.i_test) > 0):
@@ -917,3 +941,5 @@ def _loop(cfg: TrainConfig, metrics_hook, device, scene: Scene, models,
             if rank0:
                 _write_videos(expdir, f"{cfg.expname}_spiral_{i:06d}_", rgbs,
                               disps)
+        if prof is not None:
+            prof.step()

@@ -532,10 +532,6 @@ class TrainState:
     models: Models
     optimizer: OptaxAdam
     step: int = 0
-    # What the driver's host-side events cost in the last ``train.loop.train``
-    # call: seconds of each metric fetch, checkpoint save and held-out
-    # evaluation, and each checkpoint's size in bytes (lists by event).
-    loop_costs: dict = dataclasses.field(default_factory=dict)
     # The discriminator's Adam (JAX ``disc_opt_state``); None without the GAN.
     disc_optimizer: Optional[OptaxAdam] = None
 

@@ -80,6 +80,7 @@ from depth_lidar_nerf_tpu_torch.train.state import (Models, TrainState,
                                                     invalidate_packs)
 from depth_lidar_nerf_tpu_torch.train.tables import (DepthRayTable,
                                                      RgbRayTable, gather_rays)
+from depth_lidar_nerf_tpu_torch.utils.tracing import span
 
 # The no-grad patch leg's ray tiles (JAX ``ng_render``): the fused forward
 # keeps no activations, so a tile may be 16,384 rays; a pass that misses the
@@ -501,34 +502,38 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
                     imp, gan_std, gan_noise):
         """The grad leg; adds the patch losses to ``loss``, in JAX's order.
         Returns the total and the assembled crops."""
-        rays = _take(prays, patch.perm[:n_grad])
-        if grid_mode:
-            g_out = render_leg(
-                n_grad, rays, take_rows(aux.w_rgb, rows[:n_grad], group),
-                generator, lambda r, w, g: _cdf_render(
-                    cfg, rcfg, models, r, w, aux.z, g,
-                    n_imp=cfg.patch_render_samples))
-        else:
-            g_out = render_leg(n_grad, rays, None, generator,
-                               lambda r, w, g: render_rays(
-                                   models.coarse, models.fine, r, rcfg, g))
-        acc_rgb = _assemble_patch(_clip01(stack_fc(g_out, "rgb_map", "rgb0")),
-                                  _clip01(stack_fc(ng, "rgb_map", "rgb0")),
-                                  patch.perm, n_grad, nH, nW)  # [B, nH, nW, 3]
-        if smooth_on:
-            acc_depth = _assemble_patch(
-                stack_fc(g_out, "depth_map", "depth_map0")[..., None],
-                stack_fc(ng, "depth_map", "depth_map0")[..., None],
+        with span("step.render"):
+            rays = _take(prays, patch.perm[:n_grad])
+            if grid_mode:
+                g_out = render_leg(
+                    n_grad, rays, take_rows(aux.w_rgb, rows[:n_grad], group),
+                    generator, lambda r, w, g: _cdf_render(
+                        cfg, rcfg, models, r, w, aux.z, g,
+                        n_imp=cfg.patch_render_samples))
+            else:
+                g_out = render_leg(n_grad, rays, None, generator,
+                                   lambda r, w, g: render_rays(
+                                       models.coarse, models.fine, r, rcfg, g))
+        with span("step.loss"):
+            acc_rgb = _assemble_patch(  # [B, nH, nW, 3]
+                _clip01(stack_fc(g_out, "rgb_map", "rgb0")),
+                _clip01(stack_fc(ng, "rgb_map", "rgb0")),
                 patch.perm, n_grad, nH, nW)
-            inv_loss = losses.inverse_depth_smoothness_loss(acc_depth, acc_rgb)
-            metrics["inv_loss"] = inv_loss
-            loss = loss + inv_loss * cfg.depth_inverse_lambda * imp
-        if feature_on:
-            loss = feature_terms(loss, metrics, patch, acc_rgb)
-        if gan_on:
-            gan_loss = gan_term(acc_rgb, gan_std, generator, gan_noise)
-            metrics["gan_loss"] = gan_loss
-            loss = loss + gan_loss * cfg.gan_lambda
+            if smooth_on:
+                acc_depth = _assemble_patch(
+                    stack_fc(g_out, "depth_map", "depth_map0")[..., None],
+                    stack_fc(ng, "depth_map", "depth_map0")[..., None],
+                    patch.perm, n_grad, nH, nW)
+                inv_loss = losses.inverse_depth_smoothness_loss(acc_depth,
+                                                                acc_rgb)
+                metrics["inv_loss"] = inv_loss
+                loss = loss + inv_loss * cfg.depth_inverse_lambda * imp
+            if feature_on:
+                loss = feature_terms(loss, metrics, patch, acc_rgb)
+            if gan_on:
+                gan_loss = gan_term(acc_rgb, gan_std, generator, gan_noise)
+                metrics["gan_loss"] = gan_loss
+                loss = loss + gan_loss * cfg.gan_lambda
         return loss, acc_rgb
 
     def feature_terms(loss, metrics, patch, acc_rgb):
@@ -571,8 +576,12 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
              generator: torch.Generator | None = None, idx=None,
              idx_d=None, aux: Optional[RayCDF] = None, patch=None,
              gan_noise=None) -> Dict[str, torch.Tensor]:
-        with (_deterministic_cudnn() if feature_on or gan_on
-              else contextlib.nullcontext()):
+        # The step's spans (utils.tracing): "step", id the step number, and
+        # in it one a phase: draw, render, loss, backward, optimizer (a
+        # patch step's legs fall in render and loss).
+        with span("step", state.step + 1), (
+                _deterministic_cudnn() if feature_on or gan_on
+                else contextlib.nullcontext()):
             return run(state, rgb_table, depth_table, generator, idx, idx_d,
                        aux, patch, gan_noise)
 
@@ -585,78 +594,82 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
             if patch is None:
                 raise ValueError("a patch step needs patch= (a PatchSource "
                                  "or a PatchBatch)")
-            if isinstance(patch, PatchSource):
-                patch = sample_patch(patch, nH, nW, generator)
-            ro, rd = patch_ray_dirs(H, W, focal, patch.c2w, patch.start_h,
-                                    patch.start_w, nH, nW)
-            prays = make_rays(ro, rd, rcfg, H, W, focal)
-            rows = _patch_rows(patch, H, W, nH, nW) if grid_mode else None
-            with torch.no_grad():
-                ng = ng_render(prays, patch, rows, generator, aux)
-        idx = (draw_one_image(rgb_table, generator, idx) if cfg.no_batching
-               else draw(n_rgb, rgb_table, generator, idx))
-        tab, at = batch_of(rgb_table, idx)
-        rays = gather_rays(tab, at, rcfg)
-        target_s = tab.rgb[at]
-        target_sem = tab.semantic[at] if cfg.semantic_loss else None
-        if n_depth > 0:
-            idx_d = draw(n_depth, depth_table, generator, idx_d)
-            tab_d, at_d = batch_of(depth_table, idx_d)
-            rays_depth = gather_rays(tab_d, at_d, rcfg)
-            target_depth = tab_d.depth[at_d]
-            ray_weights = tab_d.weight[at_d]
-            rays = Rays(*(None if a is None else torch.cat([a, b])
-                          for a, b in zip(rays, rays_depth)))
-
-        if grid_mode:
-            w_all = take_rows(aux.w_rgb, idx, group)
+            with span("step.render"):
+                if isinstance(patch, PatchSource):
+                    patch = sample_patch(patch, nH, nW, generator)
+                ro, rd = patch_ray_dirs(H, W, focal, patch.c2w, patch.start_h,
+                                        patch.start_w, nH, nW)
+                prays = make_rays(ro, rd, rcfg, H, W, focal)
+                rows = _patch_rows(patch, H, W, nH, nW) if grid_mode else None
+                with torch.no_grad():
+                    ng = ng_render(prays, patch, rows, generator, aux)
+        with span("step.draw"):
+            idx = (draw_one_image(rgb_table, generator, idx) if cfg.no_batching
+                   else draw(n_rgb, rgb_table, generator, idx))
+            tab, at = batch_of(rgb_table, idx)
+            rays = gather_rays(tab, at, rcfg)
+            target_s = tab.rgb[at]
+            target_sem = tab.semantic[at] if cfg.semantic_loss else None
             if n_depth > 0:
-                w_all = torch.cat([w_all, take_rows(aux.w_depth, idx_d,
-                                                    group)])
-            out = render_leg(rays.origins.shape[0], rays, w_all, generator,
-                             lambda r, w, g: _cdf_render(cfg, rcfg, models,
-                                                         r, w, aux.z, g))
-        else:
-            out = render_leg(rays.origins.shape[0], rays, None, generator,
-                             lambda r, w, g: render_rays(
-                                 models.coarse, models.fine, r, rcfg, g))
-        img_loss = losses.img2mse(out["rgb_map"][:n_rgb], target_s)
-        metrics["img_loss"] = img_loss
-        metrics["psnr"] = losses.mse2psnr(img_loss)
-        loss = img_loss
-        imp = losses.depth_importance(state.step, cfg.lrate_decay)
-        metrics["depth_importance"] = torch.tensor(imp)
-        if cfg.depth_loss and n_depth > 0:
-            d_loss = losses.depth_loss(
-                out["depth_map"][n_rgb:], target_depth, ray_weights,
-                weighted=cfg.weighted_loss, normalize=cfg.normalize_depth,
-                relative=cfg.relative_loss)
-            metrics["depth_loss"] = d_loss
-            loss = loss + cfg.depth_lambda * imp * d_loss
-        if cfg.sigma_loss and n_depth > 0:
-            sigma = run_sharded(mesh, n_depth, lambda lo, hi, g: {
-                "sigma": _sigma_term_sigma(cfg, rcfg, models,
-                                           _rows(rays_depth, lo, hi),
-                                           target_depth[lo:hi], g)},
-                generator)["sigma"]
-            s_loss = torch.mean(losses.sigma_loss_from_sigma(sigma))
-            metrics["sigma_loss"] = s_loss
-            loss = loss + cfg.sigma_lambda * s_loss
-        if cfg.semantic_loss:
-            sem_loss = losses.semantic_cross_entropy(out["sem_preds"][:n_rgb],
-                                                     target_sem)
-            metrics["semantic_loss"] = sem_loss
-            sem_loss0 = 0.0
-            if "sem_preds0" in out:
-                sem_loss0 = losses.semantic_cross_entropy(
-                    out["sem_preds0"][:n_rgb], target_sem)
-                metrics["semantic_loss0"] = sem_loss0
-            loss = loss + cfg.semantic_lambda * (sem_loss + sem_loss0)
-        if coarse_on:
-            img_loss0 = losses.img2mse(out["rgb0"][:n_rgb], target_s)
-            metrics["img_loss0"] = img_loss0
-            metrics["psnr0"] = losses.mse2psnr(img_loss0)
-            loss = loss + img_loss0
+                idx_d = draw(n_depth, depth_table, generator, idx_d)
+                tab_d, at_d = batch_of(depth_table, idx_d)
+                rays_depth = gather_rays(tab_d, at_d, rcfg)
+                target_depth = tab_d.depth[at_d]
+                ray_weights = tab_d.weight[at_d]
+                rays = Rays(*(None if a is None else torch.cat([a, b])
+                              for a, b in zip(rays, rays_depth)))
+
+        with span("step.render"):
+            if grid_mode:
+                w_all = take_rows(aux.w_rgb, idx, group)
+                if n_depth > 0:
+                    w_all = torch.cat([w_all, take_rows(aux.w_depth, idx_d,
+                                                        group)])
+                out = render_leg(rays.origins.shape[0], rays, w_all, generator,
+                                 lambda r, w, g: _cdf_render(cfg, rcfg, models,
+                                                             r, w, aux.z, g))
+            else:
+                out = render_leg(rays.origins.shape[0], rays, None, generator,
+                                 lambda r, w, g: render_rays(
+                                     models.coarse, models.fine, r, rcfg, g))
+        with span("step.loss"):
+            img_loss = losses.img2mse(out["rgb_map"][:n_rgb], target_s)
+            metrics["img_loss"] = img_loss
+            metrics["psnr"] = losses.mse2psnr(img_loss)
+            loss = img_loss
+            imp = losses.depth_importance(state.step, cfg.lrate_decay)
+            metrics["depth_importance"] = torch.tensor(imp)
+            if cfg.depth_loss and n_depth > 0:
+                d_loss = losses.depth_loss(
+                    out["depth_map"][n_rgb:], target_depth, ray_weights,
+                    weighted=cfg.weighted_loss, normalize=cfg.normalize_depth,
+                    relative=cfg.relative_loss)
+                metrics["depth_loss"] = d_loss
+                loss = loss + cfg.depth_lambda * imp * d_loss
+            if cfg.sigma_loss and n_depth > 0:
+                sigma = run_sharded(mesh, n_depth, lambda lo, hi, g: {
+                    "sigma": _sigma_term_sigma(cfg, rcfg, models,
+                                               _rows(rays_depth, lo, hi),
+                                               target_depth[lo:hi], g)},
+                    generator)["sigma"]
+                s_loss = torch.mean(losses.sigma_loss_from_sigma(sigma))
+                metrics["sigma_loss"] = s_loss
+                loss = loss + cfg.sigma_lambda * s_loss
+            if cfg.semantic_loss:
+                sem_loss = losses.semantic_cross_entropy(
+                    out["sem_preds"][:n_rgb], target_sem)
+                metrics["semantic_loss"] = sem_loss
+                sem_loss0 = 0.0
+                if "sem_preds0" in out:
+                    sem_loss0 = losses.semantic_cross_entropy(
+                        out["sem_preds0"][:n_rgb], target_sem)
+                    metrics["semantic_loss0"] = sem_loss0
+                loss = loss + cfg.semantic_lambda * (sem_loss + sem_loss0)
+            if coarse_on:
+                img_loss0 = losses.img2mse(out["rgb0"][:n_rgb], target_s)
+                metrics["img_loss0"] = img_loss0
+                metrics["psnr0"] = losses.mse2psnr(img_loss0)
+                loss = loss + img_loss0
         # Both GAN legs take the noise std at the count before the update.
         gan_std = (losses.gan_noise_std_at(state.step, cfg.gan_noise_std)
                    if gan_on else None)
@@ -666,16 +679,18 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
                                         gan_noise)
         metrics["loss"] = loss
 
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        all_reduce_grads((p for g in state.optimizer.param_groups
-                          for p in g["params"]), mesh)
-        state.optimizer.step()
-        invalidate_packs(models)
-        state.step += 1
-        if gan_on:
-            metrics["loss_dis"] = disc_step(state, patch.gt_patch, acc_rgb,
-                                            gan_std, generator, gan_noise)
+        with span("step.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            all_reduce_grads((p for g in state.optimizer.param_groups
+                              for p in g["params"]), mesh)
+        with span("step.optimizer"):
+            state.optimizer.step()
+            invalidate_packs(models)
+            state.step += 1
+            if gan_on:
+                metrics["loss_dis"] = disc_step(state, patch.gt_patch, acc_rgb,
+                                                gan_std, generator, gan_noise)
         return {k: v.detach() if torch.is_tensor(v) else torch.tensor(v)
                 for k, v in metrics.items()}
 

@@ -55,7 +55,7 @@ def main():
                                             cs.DRIVER_STEPS[0])))
     cfg = parse_args(cs.driver_argv(tmp.name, "fresh", cs.DRIVER_STEPS[1]))
     cs.driver_run(cfg)
-    out = cs.dp_phase(fmt, sc, dev, card, cs.kernel_fns(fmt, sc),
+    out = cs.dp_phase(fmt, sc, dev, card, cs.kernel_fns(),
                       float("nan"), (tmp, cfg))
     tmp.cleanup()
     print(json.dumps(out, default=str))

@@ -64,17 +64,17 @@ def main(argv):
     out = {}
     if "patch" in which:
         out["patch"], _ = cs.patch_phase(fmt, sc, renderer, dev, card,
-                                         plain_sampler, cs.kernel_fns(fmt, sc),
+                                         plain_sampler, cs.kernel_fns(),
                                          float("nan"))
     if "flagship" in which:
         out["flagship"], _ = cs.flagship_driver_phase(fmt, sc, dev, card,
-                                                      cs.kernel_fns(fmt, sc))
+                                                      cs.kernel_fns())
     if "gan" in which:
         out["gan"], _ = cs.gan_phase(fmt, sc, renderer, dev, card,
-                                     plain_sampler, cs.kernel_fns(fmt, sc))
+                                     plain_sampler, cs.kernel_fns())
     if "gan_driver" in which:
         out["gan_driver"], _ = cs.gan_driver_phase(fmt, sc, dev, card,
-                                                   cs.kernel_fns(fmt, sc))
+                                                   cs.kernel_fns())
     if "alpha" in which or "no_batching" in which:
         import tempfile
 
@@ -90,10 +90,10 @@ def main(argv):
         kept = (tmp, cfg)
         if "alpha" in which:
             out["alpha"], _ = cs.alpha_phase(fmt, sc, dev, card,
-                                             cs.kernel_fns(fmt, sc), kept)
+                                             cs.kernel_fns(), kept)
         if "no_batching" in which:
             out["no_batching"], _ = cs.no_batching_phase(
-                fmt, sc, dev, card, cs.kernel_fns(fmt, sc), kept,
+                fmt, sc, dev, card, cs.kernel_fns(), kept,
                 float("nan"))
         tmp.cleanup()
     print(json.dumps(out, default=str))

@@ -89,7 +89,7 @@ def main():
     make_scene(os.path.join(tmp.name, "scene"), n_images=cs.DRIVER_VIEWS,
                H=cs.H, W=cs.W, focal=cs.FOCAL,
                n_depth_points=cs.DRIVER_DEPTH_POINTS, backdrop=True)
-    out, _ = cs.tp_phase(fmt, sc, dev, card, cs.kernel_fns(fmt, sc), (tmp,),
+    out, _ = cs.tp_phase(fmt, sc, dev, card, cs.kernel_fns(), (tmp,),
                          n_rays=args.rays)
     tmp.cleanup()
     print(json.dumps(out, default=str))

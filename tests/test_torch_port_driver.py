@@ -195,19 +195,43 @@ def test_mesh_of_one_device_and_dispatch_flags_are_accepted(scene_dir,
     assert out.count("the port runs one step an iteration") == 1
 
 
+def _profiled(path):
+    """The top-level spans of a ``profile_dir`` run, from the recorder and
+    from the chrome trace it wrote: ``[(name, id)]`` and the trace's
+    ``record_function`` names, counted."""
+    import collections
+    import json
+
+    from depth_lidar_nerf_tpu_torch.utils import tracing
+
+    top = [(r.name, r.id) for r in tracing.records() if r.parent is None]
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = collections.Counter(e["name"] for e in events
+                                if e.get("cat") == "user_annotation")
+    return top, names
+
+
 def test_profile_dir_and_debug_nans(scene_dir, tmp_path):
-    """``profile_dir`` writes a torch.profiler trace of the loop; ``debug_nans``
-    turns autograd's anomaly detection on for the run only."""
+    """``profile_dir`` writes a torch.profiler trace of one print interval
+    (here step 2 of 3, after step 1's warm-up) holding the program's spans;
+    ``debug_nans`` turns autograd's anomaly detection on for the run
+    only."""
     before = torch.is_anomaly_enabled()
     seen = []
-    state = _train(_cfg(scene_dir, tmp_path, N_iters=2, i_print=1, i_weights=0,
+    state = _train(_cfg(scene_dir, tmp_path, N_iters=3, i_print=1, i_weights=0,
                         N_rand=32, profile_dir=str(tmp_path / "prof"),
                         debug_nans=True),
                    metrics_hook=lambda i, m: seen.append(
                        torch.is_anomaly_enabled()))
-    assert state.step == 2 and seen == [True, True]
+    assert state.step == 3 and seen == [True, True, True]
     assert torch.is_anomaly_enabled() == before
-    assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+    top, names = _profiled(tmp_path / "prof" / "trace.json")
+    assert top == [("step", 2), ("loop.fetch", 2)]
+    assert names["step"] == 1 and names["loop.fetch"] == 1
+    for phase in ("step.draw", "step.render", "step.loss", "step.backward",
+                  "step.optimizer"):
+        assert names[phase] == 1, phase
 
 
 # --------------------------------------------------- the reference .tar
@@ -502,9 +526,12 @@ def test_ft_path_own_checkpoint(scene_dir, tmp_path, capsys):
 def test_train_rgb_only_psnr_climbs(scene_dir, tmp_path, capsys):
     """JAX ``test_train_rgb_only_psnr_climbs`` (``tests/test_train_e2e.py:57``):
     the last ``[TRAIN]`` PSNR at least 2 dB above the first and above 18;
-    every ``[TRAIN]`` line in JAX's format, the same values to the hook."""
+    every ``[TRAIN]`` line in JAX's format, the same values to the hook; the
+    ``profile_dir`` trace of steps 21-40 holds the metric fetch and the
+    checkpoint save."""
     seen = []
-    cfg = _cfg(scene_dir, tmp_path, N_iters=200, i_print=20, i_weights=200)
+    cfg = _cfg(scene_dir, tmp_path, N_iters=200, i_print=20, i_weights=40,
+               profile_dir=str(tmp_path / "prof"))
     state = _train(cfg, metrics_hook=lambda i, m: seen.append((i, m)))
     outp = capsys.readouterr().out
     lines = [l for l in outp.splitlines() if l.startswith("[TRAIN]")]
@@ -519,8 +546,11 @@ def test_train_rgb_only_psnr_climbs(scene_dir, tmp_path, capsys):
     assert last > first + 2.0, outp
     assert last > 18.0, outp
     assert state.step == 200
-    assert len(state.loop_costs["fetch_s"]) == 10
-    assert len(state.loop_costs["save_bytes"]) == 1
+    # The profiled interval, steps 21-40, holds the fetch and the save.
+    top, names = _profiled(tmp_path / "prof" / "trace.json")
+    assert [i for n, i in top if n == "step"] == list(range(21, 41))
+    assert ("loop.fetch", 40) in top and ("loop.save", 40) in top
+    assert names["loop.fetch"] == 1 and names["loop.save"] == 1
 
 
 def test_train_with_depth_and_semantic(tmp_path):
