@@ -108,8 +108,10 @@ which raises on failure:
    and D=8 skip@4, float32 and bfloat16, 4,096 and 16,384 rays x S=64 and
    128, on logit cotangents that are zero on the second half of the rays
    (the backward against the plain backward on kernel 7's activations;
-   kernels 6 and 7 bitwise equal; kernel 8 bit for bit run to run; in
-   its bfloat16 chain's input products on FMA, in the twin's order);
+   kernels 6 and 7 bitwise equal; kernel 8 bit for bit run to run); in
+   bfloat16 at 4,096 rays, kernel 8's chain (its input products on the
+   tensor cores) against the float64 witness with the head's ray rows at
+   D=4 S=64 and D=8 S=128;
 9. semantic training: ``bench.py``'s ``ref_default_semantic_two_mlp``
    stack (coarse D=4 and fine D=8 skip@4 at W=256, both with a 19-class
    semantic head, 64 + 64 samples, 16,384 rays half RGB half LiDAR depth,
@@ -316,15 +318,21 @@ SEM_CLASSES = 19  # bench.py's ref_default_semantic_two_mlp scene
 # logits, activations), max abs error over max abs of the reference. Per
 # kernel, about 3x its largest gap measured on an H100 (PERF.md): float32
 # 1.1e-6 (kernels 6, 7), 1.8e-4 (kernel 8: the gap grows with the points a
-# gradient sums), 1.1e-5 (head backward); bfloat16 3.9e-3, 7.4e-3, 1.6e-4,
-# 6.8e-6. The head kernel equals its twin (0); its limit is float32
-# rounding of a 256-term sum.
+# gradient sums), 1.1e-5 (head backward); bfloat16 3.9e-3, 7.4e-3, 3.1e-3,
+# 6.8e-6. Kernel 8's bfloat16 chain sums its tensor-core products in
+# another order than the twin's float32 products, so some cotangents round
+# the other way: its gap to the twin (7.3e-4 to 3.1e-3 over the card
+# test's and this file's shapes) is about the twin's own to a float64
+# chain (1.05e-3, 2.61e-3; the kernel's 0.97e-3, 2.38e-3). Its accuracy is
+# held by the float64 witness (WITNESS_RATIO) and the limit stays below
+# TRAIN_TOL's, kernel 5's. The head kernel equals its twin (0); its limit
+# is float32 rounding of a 256-term sum.
 SEM_TOL = {
     "float32": {"fused_nerf_fwd_sem": 3e-6, "fused_nerf_fwd_acts_sem": 3e-6,
                 "fused_nerf_bwd_acts_sem": 5e-4, "fused_nerf_sem_head": 1e-5,
                 "fused_nerf_sem_head_bwd": 3e-5},
     "bfloat16": {"fused_nerf_fwd_sem": 1.2e-2, "fused_nerf_fwd_acts_sem": 2e-2,
-                 "fused_nerf_bwd_acts_sem": 5e-4, "fused_nerf_sem_head": 1e-5,
+                 "fused_nerf_bwd_acts_sem": 1e-2, "fused_nerf_sem_head": 1e-5,
                  "fused_nerf_sem_head_bwd": 2e-5}}
 # Semantic trajectory, kernel path against plain path over 5 steps: as
 # TRAJ_TOL (loss, update). About 3x the gaps measured on an H100 (float32
@@ -676,11 +684,9 @@ def sass_tensor_core_check(_build, fmt, fm):
     bfloat16 instantiation of the forward kernels (1, 4, 6, 7, 9), of the
     recompute backward (2, 3; more than the forward tile alone has, so its
     backward tile has them too), of the split backward's phase 1
-    (``fused_nerf_bwd_acts_kernel``: kernel 5's) and in phase 2's
-    ``fused_nerf_wgrad_kernel``; none in a float32 instantiation. Kernel 8's
-    phase 1 keeps its input products on FMA, in its twin's order (the note
-    of ``backward_tile`` in csrc/fused_nerf_bwd.cu): its count is printed.
-    Every instantiation of the int8 tile (``fused_nerf_q8_kernel``, kernels
+    (``fused_nerf_bwd_acts_kernel``: kernel 5's and kernel 8's) and in phase
+    2's ``fused_nerf_wgrad_kernel``; none in a float32 instantiation. Every
+    instantiation of the int8 tile (``fused_nerf_q8_kernel``, kernels
     10 and 11) shows IMMA and no IDP4A, HMMA in bfloat16 and none in
     float32; the counts are printed. The packed-lane kernels
     (csrc/fused_nerf_packed.cu): HMMA in the bfloat16 kernel 12 and kernel
@@ -707,17 +713,18 @@ def sass_tensor_core_check(_build, fmt, fm):
              or (k[0] == "fused_nerf_bwd_acts_kernel" and k[3] == "Lb0E")]
     sem = [k for k in found if k[0] == "fused_nerf_bwd_acts_kernel" and k[3] == "Lb1E"]
     for label, group in (("forward-tile", tile), ("split-backward", split),
-                         ("kernel 8 phase-1 (FMA, its twin's order)", sem)):
+                         ("kernel 8 phase-1", sem)):
         print(f"SASS: tensor-core instructions per bfloat16 {label} kernel "
               f"{sorted(k[4] for k in group if k[1] != 'f32')}, per float32 one "
               f"{sorted(k[4] for k in group if k[1] == 'f32')}")
     check(sum(k[1] == "bf16" for k in tile) == sum(k[1] == "f32" for k in tile) == 14,
           "14 forward-tile instantiations of each type in the SASS")
-    check(sum(k[1] == "bf16" for k in split) == sum(k[1] == "f32" for k in split) == 2
-          and [k[0] for k in split if k[1] == "bf16 only"] == ["fused_nerf_wgrad_kernel"]
-          and len(sem) == 4, "2 bfloat16 and 2 float32 kernel-5 instantiations, 4 of kernel "
-          "8 and the phase-2 kernel in the SASS")
-    check(all(k[4] > 0 for k in tile + split if k[1] != "f32"),
+    check(all(sum(k[1] == "bf16" for k in group) == sum(k[1] == "f32" for k in group) == 2
+              for group in (split, sem))
+          and [k[0] for k in split if k[1] == "bf16 only"] == ["fused_nerf_wgrad_kernel"],
+          "2 bfloat16 and 2 float32 instantiations each of kernels 5 and 8, and the phase-2 "
+          "kernel in the SASS")
+    check(all(k[4] > 0 for k in tile + split + sem if k[1] != "f32"),
           "HMMA in every bfloat16 kernel")
     check(all(k[4] == 0 for k in tile + split + sem if k[1] == "f32"),
           "no HMMA in a float32 kernel")
@@ -990,12 +997,13 @@ def train_kernel_checks(fmt, NeRFMLP, dev, launch_fns):
     return err
 
 
-def bwd_witness(fmt, params, pts, vd, g, acts, grads, S, depth):
+def bwd_witness(fmt, params, pts, vd, g, acts, grads, S, depth, dfeat_ray=None):
     """Phase 3: the bfloat16 split backward against the float64 witness
     (fused_mlp_t.bwd_product_witness): phase 1's cotangents of all the
     points (one chunk) rounded otherwise no more often than by float32
     products (WITNESS_RATIO, summed over the layers); the weight gradients'
-    max-over-mean errors against float64 products printed beside float32's."""
+    max-over-mean errors against float64 products printed beside float32's.
+    With the semantic head's ray rows ``dfeat_ray``, kernel 8's chain."""
     import torch
 
     P = pts.shape[1]
@@ -1005,20 +1013,21 @@ def bwd_witness(fmt, params, pts, vd, g, acts, grads, S, depth):
                         -(-(pk.weights.numel() + pk.biases.numel()) // 4) * 4),
                        device=pts.device)
     cot = fmt.fused_nerf_bwd_chain(params, pts.contiguous(), vd.contiguous(), g, acts,
-                                   S, 0, P, part, dtype=torch.bfloat16, packed=pk, **kw)
+                                   S, 0, P, part, dtype=torch.bfloat16, packed=pk,
+                                   dfeat_ray=dfeat_ray, **kw)
     wit = fmt.bwd_product_witness(params, g, acts, cot, grads, S, depth=depth,
-                                  width=256, multires=10, skips=(4,))
+                                  width=256, multires=10, skips=(4,), dfeat_ray=dfeat_ray)
     sk, s32 = sum(wit["kernel"]), sum(wit["float32"])
     wk, w32 = max(wit["wgrad_kernel"].values()), max(wit["wgrad_float32"].values())
-    print(f"bf16 backward against the float64 witness D={depth} N={P // S} S={S}: "
+    label = "bf16 backward" if dfeat_ray is None else "bf16 kernel 8"
+    print(f"{label} against the float64 witness D={depth} N={P // S} S={S}: "
           "cotangents rounded otherwise per layer (dhv, dfeat, dh_D-1 .. dh_0) kernel "
           + " ".join(f"{x:.3g}" for x in wit["kernel"]) + "; float32 products "
           + " ".join(f"{x:.3g}" for x in wit["float32"])
           + f"; summed {sk:.4g} against {s32:.4g} ({sk / s32:.3f}x, limit "
           f"{WITNESS_RATIO:g}x); weight gradients max abs err over mean abs, worst "
           f"block: kernel {wk:.3g}, float32 products {w32:.3g}", flush=True)
-    check(sk <= WITNESS_RATIO * s32,
-          f"bf16 backward against the float64 witness D={depth} S={S}")
+    check(sk <= WITNESS_RATIO * s32, f"{label} against the float64 witness D={depth} S={S}")
     del cot, part
     torch.cuda.empty_cache()
 
@@ -1147,6 +1156,10 @@ def sem_kernel_checks(fmt, NeRFMLP, dev, launch_fns, depths=(4, 8),
                     again = fmt.fused_nerf_bwd_acts_sem(
                         params, pts, vd, g, gsem, acts, sem_acts, S, **kw)
                 torch.cuda.synchronize()
+                if dtype == torch.bfloat16 and n_rays == 4096 \
+                        and (depth, S) in ((4, 64), (8, 128)):
+                    bwd_witness(fmt, params, pts, vd, g, acts, grads, S, depth,
+                                dfeat_ray=hdfeat)
                 n_before = [f.launches for f in launch_fns]
                 check(torch.equal(raw6, raw7) and torch.equal(sem6, sem7),
                       "kernels 6 and 7 give the same raw and logits")
@@ -2340,9 +2353,10 @@ def sigma_and_cf_training(fm, fmt, sc, renderer, dev, card, plain_sampler,
         captured["packed"] = (ws, x, g, kw)
         return orig_bwd(ws, x, g, **kw)
 
-    # A wrapper counts its launches through its module-level name, which
-    # the stand-in takes over: give it a counter of its own.
-    cap_bwd.launches = 0
+    # A wrapper counts its launches (and its split calls) through its
+    # module-level name, which the stand-in takes over: give it counters of
+    # its own.
+    cap_bwd.launches = cap_bwd.split_calls = 0
     with mock.patch.object(fm, "fused_packed_bwd", cap_bwd):
         step(state, *tables, gen)
     torch.cuda.synchronize()

@@ -40,7 +40,7 @@
 // at D = 4 / W = 256, against 16 bytes of cotangent (kernel 5 also reads the ~2.8 KB of
 // saved activations a point in bfloat16, still far above the card's 295 FLOP per byte).
 // In float32 every product runs on the CUDA cores (FMA). In bfloat16 the input products of
-// kernels 2, 3 and 5 run on the tensor cores (backward_tile's kTc, mma.sync m16n8k16), and the
+// kernels 2, 3, 5 and 8 run on the tensor cores (backward_tile's kTc, mma.sync m16n8k16), and the
 // forward that kernels 2 and 3 recompute is forward_tile, whose bfloat16 products run on the
 // tensor cores too (fused_nerf.cuh tc_layer), so its activations equal kernel 4's saved ones.
 //
@@ -72,68 +72,6 @@ namespace {
 
 using namespace fnerf;
 
-// mac (fused_nerf.cuh) for bfloat16 weights, with the rows of w staged through shared memory
-// `stage` (kStageRows x 32 NJ bfloat16) a chunk of rows at a time instead of read per k, the
-// next chunk's loads in flight in registers during the current chunk's products, and rows k and
-// k + 1 of a column interleaved so that a lane reads both as one word: the same float32 FMA
-// sequence for every output (k in order from 0), so the same sums bit for bit. K is even.
-// Kernel 8's chain (backward_tile with kSplit on FMA).
-constexpr int kStageRows = 32;
-
-template <int NJ>
-__device__ __forceinline__ void mac_staged(float (&acc)[8][NJ], const float* __restrict__ in,
-                                           int K, const __nv_bfloat16* __restrict__ w, int ld,
-                                           __nv_bfloat16* __restrict__ stage, int ty, int tx) {
-  constexpr int N = 32 * NJ, PER = kStageRows * N / kThreads;
-  const unsigned short* wr = reinterpret_cast<const unsigned short*>(w);
-  unsigned short* sr = reinterpret_cast<unsigned short*>(stage);
-  const uint32_t* sp = reinterpret_cast<const uint32_t*>(stage);
-  const float* a_ptr = in + ty * 8;
-  unsigned short nxt[PER];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int q = 0; q < PER; ++q) {
-      const int idx = threadIdx.x + q * kThreads, r = idx / N;
-      nxt[q] = k0 + r < K ? __ldg(wr + (size_t)(k0 + r) * ld + idx % N) : (unsigned short)0;
-    }
-  };
-  fetch(0);
-  for (int k0 = 0; k0 < K; k0 += kStageRows) {
-    __syncthreads();  // every warp is done with the previous chunk
-#pragma unroll
-    for (int q = 0; q < PER; ++q) {  // row r, column c at ((r / 2) N + c) 2 + r % 2
-      const int idx = threadIdx.x + q * kThreads, r = idx / N;
-      sr[((r >> 1) * N + idx % N) * 2 + (r & 1)] = nxt[q];
-    }
-    __syncthreads();
-    if (k0 + kStageRows < K) fetch(k0 + kStageRows);
-    const int kc = min(kStageRows, K - k0);
-#pragma unroll 1
-    for (int k = 0; k < kc; k += 2) {
-      const float* ak = a_ptr + (k0 + k) * kLD;
-      const float4 a0 = *reinterpret_cast<const float4*>(ak);
-      const float4 a1 = *reinterpret_cast<const float4*>(ak + 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(ak + kLD);
-      const float4 b1 = *reinterpret_cast<const float4*>(ak + kLD + 4);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-      uint32_t wp[NJ];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) wp[j] = sp[(k >> 1) * N + tx + 32 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-          acc[i][j] = fmaf(a[i], __uint_as_float(wp[j] << 16), acc[i][j]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-          acc[i][j] = fmaf(b[i], __uint_as_float(wp[j] & 0xffff0000u), acc[i][j]);
-    }
-  }
-}
-
 // This tile's rows of layer l of the split backward's cotangents (cstride rows a layer, the
 // tile's first at crow0): l <= D the [W] layers (dh_0 .. dh_{D-1}, dfeat), D + 1 dhv ([W / 2]),
 // D + 2 the encoding ([pad16(e_p)]).
@@ -149,18 +87,17 @@ __device__ __forceinline__ T* cot_rows(T* cot, int l, int D, int W, int ep16, si
 //
 // An input product dX = dY W^T of the tile (64 points x W columns) runs on the tensor cores
 // (kTc: tc_mac_in, warp ty takes all 64 points and columns ty W / 8 .. ty W / 8 + W / 8 - 1)
-// or on FMA (mac's 8 points x W / 32 columns a thread; in the split chain through the staged
-// rows, mac_staged). BwdAcc is the route's accumulator.
+// or on FMA (mac's 8 points x W / 32 columns a thread). BwdAcc is the route's accumulator.
 template <int W, bool kTc>
 using BwdAcc = std::conditional_t<kTc, float[kMT][W / 64][4], float[8][W / 32]>;
 
 // acc = dy W^T over the layer's K outputs, from zero: on the tensor cores from the [in, out]
 // weights at w (K a row), on FMA from the [out, in] weights at wt (ldwt a row).
-template <typename T, int W, bool kSplit, bool kTc>
+template <typename T, int W, bool kTc>
 __device__ __forceinline__ void input_product(BwdAcc<W, kTc>& acc, const float* __restrict__ dy,
                                               int K, const T* __restrict__ w,
-                                              const T* __restrict__ wt, int ldwt,
-                                              T* __restrict__ stage, int ty, int tx) {
+                                              const T* __restrict__ wt, int ldwt, int ty,
+                                              int tx) {
   if constexpr (kTc) {
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
@@ -171,26 +108,43 @@ __device__ __forceinline__ void input_product(BwdAcc<W, kTc>& acc, const float* 
     tc_mac_in<W / 64>(acc, dy, K, w, K, ty * (W / 8), tx);
   } else {
     init_acc<W / 32>(acc, nullptr, tx);
-    if constexpr (kSplit)
-      mac_staged<W / 32>(acc, dy, K, wt, ldwt, stage, ty, tx);
-    else
-      mac<T, W / 32>(acc, dy, K, wt, ldwt, ty, tx);
+    mac<T, W / 32>(acc, dy, K, wt, ldwt, ty, tx);
   }
 }
 
 // acc += the ray's dfeat_ray row ([N, W] in T) for each of the tile's valid points, in float32
-// before the rounding (kernel 8's feature cotangent, on FMA: backward_tile's note).
-template <typename T, int W>
-__device__ __forceinline__ void add_ray_rows(float (&acc)[8][W / 32],
+// before the rounding (kernel 8's feature cotangent); on the tensor cores in tc_mac_in's
+// fragment layout (lane (gq, t) of warp ty: points 16 mt + gq + 8 h, columns ty W / 8 + 8 nt +
+// 2t and + 1).
+template <typename T, int W, bool kTc>
+__device__ __forceinline__ void add_ray_rows(BwdAcc<W, kTc>& acc,
                                              const T* __restrict__ dfeat_ray, int p0, int S,
                                              int n_valid, int ty, int tx) {
+  if constexpr (kTc) {
+    const int gq = tx >> 2, c0 = ty * (W / 8) + 2 * (tx & 3);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int p = ty * 8 + i;
-    if (p < n_valid) {
-      const T* row = dfeat_ray + (size_t)((p0 + p) / S) * W + tx;
+    for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-      for (int j = 0; j < W / 32; ++j) acc[i][j] += to_f<T>(row[32 * j]);
+      for (int h = 0; h < 2; ++h) {
+        const int p = 16 * mt + gq + 8 * h;
+        if (p < n_valid) {
+          const T* row = dfeat_ray + (size_t)((p0 + p) / S) * W + c0;
+#pragma unroll
+          for (int nt = 0; nt < W / 64; ++nt) {
+            acc[mt][nt][2 * h] += to_f<T>(row[8 * nt]);
+            acc[mt][nt][2 * h + 1] += to_f<T>(row[8 * nt + 1]);
+          }
+        }
+      }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int p = ty * 8 + i;
+      if (p < n_valid) {
+        const T* row = dfeat_ray + (size_t)((p0 + p) / S) * W + tx;
+#pragma unroll
+        for (int j = 0; j < W / 32; ++j) acc[i][j] += to_f<T>(row[32 * j]);
+      }
     }
   }
 }
@@ -226,7 +180,7 @@ __device__ __forceinline__ void add_sigma(BwdAcc<W, kTc>& acc, const float* __re
 
 // The accumulator rounded to T where gate > 0 (everywhere without a gate), else 0, into `out`
 // ([W][kLD]); on the tensor cores with `g`, also the tile's valid rows to device memory as
-// [point][W] (on FMA the caller copies them from `out`: write_rows).
+// [point][W] (on FMA, float32, there is no `g`).
 template <typename T, int W, bool kTc>
 __device__ __forceinline__ void store_grad(BwdAcc<W, kTc>& acc, const float* __restrict__ gate,
                                            float* __restrict__ out, T* __restrict__ g,
@@ -241,8 +195,8 @@ __device__ __forceinline__ void store_grad(BwdAcc<W, kTc>& acc, const float* __r
 // `acts` as forward_tile writes them, and adding the tile's gradients into the block's
 // partial: weights at gw + woff[l], biases at gbias + boff[l]. Expects s.enc and s.encv
 // to hold the tile's encodings. With `dfeat_ray` ([N, W] in T), each point's feature
-// cotangent also gets its ray's row (kernel 8). The input products run on the tensor cores
-// with kTc (bfloat16: kernels 2, 3 and 5), else on FMA (float32, and kernel 8's chain).
+// cotangent also gets its ray's row (kernel 8). The input products run on the tensor cores in
+// bfloat16 (kTc: kernels 2, 3, 5 and 8), else on FMA (float32).
 //
 // With kSplit (bfloat16: the chain of the split backward, kernels 5 and 8) it forms no large
 // weight gradient: it writes the tile's cotangents instead, as [point][C] rows of bfloat16 at
@@ -251,21 +205,20 @@ __device__ __forceinline__ void store_grad(BwdAcc<W, kTc>& acc, const float* __r
 // for fused_nerf_wgrad_kernel; the small gradients (the rgb head, the sigma column, the view
 // layer's per-ray rows, every bias) still go into the block's partial.
 //
-// Kernel 8's chain keeps its input products on FMA: its float32 sums then run in the order of
-// its twin's float32 products, and a bfloat16 cotangent rounds as the twin's does. Summed on
-// the tensor cores, about 2e-5 of them round the other way (fewer than the twin's own, against
-// float64 products: PERF.md), and the flips, carried down the chain, move its trunk gradients
-// by 1-3e-3 of their mean from the twin's; the twin itself lies as far from the float64 chain,
-// and the semantic kernels' limit against the twin is 5e-4 (chip_smoke.py SEM_TOL).
-template <typename T, int W, bool kSplit, bool kTc>
+// On the tensor cores the float32 sums run in another order than the twin's float32 products,
+// so some bfloat16 cotangents round the other way; carried down the chain, that moves the trunk
+// gradients by up to a few 1e-3 of their mean from the twin's, as far as the twin lies from a
+// float64 chain. The products and the roundings are those of the twin, and the cotangents are
+// held against float64 products of the same operands (fused_mlp_t.bwd_product_witness).
+template <typename T, int W, bool kSplit>
 __device__ void backward_tile(const Net& net, const Smem& s, const float* __restrict__ g, int P,
                               int S, int p0, const T* __restrict__ acts, size_t lstride,
                               size_t row0, float* __restrict__ gw, float* __restrict__ gbias,
                               const T* __restrict__ dfeat_ray = nullptr,
                               T* __restrict__ cot = nullptr, size_t cstride = 0,
                               size_t crow0 = 0) {
-  static_assert(!(kSplit || kTc) || std::is_same<T, __nv_bfloat16>::value,
-                "the split backward and the tensor-core products are bfloat16 only");
+  constexpr bool kTc = std::is_same<T, __nv_bfloat16>::value;
+  static_assert(!kSplit || kTc, "the split backward is bfloat16 only");
   constexpr int NJV = W / 64;
   constexpr int WV = W / 2;
   const int e_p = 3 + 6 * net.n_p, e_v = 3 + 6 * net.n_v;
@@ -284,9 +237,6 @@ __device__ void backward_tile(const Net& net, const Smem& s, const float* __rest
   auto crow = [&](int l) -> T* {
     return kSplit ? cot_rows(cot, l, D, W, ep16, cstride, crow0) : nullptr;
   };
-  // kSplit on FMA: the per-ray sums' buffer (kTP x W / 2 floats), free once the view layer's
-  // per-ray rows are formed, stages mac_staged's weights (kStageRows x W bfloat16)
-  T* stage = reinterpret_cast<T*>(s.seg);
 
   // Cotangent, rounded; the rgb and sigma bias gradients sum the float32 cotangent.
   for (int idx = tid; idx < 4 * kTP; idx += kThreads) {
@@ -340,15 +290,13 @@ __device__ void backward_tile(const Net& net, const Smem& s, const float* __rest
     gw[net.woff[D + 2] + (W + e) * WV + k] += sm;
   }
   BwdAcc<W, kTc> acc;
-  input_product<T, W, kSplit, kTc>(acc, Dg, WV, w + net.woff[D + 2], wt + net.woff[D + 2],
-                                   W + e_v, stage, ty, tx);
-  if constexpr (!kTc)  // with dfeat_ray: kernel 8, on FMA
-    if (dfeat_ray) add_ray_rows<T, W>(acc, dfeat_ray, p0, S, n_valid, ty, tx);
+  input_product<T, W, kTc>(acc, Dg, WV, w + net.woff[D + 2], wt + net.woff[D + 2], W + e_v, ty,
+                           tx);
+  if (dfeat_ray) add_ray_rows<T, W, kTc>(acc, dfeat_ray, p0, S, n_valid, ty, tx);  // kernel 8
   __syncthreads();
   store_grad<T, W, kTc>(acc, nullptr, Dg, crow(D), n_valid, ty, tx);  // dfeat [W][kLD]
   load_rows<T>(A, arow + (D - 1) * lstride, W, n_valid);              // h_{D-1}
   __syncthreads();
-  if constexpr (kSplit && !kTc) write_rows(crow(D), Dg, W, n_valid);
 
   // Feature and sigma heads: d(W_feat) (not with kSplit), d(b_feat), d(W_sigma); dh.
   if constexpr (!kSplit) outer(gw + net.woff[D + 1], A, W, Dg, W, ty, tx);
@@ -358,8 +306,7 @@ __device__ void backward_tile(const Net& net, const Smem& s, const float* __rest
     for (int p = 0; p < kTP; ++p) sm = fmaf(A[k * kLD + p], s.gb[3 * kLD + p], sm);
     gw[net.woff[D] + k] += sm;
   }
-  input_product<T, W, kSplit, kTc>(acc, Dg, W, w + net.woff[D + 1], wt + net.woff[D + 1], W,
-                                   stage, ty, tx);
+  input_product<T, W, kTc>(acc, Dg, W, w + net.woff[D + 1], wt + net.woff[D + 1], W, ty, tx);
   add_sigma<T, W, kTc>(acc, s.gb + 3 * kLD, wt + net.woff[D], ty, tx);
   __syncthreads();
 
@@ -367,7 +314,6 @@ __device__ void backward_tile(const Net& net, const Smem& s, const float* __rest
   for (int l = D - 1; l >= 0; --l) {
     store_grad<T, W, kTc>(acc, A, Dg, crow(l), n_valid, ty, tx);  // dh_l
     __syncthreads();
-    if constexpr (kSplit && !kTc) write_rows(crow(l), Dg, W, n_valid);
     if (l == 0) {
       if constexpr (!kSplit) outer(gw + net.woff[0], s.enc, e_p, Dg, W, ty, tx);
       bias_sum(gbias + net.boff[0], Dg, W);
@@ -381,9 +327,8 @@ __device__ void backward_tile(const Net& net, const Smem& s, const float* __rest
       if (skip) outer(gw + net.woff[l], s.enc, e_p, Dg, W, ty, tx);
     }
     bias_sum(gbias + net.boff[l], Dg, W);
-    input_product<T, W, kSplit, kTc>(acc, Dg, W, w + net.woff[l] + (skip ? e_p * W : 0),
-                                     wt + net.woff[l] + (skip ? e_p : 0), W + (skip ? e_p : 0),
-                                     stage, ty, tx);
+    input_product<T, W, kTc>(acc, Dg, W, w + net.woff[l] + (skip ? e_p * W : 0),
+                             wt + net.woff[l] + (skip ? e_p : 0), W + (skip ? e_p : 0), ty, tx);
     __syncthreads();
   }
   __syncthreads();
@@ -565,18 +510,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (kCulled && flags[t] == 0) continue;
     forward_tile<T, W>(net, s, pts, vd, P, S, t * kTP, nullptr, mine, lstride, 0);
     __syncthreads();
-    backward_tile<T, W, false, std::is_same<T, __nv_bfloat16>::value>(
-        net, s, g, P, S, t * kTP, mine, lstride, 0, gw, gw + n_w);
+    backward_tile<T, W, false>(net, s, g, P, S, t * kTP, mine, lstride, 0, gw, gw + n_w);
   }
 }
 
 // Kernel 5 (kSem false): the backward from the activations kernel 4 saved; with kSem, the
 // trunk of kernel 8, which also takes the semantic head's per-ray feature cotangent. It takes
 // the tiles of points [c0, c0 + n_pts) (c0 a multiple of kTP). In bfloat16 it is phase 1 of the
-// split backward (backward_tile with kSplit; kernel 5's input products on the tensor cores,
-// kernel 8's on FMA: backward_tile's note): it writes the cotangents of those points to `cot`
-// (n_pts rows a layer) for fused_nerf_wgrad_kernel; in float32 it forms every gradient (c0 = 0,
-// n_pts = P, no cot).
+// split backward (backward_tile with kSplit, its input products on the tensor cores): it writes
+// the cotangents of those points to `cot` (n_pts rows a layer) for fused_nerf_wgrad_kernel; in
+// float32 it forms every gradient (c0 = 0, n_pts = P, no cot).
 template <typename T, int W, bool kSem>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_nerf_bwd_acts_kernel(const Net net, const float* __restrict__ pts,
@@ -594,10 +537,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int p0 = c0 + t * kTP;
     encode_tile<T>(s, pts, vd, P, S, p0, min(kTP, P - p0), e_p, e_v);
     __syncthreads();
-    backward_tile<T, W, kSplit, kSplit && !kSem>(net, s, g, P, S, p0, acts, (size_t)P * W,
-                                                 (size_t)p0, gw, gw + n_w,
-                                                 kSem ? dfeat_ray : nullptr, cot, (size_t)n_pts,
-                                                 (size_t)t * kTP);
+    backward_tile<T, W, kSplit>(net, s, g, P, S, p0, acts, (size_t)P * W, (size_t)p0, gw,
+                                gw + n_w, kSem ? dfeat_ray : nullptr, cot, (size_t)n_pts,
+                                (size_t)t * kTP);
   }
 }
 
@@ -803,8 +745,8 @@ extern "C" int fused_nerf_bwd_launch(int mode, const float* pts, const float* vd
 // points of acts, g, pts. Adds the small gradients into part's G rows and writes the
 // cotangents of those points to `cot` (bfloat16, n_pts rows a layer): dh_0 .. dh_{D-1} and
 // dfeat [n_pts][W] each, dhv [n_pts][W / 2], the encoding [n_pts][pad16(e_p)]. Their weight
-// gradients are fused_nerf_wgrad_launch's. wi as for fused_nerf_bwd_launch (kernel 5's input
-// products read it; kernel 8's, on FMA, read wt).
+// gradients are fused_nerf_wgrad_launch's. wi as for fused_nerf_bwd_launch (the input
+// products read it).
 extern "C" int fused_nerf_bwd_chain_launch(const float* pts, const float* vd, const float* g,
                                            const void* acts, const void* dfeat_ray,
                                            const void* w, const void* wt, const void* wi,

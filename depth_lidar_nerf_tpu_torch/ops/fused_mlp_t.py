@@ -1528,9 +1528,10 @@ def fused_nerf_bwd_chain(params, pts_t, viewdirs_t, g, acts, S: int,
     (:func:`split_cot`; written into ``cot`` if given). On the card it is
     bfloat16 only (float32's backward is one kernel); CPU tensors run
     :func:`fused_nerf_bwd_chain_plain`. Its input products run on the
-    tensor cores, except with ``dfeat_ray`` (kernel 8), whose chain keeps
-    its twin's float32 FMA order (csrc/fused_nerf_bwd.cu, ``backward_tile``'s
-    note). A call's first chunk (``start == 0``) also counts one call of
+    tensor cores, with ``dfeat_ray`` (kernel 8) too, whose ray rows join
+    the feature cotangent in float32 before it is rounded
+    (csrc/fused_nerf_bwd.cu, ``add_ray_rows``). A call's first chunk
+    (``start == 0``) also counts one call of
     kernel 5 (:func:`fused_nerf_bwd_acts`), or of kernel 8's trunk
     (:func:`fused_nerf_bwd_acts_sem`) with ``dfeat_ray``
     (``tracing.count_split_call``)."""

@@ -4,9 +4,9 @@ a float64 chain.
 Runs kernel 7 and kernel 8 of the PyTorch port (``fused_mlp_t``) in bfloat16
 on seeded W=256 weights with a 19-class semantic head (chip_smoke.py's
 semantic inputs: random biases, 4,096 rays) at the coarse shape (D=4, S=64)
-and the fine one (D=8 skip@4, S=128): kernel 8 (its chain's input products
-on FMA, in the twin's float32 order) and, given a checkout whose kernel 8
-takes another route (``--root``), that one. For the trunk's large gradient
+and the fine one (D=8 skip@4, S=128): kernel 8 of this checkout (its chain's
+input products on the tensor cores) or, with ``--root``, of another checkout
+whose kernel 8 may take another route. For the trunk's large gradient
 blocks it prints the max abs error over the mean abs of the kernel
 and of the twin (``fused_nerf_bwd_acts_sem_plain``) against a float64
 chain: every cotangent formed with float64 products of bfloat16 operands and

@@ -217,9 +217,11 @@ def test_cot_layout_and_chunk_checks(monkeypatch):
                      skips=())
 
 
-def _exact_cot(f, params, g, acts, S, depth, width, skips, enc):
+def _exact_cot(f, params, g, acts, S, depth, width, skips, enc,
+               dfeat_ray=None):
     """Phase 1's cotangents as float64 products of the bfloat16 operands,
-    each rounded once, in the buffer's layout."""
+    each rounded once, in the buffer's layout (with ``dfeat_ray [N, W]``,
+    each point's ray row added to the feature cotangent before it rounds)."""
     bf = torch.bfloat16
     w, _ = f._plain_weights(params, bf)
     P = g.shape[1]
@@ -236,7 +238,9 @@ def _exact_cot(f, params, g, acts, S, depth, width, skips, enc):
         return z.float().to(bf).float()
 
     dhv = lin(gb[:3].T, w("rgb"), hs[depth + 1])
-    dfeat = lin(dhv, w("views_0")[:, :width])
+    rows = None if dfeat_ray is None else \
+        dfeat_ray.float().repeat_interleave(S, dim=0)
+    dfeat = lin(dhv, w("views_0")[:, :width], extra=rows)
     dh, x = [None] * depth, dfeat
     for l in range(depth - 1, -1, -1):
         if l == depth - 1:
@@ -250,15 +254,36 @@ def _exact_cot(f, params, g, acts, S, depth, width, skips, enc):
     return torch.cat([a.to(bf).reshape(-1) for a in dh + [dfeat, dhv, enc16]])
 
 
-@pytest.mark.parametrize("depth,S,skips", [(4, 64, ()), (8, 16, (4,))])
-def test_bwd_product_witness_on_cpu(depth, S, skips):
+def _ray_rows(f, params, g, acts, S, depth, width, skips, enc, seed):
+    """A semantic head's feature cotangent ``[N, W]`` in bfloat16 at the
+    scale of the feature cotangent without it, zero on the second half of
+    the rays (as the step's depth rays give)."""
+    c = f.split_cot(_exact_cot(f, params, g, acts, S, depth, width, skips,
+                               enc), g.shape[1], depth, width, 10)
+    N = g.shape[1] // S
+    rows = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(N, width)).astype(np.float32)) * c[depth].abs().mean()
+    rows[N // 2:] = 0.0
+    return rows.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("depth,S,skips,ray", [
+    pytest.param(4, 64, (), False, id="4-64-skips0"),
+    pytest.param(8, 16, (4,), False, id="8-16-skips1"),
+    pytest.param(4, 64, (), True, id="4-64-skips0-ray"),
+    pytest.param(8, 16, (4,), True, id="8-16-skips1-ray")])
+def test_bwd_product_witness_on_cpu(depth, S, skips, ray):
     """Cotangents rounded once from float64 products are exact for the
     witness in every layer; one moved by a bfloat16 step counts as one off
     its layer; a layer in another column order is off wherever its gates
     are open.
     Weight gradients formed in float64 from the buffer's operands are
     within float32 rounding of the witness; one element moved by 1% of the
-    block's max is seen."""
+    block's max is seen.
+    With a semantic head's per-ray rows (kernel 8): the buffer formed with
+    them is exact; held against the rows shifted by one ray, or formed
+    without them, its feature layer is off wherever the rows differ, and
+    only that layer."""
     from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f
 
     N, width = 16, 128
@@ -267,7 +292,10 @@ def test_bwd_product_witness_on_cpu(depth, S, skips):
     _, acts, enc, _ = f._forward_plain(params, pts, vd, S, depth, width, 10,
                                        4, torch.bfloat16, skips)
     acts = torch.cat([a.to(torch.bfloat16).reshape(-1) for a in acts])
-    cot = _exact_cot(f, params, g, acts, S, depth, width, skips, enc)
+    rows = _ray_rows(f, params, g, acts, S, depth, width, skips, enc,
+                     depth * S) if ray else None
+    kw["dfeat_ray"] = rows
+    cot = _exact_cot(f, params, g, acts, S, depth, width, skips, enc, rows)
     P = N * S
     c = f.split_cot(cot, P, depth, width, 10)
     exact = {"trunk_0.weight": c[0].double().T @ c[depth + 2][:, :63].double(),
@@ -299,6 +327,23 @@ def test_bwd_product_witness_on_cpu(depth, S, skips):
     off["feature.weight"][3, 5] += 0.01 * exact["feature.weight"].abs().max()
     assert f.bwd_product_witness(params, g, acts, cot, off, S, **kw)[
         "wgrad_kernel"]["feature.weight"] > 1e-3
+    if not ray:
+        return
+
+    def feature_layer_off(cot, rows):
+        got = f.bwd_product_witness(params, g, acts, cot, grads, S,
+                                    **dict(kw, dfeat_ray=rows))["kernel"]
+        assert got[0] == 0.0 and got[2:] == [0.0] * depth, got
+        return got[1]
+
+    per_point = rows.float().repeat_interleave(S, dim=0)
+    shifted = rows.roll(1, 0)
+    differ = (shifted.float().repeat_interleave(S, dim=0) != per_point)
+    assert 0.4 < differ.float().mean().item() < 0.6
+    assert feature_layer_off(cot, shifted) > 0.9 * differ.float().mean().item()
+    without = _exact_cot(f, params, g, acts, S, depth, width, skips, enc)
+    assert feature_layer_off(without, rows) > \
+        0.9 * (per_point != 0).float().mean().item()
 
 
 def test_split_route_on_cpu_is_the_twin():

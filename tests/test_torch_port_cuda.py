@@ -249,10 +249,11 @@ def test_split_backward_chunks_on_card(cuda, monkeypatch, depth, S, N, sem):
 
 
 @pytest.mark.parametrize("depth,S,N", [(4, 64, 37), (8, 128, 20)])
-def test_sem_bwd_fma_chain_on_card(cuda, depth, S, N):
-    """Kernel 8 in bfloat16 keeps its chain's input products in the twin's
-    float32 FMA order, so it stays within the semantic kernels' limit of
-    the twin (chip_smoke.py SEM_TOL, 5e-4), bit-identical run to run."""
+def test_sem_bwd_tc_chain_on_card(cuda, depth, S, N):
+    """Kernel 8 in bfloat16, its chain's input products on the tensor
+    cores, within its limit of the twin (chip_smoke.py SEM_TOL),
+    bit-identical run to run."""
+    import chip_smoke as cs
     from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f
 
     kw = dict(depth=depth, width=256, multires=10, multires_views=4,
@@ -263,8 +264,36 @@ def test_sem_bwd_fma_chain_on_card(cuda, depth, S, N):
     got, again = (f.fused_nerf_bwd_acts_sem(*args, **kw) for _ in range(2))
     torch.cuda.synchronize()
     ref = f.fused_nerf_bwd_acts_sem_plain(*args, **kw)
-    assert _sem_grad_err(got, ref, depth, 256) <= 5e-4
+    assert _sem_grad_err(got, ref, depth, 256) <= \
+        cs.SEM_TOL["bfloat16"]["fused_nerf_bwd_acts_sem"]
     assert all(torch.equal(got[k], again[k]) for k in got)
+
+
+@pytest.mark.parametrize("depth,S", [(4, 64), (8, 128)])
+def test_sem_bwd_witness_on_card(cuda, depth, S):
+    """Kernel 8's chain against the float64 witness, with the semantic
+    head's ray rows: at 256 rays, summed over the layers, its cotangents
+    round otherwise than float64 products of their own inputs no more often
+    than float32 products do (chip_smoke.py's WITNESS_RATIO)."""
+    import chip_smoke as cs
+    from depth_lidar_nerf_tpu_torch.ops import fused_mlp_t as f
+
+    bf = torch.bfloat16
+    kw = dict(depth=depth, width=256, multires=10, multires_views=4, skips=(4,))
+    params, pts, vd, g, gsem = _sem_inputs(cuda, depth, 256, S, 256, 19, depth * S + 2)
+    _, acts, _, sem_acts = f.fused_nerf_fwd_acts_sem(params, pts, vd, S, dtype=bf, **kw)
+    grads = f.fused_nerf_bwd_acts_sem(params, pts, vd, g, gsem, acts, sem_acts, S,
+                                      dtype=bf, **kw)
+    _, dfeat_ray = f.sem_head_bwd_plain(gsem, sem_acts, f.pack_sem(params, bf, cuda), S)
+    part = torch.zeros((132, 10 ** 6), device=cuda)
+    cot = f.fused_nerf_bwd_chain(params, pts.contiguous(), vd.contiguous(), g, acts,
+                                 S, 0, 256 * S, part, dtype=bf, dfeat_ray=dfeat_ray,
+                                 **kw)
+    wit = f.bwd_product_witness(params, g, acts, cot, grads, S, depth=depth,
+                                width=256, multires=10, skips=(4,),
+                                dfeat_ray=dfeat_ray)
+    assert sum(wit["kernel"]) <= cs.WITNESS_RATIO * sum(wit["float32"]), wit
+    assert all(np.isfinite(v) for v in wit["wgrad_kernel"].values())
 
 
 @pytest.mark.parametrize("depth,S", [(4, 64), (8, 128)])
@@ -711,7 +740,7 @@ def _serving_models(cuda, semantic=False, **extra):
     rcfg = render_config_from(cfg, 19 if semantic else 0, 0.0, 1.0)
     ms = build_models(cfg, rcfg, device=cuda)
     with torch.no_grad():
-        for m in ms:
+        for m in ms.nerfs():
             m.sigma.weight *= 20.0
     return ms, rcfg, eval_render_config(cfg, rcfg)
 
@@ -765,7 +794,7 @@ def test_downsampled_int8_frame_on_card(cuda):
     assert [fn.launches - n for fn, n in zip(fns, n0)] == [0, 1 + 2, 1]
     assert set(out) == {"rgb_map", "disp_map", "acc_map", "depth_map", "rgb0",
                         "depth_map0", "acc0"}
-    cpu = [m.to("cpu") for m in ms]
+    cpu = [m.to("cpu") for m in ms.nerfs()]
     ref = render_image(cpu[0], cpu[1], 10, 12, 9.0, torch.eye(4)[:3], ecfg,
                        tile=64, device="cpu")
     for k in ("rgb_map", "acc_map", "rgb0"):
