@@ -410,8 +410,8 @@ def _rows(rays: Rays, lo: int, hi: int) -> Rays:
 
 def render_rays_tiled(model, fine_model, rays: Rays, cfg: RenderConfig,
                       generator: torch.Generator | None = None,
-                      tile: int | None = None,
-                      density_grid=None, mesh=None) -> Dict[str, torch.Tensor]:
+                      tile: int | None = None, density_grid=None, mesh=None,
+                      tile_span: str = "frame.tile") -> Dict[str, torch.Tensor]:
     """Render a large ray batch in tiles of ``tile`` rays (``chunk`` by
     default); the last tile is ragged. Per-ray results do not depend on the
     tiling when ``generator`` is None.
@@ -421,7 +421,8 @@ def render_rays_tiled(model, fine_model, rays: Rays, cfg: RenderConfig,
     :func:`~parallel.gather.run_sharded`), and the tile's per-ray outputs
     are gathered, every key but the ``[N, S]`` ``weights``. The kernels
     work ray by ray, so the outputs equal one process's. Each tile is a
-    ``frame.tile`` span (``utils.tracing``), its id the tile's index."""
+    ``tile_span`` span (``utils.tracing``; ``frame.tile`` unless the caller
+    names another), its id the tile's index."""
     n = rays.origins.shape[0]
     if tile is None:
         tile = pick_render_tile(model, fine_model, cfg, n, density_grid)
@@ -429,7 +430,7 @@ def render_rays_tiled(model, fine_model, rays: Rays, cfg: RenderConfig,
     outs = []
     for t, s in enumerate(range(0, n, tile)):
         sub = _rows(rays, s, s + tile)
-        with span("frame.tile", t):
+        with span(tile_span, t):
             if mesh is None:
                 out = render_rays(model, fine_model, sub, cfg, generator,
                                   density_grid)

@@ -80,6 +80,7 @@ from depth_lidar_nerf_tpu_torch.train.state import (Models, TrainState,
                                                     invalidate_packs)
 from depth_lidar_nerf_tpu_torch.train.tables import (DepthRayTable,
                                                      RgbRayTable, gather_rays)
+from depth_lidar_nerf_tpu_torch.utils import tracing
 from depth_lidar_nerf_tpu_torch.utils.tracing import span
 
 # The no-grad patch leg's ray tiles (JAX ``ng_render``): the fused forward
@@ -486,23 +487,25 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
         split over the ranks."""
         rays = _take(prays, patch.perm[n_grad:])
         if grid_mode:
-            return render_leg(
-                rays.origins.shape[0], rays,
-                take_rows(aux.w_rgb, rows[n_grad:], group), generator,
-                lambda r, w, g: _cdf_render(
-                    cfg, rcfg_ng, models, r, w, aux.z, g,
-                    n_imp=cfg.patch_render_samples, save_acts=False))
+            with span("patch.ng", 0):
+                return render_leg(
+                    rays.origins.shape[0], rays,
+                    take_rows(aux.w_rgb, rows[n_grad:], group), generator,
+                    lambda r, w, g: _cdf_render(
+                        cfg, rcfg_ng, models, r, w, aux.z, g,
+                        n_imp=cfg.patch_render_samples, save_acts=False))
         tile = pick_render_tile(models.coarse, models.fine, rcfg_ng,
                                 rays.origins.shape[0],
                                 fused_cap=NG_FUSED_CAP, flax_cap=NG_PLAIN_CAP)
         return render_rays_tiled(models.coarse, models.fine, rays, rcfg_ng,
-                                 generator, tile=tile, mesh=mesh)
+                                 generator, tile=tile, mesh=mesh,
+                                 tile_span="patch.ng")
 
     def patch_terms(loss, metrics, patch, prays, rows, ng, generator, aux,
                     imp, gan_std, gan_noise):
         """The grad leg; adds the patch losses to ``loss``, in JAX's order.
         Returns the total and the assembled crops."""
-        with span("step.render"):
+        with span("step.render"), span("patch.grad"):
             rays = _take(prays, patch.perm[:n_grad])
             if grid_mode:
                 g_out = render_leg(
@@ -520,16 +523,18 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
                 _clip01(stack_fc(ng, "rgb_map", "rgb0")),
                 patch.perm, n_grad, nH, nW)
             if smooth_on:
-                acc_depth = _assemble_patch(
-                    stack_fc(g_out, "depth_map", "depth_map0")[..., None],
-                    stack_fc(ng, "depth_map", "depth_map0")[..., None],
-                    patch.perm, n_grad, nH, nW)
-                inv_loss = losses.inverse_depth_smoothness_loss(acc_depth,
-                                                                acc_rgb)
+                with span("patch.smooth"):
+                    acc_depth = _assemble_patch(
+                        stack_fc(g_out, "depth_map", "depth_map0")[..., None],
+                        stack_fc(ng, "depth_map", "depth_map0")[..., None],
+                        patch.perm, n_grad, nH, nW)
+                    inv_loss = losses.inverse_depth_smoothness_loss(
+                        acc_depth, acc_rgb)
                 metrics["inv_loss"] = inv_loss
                 loss = loss + inv_loss * cfg.depth_inverse_lambda * imp
             if feature_on:
-                loss = feature_terms(loss, metrics, patch, acc_rgb)
+                with span("patch.feature"):
+                    loss = feature_terms(loss, metrics, patch, acc_rgb)
             if gan_on:
                 gan_loss = gan_term(acc_rgb, gan_std, generator, gan_noise)
                 metrics["gan_loss"] = gan_loss
@@ -577,8 +582,10 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
              idx_d=None, aux: Optional[RayCDF] = None, patch=None,
              gan_noise=None) -> Dict[str, torch.Tensor]:
         # The step's spans (utils.tracing): "step", id the step number, and
-        # in it one a phase: draw, render, loss, backward, optimizer (a
-        # patch step's legs fall in render and loss).
+        # in it one a phase: draw, render, loss, backward, optimizer. A
+        # patch step's legs fall in render ("patch.ng", id the tile, and
+        # "patch.grad" inside it) and its terms in loss ("patch.smooth",
+        # "patch.feature"); VGG19's backward runs in "step.backward".
         with span("step", state.step + 1), (
                 _deterministic_cudnn() if feature_on or gan_on
                 else contextlib.nullcontext()):
@@ -594,6 +601,10 @@ def make_train_step(cfg: TrainConfig, rcfg: RenderConfig, models: Models,
             if patch is None:
                 raise ValueError("a patch step needs patch= (a PatchSource "
                                  "or a PatchBatch)")
+            if tracing.enabled():
+                tracing.count("patch.steps")
+                tracing.count("patch.rays_ng", nH * nW - n_grad)
+                tracing.count("patch.rays_grad", n_grad)
             with span("step.render"):
                 if isinstance(patch, PatchSource):
                     patch = sample_patch(patch, nH, nW, generator)

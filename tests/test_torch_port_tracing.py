@@ -255,3 +255,66 @@ def test_tracing_adds_no_synchronisation():
     assert tracing.counters()["cull.tiles"] > 0
     assert [r.name for r in tracing.records()][:1] == ["step"]
     assert len(traced) == len(untraced), (traced, untraced)
+
+
+def test_patch_step_records_its_spans():
+    """A patch step (content loss and smoothness) under a CPU profiler: the
+    no-grad tiles (``patch.ng``, id the tile) and the grad leg
+    (``patch.grad``) inside ``step.render``, ``patch.smooth`` and
+    ``patch.feature`` inside ``step.loss``; ``patch.steps``,
+    ``patch.rays_ng`` and ``patch.rays_grad`` count the step and the crop's
+    rays. A base step records none of them."""
+    from depth_lidar_nerf_tpu_torch.train.config import (TrainConfig,
+                                                         render_config_from)
+    from depth_lidar_nerf_tpu_torch.train.state import (build_models,
+                                                        init_train_state)
+    from depth_lidar_nerf_tpu_torch.train.step import (PatchSource,
+                                                       make_train_step)
+    from depth_lidar_nerf_tpu_torch.train.tables import build_rgb_table
+
+    H, W, focal = 12, 16, 14.0
+    cfg = TrainConfig(N_rand=32, N_samples=8, N_importance=8, netdepth=2,
+                      netwidth=32, netdepth_fine=2, netwidth_fine=32,
+                      use_viewdirs=True, multires=4, multires_views=2,
+                      no_ndc=True, chunk=40,
+                      raw_noise_std=1.0, lrate=5e-4, feature_loss=True,
+                      feature_loss_type="vgg", vgg_layers=["conv1_2"],
+                      vgg_layer_weights=[1.0], vgg_loss_type="l1",
+                      depth_inverse_loss=True, nH=12, nW=16, gradH=2, gradW=4,
+                      datadir="/nonexistent")
+    rcfg = render_config_from(cfg, 0, 2.0, 6.0)
+    models = build_models(cfg, rcfg, device="cpu", seed=0)
+    rng = np.random.default_rng(0)
+    images = rng.random((2, H, W, 3)).astype(np.float32)
+    poses = np.tile(np.eye(4, dtype=np.float32)[:3], (2, 1, 1))
+    poses[1, 0, 3] = 0.3
+    table = build_rgb_table(images, poses, [0, 1], H, W, focal, rcfg,
+                            device="cpu")
+    state = init_train_state(cfg, models)
+    patch = make_train_step(cfg, rcfg, models, (H, W, focal),
+                            feature_on=True, smooth_on=True)
+    base = make_train_step(cfg, rcfg, models, (H, W, focal))
+    src = PatchSource(torch.from_numpy(images), torch.from_numpy(poses))
+    gen = torch.Generator().manual_seed(3)
+    _new_session()
+    with _cpu_profile():
+        patch(state, table, None, gen, patch=src)
+    recs = tracing.records()
+    where = {(r.name, r.id, recs[r.parent].name) for r in recs
+             if r.name.startswith("patch.")}
+    # 184 no-grad rays in tiles of 128 (the plain route's least tile).
+    assert where == {("patch.ng", 0, "step.render"), ("patch.ng", 1, "step.render"),
+                     ("patch.grad", None, "step.render"),
+                     ("patch.smooth", None, "step.loss"),
+                     ("patch.feature", None, "step.loss")}
+    assert all(recs[recs[r.parent].parent].name == "step" for r in recs
+               if r.name.startswith("patch."))
+    assert {k: v for k, v in tracing.counters().items()
+            if k.startswith("patch.")} == {"patch.steps": 1,
+                                            "patch.rays_ng": 184,
+                                            "patch.rays_grad": 8}
+    _new_session()
+    with _cpu_profile():
+        base(state, table, None, gen)
+    assert [r.name for r in tracing.records()] == ["step"] + STEP_PHASES
+    assert not any(k.startswith("patch.") for k in tracing.counters())
